@@ -1,0 +1,173 @@
+"""The port's serving engine (``tpudp_torch.serve.Engine``) against the
+JAX package, at the tiny geometry of tests/test_paged_kernel.py.
+
+Greedy outputs of the port's paged and dense engines equal JAX
+``generate()`` and JAX ``Engine(kv_pages=12)`` token for token, with a
+shared-prefix admission (a table write) and page-pressure vacates in the
+traffic.  Sampled requests reproduce themselves alone or beside others,
+vacated or not.  Off the card, nothing falls back silently: the default
+device is the card, and the kernels need one.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpudp.models.generate import generate as jax_generate
+from tpudp.models.gpt2 import gpt2_small as jax_gpt2_small
+from tpudp.serve import Engine as JaxEngine
+from tpudp_torch import serve_cli
+from tpudp_torch.models import gpt2
+from tpudp_torch.serve import Engine, EngineClosed, QueueFull
+
+TINY = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=2,
+            d_model=32)
+NEW = 6
+
+
+@pytest.fixture(scope="module")
+def setup():
+    tree = gpt2.random_params(gpt2.GPT2Config(**TINY), seed=21)
+    rng = np.random.default_rng(22)
+    shared = rng.integers(0, 61, size=16).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, 61, size=3 + 4 * i)
+                               .astype(np.int32)]) for i in range(3)]
+    prompts.append(rng.integers(0, 61, size=9).astype(np.int32))
+    jmodel = jax_gpt2_small(**TINY)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    reference = [np.asarray(jax_generate(jmodel, jparams,
+                                         jnp.asarray(p[None]), NEW))
+                 [0, p.size:].tolist() for p in prompts]
+    model = gpt2.build(gpt2.GPT2Config(**TINY), 21, "cpu")
+    return jmodel, jparams, model, prompts, reference
+
+
+def _serve(engine, prompts, **kw):
+    handles = [engine.submit(p, NEW, **kw) for p in prompts]
+    while engine.queue_depth or engine.slots_in_use:
+        engine.step()
+        engine.check_paged()
+    return [h.tokens for h in handles]
+
+
+def test_jax_engine_matches_jax_generate(setup):
+    jmodel, jparams, _, prompts, reference = setup
+    eng = JaxEngine(jmodel, jparams, num_slots=2, max_len=48,
+                    prefill_chunk=8, kv_pages=12)
+    handles = [eng.submit(p, NEW) for p in prompts]
+    eng.run_until_complete()
+    assert [h.tokens for h in handles] == reference
+
+
+@pytest.mark.parametrize("kind", ["paged", "paged_pressure", "dense"])
+def test_greedy_engines_match_jax(setup, kind):
+    """Two slots for four requests: the later requests find the shared
+    16-token prefix in the page index (table writes).  With 6 pages for
+    three slots, page pressure vacates slots, which resume exactly."""
+    _, _, model, prompts, reference = setup
+    kw = {"paged": dict(num_slots=2, kv_pages=12),
+          "paged_pressure": dict(num_slots=3, kv_pages=6),
+          "dense": dict(num_slots=2)}[kind]
+    eng = Engine(model, device="cpu", max_len=48, prefill_chunk=8, **kw)
+    assert _serve(eng, prompts) == reference
+    if kind == "paged":
+        assert eng.stats["prefix_hit_tokens"] >= 16
+        assert eng.paged_attn == "einsum"
+    if kind == "paged_pressure":
+        assert eng.stats["page_pressure_vacates"] > 0
+    eng.check_paged()
+    if eng.page_pool is not None:  # only the index holds pages now
+        assert eng.page_pool.used_pages == eng.page_index.node_count
+
+
+def test_sampled_request_reproduces_beside_others(setup):
+    """A seeded sampled request draws only from its slot's generator:
+    alone, beside greedy and sampled neighbours, and vacated under page
+    pressure (its generator state resumes), its tokens are the same."""
+    _, _, model, prompts, _ = setup
+
+    def run(others, **kw):
+        eng = Engine(model, device="cpu", max_len=48, prefill_chunk=8,
+                     **kw)
+        hs = [eng.submit(p, NEW, temperature=0.9, seed=5 + i)
+              if i % 2 else eng.submit(p, NEW)
+              for i, p in enumerate(others)]
+        target = eng.submit(prompts[2], NEW, temperature=1.1, top_k=20,
+                            top_p=0.95, seed=42)
+        eng.run_until_complete()
+        assert all(h.ok for h in hs)
+        return target.tokens, eng
+
+    alone, _ = run([], num_slots=3, kv_pages=12)
+    assert run(prompts[:2], num_slots=3, kv_pages=12)[0] == alone
+    pressed, eng = run(prompts[:3], num_slots=3, kv_pages=6)
+    assert eng.stats["page_pressure_vacates"] > 0
+    assert pressed == alone
+    assert run(prompts[:2], num_slots=3)[0] == alone  # dense arena
+
+
+def test_no_card_and_no_cpu_request_raises(setup, monkeypatch):
+    _, _, model, _, _ = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--layers", "1"])
+
+
+def test_kernel_backend_needs_the_card(setup):
+    _, _, model, _, _ = setup
+    with pytest.raises(ValueError, match="CUDA device"):
+        Engine(model, device="cpu", kv_pages=12, max_len=48,
+               prefill_chunk=8, paged_attn="kernel")
+    with pytest.raises(ValueError, match="paged_attn"):
+        Engine(model, device="cpu", kv_pages=12, paged_attn="gather")
+    eng = Engine(model, device="cpu", max_len=48, prefill_chunk=8,
+                 kv_pages=12)
+    m = eng.metrics()
+    assert m["paged_attn"] == {"requested": None, "resolved": "einsum"}
+    assert set(m["kernel_launches"]) == {"paged_decode", "paged_window"}
+
+
+@pytest.mark.parametrize("option,value", [
+    ("speculate_k", 2), ("decode_fuse", 4), ("prefix_cache_blocks", 8),
+    ("kv_dtype", "int8"), ("tenants", {}), ("canary_every_s", 1.0)])
+def test_unported_options_raise(setup, option, value):
+    _, _, model, _, _ = setup
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(model, device="cpu", **{option: value})
+    Engine(model, device="cpu", max_len=48, **{option: {
+        "speculate_k": 0, "decode_fuse": 1, "prefix_cache_blocks": 0,
+        "kv_dtype": None, "tenants": None,
+        "canary_every_s": None}[option]})
+    with pytest.raises(TypeError, match="unexpected"):
+        Engine(model, device="cpu", no_such_option=1)
+
+
+def test_admission_control_and_shutdown(setup):
+    _, _, model, prompts, reference = setup
+    eng = Engine(model, device="cpu", num_slots=1, max_len=48,
+                 prefill_chunk=8, kv_pages=12, queue_limit=1)
+    first = eng.submit(prompts[0], NEW)
+    with pytest.raises(QueueFull):
+        eng.submit(prompts[1], NEW)
+    assert eng.generate_many([], NEW) == []
+    np.testing.assert_array_equal(first.result()[prompts[0].size:],
+                                  reference[0])
+    held = eng.submit(prompts[1], NEW)
+    eng.step()
+    assert held.cancel() and not held.cancel()
+    eng.close()
+    with pytest.raises(EngineClosed):
+        eng.submit(prompts[0], NEW)
+    eng.check_paged()
+
+
+def test_serve_cli_rehearsal_on_cpu(capsys):
+    m = serve_cli.main(["--device", "cpu", "--layers", "2", "--d-model",
+                        "64", "--vocab", "256", "--paged", "64",
+                        "--requests", "3", "--max-new-tokens", "4"])
+    assert m["stats"]["completed"] == 3
+    assert "tokens/s on cpu" in capsys.readouterr().out
