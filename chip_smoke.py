@@ -27,10 +27,31 @@ which fails the run (nonzero exit, no result line) when it fails:
      must check, and the tokens must equal the same engine's on the
      plain PyTorch attention — or differ first where the plain logits'
      top-2 gap is below 1e-3 (a near-tie of the random weights);
-  5. timing — each kernel at the main path's shapes against its byte /
-     flop bound, its plain version and one PyTorch library call
-     (``scaled_dot_product_attention`` on the gathered K/V, a yardstick
-     the port never calls), with CUDA events.
+  5. flash kernels vs plain — the forward (``o``, ``lse``), dq and dk/dv
+     kernels against their plain PyTorch versions on q, k, v taken as
+     strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
+     GPT-2 small's heads (h 12, dh 64, b 4) at t 128 and 2048, dh 128 at
+     t 256, and t 96 through the public op with its 128 blocks clamped to
+     96 (its autograd gradients too); causal and not, float32 (atol =
+     rtol = 2e-5 forward, 1e-4 gradients; ``lse`` always at 2e-5) and
+     bfloat16 (atol 2e-2 and rtol 1.6e-2, two bf16 ulps);
+  6. training main path — GPT-2 small at full width (random weights from
+     --seed, bfloat16, context 2048, ``attn_impl='flash'``) trained by
+     ``tpudp_torch.train`` with ``make_optimizer(learning_rate=0.01)``
+     for 2 warm-up and 8 timed steps at batch 4 x 2048 tokens from a
+     numpy seed.  Each flash kernel must launch once per layer and step;
+     the same weights and batches trained with ``attn_impl='dense'``
+     (no flash launch) must give per-step losses within rtol 2e-2 (bf16
+     dense scores round otherwise than the kernels' float32 ones).  Each
+     run then takes one step split into forward / backward / optimizer
+     between CUDA events and one step under ``torch.profiler`` (device
+     ms by kernel, the device's busy share);
+  7. timing — each kernel at its main path's shapes against its byte /
+     flop bound, its plain version and one PyTorch library call (a
+     yardstick the port never calls: ``scaled_dot_product_attention`` on
+     the gathered K/V for the paged kernels; its causal forward, and its
+     autograd backward — dq, dk and dv in one — for the flash kernels),
+     with CUDA events.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -55,11 +76,16 @@ NEW_TOKENS = 32  # per request on the main path
 REPLACES = {
     "paged_decode": "tpudp/ops/paged_attention.py:161",
     "paged_window": "tpudp/ops/paged_attention.py:319",
+    "flash_fwd": "tpudp/ops/flash_attention.py:65",
+    "flash_dq": "tpudp/ops/flash_attention.py:152",
+    "flash_dkv": "tpudp/ops/flash_attention.py:192",
 }
-SOURCES = {
-    "paged_decode": "tpudp_torch/csrc/paged_decode.cu",
-    "paged_window": "tpudp_torch/csrc/paged_window.cu",
-}
+SOURCES = {name: f"tpudp_torch/csrc/{name}.cu" for name in REPLACES}
+# Flash checks: name -> (batch, time, heads, head dim).
+FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
+               "dh128-t256": (2, 256, 4, 128), "t96-clamped": (2, 96, 4, 64)}
+TRAIN_BATCH, TRAIN_T = 4, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -256,7 +282,266 @@ def main_path(torch, np, pa, seed: int):
     return model, prompts, launches
 
 
-# -- phase 5: timing -------------------------------------------------------
+# -- phase 5: flash kernels vs their plain versions -----------------------
+
+
+def projection_views(torch, b, t, h, dh, dtype, seed):
+    """q, k, v as the model makes them — strided views of one ``(b, t,
+    3 h dh)`` projection — and a random ``do``, from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    qkv = torch.randn((b, t, 3 * h * dh), generator=g, device="cuda")
+    qkv = qkv.to(dtype)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.chunk(3, dim=-1))
+    do = torch.randn((b, t, h, dh), generator=g, device="cuda").to(dtype)
+    return qkv, q, k, v, do
+
+
+def compare(torch, got, want, tol):
+    """``(max_abs_err, ok)`` of ``got`` against ``want`` in float32."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    return err, torch.allclose(got, want, **tol)
+
+
+def check_flash_kernels(torch, fa) -> None:
+    """K1-K3 against the plain versions on the same inputs; the backward
+    kernels take the plain forward's ``o`` and ``lse``, so each kernel is
+    held on its own.  The t = 96 case runs through the public op (128
+    blocks clamped to 96) and its autograd backward as well."""
+    fp32 = dict(atol=2e-5, rtol=2e-5)
+    tol_fwd = {torch.float32: fp32,
+               torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    tol_grad = {torch.float32: dict(atol=1e-4, rtol=1e-4),
+                torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    failures = []
+    seed = 0
+    for cname, (b, t, h, dh) in FLASH_CASES.items():
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                seed += 1
+                qkv, q, k, v, do = projection_views(torch, b, t, h, dh,
+                                                    dtype, seed)
+                o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, causal)
+                delta = fa._delta(o_ref, do)
+                ref = {"o": o_ref, "lse": lse_ref,
+                       "dq": fa._dq_plain(q, k, v, do, lse_ref, delta,
+                                          causal)}
+                ref["dk"], ref["dv"] = fa._dkv_plain(q, k, v, do, lse_ref,
+                                                     delta, causal)
+                got = dict(zip(("o", "lse"),
+                               fa.flash_fwd(q, k, v, causal=causal)))
+                got["dq"] = fa.flash_dq(q, k, v, do, lse_ref, delta,
+                                        causal=causal)
+                got["dk"], got["dv"] = fa.flash_dkv(q, k, v, do, lse_ref,
+                                                    delta, causal=causal)
+                tols = {"o": tol_fwd[dtype], "lse": fp32,
+                        "dq": tol_grad[dtype], "dk": tol_grad[dtype],
+                        "dv": tol_grad[dtype]}
+                if cname == "t96-clamped":
+                    qkv.requires_grad_(True)
+                    q, k, v = (z.reshape(b, t, h, dh)
+                               for z in qkv.chunk(3, dim=-1))
+                    o = fa.flash_attention(q, k, v, causal=causal)
+                    got["public o"] = o
+                    grads = torch.autograd.grad(o, (q, k, v), do)
+                    for key, g in zip(("dq", "dk", "dv"), grads):
+                        got[f"autograd {key}"] = g
+                    ref["public o"] = ref["o"]
+                    bwd = fa._flash_bwd_plain(q.detach(), k.detach(),
+                                              v.detach(), o_ref, lse_ref,
+                                              do, causal)
+                    for key, r in zip(("dq", "dk", "dv"), bwd):
+                        ref[f"autograd {key}"] = r
+                        tols[f"autograd {key}"] = tol_grad[dtype]
+                    tols["public o"] = tol_fwd[dtype]
+                torch.cuda.synchronize()
+                name = (f"{cname} {'causal' if causal else 'full'} "
+                        f"{str(dtype)[6:]}")
+                parts = []
+                for key, want in ref.items():
+                    err, ok = compare(torch, got[key], want, tols[key])
+                    parts.append(f"{key}={err:.3e}{'' if ok else ' MISS'}")
+                    if not ok:
+                        failures.append(f"{name} {key}")
+                print(f"flash-check {name}: " + " ".join(parts), flush=True)
+    if failures:
+        raise SmokeFailure(f"flash kernels disagree with the plain version: "
+                           f"{failures}")
+
+
+# -- phase 6: the training main path --------------------------------------
+
+
+def step_split_ms(torch, F, model, optimizer, x, y) -> dict:
+    """One training step taken piece by piece between CUDA events — the
+    body of ``make_train_step`` at ``grad_accum=1`` with no clipping:
+    ms of forward plus loss, of backward, of the optimizer update."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    logits = model(x, train=True)
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           y.reshape(-1))
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    optimizer.step()
+    ev[3].record()
+    ev[3].synchronize()
+    return {part: a.elapsed_time(b) for part, a, b in
+            zip(("forward", "backward", "optimizer"), ev, ev[1:])}
+
+
+def kernel_category(name: str) -> str:
+    if "tpudp::" in name:
+        return name.split("tpudp::")[1].split("<")[0]  # the port's kernels
+    low = name.lower()
+    if any(tag in low for tag in ("gemm", "nvjet", "xmma", "cutlass")):
+        return "matmul"
+    return "other"
+
+
+def profile_step(torch, step, state, x, y) -> dict | None:
+    """Device time of one real training step by kernel category (ms), the
+    largest kernels outside the port's own and the matmuls, and the
+    device's busy share of the step's wall time, from ``torch.profiler``;
+    None when the profiler saw no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, x, y)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # Device activity only: GPU-timeline annotations such as
+    # "Optimizer.step#SGD.step" span kernels and would count them twice.
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return None
+    by_cat: dict[str, float] = {}
+    other: dict[str, float] = {}
+    for e in kernels:
+        cat = kernel_category(e.name)
+        ms = e.time_range.elapsed_us() / 1e3
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        if cat == "other":
+            other[e.name[:70]] = other.get(e.name[:70], 0.0) + ms
+    busy_us, edge = 0.0, float("-inf")
+    for start, end in sorted((e.time_range.start, e.time_range.end)
+                             for e in kernels):
+        busy_us += max(0.0, end - max(start, edge))
+        edge = max(edge, end)
+    return {"wall_ms": wall_us / 1e3, "busy_share": busy_us / wall_us,
+            "device_ms": {k: round(v, 3) for k, v in sorted(
+                by_cat.items(), key=lambda kv: -kv[1])},
+            "top_other_ms": {k: round(v, 3) for k, v in sorted(
+                other.items(), key=lambda kv: -kv[1])[:4]}}
+
+
+def train_run(torch, train, gpt2, cfg, seed, batches, kernels) -> dict:
+    """Train a fresh ``build(cfg, seed)`` on ``batches``: TRAIN_WARMUP
+    steps, then the timed rest; the kernels' launch counts are read right
+    after.  Then one step split into forward / backward / optimizer and
+    one profiled step, which add launches and updates of their own.
+    Returns the per-step losses, the timed steps' wall seconds, the
+    run's peak device memory, the counts and the two breakdowns."""
+    import torch.nn.functional as F
+
+    model = gpt2.build(cfg, seed, "cuda")
+    spec = train.make_optimizer(learning_rate=0.01)
+    state = train.init_state(model, spec)
+    step = train.make_train_step(model, spec)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    out = {"wall": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(),
+           "launches": {name: fn.launches for name, fn in kernels.items()},
+           "losses": torch.stack(losses).tolist()}
+    out["split"] = step_split_ms(torch, F, model, state.optimizer, x, y)
+    out["profile"] = profile_step(torch, step, state, x, y)
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def report_run(label: str, run: dict) -> None:
+    n_tok = TRAIN_STEPS * TRAIN_BATCH * TRAIN_T
+    print(f"main-path {label} training: {TRAIN_WARMUP + TRAIN_STEPS} steps, "
+          f"losses {[round(x, 4) for x in run['losses']]}, "
+          f"{n_tok / run['wall']:.1f} tokens/s, "
+          f"{1e3 * run['wall'] / TRAIN_STEPS:.1f} ms/step, peak "
+          f"{run['peak'] / 2**30:.2f} GiB", flush=True)
+    split = ", ".join(f"{k} {v:.2f} ms" for k, v in run["split"].items())
+    prof = run["profile"]
+    prof_text = ("profiler saw no device kernel: device time not measured"
+                 if prof is None else
+                 f"profiled step {prof['wall_ms']:.1f} ms wall, device busy "
+                 f"{100 * prof['busy_share']:.1f}%, device ms by kernel "
+                 f"{prof['device_ms']}, largest other kernels "
+                 f"{prof['top_other_ms']}")
+    print(f"main-path {label} breakdown: {split}; {prof_text}", flush=True)
+
+
+def train_main_path(torch, np, fa, seed: int) -> dict:
+    from tpudp_torch import train
+    from tpudp_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(max_seq_len=TRAIN_T, dtype=torch.bfloat16,
+                          attn_impl="flash")  # GPT-2 small widths
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, size=(n_steps, TRAIN_BATCH, TRAIN_T + 1)),
+        device="cuda")
+    batches = [(tok[:, :-1], tok[:, 1:]) for tok in tokens]
+
+    for fn in fa.KERNELS.values():
+        fn.launches = 0
+    flash = train_run(torch, train, gpt2, cfg, seed, batches, fa.KERNELS)
+    launches = flash["launches"]
+    for name, n in launches.items():
+        if n != cfg.num_layers * n_steps:
+            raise SmokeFailure(f"kernel {name} launched {n} times in "
+                               f"{n_steps} training steps of "
+                               f"{cfg.num_layers} layers")
+    report_run("flash", flash)
+    print(f"main-path flash launches {launches}", flush=True)
+
+    dense_cfg = gpt2.GPT2Config(max_seq_len=TRAIN_T, dtype=torch.bfloat16,
+                                attn_impl="dense")
+    for fn in fa.KERNELS.values():
+        fn.launches = 0
+    dense = train_run(torch, train, gpt2, dense_cfg, seed, batches,
+                      fa.KERNELS)
+    if any(dense["launches"].values()) or any(
+            fn.launches for fn in fa.KERNELS.values()):
+        raise SmokeFailure("the dense-attention run launched a flash kernel")
+    report_run("dense", dense)
+    if not all(np.isfinite(flash["losses"] + dense["losses"])):
+        raise SmokeFailure("a training loss is not finite")
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(flash["losses"], dense["losses"]))
+    if rel > 2e-2:
+        raise SmokeFailure(f"flash and dense training losses differ by "
+                           f"{rel:.3e} (rtol 2e-2)")
+    print(f"main-path training losses agree with dense attention (max "
+          f"relative difference {rel:.3e}, rtol 2e-2)", flush=True)
+    return launches
+
+
+# -- phase 7: timing -------------------------------------------------------
 
 
 def time_ms(torch, fn, n=50):
@@ -378,6 +663,77 @@ def timings(torch, pa, model, prompts, launches):
     return rec
 
 
+def flash_bound(kind, b, t, h, dh, itemsize, causal):
+    """``(bytes, flops)`` the function needs on these shapes: each input
+    read once, each output written once; flops over the visible (query,
+    key) pairs — 4 dh per pair forward (q k and p v), 6 dh for dq (q k,
+    do v and ds k), 8 dh for dk/dv (those less ds k, plus p do and ds q)."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    elems = b * t * h * dh * itemsize  # one (b, t, h, dh) tensor
+    rows = b * h * t * 4               # one float32 (b, h, t) tensor
+    return {"flash_fwd": (4 * elems + rows, 4 * dh * pairs),
+            "flash_dq": (5 * elems + 2 * rows, 6 * dh * pairs),
+            "flash_dkv": (6 * elems + 2 * rows, 8 * dh * pairs)}[kind]
+
+
+def flash_timings(torch, fa, launches):
+    """K1, K2 and K3 at the training main path's shapes (b 4, t 2048, h
+    12, dh 64, bfloat16, causal), on projection views, beside their
+    plain versions and SDPA's causal forward / autograd backward."""
+    import torch.nn.functional as F
+
+    b, t, h, dh = TRAIN_BATCH, TRAIN_T, 12, 64
+    _, q, k, v, do = projection_views(torch, b, t, h, dh, torch.bfloat16, 7)
+    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    delta = fa._delta(o, do)
+    qd, kd, vd = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dod = do.transpose(1, 2).contiguous()
+    sdpa_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
+    sdpa_fwd_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qd, kd, vd, is_causal=True), n=20)
+    sdpa_bwd_ms = time_ms(torch, lambda i: torch.autograd.grad(
+        sdpa_out, (qd, kd, vd), dod, retain_graph=True), n=20)
+    fns = {
+        "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, causal=True),
+                      lambda i: fa._flash_fwd_plain(q, k, v, True),
+                      sdpa_fwd_ms),
+        "flash_dq": (lambda i: fa.flash_dq(q, k, v, do, lse, delta),
+                     lambda i: fa._dq_plain(q, k, v, do, lse, delta, True),
+                     sdpa_bwd_ms),
+        "flash_dkv": (lambda i: fa.flash_dkv(q, k, v, do, lse, delta),
+                      lambda i: fa._dkv_plain(q, k, v, do, lse, delta, True),
+                      sdpa_bwd_ms),
+    }
+    records = []
+    for name, (kernel, plain, library_ms) in fns.items():
+        ms = time_ms(torch, kernel, n=20)
+        plain_ms = time_ms(torch, plain, n=10)
+        got, want = kernel(0), plain(0)
+        if name == "flash_dq":  # the others return (o, lse), (dk, dv)
+            got, want = (got,), (want,)
+        err = max((g.float() - w.float()).abs().max().item()
+                  for g, w in zip(got, want))
+        bytes_, flops = flash_bound(name, b, t, h, dh, 2, True)
+        t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+        records.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms})
+    for r in records:
+        print(f"timing {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
+              f" ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+              f"sdpa {'forward' if r['name'] == 'flash_fwd' else 'backward'}"
+              f" {r['library_ms']:.4f} ms", flush=True)
+    print(f"timing flash backward (dq + dk/dv kernels): "
+          f"{records[1]['ms'] + records[2]['ms']:.4f} ms, sdpa backward "
+          f"{sdpa_bwd_ms:.4f} ms", flush=True)
+    return records
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -395,6 +751,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     try:
         from tpudp_torch.ops import _build
+        from tpudp_torch.ops import flash_attention as fa
         from tpudp_torch.ops import paged_attention as pa
     except ImportError as exc:
         print(f"chip_smoke: the tpudp_torch package is not beside this "
@@ -413,7 +770,10 @@ def main(argv=None) -> int:
               f"{sorted(_build.SIGNATURES)}", flush=True)
         check_kernels(torch, pa, "cuda")
         model, prompts, launches = main_path(torch, np, pa, args.seed)
+        check_flash_kernels(torch, fa)
+        train_launches = train_main_path(torch, np, fa, args.seed)
         records = timings(torch, pa, model, prompts, launches)
+        records += flash_timings(torch, fa, train_launches)
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

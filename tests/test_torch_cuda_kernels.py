@@ -1,5 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch version, on the
-card.  Every test here carries the ``cuda`` marker and skips without a
+"""The port's CUDA kernels (paged decode and window, flash forward, dq
+and dk/dv) against their plain PyTorch versions, on the card.  Every test here carries the ``cuda`` marker and skips without a
 card: the kernels have no CPU mode.  The file imports no JAX, so it also
 runs where only PyTorch is installed:
 
@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpudp_torch.ops import flash_attention as fa
 from tpudp_torch.ops import paged_attention as pa
 
 S, T, P, LAYERS = 3, 8, 8, 2
@@ -121,3 +122,83 @@ def test_kernels_match_plain_on_random_geometries(card, seed):
     want = pa._einsum_paged(q, (k[-1], v[-1]), table_t, pos_t,
                             dtype=torch.float32, grouped=True)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+def _projection(card, b, t, h, dh, dtype, seed):
+    """q, k, v as strided views of one (b, t, 3 h dh) projection, and a
+    random do."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.as_tensor(rng.standard_normal((b, t, 3 * h * dh),
+                                              np.float32)).to(card, dtype)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.chunk(3, dim=-1))
+    do = torch.as_tensor(rng.standard_normal((b, t, h, dh),
+                                             np.float32)).to(card, dtype)
+    return qkv, q, k, v, do
+
+
+FLASH_TOL = {torch.float32: (dict(atol=2e-5, rtol=2e-5),
+                             dict(atol=1e-4, rtol=1e-4)),
+             torch.bfloat16: (dict(atol=2e-2, rtol=1.6e-2),
+                              dict(atol=2e-2, rtol=1.6e-2))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 128, 4, 64), (1, 96, 2, 32),
+                                   (2, 256, 2, 128), (1, 200, 3, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_kernels_match_plain(card, causal, dtype, shape):
+    """K1 (o, lse), K2 (dq) and K3 (dk, dv) against their plain versions
+    on projection views, each launch counted once; t = 96 and t = 200
+    leave partial 64-row tiles.  fp32: atol = rtol = 2e-5 forward, 1e-4
+    gradients; bf16: atol 2e-2, rtol 1.6e-2; lse always 2e-5."""
+    dt = getattr(torch, dtype)
+    _, q, k, v, do = _projection(card, *shape, dt, seed=sum(shape))
+    before = {n: fn.launches for n, fn in fa.KERNELS.items()}
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
+    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, causal)
+    delta = fa._delta(o_ref, do)
+    dq = fa.flash_dq(q, k, v, do, lse_ref, delta, causal=causal)
+    dk, dv = fa.flash_dkv(q, k, v, do, lse_ref, delta, causal=causal)
+    assert {n: fn.launches - before[n] for n, fn in fa.KERNELS.items()} == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    fwd_tol, grad_tol = FLASH_TOL[dt]
+    torch.testing.assert_close(o.float(), o_ref.float(), **fwd_tol)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
+    want = (fa._dq_plain(q, k, v, do, lse_ref, delta, causal),
+            *fa._dkv_plain(q, k, v, do, lse_ref, delta, causal))
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == dt and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.float(), **grad_tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_autograd_matches_plain_backward(card, causal):
+    """The public op's autograd on the card (kernels forward and
+    backward, a non-contiguous do) against the plain backward, fp32."""
+    qkv, q, k, v, do = _projection(card, 2, 128, 4, 64, torch.float32, 9)
+    qkv.requires_grad_(True)
+    q, k, v = (z.reshape(2, 128, 4, 64) for z in qkv.chunk(3, dim=-1))
+    o = fa.flash_attention(q, k, v, causal=causal)
+    do_t = do.transpose(1, 2).contiguous().transpose(1, 2)  # strided do
+    grads = torch.autograd.grad(o, (q, k, v), do_t)
+    o_ref, lse_ref = fa._flash_fwd_plain(q.detach(), k.detach(), v.detach(),
+                                         causal)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), o_ref,
+                               lse_ref, do, causal)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
+    q = torch.zeros(1, 64, 2, 48, device=card)  # head dim 48: no kernel
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_fwd(q, q, q)
+    q = torch.zeros(1, 64, 2, 64, device=card, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.flash_fwd(q, q, q)
+    q = torch.zeros(1, 64, 2, 64, device=card)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        fa.flash_fwd(q, q.cpu(), q)

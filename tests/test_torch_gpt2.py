@@ -52,8 +52,23 @@ def test_gpt2_small_defaults_are_gpt2_small():
                 50_257, 1024, 12, 12, 768, 1e-5)
 
 
-@pytest.mark.parametrize("field,value", [("attn_impl", "flash"),
-                                         ("attn_impl", "ring"),
+def test_flash_forward_logits_match_jax():
+    """``attn_impl='flash'`` at t = 128 (the flash dispatch engages; the
+    kernels' plain versions on the CPU) against the JAX model with its
+    Pallas kernel in interpret mode: fp32 logits agree to 1e-5."""
+    cfg = dict(TINY, max_seq_len=128, attn_impl="flash")
+    tree = gpt2.random_params(gpt2.GPT2Config(**cfg), seed=5)
+    tokens = np.random.default_rng(6).integers(0, 61, size=(2, 128))
+    want = np.asarray(jax_gpt2_small(**cfg).apply(
+        {"params": tree}, jnp.asarray(tokens)))
+    model = gpt2.GPT2(gpt2.GPT2Config(**cfg))
+    model.load_state_dict(gpt2.params_from_jax(tree))
+    with torch.no_grad():
+        got = model(torch.as_tensor(tokens), train=True).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("field,value", [("attn_impl", "ring"),
                                          ("mlp_impl", "moe")])
 def test_later_slices_raise_not_implemented(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -71,19 +86,20 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """In a fresh interpreter, importing every module of the port (and
-    ``chip_smoke``) leaves ``jax`` and ``tpudp`` out of ``sys.modules``;
-    no source of the port has such an import line."""
+    ``chip_smoke``) leaves ``jax``, ``flax``, ``optax`` and ``tpudp`` out
+    of ``sys.modules``; no source of the port has such an import line."""
     mods = _port_modules() + ["chip_smoke"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'tpudp'))\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'tpudp'))\n"
             "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
-    pattern = re.compile(r"^\s*(import|from) (jax|flax|tpudp)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from) (jax|flax|optax|tpudp)\b",
+                         re.M)
     for path in list((ROOT / "tpudp_torch").rglob("*.py")) + [
             ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path

@@ -1,6 +1,6 @@
 // Shared device code of the paged-attention kernels (paged_decode.cu,
-// paged_window.cu): loads, warp reductions and the one online-softmax
-// loop that folds a query row's visible keys, read through the block
+// paged_window.cu): the page view and the one online-softmax loop that
+// folds a query row's visible keys, read through the block
 // table, into a running max / denominator / accumulator.
 //
 // Layouts (all element strides, the last dimension contiguous):
@@ -12,66 +12,9 @@
 // the TPU kernels (which mask them to -1e30 or skip the page).
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace tpudp {
-
-constexpr float kNegInf = -1e30f;  // the masking sentinel of the TPU kernels
-constexpr unsigned kFullMask = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-// One 16-byte load of consecutive elements, widened to float.
-template <typename T>
-struct Vec16;
-
-template <>
-struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x;
-    o[1] = v.y;
-    o[2] = v.z;
-    o[3] = v.w;
-  }
-};
-
-template <>
-struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p,
-                                              float* o) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h2[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-};
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFullMask, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
-  return x;
-}
 
 // Where the K/V of one layer live: base pointers (already offset to the
 // layer in whole-pool mode) and element strides of page, token and head.
@@ -140,30 +83,3 @@ __device__ __forceinline__ void fold_keys(const float* q_s,
 }
 
 }  // namespace tpudp
-
-// Message for a launch's return code (a cudaError_t).
-extern "C" const char* tpudp_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Expands BODY once for each supported (element type, head dim) pair,
-// with `scalar_t` and `kDH` bound; returns cudaErrorInvalidValue for any
-// other pair.  dtype_code: 0 = float32, 1 = bfloat16.
-#define TPUDP_DISPATCH(dtype_code, dh, ...)                               \
-  do {                                                                    \
-    if ((dtype_code) == 0) {                                              \
-      using scalar_t = float;                                             \
-      if ((dh) == 32) { constexpr int kDH = 32; __VA_ARGS__; }            \
-      else if ((dh) == 64) { constexpr int kDH = 64; __VA_ARGS__; }       \
-      else if ((dh) == 128) { constexpr int kDH = 128; __VA_ARGS__; }     \
-      else return cudaErrorInvalidValue;                                  \
-    } else if ((dtype_code) == 1) {                                       \
-      using scalar_t = __nv_bfloat16;                                     \
-      if ((dh) == 32) { constexpr int kDH = 32; __VA_ARGS__; }            \
-      else if ((dh) == 64) { constexpr int kDH = 64; __VA_ARGS__; }       \
-      else if ((dh) == 128) { constexpr int kDH = 128; __VA_ARGS__; }     \
-      else return cudaErrorInvalidValue;                                  \
-    } else {                                                              \
-      return cudaErrorInvalidValue;                                       \
-    }                                                                     \
-  } while (0)

@@ -5,10 +5,11 @@ and a tied input/output embedding, with the same parameter names as the
 flax model (``h_i/attn/qkv``, ``ln_1``, ``mlp_fc`` ...) so that
 :func:`params_from_jax` carries a flax tree across one leaf at a time.
 
-Only the dense-attention, dense-MLP configuration is ported.  Flash and
-ring attention and the MoE MLP are later slices (ROADMAP.md, Queue 1);
-asking for them raises :class:`NotImplementedError` instead of silently
-running dense math.
+Dense and flash attention (``attn_impl``, dispatched by
+``tpudp_torch.ops.attention.multihead_attention`` as in the JAX model)
+with the dense MLP are ported.  Ring attention and the MoE MLP are a
+later slice (ROADMAP.md, Queue 1); asking for them raises
+:class:`NotImplementedError` instead of silently running dense math.
 
 LayerNorm runs in float32 and every matmul in ``config.dtype``, exactly
 the flax model's policy; the raw-module twins :func:`embed_tokens` and
@@ -25,10 +26,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudp_torch.ops.attention import multihead_attention
+
 _LATER = {
-    "attn_impl": {"flash": "slice 6 (training: flash K1-K3)",
-                  "ring": "slice 6 (training: ring attention)"},
-    "mlp_impl": {"moe": "slice 6 (training: MoE MLP)"},
+    "attn_impl": {"ring": "slice 6b (ring attention)"},
+    "mlp_impl": {"moe": "slice 6b (MoE MLP)"},
 }
 
 
@@ -93,18 +95,6 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
-def causal_attention(q, k, v, dtype):
-    """Dense causal attention over ``(b, t, h, dh)``: scores in ``dtype``,
-    masked with the dtype's most negative value, softmax in float32 —
-    the op order of ``tpudp.ops.attention.multihead_attention``."""
-    t = q.shape[1]
-    lg = torch.einsum("bqhd,bkhd->bhqk", q, k) * q.shape[-1] ** -0.5
-    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
-    lg = lg.masked_fill(~mask, torch.finfo(lg.dtype).min)
-    pr = torch.softmax(lg.float(), dim=-1).to(dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", pr, v)
-
-
 def mlp(blk: Block, x: torch.Tensor, dtype) -> torch.Tensor:
     h = F.gelu(dense(blk.mlp_fc, layer_norm(blk.ln_2, x), dtype),
                approximate="tanh")
@@ -130,7 +120,9 @@ def lm_head(model: "GPT2", x: torch.Tensor) -> torch.Tensor:
 
 class GPT2(nn.Module):
     """Decoder-only LM: ``(B, T) int tokens -> (B, T, vocab) float32
-    logits``, the twin of the flax ``GPT2.__call__``."""
+    logits``, the twin of the flax ``GPT2.__call__``.  ``train`` is
+    accepted for the flax signature's sake: there is no dropout, so
+    training and evaluation run the same math."""
 
     def __init__(self, config: GPT2Config):
         super().__init__()
@@ -141,7 +133,9 @@ class GPT2(nn.Module):
                                for _ in range(config.num_layers))
         self.ln_f = nn.LayerNorm(config.d_model, eps=config.ln_eps)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        del train
         cfg = self.config
         b, t = tokens.shape
         h, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
@@ -149,7 +143,8 @@ class GPT2(nn.Module):
         for blk in self.h:
             qkv = dense(blk.attn.qkv, layer_norm(blk.ln_1, x), cfg.dtype)
             q, k, v = (z.reshape(b, t, h, dh) for z in qkv.chunk(3, dim=-1))
-            out = causal_attention(q, k, v, cfg.dtype)
+            out = multihead_attention(q, k, v, causal=True,
+                                      impl=cfg.attn_impl, dtype=cfg.dtype)
             x = x + dense(blk.attn.proj, out.reshape(b, t, -1), cfg.dtype)
             x = x + mlp(blk, x, cfg.dtype)
         return lm_head(self, x)
@@ -218,7 +213,9 @@ def random_params(cfg: GPT2Config, seed: int) -> dict:
 
 
 def build(cfg: GPT2Config, seed: int, device) -> GPT2:
-    """A GPT-2 with :func:`random_params` weights, on ``device``."""
+    """A GPT-2 with :func:`random_params` weights, on ``device``; its
+    parameters keep their gradients, so the same module can be trained
+    and served."""
     model = GPT2(cfg)
     model.load_state_dict(params_from_jax(random_params(cfg, seed)))
-    return model.to(device).eval().requires_grad_(False)
+    return model.to(device)

@@ -1,2 +1,3 @@
-"""Ops of the port: paged attention (CUDA kernels and their plain PyTorch
-version) and per-row sampling."""
+"""Ops of the port: flash attention and paged attention (CUDA kernels and
+their plain PyTorch versions), the attention dispatch of the models, and
+per-row sampling."""

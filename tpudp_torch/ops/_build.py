@@ -4,8 +4,9 @@ Each ``tpudp_torch/csrc/<name>.cu`` has a plain C interface and is
 compiled on first use by ``nvcc`` for ``sm_90a`` into a shared library
 under ``tpudp_torch/_build/`` (listed in ``.gitignore``), then loaded
 with ``ctypes``.  No PyTorch header is included, so a build takes
-seconds, not minutes.  The library name carries a hash of the sources,
-so an edited kernel is rebuilt and a stale one is never loaded.
+seconds, not minutes.  The library name carries a hash of the source
+and of every shared header (``csrc/*.cuh``), so an edited kernel is
+rebuilt and a stale one is never loaded.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
@@ -33,6 +34,11 @@ SIGNATURES = {
                      [_P] * 6 + [_I] * 7 + [_L] * 6 + [_F, _P]),
     "paged_window": ("launch_paged_window",
                      [_P] * 6 + [_I] * 8 + [_L] * 7 + [_F, _P]),
+    # The flash kernels take their tensors' strides as one host array of
+    # (batch, token, head) triples.
+    "flash_fwd": ("launch_flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),
+    "flash_dq": ("launch_flash_dq", [_P] * 8 + [_I] * 6 + [_F, _P]),
+    "flash_dkv": ("launch_flash_dkv", [_P] * 9 + [_I] * 6 + [_F, _P]),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

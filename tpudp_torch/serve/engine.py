@@ -226,7 +226,9 @@ class Engine:
 
     ``model`` is a ``tpudp_torch`` GPT-2 (dense attention and MLP); it is
     moved to ``device`` (default ``"cuda"``; no card and no
-    ``device="cpu"`` raises).  ``max_len`` bounds ``prompt +
+    ``device="cpu"`` raises) and otherwise left as the caller has it —
+    its forwards here run under ``torch.no_grad()``, so a model that is
+    being trained keeps its gradients.  ``max_len`` bounds ``prompt +
     max_new_tokens`` (default: the model's ``max_seq_len`` rounded down
     to a ``prefill_chunk`` multiple).  ``kv_pages > 0`` selects the paged
     KV store with pages of ``prefill_chunk`` tokens and ``paged_attn``
@@ -287,7 +289,7 @@ class Engine:
         if self.max_len < prefill_chunk:
             raise ValueError(f"max_len ({max_len}) must fit at least one "
                              f"prefill chunk ({prefill_chunk})")
-        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.model = model.to(self.device)
         self.config = cfg
         self.num_slots = num_slots
         self.prefill_chunk = prefill_chunk
