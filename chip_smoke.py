@@ -18,15 +18,32 @@ which fails the run (nonzero exit, no result line) when it fails:
      bfloat16 (atol 2e-2 and rtol 1.6e-2, two bf16 ulps: the plain
      path rounds probabilities to bf16 before P.V, the kernels keep them
      in float32, and both round outputs above 2 to a 1/64 grid);
+  3b. tree kernel vs plain — the paged-tree kernel against its plain
+     version on the same fragmented tables, node queries and window K/V
+     as strided views of one projection, the trees fork2x2, fork3+1 and
+     chain4, GPT-2 small's heads and a grouped-query shape, per-layer and
+     whole-pool, with phase 3's tolerances;
   4. main path — GPT-2 small at full width (random weights from --seed,
      float32) served by ``Engine(kv_pages=512)`` on the card, which
      resolves to the CUDA kernels; 8 greedy requests of 17-300 prompt
      tokens, two sharing a 64-token prefix (the second is admitted after
      the first retired, so its prefix is mapped from the page index).
-     Every kernel must have launched in that run, the page bookkeeping
-     must check, and the tokens must equal the same engine's on the
-     plain PyTorch attention — or differ first where the plain logits'
-     top-2 gap is below 1e-3 (a near-tie of the random weights);
+     Both kernels of that path must have launched in that run, the page
+     bookkeeping must check, and the tokens must equal the same engine's
+     on the plain PyTorch attention — or differ first where the plain
+     logits' top-2 gap is below 1e-3 (a near-tie of the random weights);
+  4b. speculative main path — the same model and engine geometry with
+     ``speculate_k=4`` and ``NgramDrafter(max_ngram=3, min_ngram=2)``, then
+     with ``speculate_k=2, speculate_tree="fork2x2"``, serving 8 greedy
+     requests of 32 new tokens: 4 period-4 tiled prompts of 64-256 tokens
+     and 4 of phase 4's prompts, beside the non-speculative kernel and
+     plain engines on the same prompts.  Each run must verify windows
+     and accept drafts; every verify window and prefill chunk must have
+     launched the paged-window kernel once per layer (the sequence run),
+     every tree window the paged-tree kernel once per layer (the tree
+     run), and every plain decode step the paged-decode kernel; the
+     tokens must agree with the plain engine's under phase 4's near-tie
+     rule;
   5. flash kernels vs plain — the forward (``o``, ``lse``), dq and dk/dv
      kernels against their plain PyTorch versions on q, k, v taken as
      strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
@@ -49,9 +66,10 @@ which fails the run (nonzero exit, no result line) when it fails:
   7. timing — each kernel at its main path's shapes against its byte /
      flop bound, its plain version and one PyTorch library call (a
      yardstick the port never calls: ``scaled_dot_product_attention`` on
-     the gathered K/V for the paged kernels; its causal forward, and its
-     autograd backward — dq, dk and dv in one — for the flash kernels),
-     with CUDA events.
+     the gathered K/V for the paged kernels — for the tree kernel the
+     gathered cache K/V and the window under a boolean mask; its causal
+     forward, and its autograd backward — dq, dk and dv in one — for the
+     flash kernels), with CUDA events.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -76,6 +94,7 @@ NEW_TOKENS = 32  # per request on the main path
 REPLACES = {
     "paged_decode": "tpudp/ops/paged_attention.py:161",
     "paged_window": "tpudp/ops/paged_attention.py:319",
+    "paged_tree": "tpudp/ops/paged_attention.py:474",
     "flash_fwd": "tpudp/ops/flash_attention.py:65",
     "flash_dq": "tpudp/ops/flash_attention.py:152",
     "flash_dkv": "tpudp/ops/flash_attention.py:192",
@@ -185,6 +204,64 @@ def check_kernels(torch, pa, device) -> list[str]:
     return lines
 
 
+def window_views(torch, q, kv, seed):
+    """Node queries and window K/V as the tree forward makes them:
+    strided views of one ``(b, T+1, (h + 2 kv) dh)`` projection whose
+    query part is ``q``."""
+    b, t1, h, dh = q.shape
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    proj = torch.randn((b, t1, (h + 2 * kv) * dh), generator=g,
+                       device=q.device).to(q.dtype)
+    proj[..., :h * dh] = q.reshape(b, t1, h * dh)
+    qv, wk, wv = proj.split([h * dh, kv * dh, kv * dh], dim=-1)
+    return (qv.reshape(b, t1, h, dh), wk.reshape(b, t1, kv, dh),
+            wv.reshape(b, t1, kv, dh))
+
+
+def check_tree_kernels(torch, pa, device) -> None:
+    """Phase 3b: K6 against ``_tree_plain``.  The fragmented tables map
+    every position up to ``pos0 + T``, a superset of the strictly
+    visible cache."""
+    from tpudp_torch.serve.speculate import TREE_SHAPES
+
+    shapes = {"gpt2": dict(h=12, kv=12, dh=64),
+              "gqa": dict(h=32, kv=8, dh=128)}
+    tol = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    failures = []
+    seed = 100
+    for sname, dims in shapes.items():
+        for tree in ("fork2x2", "fork3+1", "chain4"):
+            anc = TREE_SHAPES[tree].ancestors
+            for dtype in (torch.float32, torch.bfloat16):
+                for layer in (None, 1):
+                    seed += 1
+                    q, k, v, table, pos0 = fragmented_case(
+                        torch, b=8, page_tokens=16, max_pages=64,
+                        cur=len(anc), scalar_pos=False, dtype=dtype,
+                        layers=2, seed=seed, device=device, **dims)
+                    q, wk, wv = window_views(torch, q, dims["kv"], seed)
+                    kk, vv = (k, v) if layer is not None else (k[0], v[0])
+                    got = pa.tree_paged_attention(q, (kk, vv), table, pos0,
+                                                  wk, wv, anc, dtype=dtype,
+                                                  layer=layer)
+                    want = pa._tree_plain(q, kk, vv, table, pos0, wk, wv,
+                                          anc, layer)
+                    torch.cuda.synchronize()
+                    err, ok = compare(torch, got, want, tol[dtype])
+                    t = tol[dtype]
+                    name = (f"{sname} {tree} {str(dtype)[6:]} "
+                            f"{'whole-pool' if layer is not None else 'layer'}")
+                    print(f"kernel-check tree {name}: max_abs_err={err:.3e} "
+                          f"atol={t['atol']} rtol={t['rtol']} "
+                          f"{'ok' if ok else 'MISS'}", flush=True)
+                    if not ok:
+                        failures.append(name)
+    if failures:
+        raise SmokeFailure(f"the tree kernel disagrees with its plain "
+                           f"version: {failures}")
+
+
 # -- phase 4: the main path ----------------------------------------------
 
 
@@ -222,9 +299,48 @@ def serve(torch, Engine, model, prompts, paged_attn):
     return eng, handles, wall
 
 
+SERVE_KERNELS = ("paged_decode", "paged_window")  # phase 4's path
+
+
+def agree_with_plain(torch, np, model, prompts, handles, ref, label):
+    """Tokens of ``handles`` equal the plain engine's ``ref`` or differ
+    first where the plain logits' top-2 gap is below 1e-3 (a near-tie
+    of the random weights); raises otherwise."""
+    from tpudp_torch.models.generate import KVCache, _forward_cached
+
+    for i, (h, r) in enumerate(zip(handles, ref)):
+        if h.tokens == r.tokens:
+            continue
+        t = next((j for j, (a, b) in enumerate(zip(h.tokens, r.tokens))
+                  if a != b), min(len(h.tokens), len(r.tokens)))
+        seq = np.concatenate([prompts[i], np.asarray(r.tokens[:t])])
+        cache = KVCache.zeros(model.config, 1, seq.size, "cuda")
+        with torch.no_grad():
+            logits, _ = _forward_cached(
+                model, torch.as_tensor(seq, device="cuda")[None].long(),
+                cache, 0)
+        top2 = torch.topk(logits[0, -1], 2).values
+        gap = float(top2[0] - top2[1])
+        print(f"{label} request {i}: first differing token {t}, plain "
+              f"top-2 gap {gap:.3e}", flush=True)
+        if gap >= 1e-3:
+            raise SmokeFailure(f"{label} request {i} diverges at token {t} "
+                               f"with a top-2 gap of {gap} (not a near-tie)")
+    print(f"{label} tokens agree with the plain engine "
+          f"({sum(h.tokens == r.tokens for h, r in zip(handles, ref))}/"
+          f"{len(handles)} identical)", flush=True)
+
+
+def serve_summary(handles, wall) -> str:
+    n_tok = sum(len(h.tokens) for h in handles)
+    ttft = sorted(h.token_times[0] - h.submit_time for h in handles)
+    return (f"{len(handles)} requests, {n_tok} tokens in {wall:.3f}s = "
+            f"{n_tok / wall:.1f} tokens/s, TTFT p50 "
+            f"{1e3 * ttft[len(ttft) // 2]:.1f} ms")
+
+
 def main_path(torch, np, pa, seed: int):
     from tpudp_torch.models import gpt2
-    from tpudp_torch.models.generate import KVCache, _forward_cached
     from tpudp_torch.serve import Engine
 
     cfg = gpt2.GPT2Config()  # GPT-2 small: 12 x 768, 12 heads, 50257
@@ -237,8 +353,8 @@ def main_path(torch, np, pa, seed: int):
     launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
     if eng.paged_attn != "kernel":
         raise SmokeFailure(f"paged_attn resolved to {eng.paged_attn!r}")
-    for name, n in launches.items():
-        if n == 0:
+    for name in SERVE_KERNELS:
+        if launches[name] == 0:
             raise SmokeFailure(f"kernel {name} never launched on the main "
                                f"path")
     if eng.stats["prefix_hit_tokens"] < 64:
@@ -247,39 +363,98 @@ def main_path(torch, np, pa, seed: int):
     if not all(h.ok and len(h.tokens) == NEW_TOKENS for h in handles):
         raise SmokeFailure("a request did not complete")
     n_tok = sum(len(h.tokens) for h in handles)
-    ttft = sorted(h.token_times[0] - h.submit_time for h in handles)
-    print(f"main-path kernel engine: {len(handles)} requests, {n_tok} "
-          f"tokens in {wall:.3f}s = {n_tok / wall:.1f} tokens/s, TTFT p50 "
-          f"{1e3 * ttft[len(ttft) // 2]:.1f} ms, launches {launches}, "
-          f"stats {dict(eng.stats)}", flush=True)
+    print(f"main-path kernel engine: {serve_summary(handles, wall)}, "
+          f"launches {launches}, stats {dict(eng.stats)}", flush=True)
 
     _, ref, ref_wall = serve(torch, Engine, model, prompts, "einsum")
     if any(fn.launches != launches[n] for n, fn in pa.KERNELS.items()):
         raise SmokeFailure("the plain engine launched a kernel")
     print(f"main-path plain engine: {n_tok / ref_wall:.1f} tokens/s",
           flush=True)
-    for i, (h, r) in enumerate(zip(handles, ref)):
-        if h.tokens == r.tokens:
-            continue
-        t = next(j for j, (a, b) in enumerate(zip(h.tokens, r.tokens))
-                 if a != b)
-        seq = np.concatenate([prompts[i], np.asarray(r.tokens[:t])])
-        cache = KVCache.zeros(cfg, 1, seq.size, "cuda")
-        with torch.no_grad():
-            logits, _ = _forward_cached(
-                model, torch.as_tensor(seq, device="cuda")[None].long(),
-                cache, 0)
-        top2 = torch.topk(logits[0, -1], 2).values
-        gap = float(top2[0] - top2[1])
-        print(f"request {i}: first differing token {t}, plain top-2 gap "
-              f"{gap:.3e}", flush=True)
-        if gap >= 1e-3:
-            raise SmokeFailure(f"request {i} diverges at token {t} with a "
-                               f"top-2 gap of {gap} (not a near-tie)")
-    print(f"main-path tokens agree with the plain engine "
-          f"({sum(h.tokens == r.tokens for h, r in zip(handles, ref))}/"
-          f"{len(handles)} identical)", flush=True)
+    agree_with_plain(torch, np, model, prompts, handles, ref, "main-path")
     return model, prompts, launches
+
+
+# -- phase 4b: the speculative main path ----------------------------------
+
+
+def spec_prompts(np, seed: int, vocab: int, prompts):
+    """Four period-4 tiled prompts of 64-256 tokens (the repetitive
+    workload of ``benchmarks/serve_bench.py``'s speculation rows) and
+    four of phase 4's prompts."""
+    rng = np.random.default_rng(seed + 2)
+    tiled = [np.tile(rng.integers(0, vocab, size=4), n // 4).astype(np.int32)
+             for n in (64, 128, 192, 256)]
+    return tiled + [prompts[i] for i in (1, 2, 3, 4)]
+
+
+def serve_spec(torch, Engine, model, prompts, pa, **kw):
+    """Serve all prompts at once (8 greedy requests of NEW_TOKENS) on a
+    fresh engine with the kernel counts zeroed just before; returns the
+    engine, handles, wall seconds and the counts read just after."""
+    eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
+                 kv_pages=512, **kw)
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, NEW_TOKENS) for p in prompts]
+    eng.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
+    eng.check_paged()
+    if not all(h.ok and len(h.tokens) == NEW_TOKENS for h in handles):
+        raise SmokeFailure("a request did not complete")
+    return eng, handles, wall, launches
+
+
+def spec_main_path(torch, np, pa, model, prompts, seed: int) -> dict:
+    """Phase 4b: sequence and tree speculation through the kernels,
+    beside the non-speculative kernel and plain engines."""
+    from tpudp_torch.serve import Engine, NgramDrafter
+
+    cfg = model.config
+    work = spec_prompts(np, seed, cfg.vocab_size, prompts)
+    base, base_h, base_wall, _ = serve_spec(torch, Engine, model, work, pa)
+    print(f"spec-path non-speculative kernel engine: "
+          f"{serve_summary(base_h, base_wall)}", flush=True)
+    _, ref, ref_wall, plain_launches = serve_spec(
+        torch, Engine, model, work, pa, paged_attn="einsum")
+    if any(plain_launches.values()):
+        raise SmokeFailure("the plain engine launched a kernel")
+    print(f"spec-path plain engine: {serve_summary(ref, ref_wall)}",
+          flush=True)
+    agree_with_plain(torch, np, model, work, base_h, ref,
+                     "spec-path non-speculative")
+    runs = {"sequence": dict(speculate_k=4),
+            "tree": dict(speculate_k=2, speculate_tree="fork2x2")}
+    tree_launches = None
+    for label, kw in runs.items():
+        eng, handles, wall, launches = serve_spec(
+            torch, Engine, model, work, pa,
+            drafter=NgramDrafter(max_ngram=3, min_ngram=2), **kw)
+        st = eng.stats
+        steps = st["verify_steps"] if label == "sequence" else \
+            st["tree_verify_steps"]
+        print(f"spec-path {label} engine: {serve_summary(handles, wall)}, "
+              f"acceptance rate {eng.acceptance_rate}, launches "
+              f"{launches}, stats {dict(st)}", flush=True)
+        if steps == 0 or st["draft_accepted"] == 0:
+            raise SmokeFailure(f"the {label} run verified {steps} windows "
+                               f"and accepted {st['draft_accepted']} drafts")
+        want = {"paged_decode": cfg.num_layers * st["decode_steps"],
+                "paged_window": cfg.num_layers * (
+                    st["prefill_chunks"] + st["verify_steps"]),
+                "paged_tree": cfg.num_layers * st["tree_verify_steps"]}
+        if launches != want:
+            raise SmokeFailure(f"the {label} run launched {launches}, its "
+                               f"steps need {want}")
+        agree_with_plain(torch, np, model, work, handles, ref,
+                         f"spec-path {label}")
+        if label == "tree":
+            tree_launches = launches["paged_tree"]
+    return {"paged_tree": tree_launches}
 
 
 # -- phase 5: flash kernels vs their plain versions -----------------------
@@ -640,6 +815,69 @@ def kernel_record(torch, F, pa, name, q, k, v, table, pos, launches):
             "library_ms": library_ms}
 
 
+def tree_record(torch, F, pa, cfg, pos_list, launches):
+    """Time K6, its plain version and SDPA on the gathered cache K/V
+    concatenated with the window under a boolean mask, cycling the layer;
+    bound from the bytes and flops these inputs need."""
+    from tpudp_torch.serve.speculate import TREE_SHAPES
+
+    anc = TREE_SHAPES["fork2x2"].ancestors
+    t1 = len(anc)
+    q, k, v, table, pos0 = timing_case(torch, cfg, pos_list, t1, False,
+                                       "cuda", seed=3)
+    layers, kvh, dh = k.shape[0], k.shape[3], k.shape[4]
+    q, wk, wv = window_views(torch, q, kvh, seed=3)
+    b, _, h, _ = q.shape
+    page_tokens = k.shape[2]
+    pos_l = pos0.tolist()
+    fn = pa.KERNELS["paged_tree"]
+    ms = time_ms(torch, lambda i: fn(q, k, v, table, pos0, wk, wv, anc,
+                                     layer=i % layers))
+    plain_ms = time_ms(torch, lambda i: pa._tree_plain(
+        q, k, v, table, pos0, wk, wv, anc, i % layers))
+    # SDPA yardstick on cache K/V gathered (outside the timing) to dense
+    # rows, followed by the window's K/V.
+    n_keys = max(pos_l)
+    wkd, wvd = (w.permute(0, 2, 1, 3) for w in (wk, wv))
+    dense_k, dense_v = [], []
+    for layer in range(layers):
+        kt, vt = pa.page_tiles((k[layer], v[layer]), table, q.dtype)
+        dense_k.append(torch.cat([kt.flatten(1, 2)[:, :n_keys]
+                                  .permute(0, 2, 1, 3), wkd], 2).contiguous())
+        dense_v.append(torch.cat([vt.flatten(1, 2)[:, :n_keys]
+                                  .permute(0, 2, 1, 3), wvd], 2).contiguous())
+    cache_vis = (torch.arange(n_keys, device=q.device)
+                 < pos0[:, None]).expand(b, n_keys)
+    anc_t = torch.as_tensor(anc, device=q.device)
+    mask = torch.cat([cache_vis[:, None].expand(b, t1, n_keys),
+                      anc_t[None].expand(b, t1, t1)], 2)[:, None]
+    qd = q.permute(0, 2, 1, 3).contiguous()
+    library_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+        qd, dense_k[i % layers], dense_v[i % layers], attn_mask=mask))
+    # What these inputs need: every strictly visible cache K/V row once
+    # (distinct (page, row) pairs), the window K/V, q read once, out
+    # written once; 4 dh flops per head and (node, visible key) pair.
+    tbl = table.cpu().tolist()
+    visible = {(tbl[s][key // page_tokens], key % page_tokens)
+               for s in range(b) for key in range(pos_l[s])}
+    n_anc = sum(map(sum, anc))
+    flops = sum(t1 * pos_l[s] + n_anc for s in range(b)) * h * dh * 4
+    bytes_ = (len(visible) * kvh * dh * 2 + 2 * wk.numel()
+              + 2 * q.numel()) * k.element_size()
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    err = (fn(q, k, v, table, pos0, wk, wv, anc, layer=0).float()
+           - pa._tree_plain(q, k, v, table, pos0, wk, wv, anc, 0).float()
+           ).abs().max().item()
+    return {"name": "paged_tree", "route": "cuda",
+            "source": SOURCES["paged_tree"],
+            "replaces": REPLACES["paged_tree"],
+            "launches": launches["paged_tree"], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms}
+
+
 def timings(torch, pa, model, prompts, launches):
     import torch.nn.functional as F
 
@@ -656,6 +894,10 @@ def timings(torch, pa, model, prompts, launches):
                                       seed=2)
     rec.append(kernel_record(torch, F, pa, "paged_window", q, k, v, table,
                              pos, launches))
+    del k, v
+    # Tree verify: fork2x2 windows of the eight slots at phase 4's
+    # decode depths.
+    rec.append(tree_record(torch, F, pa, cfg, decode_pos, launches))
     for r in rec:
         print(f"timing {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
               f" ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
@@ -769,7 +1011,10 @@ def main(argv=None) -> int:
         print(f"build: {time.perf_counter() - t0:.2f}s for "
               f"{sorted(_build.SIGNATURES)}", flush=True)
         check_kernels(torch, pa, "cuda")
+        check_tree_kernels(torch, pa, "cuda")
         model, prompts, launches = main_path(torch, np, pa, args.seed)
+        launches.update(spec_main_path(torch, np, pa, model, prompts,
+                                       args.seed))
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
         records = timings(torch, pa, model, prompts, launches)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (paged decode and window, flash forward, dq
-and dk/dv) against their plain PyTorch versions, on the card.  Every test here carries the ``cuda`` marker and skips without a
+"""The port's CUDA kernels (paged decode, window and tree, flash forward,
+dq and dk/dv) against their plain PyTorch versions, on the card.  Every test here carries the ``cuda`` marker and skips without a
 card: the kernels have no CPU mode.  The file imports no JAX, so it also
 runs where only PyTorch is installed:
 
@@ -13,6 +13,7 @@ import torch
 
 from tpudp_torch.ops import flash_attention as fa
 from tpudp_torch.ops import paged_attention as pa
+from tpudp_torch.serve.speculate import TREE_SHAPES
 
 S, T, P, LAYERS = 3, 8, 8, 2
 TABLE = np.array([[0, 1, 2, -1], [0, 1, 3, 4], [5, 6, -1, -1]], np.int32)
@@ -122,6 +123,39 @@ def test_kernels_match_plain_on_random_geometries(card, seed):
     want = pa._einsum_paged(q, (k[-1], v[-1]), table_t, pos_t,
                             dtype=torch.float32, grouped=True)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ["fork2x2", "fork3+1", "chain4"])
+def test_tree_kernel_matches_plain(card, shape, dtype, dh):
+    """K6 against its plain version, whole-pool, grouped heads, with q,
+    wk and wv as strided views of one projection and one slot at depth
+    0 (window keys only), tolerances as above; the launch counted once."""
+    dt = getattr(torch, dtype)
+    anc = TREE_SHAPES[shape].ancestors
+    t1 = len(anc)
+    h, kv = 8, 4
+    rng = np.random.default_rng(6)
+    k, v = (torch.as_tensor(rng.standard_normal(
+        (LAYERS, P + 1, T, kv, dh), np.float32)).to(card, dt)
+        for _ in range(2))
+    proj = torch.as_tensor(rng.standard_normal(
+        (S, t1, (h + 2 * kv) * dh), np.float32)).to(card, dt)
+    q, wk, wv = proj.split([h * dh, kv * dh, kv * dh], dim=-1)
+    q = q.reshape(S, t1, h, dh)
+    wk, wv = wk.reshape(S, t1, kv, dh), wv.reshape(S, t1, kv, dh)
+    pos0 = torch.tensor([17, 26, 0], dtype=torch.int32, device=card)
+    table = torch.as_tensor(TABLE).to(card)
+    before = pa.paged_tree.launches
+    got = pa.tree_paged_attention(q, (k, v), table, pos0, wk, wv, anc,
+                                  dtype=dt, layer=1)
+    assert pa.paged_tree.launches == before + 1
+    want = pa._tree_plain(q, k, v, table, pos0, wk, wv, anc, 1)
+    tol = (dict(atol=2e-5, rtol=2e-5) if dt == torch.float32
+           else dict(atol=2e-2, rtol=1.6e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 def _projection(card, b, t, h, dh, dtype, seed):

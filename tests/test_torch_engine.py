@@ -128,19 +128,21 @@ def test_kernel_backend_needs_the_card(setup):
                  kv_pages=12)
     m = eng.metrics()
     assert m["paged_attn"] == {"requested": None, "resolved": "einsum"}
-    assert set(m["kernel_launches"]) == {"paged_decode", "paged_window"}
+    assert set(m["kernel_launches"]) == {"paged_decode", "paged_window",
+                                         "paged_tree"}
 
 
 @pytest.mark.parametrize("option,value", [
-    ("speculate_k", 2), ("decode_fuse", 4), ("prefix_cache_blocks", 8),
-    ("kv_dtype", "int8"), ("tenants", {}), ("canary_every_s", 1.0)])
+    ("drafter_timeout_s", 0.5), ("decode_fuse", 4),
+    ("prefix_cache_blocks", 8), ("kv_dtype", "int8"), ("tenants", {}),
+    ("canary_every_s", 1.0)])
 def test_unported_options_raise(setup, option, value):
     _, _, model, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(model, device="cpu", **{option: value})
     Engine(model, device="cpu", max_len=48, **{option: {
-        "speculate_k": 0, "decode_fuse": 1, "prefix_cache_blocks": 0,
-        "kv_dtype": None, "tenants": None,
+        "drafter_timeout_s": None, "decode_fuse": 1,
+        "prefix_cache_blocks": 0, "kv_dtype": None, "tenants": None,
         "canary_every_s": None}[option]})
     with pytest.raises(TypeError, match="unexpected"):
         Engine(model, device="cpu", no_such_option=1)

@@ -12,9 +12,11 @@ Ported here: the dense ``KVCache`` arena (``_forward_cached``, the
 port's own oracle), the paged pool's write (:func:`write_token_pages`)
 and read (:class:`_PagedKV` over ``tpudp_torch.ops.paged_attention``),
 :func:`_forward_paged` in slice mode (einsum) and whole-pool mode
-(kernels), and greedy or sampled :func:`generate`.  int8 pages, the
-gather path, tree forwards, beam search and LLaMA are later slices
-(ROADMAP.md).
+(kernels), the speculative tree forwards (:func:`_forward_tree` over a
+dense view, :func:`gather_pages` to make one from the pool, and
+:func:`_forward_tree_paged` through the block table), and greedy or
+sampled :func:`generate`.  int8 pages, beam search and LLaMA are later
+slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import torch.nn.functional as F
 
 from tpudp_torch.models.gpt2 import (GPT2Config, dense, embed_tokens,
                                      layer_norm, lm_head, mlp)
-from tpudp_torch.ops.paged_attention import paged_attention
+from tpudp_torch.ops.paged_attention import (paged_attention,
+                                             tree_attention,
+                                             tree_paged_attention)
 from tpudp_torch.ops.sampling import truncate_logits
 
 
@@ -216,6 +220,111 @@ def _forward_paged(model, tokens: torch.Tensor, pool: KVCache,
                          layer=i if whole else None)
         x, _, _ = _block_decode(cfg, blk, x, None, None, pos, paged=store)
     return lm_head(model, x), pool
+
+
+def gather_pages(pool: KVCache, table: torch.Tensor) -> KVCache:
+    """The logical dense view ``(L, S, M * T, kv, dh)`` of a page pool
+    ``(L, P + 1, T, kv, dh)`` through the block table ``(S, M)``.
+    Unmapped entries read the scratch page, whose rows sit past every
+    slot's length, where the visibility mask excludes them."""
+    scratch = pool.k.shape[1] - 1
+    tbl = torch.where(table >= 0, table, scratch).long()
+
+    def grab(buf):
+        g = buf[:, tbl]  # (L, S, M, T, kv, dh)
+        return g.flatten(2, 3)
+
+    return KVCache(grab(pool.k), grab(pool.v))
+
+
+def _block_tree(cfg: GPT2Config, blk, x: torch.Tensor, k_cache, v_cache,
+                pos0, anc, paged: "_TreePagedKV | None" = None):
+    """One pre-LN block over a speculative token tree of ``T+1`` nodes
+    ``(b, T+1, d)`` — the no-write twin of :func:`_block_decode`.
+    Sibling nodes share a logical position, so the window K/V stay out
+    of the cache: each node attends the committed cache (positions
+    ``< pos0``) jointly with its in-window ancestors-or-self (``anc``)
+    under one softmax, read from the dense cache rows or, with
+    ``paged``, through the block table.  Returns ``(x, k, v)`` with the
+    window's K/V ``(b, T+1, kv, dh)`` for the caller to commit."""
+    b, t1, d = x.shape
+    h = cfg.num_heads
+    dh = d // h
+    qkv = dense(blk.attn.qkv, layer_norm(blk.ln_1, x), cfg.dtype)
+    q, k, v = (z.reshape(b, t1, h, dh) for z in qkv.chunk(3, dim=-1))
+    if paged is not None:
+        out = paged.attend(q, k, v)
+    else:
+        out = tree_attention(q, k_cache, v_cache, pos0, k, v, anc,
+                             dtype=cfg.dtype)
+    x = x + dense(blk.attn.proj, out.reshape(b, t1, d), cfg.dtype)
+    return x + mlp(blk, x, cfg.dtype), k, v
+
+
+def _tree_positions(pos0, depths, device) -> torch.Tensor:
+    return (torch.as_tensor(pos0, device=device).long()[:, None]
+            + torch.as_tensor(depths, device=device)[None, :])
+
+
+def _forward_tree(model, tokens: torch.Tensor, view: KVCache, pos0,
+                  depths: tuple, anc):
+    """Tree-verify forward: node tokens ``(b, T+1)`` (node 0 = each
+    row's last committed token) at positions ``pos0 + depth`` against a
+    read-only dense cache view -> ``(logits (b, T+1, vocab), wk, wv)``
+    with the window K/V ``(L, b, T+1, kv, dh)``, which the caller
+    commits for the accepted nodes only: this forward writes nothing."""
+    cfg = model.config
+    x = embed_tokens(model, tokens, _tree_positions(pos0, depths,
+                                                    tokens.device))
+    wk, wv = [], []
+    for i, blk in enumerate(model.h):
+        x, k_i, v_i = _block_tree(cfg, blk, x, view.k[i], view.v[i], pos0,
+                                  anc)
+        wk.append(k_i)
+        wv.append(v_i)
+    return lm_head(model, x), torch.stack(wk), torch.stack(wv)
+
+
+class _TreePagedKV:
+    """One layer's read-only paged store for the tree-verify forward:
+    ``attend`` runs tree attention over the whole stacked pool's layer
+    ``layer`` through the block table, jointly with the window K/V —
+    which never touch the pages, so there is no ``write``."""
+
+    __slots__ = ("cfg", "pages", "table", "pos0", "anc", "layer")
+
+    def __init__(self, cfg, pages, table, pos0, anc, layer):
+        self.cfg = cfg
+        self.pages = pages
+        self.table = table
+        self.pos0 = pos0
+        self.anc = anc
+        self.layer = layer
+
+    def attend(self, q, k, v):
+        return tree_paged_attention(q, self.pages, self.table, self.pos0,
+                                    k, v, self.anc, dtype=self.cfg.dtype,
+                                    layer=self.layer)
+
+
+def _forward_tree_paged(model, tokens: torch.Tensor, pool: KVCache,
+                        table: torch.Tensor, pos0, depths: tuple, anc):
+    """Paged twin of :func:`_forward_tree`: node queries attend the
+    committed cache through the block table (the tree kernel on the
+    card, whole-pool ``layer=i`` as in :func:`_forward_paged`'s kernel
+    mode; no dense view is gathered).  Returns ``(logits, wk, wv)``; the
+    pool is only read."""
+    cfg = model.config
+    x = embed_tokens(model, tokens, _tree_positions(pos0, depths,
+                                                    tokens.device))
+    wk, wv = [], []
+    for i, blk in enumerate(model.h):
+        store = _TreePagedKV(cfg, tuple(pool), table, pos0, anc, layer=i)
+        x, k_i, v_i = _block_tree(cfg, blk, x, None, None, pos0, anc,
+                                  paged=store)
+        wk.append(k_i)
+        wv.append(v_i)
+    return lm_head(model, x), torch.stack(wk), torch.stack(wv)
 
 
 def validate_decode_config(cfg: GPT2Config, fn_name: str) -> None:

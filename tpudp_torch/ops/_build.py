@@ -34,6 +34,8 @@ SIGNATURES = {
                      [_P] * 6 + [_I] * 7 + [_L] * 6 + [_F, _P]),
     "paged_window": ("launch_paged_window",
                      [_P] * 6 + [_I] * 8 + [_L] * 7 + [_F, _P]),
+    "paged_tree": ("launch_paged_tree",
+                   [_P] * 9 + [_I] * 8 + [_L] * 10 + [_F, _P]),
     # The flash kernels take their tensors' strides as one host array of
     # (batch, token, head) triples.
     "flash_fwd": ("launch_flash_fwd", [_P] * 6 + [_I] * 6 + [_F, _P]),

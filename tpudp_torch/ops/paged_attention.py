@@ -14,6 +14,12 @@ Two backends behind :func:`paged_attention`, with the JAX op's layouts:
     :func:`paged_window` (K5).  Both compute in float32 and are bounded
     by a tolerance against the plain version, as the Pallas kernels are.
 
+Tree verify has its own op, :func:`tree_paged_attention`: node queries
+attend the committed cache through the table (strict ``< pos0``) and
+the in-flight window K/V under the ancestor-or-self mask in one softmax,
+through :func:`paged_tree` (K6) and its plain version
+:func:`_tree_plain`.
+
 A kernel wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version, which is what the CPU tests see.
 Each wrapper counts its launches in ``.launches`` so a run can show that
@@ -29,6 +35,8 @@ slice 4).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -194,11 +202,110 @@ def paged_window(q, k_pages, v_pages, table, pos, *, layer=None):
     return out
 
 
+def tree_attention(q, k_cache, v_cache, pos0, wk, wv, anc, *, dtype):
+    """Tree attention over dense cache rows plus an in-flight node
+    window, the plain math of the tree-verify forward.  ``q`` ``(b, T+1,
+    h, dh)``; ``k_cache``/``v_cache`` ``(b, n_keys, kv, dh)``; ``wk``/
+    ``wv`` ``(b, T+1, kv, dh)``; ``anc`` the ``(T+1, T+1)``
+    ancestor-or-self mask.  Node ``j`` of slot ``s`` sees cache keys at
+    positions ``< pos0[s]`` (strict: node 0's own K/V are in the window,
+    not the cache) and window node ``c`` where ``anc[j][c]``, under one
+    float32 softmax; query head ``i`` reads KV head ``i // groups``."""
+    b, t1, h, dh = q.shape
+    kv = wk.shape[2]
+    n_keys = k_cache.shape[1]
+    kk = torch.cat([k_cache.to(dtype), wk.to(dtype)], dim=1)
+    vv = torch.cat([v_cache.to(dtype), wv.to(dtype)], dim=1)
+    qg = q.reshape(b, t1, kv, h // kv, dh)
+    lg = torch.einsum("bjkgd,btkd->bjkgt", qg, kk) * dh ** -0.5
+    pos0 = torch.as_tensor(pos0, device=q.device).reshape(-1, 1)
+    cache_vis = torch.arange(n_keys, device=q.device) < pos0  # (b, n_keys)
+    anc = torch.as_tensor(anc, dtype=torch.bool, device=q.device)
+    vis = torch.cat([cache_vis[:, None].expand(b, t1, n_keys),
+                     anc[None].expand(b, t1, t1)], dim=2)
+    lg = lg.masked_fill(~vis[:, :, None, None], torch.finfo(lg.dtype).min)
+    pr = torch.softmax(lg.float(), dim=-1).to(dtype)
+    return torch.einsum("bjkgt,btkd->bjkgd", pr, vv).reshape(b, t1, h, dh)
+
+
+def _tree_plain(q, k_pages, v_pages, table, pos0, wk, wv, anc, layer):
+    """K6's plain version: the slot's cache K/V gathered through the
+    block table (``-1`` entries read the scratch page, never visible),
+    then :func:`tree_attention`."""
+    pages = ((k_pages, v_pages) if layer is None
+             else (k_pages[layer], v_pages[layer]))
+    table = torch.as_tensor(table, device=q.device)
+    kt, vt = page_tiles(pages, table, q.dtype)  # (b, M, T, kv, dh)
+    return tree_attention(q, kt.flatten(1, 2), vt.flatten(1, 2), pos0, wk,
+                          wv, anc, dtype=q.dtype)
+
+
+def _ancestor_masks(anc, device) -> torch.Tensor:
+    """The ``(T+1, T+1)`` mask as ``(T+1,)`` int32 row bitmasks (bit
+    ``c`` of row ``j`` set iff ``anc[j][c]``) on ``device``, built once
+    per tree shape and device."""
+    rows = tuple(tuple(row) for row in
+                 torch.as_tensor(anc, dtype=torch.bool).tolist())
+    return _masks_on(rows, device)
+
+
+@functools.lru_cache(maxsize=64)
+def _masks_on(rows: tuple, device) -> torch.Tensor:
+    masks = [sum(1 << c for c, bit in enumerate(row) if bit) for row in rows]
+    # Bit 31 is the sign bit of an int32; the kernel reads uint32.
+    return torch.tensor([m - (1 << 32) if m >= 1 << 31 else m
+                         for m in masks], dtype=torch.int32, device=device)
+
+
+def paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc, *,
+               layer=None):
+    """K6: tree-verify attention over the slot's cache pages and the
+    in-flight window.  ``q`` ``(b, T+1, h, dh)`` with ``T+1 <= 32``;
+    ``wk``/``wv`` ``(b, T+1, kv, dh)``, read through their strides (views
+    of the qkv projection are taken as they are); ``pos0`` ``(b,)``.
+    Launches ``csrc/paged_tree.cu`` on CUDA tensors (the count goes up
+    by one), runs the plain version on CPU tensors."""
+    if not q.is_cuda:
+        return _tree_plain(q, k_pages, v_pages, table, pos0, wk, wv, anc,
+                           layer)
+    out, table, pos0, ints, strides = _launch_args(q, k_pages, v_pages,
+                                                   table, pos0, layer)
+    _, b, t1, _, kv, dh, _, _ = ints
+    if t1 > 32:
+        raise ValueError(f"the tree kernel takes at most 32 nodes, got {t1}")
+    for name, w in (("wk", wk), ("wv", wv)):
+        if w.device != q.device or w.dtype != q.dtype:
+            raise ValueError(f"{name} must be a {q.dtype} tensor on "
+                             f"{q.device}")
+        if tuple(w.shape) != (b, t1, kv, dh):
+            raise ValueError(f"{name} must be {(b, t1, kv, dh)}, got "
+                             f"{tuple(w.shape)}")
+        if w.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+    if wk.stride() != wv.stride():
+        raise ValueError("wk and wv must share their strides")
+    masks = _ancestor_masks(anc, q.device)
+    if masks.shape != (t1,):
+        raise ValueError(f"anc must be ({t1}, {t1})")
+    fn = _build.launcher("paged_tree")
+    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+              table.data_ptr(), pos0.data_ptr(), wk.data_ptr(),
+              wv.data_ptr(), masks.data_ptr(), out.data_ptr(), *ints,
+              *strides[:3], *wk.stride()[:3], *strides[3:],
+              q.shape[-1] ** -0.5,
+              torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check("paged_tree", code)
+    paged_tree.launches += 1
+    return out
+
+
 paged_decode.launches = 0
 paged_window.launches = 0
+paged_tree.launches = 0
 
 #: Every ported kernel wrapper, by kernel name.
-KERNELS = {"paged_decode": paged_decode, "paged_window": paged_window}
+KERNELS = {"paged_decode": paged_decode, "paged_window": paged_window,
+           "paged_tree": paged_tree}
 
 
 def paged_attention(q, pages, table, pos, *, dtype, grouped: bool = False,
@@ -226,3 +333,20 @@ def paged_attention(q, pages, table, pos, *, dtype, grouped: bool = False,
     vector_pos = torch.as_tensor(pos).dim() > 0
     kernel = paged_decode if vector_pos and q.shape[1] == 1 else paged_window
     return kernel(q, k_pages, v_pages, table, pos, layer=layer)
+
+
+def tree_paged_attention(q, pages, table, pos0, wk, wv, anc, *, dtype,
+                         layer: int | None = None):
+    """Tree-verify attention for node queries ``(b, T+1, h, dh)`` over
+    table-indirected cache pages (strict ``k_pos < pos0``) jointly with
+    the in-flight window ``wk``/``wv`` ``(b, T+1, kv, dh)`` under the
+    ancestor-or-self mask ``anc``; the window never enters the pages, so
+    rejected branches write nothing.  Runs :func:`paged_tree` (K6 on CUDA
+    tensors, its plain version on CPU tensors); ``layer`` is whole-pool
+    mode, as for :func:`paged_attention`'s kernels.  fp pools only."""
+    if q.dtype != dtype:
+        raise TypeError(f"tree attention computes in the query dtype "
+                        f"({q.dtype}), asked for {dtype}")
+    k_pages, v_pages = _fp_pages(pages)
+    return paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc,
+                      layer=layer)

@@ -33,10 +33,23 @@ from the slot's own ``torch.Generator``, seeded from the request's
 does not depend on what else shares the batch.  A vacated request keeps
 its generator state and resumes with it.
 
-The JAX engine's speculation, fused decode windows, the dense copy
-cache, int8 pages, tenancy, co-resident models, canaries, the watchdog
-and fault hooks are later slices: each such option raises
-``NotImplementedError`` naming its ROADMAP item.
+Speculative decoding (``speculate_k=k``): a host-side drafter
+(``tpudp_torch.serve.speculate``; ``NgramDrafter`` by default) proposes
+up to ``k`` tokens per decoding slot, one ``k + 1`` verify window per
+step scores them (in paged kernel mode through the paged-window kernel
+at per-slot depths) and the longest agreeing prefix plus the verify
+forward's own next token commit; greedy output equals plain decode.
+With ``speculate_tree=shape`` the drafter fills a static token tree,
+scored by one tree-masked forward (the paged-tree kernel on the card)
+whose window K/V stay out of the KV store; only the accepted
+root-to-leaf path is committed.  A step where no slot drafted runs the
+plain decode step, and a drafter that raises or proposes out-of-vocab
+ids is quarantined: the engine decodes without it, outputs unchanged.
+
+The JAX engine's fused decode windows and fused speculation, the dense
+copy cache, int8 pages, tenancy, co-resident models, canaries, the
+watchdog, the drafter timeout and fault hooks are later slices: each
+such option raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -49,19 +62,22 @@ import numpy as np
 import torch
 
 from tpudp_torch.models.generate import (KVCache, _forward_cached,
-                                         _forward_paged,
-                                         validate_decode_config)
+                                         _forward_paged, _forward_tree,
+                                         _forward_tree_paged, gather_pages,
+                                         update_cache_rows,
+                                         validate_decode_config,
+                                         write_token_pages)
 from tpudp_torch.ops.paged_attention import KERNELS
-from tpudp_torch.ops.sampling import sample_tokens
+from tpudp_torch.ops.sampling import (sample_tokens, verify_tokens,
+                                      verify_tree_tokens)
 from tpudp_torch.serve.prefix_cache import PageIndex, PagePool
+from tpudp_torch.serve.speculate import NgramDrafter, tree_shape
 
 #: Options of the JAX engine this port does not have yet: name ->
 #: (the value that means "off", the ROADMAP.md item that brings it).
 _UNPORTED = {
-    "speculate_k": (0, "slice 2 (speculation: verify through K5)"),
-    "drafter": (None, "slice 2 (speculation)"),
-    "speculate_tree": (None, "slice 2 (tree verify through K6)"),
-    "decode_fuse": (1, "slice 3 (decode_fuse: CUDA-graph window)"),
+    "decode_fuse": (1, "slice 3 (decode_fuse: CUDA-graph window, and "
+                       "fused speculation with a model drafter)"),
     "fuse_stream": (False, "slice 3 (decode_fuse: CUDA-graph window)"),
     "prefix_cache_blocks": (0, "slice 8 (dense copy prefix cache)"),
     "kv_dtype": (None, "slice 4 (int8 pages with the K4/K5 variants)"),
@@ -69,6 +85,7 @@ _UNPORTED = {
     "models": (None, "slice 8 (co-resident models)"),
     "canary_every_s": (None, "slice 8 (robustness: serving canary)"),
     "watchdog": (None, "slice 8 (robustness: watchdog)"),
+    "drafter_timeout_s": (None, "slice 8 (robustness: drafter timeout)"),
     "step_timeout_s": (None, "slice 8 (robustness: watchdog)"),
     "step_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
     "token_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
@@ -153,7 +170,9 @@ class Request:
     """Handle returned by :meth:`Engine.submit`.  ``tokens`` grows as the
     engine steps; iterate the handle to stream them, or call
     :meth:`result` for the whole ``prompt + completion``.
-    ``token_times`` holds a ``time.perf_counter()`` stamp per token."""
+    ``token_times`` holds a ``time.perf_counter()`` stamp per token;
+    ``draft_proposed``/``draft_accepted`` count this request's drafted
+    and accepted tokens (``acceptance_rate`` is their ratio)."""
 
     def __init__(self, engine: "Engine", rid: int, prompt: np.ndarray,
                  max_new_tokens: int, temperature: float, top_k: int,
@@ -173,11 +192,21 @@ class Request:
         self.submit_time = time.perf_counter()
         self.done = False
         self.finish_reason: FinishReason | None = None
+        self.draft_proposed = 0
+        self.draft_accepted = 0
         self._slot: int | None = None
         self._fill = prompt  # tokens to prefill (prompt, + tokens on resume)
         self._nfill = 0      # fill tokens already in the KV store
         self._order = 0      # admission order (prefill FIFO tiebreak)
         self._resume_key = None  # generator state saved across a vacate
+
+    @property
+    def acceptance_rate(self) -> float | None:
+        """Accepted / proposed draft tokens of this request (None until
+        a drafter has proposed something for it)."""
+        if not self.draft_proposed:
+            return None
+        return self.draft_accepted / self.draft_proposed
 
     @property
     def ok(self) -> bool:
@@ -234,12 +263,18 @@ class Engine:
     KV store with pages of ``prefill_chunk`` tokens and ``paged_attn``
     its backend (``None`` resolves to ``'kernel'`` on CUDA, ``'einsum'``
     on the CPU).  ``queue_limit`` bounds the submit queue
-    (:class:`QueueFull`)."""
+    (:class:`QueueFull`).  ``speculate_k > 0`` turns on speculative
+    decoding with ``drafter`` (default ``NgramDrafter()``) and, with
+    ``speculate_tree`` (a ``TREE_SHAPES`` name, a ``TreeShape`` or a
+    parents tuple of depth ``<= speculate_k``), tree verify; every
+    request then reserves ``speculate_k`` scratch positions of
+    ``max_len``."""
 
     def __init__(self, model, *, device="cuda", num_slots: int = 8,
                  max_len: int | None = None, prefill_chunk: int = 16,
                  kv_pages: int = 0, paged_attn: str | None = None,
-                 queue_limit: int | None = None, **unported):
+                 queue_limit: int | None = None, speculate_k: int = 0,
+                 drafter=None, speculate_tree=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -257,6 +292,8 @@ class Engine:
         if prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if speculate_k < 0:
+            raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
         if kv_pages < 0:
             raise ValueError(f"kv_pages must be >= 0 (0 keeps the dense "
                              f"slot arena), got {kv_pages}")
@@ -279,6 +316,17 @@ class Engine:
         if queue_limit is not None and queue_limit < 1:
             raise ValueError(f"queue_limit must be >= 1 (or None for "
                              f"unbounded), got {queue_limit}")
+        if drafter is not None and speculate_k == 0:
+            raise ValueError("drafter requires speculate_k >= 1 "
+                             "(speculation is off at k=0)")
+        if speculate_k > 0 and drafter is None:
+            drafter = NgramDrafter()
+        dcfg = getattr(drafter, "config", None)
+        if dcfg is not None and dcfg.vocab_size != cfg.vocab_size:
+            raise ValueError(
+                f"drafter vocab_size ({dcfg.vocab_size}) must match the "
+                f"target model's ({cfg.vocab_size}) — speculation "
+                f"requires a shared tokenizer")
         max_len = cfg.max_seq_len if max_len is None else max_len
         if max_len > cfg.max_seq_len:
             raise ValueError(f"max_len ({max_len}) exceeds the model's "
@@ -289,6 +337,34 @@ class Engine:
         if self.max_len < prefill_chunk:
             raise ValueError(f"max_len ({max_len}) must fit at least one "
                              f"prefill chunk ({prefill_chunk})")
+        if speculate_k > 0 and self.max_len <= speculate_k:
+            raise ValueError(
+                f"max_len ({self.max_len}) must exceed speculate_k "
+                f"({speculate_k}) — every request reserves k scratch "
+                f"positions for the speculative window")
+        self.speculate_tree = None
+        if speculate_tree is not None:
+            if speculate_k == 0:
+                raise ValueError(
+                    "speculate_tree requires speculate_k >= 1 — the tree "
+                    "rides the speculative window's reserve")
+            shape = tree_shape(speculate_tree)
+            if shape.max_depth > speculate_k:
+                raise ValueError(
+                    f"speculate_tree {shape.name!r} max_depth "
+                    f"({shape.max_depth}) exceeds speculate_k "
+                    f"({speculate_k}) — each request reserves exactly k "
+                    f"scratch positions")
+            if not hasattr(drafter, "propose_tree"):
+                raise ValueError(
+                    f"speculate_tree requires a drafter with "
+                    f"propose_tree() (e.g. NgramDrafter); "
+                    f"{type(drafter).__name__} has none")
+            self.speculate_tree = shape
+        self.speculate_k = speculate_k
+        self.drafter = drafter
+        self._drafter_quarantined = False
+        self.drafter_quarantine_reason: str | None = None
         self.model = model.to(self.device)
         self.config = cfg
         self.num_slots = num_slots
@@ -371,10 +447,13 @@ class Engine:
         if max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {max_new_tokens}")
-        if prompt.size + max_new_tokens > self.max_len:
+        if prompt.size + max_new_tokens + self.speculate_k > self.max_len:
+            spec = (f" + speculate_k ({self.speculate_k} scratch "
+                    f"positions for the verify window)"
+                    if self.speculate_k else "")
             raise ValueError(
                 f"prompt ({prompt.size}) + max_new_tokens "
-                f"({max_new_tokens}) exceeds the arena max_len "
+                f"({max_new_tokens}){spec} exceeds the arena max_len "
                 f"({self.max_len})")
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
@@ -422,9 +501,10 @@ class Engine:
     @torch.no_grad()
     def step(self) -> list[tuple[Request, int]]:
         """One scheduler iteration: admit queued requests into free
-        slots, run at most one prefill chunk, then one batched decode
-        step for every decoding slot.  Returns the ``(request, token)``
-        pairs emitted."""
+        slots, run at most one prefill chunk, then one batched step for
+        every decoding slot — a tree verify window, a sequence verify
+        window or a plain decode step, in that order of preference.
+        Returns the ``(request, token)`` pairs emitted."""
         emitted: list[tuple[Request, int]] = []
         if self._closed:
             return emitted
@@ -439,7 +519,13 @@ class Engine:
             # page pressure resolves here, on the host.
             active = self._ensure_decode_pages(ms, active)
         if active.any():
-            self._run_decode(ms, active, emitted)
+            if self._speculating:
+                if self.speculate_tree is not None:
+                    self._run_verify_tree(ms, active, emitted)
+                else:
+                    self._run_verify(ms, active, emitted)
+            else:
+                self._run_decode(ms, active, emitted)
         self.stats["steps"] += 1
         return emitted
 
@@ -478,6 +564,18 @@ class Engine:
     def queue_depth(self) -> int:
         return len(self._queue)
 
+    @property
+    def acceptance_rate(self) -> float | None:
+        """Engine-wide accepted / proposed draft tokens (None before the
+        drafter's first proposal)."""
+        if not self.stats["draft_tokens"]:
+            return None
+        return self.stats["draft_accepted"] / self.stats["draft_tokens"]
+
+    @property
+    def _speculating(self) -> bool:
+        return bool(self.speculate_k) and not self._drafter_quarantined
+
     def metrics(self) -> dict:
         """Host counters, occupancy, the attention backend and, per
         ported kernel, its launch count in this process."""
@@ -497,6 +595,8 @@ class Engine:
                  "free_pages": p.free_pages, "page_bytes": p.page_bytes()}]
             out["paged_attn"] = {"requested": self.paged_attn_requested,
                                  "resolved": self.paged_attn}
+        if self.stats.get("draft_tokens"):
+            out["acceptance_rate"] = self.acceptance_rate
         return out
 
     # -- internals -----------------------------------------------------
@@ -634,11 +734,14 @@ class Engine:
             ms.table[s, pidx] = page
 
     def _ensure_decode_pages(self, ms: _ModelState, active) -> np.ndarray:
-        """Back the page each active slot's next token lands in; returns
-        the active mask recomputed after any page-pressure vacates."""
+        """Back the pages the step writes for each active slot — its
+        next token, or the whole ``k + 1`` verify window when speculating
+        — before dispatch; returns the active mask recomputed after any
+        page-pressure vacates."""
+        ahead = self.speculate_k + 1 if self._speculating else 1
         for s in np.nonzero(active)[0]:
             if self._slots[s] is not None:
-                self._ensure_pages(ms, s, int(self._len[s]) + 1)
+                self._ensure_pages(ms, s, int(self._len[s]) + ahead)
         return self._decoding(ms)
 
     def check_paged(self) -> None:
@@ -738,6 +841,213 @@ class Engine:
         for s in np.nonzero(active)[0]:
             self._len[s] += 1  # the fed token's KV landed this step
             self._commit(int(s), int(toks[s]), emitted)
+
+    # -- speculation -----------------------------------------------------
+
+    def _quarantine_drafter(self, reason: str, r: Request | None = None,
+                            proposed: int = 0) -> None:
+        """Disable a misbehaving drafter for good: drafts were hints, so
+        outputs are unchanged and the engine decodes without it from now
+        on.  ``proposed`` tokens that came back before the fault are
+        charged as proposed and rejected."""
+        self._drafter_quarantined = True
+        self.drafter_quarantine_reason = reason
+        self.stats["drafter_quarantined"] = 1
+        if r is not None and proposed:
+            r.draft_proposed += proposed
+            self.stats["draft_tokens"] += proposed
+
+    def _context(self, r: Request) -> np.ndarray:
+        return np.concatenate([r.prompt, np.asarray(r.tokens, np.int32)])
+
+    def _checked_draft(self, raw, r: Request, vocab: int,
+                       what: str, size: int | None = None):
+        """``raw`` as an int32 draft, or None after quarantining the
+        drafter for a malformed (non-integer; with ``size``, not exactly
+        that many tokens) or out-of-vocab proposal."""
+        draft = np.asarray(raw).reshape(-1)
+        if (size is not None and draft.size != size) or (
+                draft.size and draft.dtype.kind not in "iu"):
+            self._quarantine_drafter(
+                f"{what} returned a malformed proposal (size {draft.size}, "
+                f"dtype {draft.dtype})", r, int(draft.size))
+            return None
+        if draft.size and (int(draft.min()) < 0
+                           or int(draft.max()) >= vocab):
+            self._quarantine_drafter(
+                f"{what} returned out-of-vocab token ids", r,
+                int(draft.size))
+            return None
+        return draft.astype(np.int32)
+
+    def _gather_drafts(self, ms: _ModelState, active, k: int):
+        """Host-side proposals ``[(slot, draft)]`` for every decoding
+        slot that drafted; None when the drafter raised or proposed a
+        malformed or out-of-vocab draft (it is quarantined, and the
+        caller runs the plain decode step)."""
+        proposed = []
+        for s in np.nonzero(active)[0]:
+            r = self._slots[s]
+            try:
+                raw = np.asarray(self.drafter.propose(self._context(r), k))
+                raw = raw.reshape(-1)[:k]
+            except Exception as exc:  # noqa: BLE001 — isolation by design
+                self._quarantine_drafter(
+                    f"propose() raised {type(exc).__name__}: {exc}")
+                return None
+            draft = self._checked_draft(raw, r, ms.config.vocab_size,
+                                        "propose()")
+            if draft is None:
+                return None
+            if draft.size:
+                proposed.append((int(s), draft))
+        return proposed
+
+    def _gather_tree_drafts(self, ms: _ModelState, active, shape):
+        """Tree proposals behind the same wall as :meth:`_gather_drafts`:
+        a ``propose_tree`` that raises or returns anything but ``T``
+        in-vocab integer tokens quarantines the drafter (None).  A slot
+        whose drafter has no proposal (None) runs the no-candidate path
+        in the window."""
+        proposed = []
+        for s in np.nonzero(active)[0]:
+            r = self._slots[s]
+            try:
+                raw = self.drafter.propose_tree(self._context(r), shape)
+            except Exception as exc:  # noqa: BLE001 — isolation by design
+                self._quarantine_drafter(
+                    f"propose_tree() raised {type(exc).__name__}: {exc}")
+                return None
+            if raw is None:
+                continue
+            draft = self._checked_draft(raw, r, ms.config.vocab_size,
+                                        "propose_tree()",
+                                        shape.num_candidates)
+            if draft is None:
+                return None
+            proposed.append((int(s), draft))
+        return proposed
+
+    def _window_tokens(self, proposed, width: int):
+        """``(num_slots, width + 1)`` window tokens — each slot's last
+        token, then its draft — and the per-slot draft counts; charges
+        the proposals to their requests."""
+        tokens = np.zeros((self.num_slots, width + 1), np.int64)
+        tokens[:, 0] = self._last
+        n_draft = np.zeros(self.num_slots, np.int64)
+        for s, draft in proposed:
+            tokens[s, 1:1 + draft.size] = draft
+            n_draft[s] = draft.size
+            self._slots[s].draft_proposed += int(draft.size)
+        return tokens, n_draft
+
+    def _replay(self, active, out, n_emit, n_draft, counter: str,
+                emitted) -> None:
+        """Commit each active slot's emitted window tokens in order; EOS
+        or the budget retires a slot mid-window and drops the rest —
+        tokens plain decode would never have produced."""
+        out = out.cpu().numpy()
+        n_emit = n_emit.cpu().numpy()
+        self.stats[counter] += 1
+        self.stats["active_slot_steps"] += int(active.sum())
+        self.stats["draft_tokens"] += int(n_draft.sum())
+        for s in np.nonzero(active)[0]:
+            r = self._slots[s]
+            accepted = int(n_emit[s]) - 1
+            r.draft_accepted += accepted
+            self.stats["draft_accepted"] += accepted
+            for j in range(int(n_emit[s])):
+                if self._slots[s] is not r:
+                    break  # retired (EOS / budget / cancel) mid-window
+                # Each commit lands the K/V of the token fed before it.
+                self._len[s] += 1
+                self._commit(int(s), int(out[s, j]), emitted)
+
+    def _row_generators(self, active) -> list:
+        return [g if a else None for g, a in zip(self._gens, active.tolist())]
+
+    def _run_verify(self, ms: _ModelState, active, emitted) -> None:
+        """Draft on the host, verify on the device: up to ``speculate_k``
+        proposals per decoding slot ride the window behind the slot's
+        last token (one ``k + 1`` forward that writes the window's K/V
+        before attending — in paged kernel mode the paged-window kernel
+        at per-slot depths) and the accepted prefix plus the window's
+        own next token commit in order.  A step where no slot drafted
+        runs the plain decode step."""
+        k = self.speculate_k
+        proposed = self._gather_drafts(ms, active, k)
+        if not proposed:  # nothing drafted, or the drafter was just cut
+            self._run_decode(ms, active, emitted)
+            return
+        tokens, n_draft = self._window_tokens(proposed, k)
+        tokens = self._to_device(tokens)
+        lengths = self._to_device(self._len, torch.int32)
+        if self._paged:
+            logits, _ = _forward_paged(
+                ms.model, tokens, ms.pool.pages,
+                self._to_device(ms.table, torch.int32), lengths,
+                self._to_device(active, torch.bool), impl=self.paged_attn)
+        else:
+            logits, _ = _forward_cached(ms.model, tokens, ms.cache, lengths)
+        out, n_emit = verify_tokens(
+            logits, tokens[:, 1:], self._to_device(n_draft), self._temps,
+            self._topk, self._topp, self._row_generators(active))
+        self._replay(active, out, n_emit, n_draft, "verify_steps", emitted)
+
+    def _run_verify_tree(self, ms: _ModelState, active, emitted) -> None:
+        """Draft a token tree on the host, verify it in one tree-masked
+        forward that writes nothing, then commit only the accepted
+        root-to-leaf path's K/V: path node ``d`` at position ``len + d``
+        (in the dense arena unconditionally — past the accepted depth it
+        lands beyond the row's length and is overwritten before it is
+        visible; in the pool only for ``d <= accepted``, so rejected
+        branches and depths write just the scratch page).  Slots without
+        a proposal run the no-candidate path; a step where no slot
+        drafted runs the plain decode step."""
+        shape = self.speculate_tree
+        proposed = self._gather_tree_drafts(ms, active, shape)
+        if not proposed:
+            self._run_decode(ms, active, emitted)
+            return
+        tokens, n_cand = self._window_tokens(proposed,
+                                             shape.num_candidates)
+        tokens = self._to_device(tokens)
+        lengths = self._to_device(self._len)
+        tree = (shape.depths, shape.ancestors)
+        if self._paged:
+            table = self._to_device(ms.table, torch.int32)
+            if self.paged_attn == "kernel":
+                logits, wk, wv = _forward_tree_paged(
+                    ms.model, tokens, ms.pool.pages, table, lengths, *tree)
+            else:
+                logits, wk, wv = _forward_tree(
+                    ms.model, tokens, gather_pages(ms.pool.pages, table),
+                    lengths, *tree)
+        else:
+            logits, wk, wv = _forward_tree(ms.model, tokens, ms.cache,
+                                           lengths, *tree)
+        out, n_emit, path = verify_tree_tokens(
+            logits, tokens[:, 1:], shape.parents, n_cand, self._temps,
+            self._topk, self._topp, self._row_generators(active))
+        # Every layer in one write per depth: the KV store viewed with
+        # the layer axis behind the position, (pages or slots, position,
+        # layers, kv, dh), takes path node d's (slots, 1, layers, kv, dh).
+        k_all, v_all = (ms.pool.pages if self._paged else ms.cache)
+        k_all, v_all = (b.permute(1, 2, 0, 3, 4) for b in (k_all, v_all))
+        rows = torch.arange(self.num_slots, device=self.device)
+        act = self._to_device(active, torch.bool)
+        for d in range(path.shape[1]):
+            node = path[:, d]
+            k_d, v_d = (w[:, rows, node].transpose(0, 1)[:, None]
+                        for w in (wk, wv))
+            if self._paged:
+                write_token_pages((k_all, v_all), k_d, v_d, table,
+                                  lengths + d, act & (d < n_emit))
+            else:
+                update_cache_rows(k_all, k_d, lengths + d)
+                update_cache_rows(v_all, v_d, lengths + d)
+        self._replay(active, out, n_emit, n_cand, "tree_verify_steps",
+                     emitted)
 
     def _commit(self, s: int, tok: int, emitted) -> None:
         r = self._slots[s]

@@ -9,6 +9,11 @@ counterpart of ``examples/serve_gpt2.py``.
     python -m tpudp_torch.serve_cli --device cpu --layers 2 --d-model 64 \\
         --vocab 256 --paged 64
 
+    # Speculative decoding: n-gram drafts verified as a token tree (the
+    # paged-tree kernel on the card):
+    python -m tpudp_torch.serve_cli --device cpu --paged 64 \\
+        --speculate-k 3 --speculate-tree fork2x2
+
 Weights are random, drawn from ``--seed``: the output shows the serving
 path, not a trained model.  Request 0's tokens stream as they land while
 the others decode in the same batched steps.
@@ -46,6 +51,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--paged", type=int, default=0, metavar="KV_PAGES",
                    help="paged KV with this many pages of --prefill-chunk "
                         "tokens (0: the dense slot arena)")
+    p.add_argument("--speculate-k", type=int, default=0, metavar="K",
+                   help="speculative decoding with up to K n-gram draft "
+                        "tokens per step (0: off)")
+    p.add_argument("--speculate-tree", default=None, metavar="NAME",
+                   help="verify drafts as this token tree (chain2, "
+                        "chain3, chain4, fork2x2, fork3+1); needs "
+                        "--speculate-k >= its depth")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for a rehearsal)")
     p.add_argument("--seed", type=int, default=0)
@@ -56,6 +68,8 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--temperature must be >= 0")
     if args.paged < 0:
         p.error("--paged must be >= 0")
+    if args.speculate_k < 0:
+        p.error("--speculate-k must be >= 0")
     return args
 
 
@@ -71,7 +85,8 @@ def main(argv=None) -> dict:
     engine = Engine(build(cfg, args.seed, device), device=device,
                     num_slots=args.num_slots,
                     prefill_chunk=math.gcd(args.prefill_chunk, args.seq_len),
-                    kv_pages=args.paged)
+                    kv_pages=args.paged, speculate_k=args.speculate_k,
+                    speculate_tree=args.speculate_tree)
     print(f"[serve] RANDOM-INIT weights from seed {args.seed} on "
           f"{engine.device}; paged_attn="
           f"{engine.paged_attn if args.paged else 'dense arena'}")
@@ -103,10 +118,17 @@ def main(argv=None) -> dict:
                  f", pool {pool.used_pages}/{pool.num_pages} pages, "
                  f"{engine.stats['page_pressure_vacates']} pressure vacates,"
                  f" kernel launches {m['kernel_launches']}")
+    spec = ""
+    if args.speculate_k:
+        rate = engine.acceptance_rate
+        spec = (f" | verify steps={engine.stats['verify_steps']} tree "
+                f"verify steps={engine.stats['tree_verify_steps']} draft "
+                f"acceptance="
+                f"{'n/a' if rate is None else format(rate, '.2f')}")
     print(f"[serve] {len(handles)} requests, {total} tokens in {dt:.3f}s "
           f"({total / dt:.1f} tokens/s on {engine.device}) | decode steps="
           f"{engine.stats['decode_steps']} prefill chunks="
-          f"{engine.stats['prefill_chunks']}{extra}")
+          f"{engine.stats['prefill_chunks']}{extra}{spec}")
     return m
 
 
