@@ -23,6 +23,15 @@ which fails the run (nonzero exit, no result line) when it fails:
      as strided views of one projection, the trees fork2x2, fork3+1 and
      chain4, GPT-2 small's heads and a grouped-query shape, per-layer and
      whole-pool, with phase 3's tolerances;
+  3c. int8 kernels vs plain — the int8 variants of the paged-decode and
+     paged-window kernels against their plain version (dequantize, then
+     the einsum) on phase 3's fragmented tables over pools quantized by
+     the port's ``_quantize_kv`` (one all-zero vector included), GPT-2
+     small's heads (12/12) and LLaMA-GQA's (12/3), decode / prefill /
+     3-token windows, per-layer and whole-pool, float32 queries (atol =
+     rtol = 2e-5: the plain path dequantizes to the same float32 values)
+     and bfloat16 queries (phase 3's bf16 tolerance: the plain path
+     rounds the dequantized K/V to bf16, the kernels keep float32);
   4. main path — GPT-2 small at full width (random weights from --seed,
      float32) served by ``Engine(kv_pages=512)`` on the card, which
      resolves to the CUDA kernels; 8 greedy requests of 17-300 prompt
@@ -31,7 +40,9 @@ which fails the run (nonzero exit, no result line) when it fails:
      Both kernels of that path must have launched in that run, the page
      bookkeeping must check, and the tokens must equal the same engine's
      on the plain PyTorch attention — or differ first where the plain
-     logits' top-2 gap is below 1e-3 (a near-tie of the random weights);
+     logits' top-2 gap is below 1e-3 (a near-tie of the random weights).
+     Then one scheduler step with 8 slots decoding runs under
+     ``torch.profiler`` (wall ms, device kernels, device busy share);
   4b. speculative main path — the same model and engine geometry with
      ``speculate_k=4`` and ``NgramDrafter(max_ngram=3, min_ngram=2)``, then
      with ``speculate_k=2, speculate_tree="fork2x2"``, serving 8 greedy
@@ -44,6 +55,19 @@ which fails the run (nonzero exit, no result line) when it fails:
      run), and every plain decode step the paged-decode kernel; the
      tokens must agree with the plain engine's under phase 4's near-tie
      rule;
+  4c. LLaMA main path — ``benchmarks/matrix_bench.py``'s ``llama_gqa``
+     widths (12 layers, d 768, 12 query heads over 3 KV heads, SwiGLU
+     hidden 2048, vocab 32000; context 1024, float32, random weights
+     from --seed) served by ``Engine(kv_pages=512, kv_dtype="int8")`` on
+     phase 4's traffic, three times: on the int8 kernels, on the plain
+     attention over the same int8 pool, and on an fp32 pool through the
+     fp kernels at 4 query heads per KV head.  The int8 run must launch
+     each int8 kernel once per layer and decode step or prefill chunk
+     and no fp kernel, its page bookkeeping must check, and its tokens
+     must agree with the plain int8 run's under phase 4's near-tie rule
+     (the gap read from the plain int8 prefill); agreement with the fp32
+     run, page bytes, tokens/s, TTFT and a profiled decode step on each
+     pool are printed, not gated;
   5. flash kernels vs plain — the forward (``o``, ``lse``), dq and dk/dv
      kernels against their plain PyTorch versions on q, k, v taken as
      strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
@@ -66,7 +90,9 @@ which fails the run (nonzero exit, no result line) when it fails:
   7. timing — each kernel at its main path's shapes against its byte /
      flop bound, its plain version and one PyTorch library call (a
      yardstick the port never calls: ``scaled_dot_product_attention`` on
-     the gathered K/V for the paged kernels — for the tree kernel the
+     the gathered K/V for the paged kernels — dequantized, with the KV
+     heads expanded, for the int8 variants at phase 4c's shapes; for the
+     tree kernel the
      gathered cache K/V and the window under a boolean mask; its causal
      forward, and its autograd backward — dq, dk and dv in one — for the
      flash kernels), with CUDA events.
@@ -84,6 +110,7 @@ import subprocess
 import sys
 import time
 import traceback
+from types import SimpleNamespace
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -94,12 +121,19 @@ NEW_TOKENS = 32  # per request on the main path
 REPLACES = {
     "paged_decode": "tpudp/ops/paged_attention.py:161",
     "paged_window": "tpudp/ops/paged_attention.py:319",
+    "paged_decode_int8": "tpudp/ops/paged_attention.py:161",
+    "paged_window_int8": "tpudp/ops/paged_attention.py:319",
     "paged_tree": "tpudp/ops/paged_attention.py:474",
     "flash_fwd": "tpudp/ops/flash_attention.py:65",
     "flash_dq": "tpudp/ops/flash_attention.py:152",
     "flash_dkv": "tpudp/ops/flash_attention.py:192",
 }
-SOURCES = {name: f"tpudp_torch/csrc/{name}.cu" for name in REPLACES}
+# The int8 variants are entry points of their fp kernel's source.
+SOURCES = {name: f"tpudp_torch/csrc/{name.removesuffix('_int8')}.cu"
+           for name in REPLACES}
+# LLaMA-GQA at benchmarks/matrix_bench.py's llama_gqa widths.
+LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
+                 d_model=768, num_heads=12, num_kv_heads=3, mlp_hidden=2048)
 # Flash checks: name -> (batch, time, heads, head dim).
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "dh128-t256": (2, 256, 4, 128), "t96-clamped": (2, 96, 4, 64)}
@@ -262,6 +296,65 @@ def check_tree_kernels(torch, pa, device) -> None:
                            f"version: {failures}")
 
 
+def int8_pool(torch, k, v, zero_at):
+    """``(k8, v8, k_scale, v_scale)`` from float32 pages by the port's
+    quantizer, with the K and V vectors at index ``zero_at`` zeroed
+    first (a zero vector keeps scale 1)."""
+    from tpudp_torch.models.generate import _quantize_kv
+
+    k, v = k.clone(), v.clone()
+    k[zero_at] = 0.0
+    v[zero_at] = 0.0
+    (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+    return k8, v8, ks, vs
+
+
+def check_int8_kernels(torch, pa, device) -> None:
+    """Phase 3c: the int8 variants of K4 and K5 against their plain
+    version on phase 3's fragmented tables."""
+    shapes = {"gpt2": dict(h=12, kv=12, dh=64),
+              "llama-gqa": dict(h=12, kv=3, dh=64)}
+    traffic = {"decode": (1, False), "prefill": (16, True),
+               "window3": (3, False)}
+    tol = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    failures = []
+    seed = 200
+    for sname, dims in shapes.items():
+        for tname, (cur, scalar) in traffic.items():
+            for dtype in (torch.float32, torch.bfloat16):
+                for layer in (None, 1):
+                    seed += 1
+                    q, k, v, table, pos = fragmented_case(
+                        torch, b=8, page_tokens=16, max_pages=64, cur=cur,
+                        scalar_pos=scalar, dtype=torch.float32, layers=2,
+                        seed=seed, device=device, **dims)
+                    # A visible all-zero vector: slot 0's first key.
+                    zero_at = (slice(None), int(table[0, 0]), 0, 0)
+                    pool = int8_pool(torch, k, v, zero_at)
+                    q = q.to(dtype)
+                    sl = tuple(b[1] for b in pool)
+                    pages = pool if layer is not None else sl
+                    got = pa.paged_attention(q, pages, table, pos,
+                                             dtype=dtype, impl="kernel",
+                                             layer=layer)
+                    want = pa._einsum_paged(q, sl, table, pos, dtype=dtype,
+                                            grouped=True)
+                    torch.cuda.synchronize()
+                    t = tol[dtype]
+                    err, ok = compare(torch, got, want, t)
+                    name = (f"{sname} {tname} {str(dtype)[6:]} "
+                            f"{'whole-pool' if layer is not None else 'layer'}")
+                    print(f"kernel-check int8 {name}: max_abs_err={err:.3e} "
+                          f"atol={t['atol']} rtol={t['rtol']} "
+                          f"{'ok' if ok else 'MISS'}", flush=True)
+                    if not ok:
+                        failures.append(name)
+    if failures:
+        raise SmokeFailure(f"the int8 kernels disagree with their plain "
+                           f"version: {failures}")
+
+
 # -- phase 4: the main path ----------------------------------------------
 
 
@@ -276,13 +369,13 @@ def make_prompts(np, seed: int, vocab: int):
     return prompts
 
 
-def serve(torch, Engine, model, prompts, paged_attn):
+def serve(torch, Engine, model, prompts, paged_attn, kv_dtype=None):
     """Serve the prompts on one engine: 0-6 at once, 7 (prompt 0's
     prefix) once request 0 has retired; the page bookkeeping is checked
     at both points, outside the timing.  Returns the engine, handles and
     wall seconds of the serving."""
     eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
-                 kv_pages=512, paged_attn=paged_attn)
+                 kv_pages=512, paged_attn=paged_attn, kv_dtype=kv_dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.submit(p, NEW_TOKENS) for p in prompts[:7]]
@@ -302,10 +395,33 @@ def serve(torch, Engine, model, prompts, paged_attn):
 SERVE_KERNELS = ("paged_decode", "paged_window")  # phase 4's path
 
 
-def agree_with_plain(torch, np, model, prompts, handles, ref, label):
+def int8_plain_logits(torch, np, model, seq):
+    """The last position's logits of ``seq`` prefilled in 16-token
+    chunks through a fresh int8 pool on the plain attention, as the plain
+    int8 engine prefills."""
+    from tpudp_torch.models.generate import Int8Pages, _forward_paged
+
+    dev = model.wte.weight.device
+    n_pages = -(-seq.size // 16)
+    pool = Int8Pages.zeros(model.config, n_pages + 1, 16, dev)
+    table = torch.arange(n_pages, device=dev, dtype=torch.int32)[None]
+    active = torch.ones(1, dtype=torch.bool, device=dev)
+    padded = np.zeros(n_pages * 16, np.int64)
+    padded[:seq.size] = seq
+    tokens = torch.as_tensor(padded, device=dev)[None]
+    with torch.no_grad():
+        for start in range(0, seq.size, 16):
+            logits, _ = _forward_paged(model, tokens[:, start:start + 16],
+                                       pool, table, start, active)
+    return logits[0, (seq.size - 1) % 16]
+
+
+def agree_with_plain(torch, np, model, prompts, handles, ref, label,
+                     kv_dtype=None):
     """Tokens of ``handles`` equal the plain engine's ``ref`` or differ
     first where the plain logits' top-2 gap is below 1e-3 (a near-tie
-    of the random weights); raises otherwise."""
+    of the random weights); raises otherwise.  Over an int8 pool the gap
+    is read from the plain int8 prefill of the sequence."""
     from tpudp_torch.models.generate import KVCache, _forward_cached
 
     for i, (h, r) in enumerate(zip(handles, ref)):
@@ -314,12 +430,16 @@ def agree_with_plain(torch, np, model, prompts, handles, ref, label):
         t = next((j for j, (a, b) in enumerate(zip(h.tokens, r.tokens))
                   if a != b), min(len(h.tokens), len(r.tokens)))
         seq = np.concatenate([prompts[i], np.asarray(r.tokens[:t])])
-        cache = KVCache.zeros(model.config, 1, seq.size, "cuda")
-        with torch.no_grad():
-            logits, _ = _forward_cached(
-                model, torch.as_tensor(seq, device="cuda")[None].long(),
-                cache, 0)
-        top2 = torch.topk(logits[0, -1], 2).values
+        if kv_dtype == "int8":
+            last = int8_plain_logits(torch, np, model, seq)
+        else:
+            cache = KVCache.zeros(model.config, 1, seq.size, "cuda")
+            with torch.no_grad():
+                logits, _ = _forward_cached(
+                    model, torch.as_tensor(seq, device="cuda")[None].long(),
+                    cache, 0)
+            last = logits[0, -1]
+        top2 = torch.topk(last, 2).values
         gap = float(top2[0] - top2[1])
         print(f"{label} request {i}: first differing token {t}, plain "
               f"top-2 gap {gap:.3e}", flush=True)
@@ -372,6 +492,7 @@ def main_path(torch, np, pa, seed: int):
     print(f"main-path plain engine: {n_tok / ref_wall:.1f} tokens/s",
           flush=True)
     agree_with_plain(torch, np, model, prompts, handles, ref, "main-path")
+    profile_decode_step(torch, Engine, model, prompts, "main-path kernel")
     return model, prompts, launches
 
 
@@ -443,10 +564,11 @@ def spec_main_path(torch, np, pa, model, prompts, seed: int) -> dict:
         if steps == 0 or st["draft_accepted"] == 0:
             raise SmokeFailure(f"the {label} run verified {steps} windows "
                                f"and accepted {st['draft_accepted']} drafts")
-        want = {"paged_decode": cfg.num_layers * st["decode_steps"],
-                "paged_window": cfg.num_layers * (
-                    st["prefill_chunks"] + st["verify_steps"]),
-                "paged_tree": cfg.num_layers * st["tree_verify_steps"]}
+        want = {name: 0 for name in pa.KERNELS}
+        want.update(paged_decode=cfg.num_layers * st["decode_steps"],
+                    paged_window=cfg.num_layers * (
+                        st["prefill_chunks"] + st["verify_steps"]),
+                    paged_tree=cfg.num_layers * st["tree_verify_steps"])
         if launches != want:
             raise SmokeFailure(f"the {label} run launched {launches}, its "
                                f"steps need {want}")
@@ -455,6 +577,80 @@ def spec_main_path(torch, np, pa, model, prompts, seed: int) -> dict:
         if label == "tree":
             tree_launches = launches["paged_tree"]
     return {"paged_tree": tree_launches}
+
+
+# -- phase 4c: the LLaMA main path over int8 pages -------------------------
+
+
+def first_divergence(a, b) -> int | None:
+    return next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+
+def llama_main_path(torch, np, pa, seed: int) -> dict:
+    """Phase 4c: LLaMA-GQA served over an int8 pool through the int8
+    kernels, beside the plain attention over int8 and the fp kernels
+    over an fp32 pool."""
+    from tpudp_torch.models import llama
+    from tpudp_torch.serve import Engine
+
+    cfg = llama.LlamaConfig(**LLAMA_GQA)
+    model = llama.build(cfg, seed, "cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"llama-path model: {n_params} parameters, "
+          f"{4 * n_params / 1e9:.3f} GB in float32", flush=True)
+    prompts = make_prompts(np, seed, cfg.vocab_size)
+    runs = {}
+    for label, paged_attn, kv_dtype in (("int8 kernel", None, "int8"),
+                                        ("int8 plain", "einsum", "int8"),
+                                        ("fp32 kernel", None, None)):
+        for fn in pa.KERNELS.values():
+            fn.launches = 0
+        eng, handles, wall = serve(torch, Engine, model, prompts,
+                                   paged_attn, kv_dtype)
+        launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
+        if not all(h.ok and len(h.tokens) == NEW_TOKENS for h in handles):
+            raise SmokeFailure(f"a request of the {label} run did not "
+                               f"complete")
+        page_bytes = eng.page_pool.page_bytes()
+        print(f"llama-path {label} engine: {serve_summary(handles, wall)}, "
+              f"page_bytes {page_bytes}, launches {launches}, stats "
+              f"{dict(eng.stats)}, paged_attn {eng.metrics()['paged_attn']}",
+              flush=True)
+        runs[label] = (eng, handles, launches, page_bytes)
+    eng, handles, launches, _ = runs["int8 kernel"]
+    st = eng.stats
+    want = {name: 0 for name in pa.KERNELS}
+    want["paged_decode_int8"] = cfg.num_layers * st["decode_steps"]
+    want["paged_window_int8"] = cfg.num_layers * st["prefill_chunks"]
+    if eng.paged_attn != "kernel" or launches != want:
+        raise SmokeFailure(f"the int8 run ({eng.paged_attn}) launched "
+                           f"{launches}, its steps need {want}")
+    if any(runs["int8 plain"][2].values()):
+        raise SmokeFailure("the plain int8 engine launched a kernel")
+    fp_launches = runs["fp32 kernel"][2]
+    if not (fp_launches["paged_decode"] and fp_launches["paged_window"]):
+        raise SmokeFailure(f"the fp32 run launched {fp_launches}")
+    if st["prefix_hit_tokens"] < 64:
+        raise SmokeFailure(f"the shared prefix was not mapped: {dict(st)}")
+    agree_with_plain(torch, np, model, prompts, handles,
+                     runs["int8 plain"][1], "llama-path int8", "int8")
+    fp_handles = runs["fp32 kernel"][1]
+    same = sum(h.tokens == r.tokens for h, r in zip(handles, fp_handles))
+    firsts = [first_divergence(h.tokens, r.tokens)
+              for h, r in zip(handles, fp_handles)]
+    print(f"llama-path int8 vs fp32 pool: {same}/{len(handles)} requests "
+          f"identical, first divergence per request {firsts}; "
+          f"page_bytes int8 {runs['int8 kernel'][3]} vs fp32 "
+          f"{runs['fp32 kernel'][3]} "
+          f"({runs['fp32 kernel'][3] / runs['int8 kernel'][3]:.2f}x tokens "
+          f"per byte)", flush=True)
+    for label, kv_dtype in (("int8", "int8"), ("fp32", None)):
+        profile_decode_step(torch, Engine, model, prompts,
+                            f"llama-path {label} kernel", kv_dtype=kv_dtype)
+    del model, runs
+    torch.cuda.empty_cache()
+    return {name: launches[name]
+            for name in ("paged_decode_int8", "paged_window_int8")}
 
 
 # -- phase 5: flash kernels vs their plain versions -----------------------
@@ -576,18 +772,19 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_step(torch, step, state, x, y) -> dict | None:
-    """Device time of one real training step by kernel category (ms), the
-    largest kernels outside the port's own and the matmuls, and the
-    device's busy share of the step's wall time, from ``torch.profiler``;
-    None when the profiler saw no device kernel."""
+def profile_call(torch, fn) -> dict | None:
+    """Device time of one call of ``fn`` by kernel category (ms), the
+    largest kernels outside the port's own and the matmuls, the number
+    of device kernels and the device's busy share of the call's wall
+    time, from ``torch.profiler``; None when the profiler saw no device
+    kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(state, x, y)
+        fn()
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     # Device activity only: GPU-timeline annotations such as
@@ -611,10 +808,34 @@ def profile_step(torch, step, state, x, y) -> dict | None:
         busy_us += max(0.0, end - max(start, edge))
         edge = max(edge, end)
     return {"wall_ms": wall_us / 1e3, "busy_share": busy_us / wall_us,
+            "kernels": len(kernels),
             "device_ms": {k: round(v, 3) for k, v in sorted(
                 by_cat.items(), key=lambda kv: -kv[1])},
             "top_other_ms": {k: round(v, 3) for k, v in sorted(
                 other.items(), key=lambda kv: -kv[1])[:4]}}
+
+
+def profile_decode_step(torch, Engine, model, prompts, label, **kw):
+    """One scheduler step with all 8 requests decoding (96 new tokens
+    each, so none has finished when the last prefill chunk lands), under
+    ``torch.profiler``; prints and returns :func:`profile_call`'s dict."""
+    eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
+                 kv_pages=512, **kw)
+    for p in prompts:
+        eng.submit(p, 3 * NEW_TOKENS)
+    while eng._next_prefill_slot() is not None or eng.queue_depth:
+        eng.step()
+    eng.step()  # one plain decode step off the clock
+    prof = profile_call(torch, eng.step)
+    eng.close()
+    print(f"{label} decode-step profile (8 slots decoding): "
+          + ("profiler saw no device kernel: device time not measured"
+             if prof is None else
+             f"{prof['wall_ms']:.2f} ms wall, {prof['kernels']} device "
+             f"kernels, device busy {100 * prof['busy_share']:.1f}%, device "
+             f"ms by kernel {prof['device_ms']}, largest other kernels "
+             f"{prof['top_other_ms']}"), flush=True)
+    return prof
 
 
 def train_run(torch, train, gpt2, cfg, seed, batches, kernels) -> dict:
@@ -645,7 +866,7 @@ def train_run(torch, train, gpt2, cfg, seed, batches, kernels) -> dict:
            "launches": {name: fn.launches for name, fn in kernels.items()},
            "losses": torch.stack(losses).tolist()}
     out["split"] = step_split_ms(torch, F, model, state.optimizer, x, y)
-    out["profile"] = profile_step(torch, step, state, x, y)
+    out["profile"] = profile_call(torch, lambda: step(state, x, y))
     del model, state, step
     torch.cuda.empty_cache()
     return out
@@ -736,16 +957,19 @@ def time_ms(torch, fn, n=50):
     return sorted(times)[n // 2]
 
 
-def timing_case(torch, cfg, pos_list, cur, scalar, device, seed):
+def timing_case(torch, cfg, pos_list, cur, scalar, device, seed,
+                kv_dtype=None):
     """Whole-pool inputs at the main path's shapes: a (layers, 513, 16,
-    heads, dh) float32 pool, one table row per slot mapping distinct
-    pages up to its depth."""
+    kv heads, dh) float32 pool — quantized by the port's quantizer for
+    ``kv_dtype="int8"`` — and one table row per slot mapping distinct
+    pages up to its depth.  Returns ``q, pages, table, pos``."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     page_tokens, max_pages, n_pages = 16, 64, 512
     h, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    kvh = getattr(cfg, "kv_heads", h)
     b = len(pos_list)
     gd = torch.Generator(device=device).manual_seed(seed)
-    shape = (cfg.num_layers, n_pages + 1, page_tokens, h, dh)
+    shape = (cfg.num_layers, n_pages + 1, page_tokens, kvh, dh)
     k = torch.randn(shape, generator=gd, device=device)
     v = torch.randn(shape, generator=gd, device=device)
     perm = torch.randperm(n_pages, generator=g).tolist()
@@ -756,35 +980,40 @@ def timing_case(torch, cfg, pos_list, cur, scalar, device, seed):
     q = torch.randn((b, cur, h, dh), generator=gd, device=device)
     pos = (torch.tensor(pos_list[0]) if scalar
            else torch.tensor(pos_list)).to(device, torch.int32)
-    return q, k, v, table.to(device), pos
+    pages = ((k, v) if kv_dtype is None
+             else int8_pool(torch, k, v, (slice(None), 0, 0, 0)))
+    return q, pages, table.to(device), pos
 
 
-def kernel_record(torch, F, pa, name, q, k, v, table, pos, launches):
+def kernel_record(torch, F, pa, name, q, pages, table, pos, launches):
     """Time kernel ``name``, its plain version and SDPA on the same
     inputs, cycling the layer so successive launches read other pages
     (as a forward does); bound from the bytes and flops these inputs
     need."""
-    layers = k.shape[0]
+    layers = pages[0].shape[0]
     fn = pa.KERNELS[name]
     b, cur, h, dh = q.shape
-    page_tokens = k.shape[2]
+    page_tokens, kvh = pages[0].shape[2], pages[0].shape[3]
     pos_v = pos.expand(b)
     pos_l = pos_v.tolist()
-    itemsize = k.element_size()
 
-    ms = time_ms(torch, lambda i: fn(q, k, v, table, pos, layer=i % layers))
+    def layer_of(i):
+        return tuple(buf[i % layers] for buf in pages)
+
+    ms = time_ms(torch, lambda i: fn(q, *pages, table, pos,
+                                     layer=i % layers))
     plain_ms = time_ms(torch, lambda i: pa._einsum_paged(
-        q, (k[i % layers], v[i % layers]), table, pos, dtype=q.dtype,
-        grouped=True))
-    # SDPA yardstick on K/V gathered (outside the timing) to dense rows.
+        q, layer_of(i), table, pos, dtype=q.dtype, grouped=True))
+    # SDPA yardstick on K/V gathered (dequantized, KV heads expanded to
+    # the query heads) outside the timing to dense rows.
     n_keys = max(pos_l) + cur
     dense_k, dense_v = [], []
     for layer in range(layers):
-        kt, vt = pa.page_tiles((k[layer], v[layer]), table, q.dtype)
-        dense_k.append(kt.flatten(1, 2)[:, :n_keys].permute(0, 2, 1, 3)
-                       .contiguous())
-        dense_v.append(vt.flatten(1, 2)[:, :n_keys].permute(0, 2, 1, 3)
-                       .contiguous())
+        kt, vt = pa.page_tiles(layer_of(layer), table, q.dtype)
+        for dense, t in ((dense_k, kt), (dense_v, vt)):
+            dense.append(t.flatten(1, 2)[:, :n_keys]
+                         .repeat_interleave(h // kvh, dim=2)
+                         .permute(0, 2, 1, 3).contiguous())
     key_pos = torch.arange(n_keys, device=q.device)
     q_pos = pos_v[:, None] + torch.arange(cur, device=q.device)
     mask = (key_pos <= q_pos[..., None])[:, None]  # (b, 1, cur, n_keys)
@@ -792,7 +1021,8 @@ def kernel_record(torch, F, pa, name, q, k, v, table, pos, launches):
     library_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
         qd, dense_k[i % layers], dense_v[i % layers], attn_mask=mask))
     # What these inputs need: every visible K/V row once (distinct
-    # (page, row) pairs over the slots), q read once, out written once.
+    # (page, row) pairs over the slots) with its scales over int8 pages,
+    # q read once, out written once.
     visible = set()
     flops = 0
     tbl = table.cpu().tolist()
@@ -800,12 +1030,13 @@ def kernel_record(torch, F, pa, name, q, k, v, table, pos, launches):
         for key in range(pos_l[s] + cur):
             visible.add((tbl[s][key // page_tokens], key % page_tokens))
         flops += sum(pos_l[s] + j + 1 for j in range(cur)) * h * dh * 4
-    kvh = k.shape[3]
-    bytes_ = (len(visible) * kvh * dh * 2 + 2 * q.numel()) * itemsize
+    row_bytes = dh * pages[0].element_size() + (4 if len(pages) == 4 else 0)
+    bytes_ = (len(visible) * kvh * 2 * row_bytes
+              + 2 * q.numel() * q.element_size())
     peak = FP32_FLOP_PER_S if q.dtype == torch.float32 else BF16_FLOP_PER_S
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / peak
-    err = (fn(q, k, v, table, pos, layer=0).float()
-           - pa._einsum_paged(q, (k[0], v[0]), table, pos, dtype=q.dtype,
+    err = (fn(q, *pages, table, pos, layer=0).float()
+           - pa._einsum_paged(q, layer_of(0), table, pos, dtype=q.dtype,
                               grouped=True).float()).abs().max().item()
     return {"name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -823,8 +1054,8 @@ def tree_record(torch, F, pa, cfg, pos_list, launches):
 
     anc = TREE_SHAPES["fork2x2"].ancestors
     t1 = len(anc)
-    q, k, v, table, pos0 = timing_case(torch, cfg, pos_list, t1, False,
-                                       "cuda", seed=3)
+    q, (k, v), table, pos0 = timing_case(torch, cfg, pos_list, t1, False,
+                                         "cuda", seed=3)
     layers, kvh, dh = k.shape[0], k.shape[3], k.shape[4]
     q, wk, wv = window_views(torch, q, kvh, seed=3)
     b, _, h, _ = q.shape
@@ -884,17 +1115,24 @@ def timings(torch, pa, model, prompts, launches):
     cfg = model.config
     # Decode: the eight slots midway through their completions.
     decode_pos = [p.size + NEW_TOKENS // 2 for p in prompts]
-    q, k, v, table, pos = timing_case(torch, cfg, decode_pos, 1, False,
-                                      "cuda", seed=1)
-    rec = [kernel_record(torch, F, pa, "paged_decode", q, k, v, table,
-                         pos, launches)]
-    del k, v
-    # Prefill: one 16-token chunk of the 300-token prompt at depth 144.
-    q, k, v, table, pos = timing_case(torch, cfg, [144], 16, True, "cuda",
-                                      seed=2)
-    rec.append(kernel_record(torch, F, pa, "paged_window", q, k, v, table,
-                             pos, launches))
-    del k, v
+    # The int8 variants at phase 4c's shapes (LLaMA-GQA, int8 pool,
+    # float32 queries), then the fp kernels at phase 4's (GPT-2 small).
+    llama_cfg = SimpleNamespace(num_layers=12, num_heads=12, kv_heads=3,
+                                d_model=768)
+    rec = []
+    for suffix, case_cfg, kv_dtype in (("_int8", llama_cfg, "int8"),
+                                       ("", cfg, None)):
+        # Decode: the eight slots midway through their completions.
+        q, pages, table, pos = timing_case(torch, case_cfg, decode_pos, 1,
+                                           False, "cuda", 1, kv_dtype)
+        rec.append(kernel_record(torch, F, pa, "paged_decode" + suffix, q,
+                                 pages, table, pos, launches))
+        # Prefill: one 16-token chunk of the 300-token prompt at depth 144.
+        q, pages, table, pos = timing_case(torch, case_cfg, [144], 16, True,
+                                           "cuda", 2, kv_dtype)
+        rec.append(kernel_record(torch, F, pa, "paged_window" + suffix, q,
+                                 pages, table, pos, launches))
+        del pages
     # Tree verify: fork2x2 windows of the eight slots at phase 4's
     # decode depths.
     rec.append(tree_record(torch, F, pa, cfg, decode_pos, launches))
@@ -1012,9 +1250,11 @@ def main(argv=None) -> int:
               f"{sorted(_build.SIGNATURES)}", flush=True)
         check_kernels(torch, pa, "cuda")
         check_tree_kernels(torch, pa, "cuda")
+        check_int8_kernels(torch, pa, "cuda")
         model, prompts, launches = main_path(torch, np, pa, args.seed)
         launches.update(spec_main_path(torch, np, pa, model, prompts,
                                        args.seed))
+        launches.update(llama_main_path(torch, np, pa, args.seed))
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
         records = timings(torch, pa, model, prompts, launches)

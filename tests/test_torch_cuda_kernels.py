@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (paged decode, window and tree, flash forward,
-dq and dk/dv) against their plain PyTorch versions, on the card.  Every test here carries the ``cuda`` marker and skips without a
+"""The port's CUDA kernels (paged decode and window, fp and int8, paged
+tree, flash forward, dq and dk/dv) against their plain PyTorch versions,
+on the card.  Every test here carries the ``cuda`` marker and skips without a
 card: the kernels have no CPU mode.  The file imports no JAX, so it also
 runs where only PyTorch is installed:
 
@@ -63,6 +64,97 @@ def test_kernel_matches_plain(card, traffic, dtype, dh):
     tol = (dict(atol=2e-5, rtol=2e-5) if dt == torch.float32
            else dict(atol=2e-2, rtol=1.6e-2))
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _int8_pool(card, rng, kv, dh):
+    """An int8 pool (LAYERS, P+1, T, kv, dh) with float32 scales, made by
+    the port's quantizer from noise, one all-zero vector included."""
+    from tpudp_torch.models.generate import _quantize_kv
+
+    bufs = []
+    for _ in range(2):
+        x = torch.as_tensor(rng.standard_normal((LAYERS, P + 1, T, kv, dh),
+                                                np.float32))
+        x[:, 0, 3, 0] = 0.0
+        bufs.append(_quantize_kv(x.to(card)))
+    (k8, ks), (v8, vs) = bufs
+    return k8, v8, ks, vs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("traffic", list(TRAFFIC))
+def test_int8_kernel_matches_plain(card, traffic, dtype, heads):
+    """Each int8 variant vs its plain version (dequantize, then the
+    einsum), whole-pool and per layer, MHA and grouped heads: fp32 atol =
+    rtol = 2e-5 (the plain path dequantizes to the same float32 values;
+    the kernel takes the key scale out of the dot product); bf16 atol
+    2e-2 and rtol 1.6e-2 (the plain path rounds the dequantized K/V and
+    the probabilities to bf16, the kernel keeps float32).  One launch
+    counted per call."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(8)
+    h, kv = heads
+    cur, scalar = TRAFFIC[traffic]
+    pages = _int8_pool(card, rng, kv, 64)
+    q = torch.as_tensor(rng.standard_normal((S, cur, h, 64), np.float32)).to(
+        card, dt)
+    pos = torch.as_tensor(np.int32(scalar) if scalar is not None
+                          else VECTOR_POS).to(card)
+    table = torch.as_tensor(TABLE).to(card)
+    kernel = (pa.paged_decode_int8 if traffic == "decode"
+              else pa.paged_window_int8)
+    want = pa._einsum_paged(q, tuple(b[1] for b in pages), table, pos,
+                            dtype=dt, grouped=True)
+    tol = (dict(atol=2e-5, rtol=2e-5) if dt == torch.float32
+           else dict(atol=2e-2, rtol=1.6e-2))
+    for layer in (1, None):
+        before = kernel.launches
+        got = pa.paged_attention(
+            q, pages if layer else tuple(b[1] for b in pages), table, pos,
+            dtype=dt, impl="kernel", layer=layer)
+        assert kernel.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
+    rng = np.random.default_rng(9)
+    k8, v8, ks, vs = (b[0] for b in _int8_pool(card, rng, 4, 64))
+    q = torch.zeros(S, 1, 4, 64, device=card)
+    with pytest.raises(TypeError, match="k_scale must be float32"):
+        pa.paged_decode_int8(q, k8, v8, ks.double(), vs, TABLE, VECTOR_POS)
+    with pytest.raises(TypeError, match="torch.int8"):
+        pa.paged_decode_int8(q, k8.float(), v8.float(), ks, vs, TABLE,
+                             VECTOR_POS)
+    strided = ks.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.paged_decode_int8(q, k8, v8, strided, vs, TABLE, VECTOR_POS)
+
+
+@pytest.mark.cuda
+def test_int8_engine_raises_without_its_kernels(card, monkeypatch, tmp_path):
+    """No nvcc and no built library: an int8 kernel engine raises at its
+    first step; it never serves through the plain version."""
+    from tpudp_torch.models import llama
+    from tpudp_torch.ops import _build
+    from tpudp_torch.serve import Engine
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    cfg = llama.LlamaConfig(vocab_size=64, max_seq_len=64, num_layers=1,
+                            num_heads=4, num_kv_heads=2, d_model=128)
+    eng = Engine(llama.build(cfg, 0, card), num_slots=1, max_len=32,
+                 kv_pages=4, kv_dtype="int8")
+    assert eng.paged_attn == "kernel"
+    eng.submit(np.arange(5, dtype=np.int32), 2)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        eng.step()
 
 
 @pytest.mark.cuda

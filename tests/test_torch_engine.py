@@ -4,9 +4,12 @@ JAX package, at the tiny geometry of tests/test_paged_kernel.py.
 Greedy outputs of the port's paged and dense engines equal JAX
 ``generate()`` and JAX ``Engine(kv_pages=12)`` token for token, with a
 shared-prefix admission (a table write) and page-pressure vacates in the
-traffic.  Sampled requests reproduce themselves alone or beside others,
-vacated or not.  Off the card, nothing falls back silently: the default
-device is the card, and the kernels need one.
+traffic.  Over an int8 pool (``kv_dtype="int8"``) the port's GPT-2 and
+LLaMA-GQA engines give the JAX int8 engine's greedy tokens, plain and
+speculative (sequence and tree), with the fp pool's block tables and
+JAX's dispatch table.  Sampled requests reproduce themselves alone or
+beside others, vacated or not.  Off the card, nothing falls back
+silently: the default device is the card, and the kernels need one.
 """
 
 import jax
@@ -17,13 +20,17 @@ import torch
 
 from tpudp.models.generate import generate as jax_generate
 from tpudp.models.gpt2 import gpt2_small as jax_gpt2_small
+from tpudp.models.llama import llama_small as jax_llama_small
 from tpudp.serve import Engine as JaxEngine
 from tpudp_torch import serve_cli
-from tpudp_torch.models import gpt2
+from tpudp_torch.models import gpt2, llama
 from tpudp_torch.serve import Engine, EngineClosed, QueueFull
+from tpudp_torch.serve.engine import PAGED_FAMILIES, paged_dispatch
 
 TINY = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=2,
             d_model=32)
+LLAMA_GQA = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=4,
+                 num_kv_heads=2, d_model=32)
 NEW = 6
 
 
@@ -127,25 +134,138 @@ def test_kernel_backend_needs_the_card(setup):
     eng = Engine(model, device="cpu", max_len=48, prefill_chunk=8,
                  kv_pages=12)
     m = eng.metrics()
-    assert m["paged_attn"] == {"requested": None, "resolved": "einsum"}
-    assert set(m["kernel_launches"]) == {"paged_decode", "paged_window",
-                                         "paged_tree"}
+    assert m["paged_attn"] == {
+        "requested": None, "resolved": "einsum",
+        "dispatch": dict.fromkeys(("decode_paged", "verify_paged",
+                                   "prefill_paged", "tree_verify_paged"),
+                                  "einsum"),
+        "fallbacks": []}
+    assert set(m["kernel_launches"]) == {
+        "paged_decode", "paged_window", "paged_decode_int8",
+        "paged_window_int8", "paged_tree"}
 
 
 @pytest.mark.parametrize("option,value", [
     ("drafter_timeout_s", 0.5), ("decode_fuse", 4),
-    ("prefix_cache_blocks", 8), ("kv_dtype", "int8"), ("tenants", {}),
-    ("canary_every_s", 1.0)])
+    ("prefix_cache_blocks", 8), ("models", {"draft": None}),
+    ("tenants", {}), ("canary_every_s", 1.0)])
 def test_unported_options_raise(setup, option, value):
     _, _, model, _, _ = setup
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(model, device="cpu", **{option: value})
     Engine(model, device="cpu", max_len=48, **{option: {
         "drafter_timeout_s": None, "decode_fuse": 1,
-        "prefix_cache_blocks": 0, "kv_dtype": None, "tenants": None,
+        "prefix_cache_blocks": 0, "models": None, "tenants": None,
         "canary_every_s": None}[option]})
     with pytest.raises(TypeError, match="unexpected"):
         Engine(model, device="cpu", no_such_option=1)
+
+
+@pytest.fixture(scope="module")
+def families(setup):
+    """Both families' JAX and port models on one weight tree each; the
+    LLaMA-GQA matrices are scaled five-fold (as the speculation tests'
+    GPT-2) so greedy outputs loop and drafts get accepted."""
+    jmodel, jparams, model, prompts, _ = setup
+    tree = jax.tree_util.tree_map(
+        lambda a: a * 5 if a.ndim == 2 else a,
+        llama.random_params(llama.LlamaConfig(**LLAMA_GQA), seed=23))
+    lmodel = llama.Llama(llama.LlamaConfig(**LLAMA_GQA))
+    lmodel.load_state_dict(llama.params_from_jax(tree))
+    rng = np.random.default_rng(24)
+    periodic = [np.tile(rng.integers(0, 61, size=4), 6)[:n].astype(np.int32)
+                for n in (14, 23)]
+    return {"gpt2": (jmodel, jparams, model),
+            "llama_gqa": (jax_llama_small(**LLAMA_GQA),
+                          jax.tree_util.tree_map(jnp.asarray, tree), lmodel),
+            "prompts": prompts + periodic}
+
+
+SPEC = {"plain": {}, "sequence": dict(speculate_k=2),
+        "fork2x2": dict(speculate_k=2, speculate_tree="fork2x2")}
+COUNTERS = ("decode_steps", "verify_steps", "tree_verify_steps",
+            "draft_tokens", "draft_accepted", "prefix_hit_tokens")
+
+
+@pytest.mark.parametrize("mode", list(SPEC))
+@pytest.mark.parametrize("family", ["gpt2", "llama_gqa"])
+def test_int8_engine_matches_jax_int8_engine(families, family, mode):
+    """Greedy serving over int8 pages (quantized at the write, read back
+    dequantized by the plain attention) against the JAX engine's einsum
+    int8 path: tokens equal (the stated tolerance would also take a first
+    divergence at a top-2 gap below 1e-4; none occurs here) and the step,
+    draft and prefix counters equal, with a shared prefix in the traffic;
+    the pool is ``kv_heads`` wide."""
+    jmodel, jparams, model = families[family]
+    prompts = families["prompts"]
+    kw = dict(num_slots=2, max_len=48, prefill_chunk=8, kv_pages=12,
+              kv_dtype="int8", **SPEC[mode])
+    jax_eng = JaxEngine(jmodel, jparams, paged_attn="einsum", **kw)
+    want = _serve(jax_eng, prompts)
+    eng = Engine(model, device="cpu", **kw)
+    assert _serve(eng, prompts) == want
+    assert {c: eng.stats[c] for c in COUNTERS} == {
+        c: jax_eng.stats[c] for c in COUNTERS}
+    assert eng.stats["prefix_hit_tokens"] >= 16
+    if mode != "plain":
+        assert eng.stats["draft_accepted"] > 0
+    pages = eng.page_pool.pages
+    assert pages.k.dtype == torch.int8 and pages.k_scale.dtype == torch.float32
+    assert pages.k.shape[-2] == getattr(model.config, "kv_heads", 2)
+
+
+def test_int8_tables_equal_fp_tables(families):
+    """The same traffic on an fp and an int8 pool, in lockstep: identical
+    block tables after every step (only page payloads quantize), and the
+    int8 pool's page a quarter of the fp32 one's bytes plus scales."""
+    _, _, model = families["llama_gqa"]
+    engines = [Engine(model, device="cpu", num_slots=3, max_len=48,
+                      prefill_chunk=8, kv_pages=7, kv_dtype=kv_dtype)
+               for kv_dtype in (None, "int8")]
+    for eng in engines:
+        for p in families["prompts"]:
+            eng.submit(p, NEW)
+    while engines[0].queue_depth or engines[0].slots_in_use:
+        for eng in engines:
+            eng.step()
+            eng.check_paged()
+        np.testing.assert_array_equal(engines[0]._mstates[None].table,
+                                      engines[1]._mstates[None].table)
+    assert engines[1].stats["page_pressure_vacates"] > 0
+    fp, i8 = (eng.metrics()["page_pools"][0]["page_bytes"]
+              for eng in engines)
+    assert (fp, i8) == (2 * 2 * 8 * 2 * 8 * 4, 2 * 2 * 8 * 2 * (8 + 4))
+
+
+def test_int8_dispatch_matches_jax(setup):
+    """The per-family dispatch table and its fallbacks, as JAX records
+    them: a kernel engine over an int8 pool verifies trees on the einsum
+    path, and nothing else falls back.  (The port's kernel engine needs a
+    card, so its table is checked through ``paged_dispatch``.)"""
+    jmodel, jparams, model, _, _ = setup
+    kw = dict(num_slots=2, max_len=48, prefill_chunk=8, kv_pages=12,
+              speculate_k=2, speculate_tree="fork2x2")
+    for paged_attn, kv_dtype in (("kernel", "int8"), ("kernel", None),
+                                 ("einsum", "int8")):
+        jm = JaxEngine(jmodel, jparams, paged_attn=paged_attn,
+                       kv_dtype=kv_dtype, **kw).metrics()["paged_attn"]
+        want = {f: jm["dispatch"][f] for f in PAGED_FAMILIES}
+        assert paged_dispatch(paged_attn, kv_dtype) == want
+        fallbacks = sorted(f for f, impl in want.items()
+                           if paged_attn == "kernel" and impl != "kernel")
+        assert fallbacks == jm["fallbacks"]
+    m = Engine(model, device="cpu", kv_dtype="int8", **kw).metrics()
+    assert m["paged_attn"]["dispatch"] == paged_dispatch("einsum", "int8")
+    assert m["paged_attn"]["fallbacks"] == []
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(kv_dtype="fp8", kv_pages=12), "kv_dtype must be None or 'int8'"),
+    (dict(kv_dtype="int8"), "requires kv_pages")])
+def test_kv_dtype_validation(setup, kw, match):
+    _, _, model, _, _ = setup
+    with pytest.raises(ValueError, match=match):
+        Engine(model, device="cpu", max_len=48, prefill_chunk=8, **kw)
 
 
 def test_admission_control_and_shutdown(setup):
@@ -173,3 +293,14 @@ def test_serve_cli_rehearsal_on_cpu(capsys):
                         "--requests", "3", "--max-new-tokens", "4"])
     assert m["stats"]["completed"] == 3
     assert "tokens/s on cpu" in capsys.readouterr().out
+
+
+def test_serve_cli_llama_int8_rehearsal_on_cpu(capsys):
+    m = serve_cli.main(["--device", "cpu", "--family", "llama", "--kv-heads",
+                        "2", "--kv-dtype", "int8", "--layers", "2",
+                        "--d-model", "64", "--vocab", "256", "--paged", "64",
+                        "--requests", "3", "--max-new-tokens", "4"])
+    assert m["stats"]["completed"] == 3
+    assert m["page_pools"][0]["kv_dtype"] == "int8"
+    out = capsys.readouterr().out
+    assert "family=llama" in out and "kv_dtype=int8" in out

@@ -107,7 +107,6 @@ def test_op_validation():
     with pytest.raises(ValueError, match="kernel-impl only"):
         pa.paged_attention(torch.as_tensor(q), pages, table, pos,
                            dtype=torch.float32, layer=0)
-    int8 = pages + (torch.ones(P + 1, T, 4), torch.ones(P + 1, T, 4))
-    with pytest.raises(NotImplementedError, match="int8"):
-        pa.paged_attention(torch.as_tensor(q), int8, table, pos,
-                           dtype=torch.float32)
+    with pytest.raises(ValueError, match="k_scale, v_scale"):
+        pa.paged_attention(torch.as_tensor(q), pages + pages[:1], table,
+                           pos, dtype=torch.float32, impl="kernel")

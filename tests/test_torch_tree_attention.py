@@ -116,7 +116,7 @@ def test_tree_op_validation():
     q, k, v, wk, wv = (torch.as_tensor(a) for a in _case("mha", "chain2"))
     anc = _anc("chain2")
     int8 = (k[0], v[0], torch.ones(P + 1, T, 4), torch.ones(P + 1, T, 4))
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(NotImplementedError, match="einsum fallback"):
         pa.tree_paged_attention(q, int8, TABLE, POS0, wk, wv, anc,
                                 dtype=torch.float32)
     with pytest.raises(TypeError, match="query dtype"):
@@ -152,7 +152,7 @@ def test_forward_tree_matches_jax(models, shape):
                               jview, jnp.asarray(POS0), ts.depths,
                               ts.ancestors)
     pool = tgen.KVCache(torch.as_tensor(k), torch.as_tensor(v))
-    view = tgen.gather_pages(pool, torch.as_tensor(TABLE))
+    view = tgen.gather_pages(pool, torch.as_tensor(TABLE), torch.float32)
     for w, g in zip(jview, view):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     with torch.no_grad():

@@ -1,11 +1,14 @@
 // Device helpers shared by every kernel of the port: element loads and
-// stores widened to float32, warp reductions, the masking sentinel of the
-// TPU kernels, the error-string export every library carries, and the
-// (element type, head dim) dispatch of the launch functions.
+// stores widened to float32 (int8 page payloads load the same way), warp
+// reductions, the masking sentinel of the TPU kernels, the error-string
+// export every library carries, and the (element type, head dim)
+// dispatch of the launch functions.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace tpudp {
 
@@ -15,6 +18,9 @@ constexpr unsigned kFullMask = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
@@ -50,6 +56,17 @@ struct Vec16<__nv_bfloat16> {
       o[2 * i] = f.x;
       o[2 * i + 1] = f.y;
     }
+  }
+};
+
+template <>
+struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* o) {
+    const int4 raw = *reinterpret_cast<const int4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(b[i]);
   }
 };
 

@@ -1,22 +1,26 @@
-"""KV-cached decode for GPT-2 — the port of ``tpudp/models/generate.py``'s
-dense cache, paged-pool write and read, and ``generate()``.
+"""KV-cached decode for the GPT-2 and LLaMA families — the port of
+``tpudp/models/generate.py``'s dense cache, paged-pool write and read,
+int8 pages, and ``generate()``.
 
 The decode twins drive the model's own modules (``tpudp_torch.models.
-gpt2``) with the flax model's op order: LayerNorm in float32, matmuls in
+gpt2`` or ``tpudp_torch.models.llama``, chosen by the config's family as
+in JAX) with the flax model's op order: norms in float32, matmuls in
 ``config.dtype``, a float32 softmax.  PyTorch runs eagerly, so where JAX
 returns new buffers these functions write the KV cache and the page pool
 IN PLACE and return the same tensors: a decode step's write is one token
 row, never a copy of the pool.
 
 Ported here: the dense ``KVCache`` arena (``_forward_cached``, the
-port's own oracle), the paged pool's write (:func:`write_token_pages`)
-and read (:class:`_PagedKV` over ``tpudp_torch.ops.paged_attention``),
-:func:`_forward_paged` in slice mode (einsum) and whole-pool mode
-(kernels), the speculative tree forwards (:func:`_forward_tree` over a
-dense view, :func:`gather_pages` to make one from the pool, and
-:func:`_forward_tree_paged` through the block table), and greedy or
-sampled :func:`generate`.  int8 pages, beam search and LLaMA are later
-slices (ROADMAP.md).
+port's own oracle), the paged pool — fp (``KVCache``) or int8
+(:class:`Int8Pages`, quantized at the write by :func:`_quantize_kv`) —
+its write (:func:`write_token_pages`) and read (:class:`_PagedKV` over
+``tpudp_torch.ops.paged_attention``), :func:`_forward_paged` in slice
+mode (einsum) and whole-pool mode (kernels), the speculative tree
+forwards (:func:`_forward_tree` over a dense view, :func:`gather_pages`
+to make one from the pool, and :func:`_forward_tree_paged` through the
+block table), and greedy or sampled :func:`generate`.  Caches and pools
+are ``kv_heads`` wide (LLaMA's GQA).  Beam search is a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from tpudp_torch.models import llama
 from tpudp_torch.models.gpt2 import (GPT2Config, dense, embed_tokens,
                                      layer_norm, lm_head, mlp)
 from tpudp_torch.ops.paged_attention import (paged_attention,
@@ -34,24 +39,72 @@ from tpudp_torch.ops.paged_attention import (paged_attention,
 from tpudp_torch.ops.sampling import truncate_logits
 
 
+def _is_llama(cfg) -> bool:
+    return isinstance(cfg, llama.LlamaConfig)
+
+
+def _kv_shape(cfg, batch: int, length: int) -> tuple:
+    """``(layers, batch, length, kv_heads, head_dim)``: GQA configs
+    (``LlamaConfig.kv_heads < num_heads``) store K/V at KV width."""
+    return (cfg.num_layers, batch, length,
+            getattr(cfg, "kv_heads", cfg.num_heads),
+            cfg.d_model // cfg.num_heads)
+
+
 class KVCache(NamedTuple):
     k: torch.Tensor  # (layers, batch, max_len, kv_heads, head_dim)
     v: torch.Tensor
 
     @classmethod
-    def zeros(cls, cfg: GPT2Config, batch: int, max_len: int,
+    def zeros(cls, cfg, batch: int, max_len: int,
               device="cpu") -> "KVCache":
-        shape = (cfg.num_layers, batch, max_len, cfg.num_heads,
-                 cfg.d_model // cfg.num_heads)
+        shape = _kv_shape(cfg, batch, max_len)
         return cls(torch.zeros(shape, dtype=cfg.dtype, device=device),
                    torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+class Int8Pages(NamedTuple):
+    """A quantized page pool (``Engine(kv_dtype="int8")``): k/v payloads
+    in int8 with one float32 scale per (layer, page, token, head) vector,
+    read as ``int8 * scale``, behind the same block tables as an fp pool
+    (same page ids, same allocation order)."""
+
+    k: torch.Tensor        # (layers, pages, page_tokens, kv_heads, dh) int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # (layers, pages, page_tokens, kv_heads) float32
+    v_scale: torch.Tensor
+
+    @classmethod
+    def zeros(cls, cfg, num_pages: int, page_tokens: int,
+              device="cpu") -> "Int8Pages":
+        shape = _kv_shape(cfg, num_pages, page_tokens)
+        return cls(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.ones(shape[:-1], device=device),
+                   torch.ones(shape[:-1], device=device))
+
+
+def _quantize_kv(x: torch.Tensor):
+    """``(..., dh)`` -> (int8 payload, float32 per-vector scale):
+    symmetric absmax, ``scale = max|x| / 127`` (1 for a zero vector, so
+    it dequantizes to exact zeros), ``clip(round(x / scale), -127, 127)``
+    with round-half-to-even — bit-equal to JAX's ``_quantize_kv``."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=-1)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def write_token_pages(pages, k_new: torch.Tensor, v_new: torch.Tensor,
                       table: torch.Tensor, pos, active: torch.Tensor,
                       layer: int | None = None):
     """Commit a ``cur``-token window's K/V ``(b, cur, kv, dh)`` into the
-    pages holding positions ``[pos, pos + cur)``, in place.
+    pages holding positions ``[pos, pos + cur)``, in place.  ``pages``
+    is ``(k, v)`` fp or the int8 quadruple ``(k, v, k_scale, v_scale)``,
+    whose new vectors are quantized here by :func:`_quantize_kv` (the
+    window's own attention, which follows the write, reads them back
+    quantized, as in JAX).
 
     A scalar ``pos`` with ``cur`` equal to the page size is the
     page-aligned prefill chunk: one whole-page write per slot (a chunk
@@ -62,7 +115,13 @@ def write_token_pages(pages, k_new: torch.Tensor, v_new: torch.Tensor,
     scratch page.  ``layer`` selects the stratum of a whole stacked
     pool ``(layers, P + 1, T, ...)``."""
     ix = () if layer is None else (layer,)
-    k_buf, v_buf = pages
+    k_buf = pages[0]
+    if len(pages) == 4:
+        qk, sk = _quantize_kv(k_new)
+        qv, sv = _quantize_kv(v_new)
+        new = (qk, qv, sk, sv)
+    else:
+        new = (k_new, v_new)
     page_tokens = k_buf.shape[1 + len(ix)]
     scratch = k_buf.shape[len(ix)] - 1
     n_pages = table.shape[1]
@@ -83,23 +142,20 @@ def write_token_pages(pages, k_new: torch.Tensor, v_new: torch.Tensor,
     if scalar_pos and cur == page_tokens:
         ok, page = lookup(pos[:, None])
         ok = ok[:, 0] & (pos % page_tokens == 0)
-        page = torch.where(ok, page[:, 0], scratch)
-        k_buf[(*ix, page)] = k_new.to(k_buf.dtype)
-        v_buf[(*ix, page)] = v_new.to(v_buf.dtype)
-        return pages
-    p = pos[:, None] + torch.arange(cur, device=dev)  # (b, cur)
-    ok, page = lookup(p)
-    page = torch.where(ok, page, scratch)
-    off = p % page_tokens
-    k_buf[(*ix, page, off)] = k_new.to(k_buf.dtype)
-    v_buf[(*ix, page, off)] = v_new.to(v_buf.dtype)
+        index = (*ix, torch.where(ok, page[:, 0], scratch))
+    else:
+        p = pos[:, None] + torch.arange(cur, device=dev)  # (b, cur)
+        ok, page = lookup(p)
+        index = (*ix, torch.where(ok, page, scratch), p % page_tokens)
+    for buf, val in zip(pages, new):
+        buf[index] = val.to(buf.dtype)
     return pages
 
 
-def _layer_pages(pool: KVCache, i: int):
-    """One layer's ``(k, v)`` page buffers: views, so writes land in the
-    pool."""
-    return (pool.k[i], pool.v[i])
+def _layer_pages(pool, i: int):
+    """One layer's page buffers — ``(k, v)`` or the int8 quadruple:
+    views, so writes land in the pool."""
+    return tuple(buf[i] for buf in pool)
 
 
 class _PagedKV:
@@ -188,53 +244,80 @@ def _positions(pos, cur: int, device) -> torch.Tensor:
     return (pos[:, None] + offsets) if pos.dim() else pos + offsets
 
 
+def _embed(model, tokens: torch.Tensor, positions) -> torch.Tensor:
+    """The family's embedding: GPT-2 adds learned positions, LLaMA's
+    enter through RoPE inside the blocks."""
+    if _is_llama(model.config):
+        return llama.embed_tokens(model, tokens)
+    return embed_tokens(model, tokens, positions)
+
+
+def _head(model, x: torch.Tensor) -> torch.Tensor:
+    return (llama.lm_head if _is_llama(model.config) else lm_head)(model, x)
+
+
+def _decode_block(cfg):
+    """The family's one-block decode twin (same signature for both)."""
+    return llama.block_decode if _is_llama(cfg) else _block_decode
+
+
 def _forward_cached(model, tokens: torch.Tensor, cache: KVCache, pos):
     """Token ids ``(b, cur)`` at position ``pos`` (a scalar, or ``(b,)``
     per-row depths) -> ``(b, cur, vocab)`` float32 logits; the cache is
-    written in place and returned."""
+    written in place and returned.  Dispatches on the config's family,
+    as the JAX function does."""
     cfg = model.config
-    x = embed_tokens(model, tokens, _positions(pos, tokens.shape[1],
-                                               tokens.device))
+    block = _decode_block(cfg)
+    x = _embed(model, tokens, _positions(pos, tokens.shape[1],
+                                         tokens.device))
     for i, blk in enumerate(model.h):
-        x, _, _ = _block_decode(cfg, blk, x, cache.k[i], cache.v[i], pos)
-    return lm_head(model, x), cache
+        x, _, _ = block(cfg, blk, x, cache.k[i], cache.v[i], pos)
+    return _head(model, x), cache
 
 
-def _forward_paged(model, tokens: torch.Tensor, pool: KVCache,
+def _forward_paged(model, tokens: torch.Tensor, pool,
                    table: torch.Tensor, pos, active: torch.Tensor,
                    impl: str = "einsum"):
-    """Page-table-indirected twin of :func:`_forward_cached`; returns
-    ``(logits, pool)`` with the pool written in place.
+    """Page-table-indirected twin of :func:`_forward_cached` over an fp
+    (``KVCache``) or int8 (:class:`Int8Pages`) pool; returns ``(logits,
+    pool)`` with the pool written in place.
 
     ``impl='kernel'`` runs whole-pool mode — every layer's store holds
     the stacked pool and passes its layer index to the kernels, so no
     per-layer slice is taken — and ``impl='einsum'`` gives each layer
-    its own slice."""
+    its own slice.  LLaMA reads through the grouped (GQA) attention
+    family, GPT-2 through the MHA one."""
     cfg = model.config
-    x = embed_tokens(model, tokens, _positions(pos, tokens.shape[1],
-                                               tokens.device))
+    block = _decode_block(cfg)
+    x = _embed(model, tokens, _positions(pos, tokens.shape[1],
+                                         tokens.device))
     whole = impl == "kernel"
     for i, blk in enumerate(model.h):
         store = _PagedKV(cfg, tuple(pool) if whole else _layer_pages(pool, i),
-                         table, pos, active, grouped=False, impl=impl,
-                         layer=i if whole else None)
-        x, _, _ = _block_decode(cfg, blk, x, None, None, pos, paged=store)
-    return lm_head(model, x), pool
+                         table, pos, active, grouped=_is_llama(cfg),
+                         impl=impl, layer=i if whole else None)
+        x, _, _ = block(cfg, blk, x, None, None, pos, paged=store)
+    return _head(model, x), pool
 
 
-def gather_pages(pool: KVCache, table: torch.Tensor) -> KVCache:
-    """The logical dense view ``(L, S, M * T, kv, dh)`` of a page pool
-    ``(L, P + 1, T, kv, dh)`` through the block table ``(S, M)``.
-    Unmapped entries read the scratch page, whose rows sit past every
-    slot's length, where the visibility mask excludes them."""
+def gather_pages(pool, table: torch.Tensor, dtype) -> KVCache:
+    """The logical dense view ``(L, S, M * T, kv, dh)`` in ``dtype`` of a
+    page pool ``(L, P + 1, T, kv, dh)`` through the block table ``(S,
+    M)``; an int8 pool dequantizes as ``(int8.float() * scale).to(dtype)``,
+    JAX's math.  Unmapped entries read the scratch page, whose rows sit
+    past every slot's length, where the visibility mask excludes them."""
     scratch = pool.k.shape[1] - 1
     tbl = torch.where(table >= 0, table, scratch).long()
 
     def grab(buf):
-        g = buf[:, tbl]  # (L, S, M, T, kv, dh)
+        g = buf[:, tbl]  # (L, S, M, T, ...)
         return g.flatten(2, 3)
 
-    return KVCache(grab(pool.k), grab(pool.v))
+    if isinstance(pool, Int8Pages):
+        return KVCache(
+            (grab(pool.k).float() * grab(pool.k_scale)[..., None]).to(dtype),
+            (grab(pool.v).float() * grab(pool.v_scale)[..., None]).to(dtype))
+    return KVCache(grab(pool.k).to(dtype), grab(pool.v).to(dtype))
 
 
 def _block_tree(cfg: GPT2Config, blk, x: torch.Tensor, k_cache, v_cache,
@@ -266,6 +349,17 @@ def _tree_positions(pos0, depths, device) -> torch.Tensor:
             + torch.as_tensor(depths, device=device)[None, :])
 
 
+def _tree_block(cfg, blk, x, k_cache, v_cache, pos0, positions, anc,
+                paged=None):
+    """The family's tree-block twin; LLaMA's rotates q/k at
+    ``positions`` (``pos0 + depth``), GPT-2's embedded them already."""
+    if _is_llama(cfg):
+        return llama.block_tree(cfg, blk, x, k_cache, v_cache, pos0,
+                                positions, anc, paged=paged)
+    return _block_tree(cfg, blk, x, k_cache, v_cache, pos0, anc,
+                       paged=paged)
+
+
 def _forward_tree(model, tokens: torch.Tensor, view: KVCache, pos0,
                   depths: tuple, anc):
     """Tree-verify forward: node tokens ``(b, T+1)`` (node 0 = each
@@ -274,15 +368,15 @@ def _forward_tree(model, tokens: torch.Tensor, view: KVCache, pos0,
     with the window K/V ``(L, b, T+1, kv, dh)``, which the caller
     commits for the accepted nodes only: this forward writes nothing."""
     cfg = model.config
-    x = embed_tokens(model, tokens, _tree_positions(pos0, depths,
-                                                    tokens.device))
+    positions = _tree_positions(pos0, depths, tokens.device)
+    x = _embed(model, tokens, positions)
     wk, wv = [], []
     for i, blk in enumerate(model.h):
-        x, k_i, v_i = _block_tree(cfg, blk, x, view.k[i], view.v[i], pos0,
-                                  anc)
+        x, k_i, v_i = _tree_block(cfg, blk, x, view.k[i], view.v[i], pos0,
+                                  positions, anc)
         wk.append(k_i)
         wv.append(v_i)
-    return lm_head(model, x), torch.stack(wk), torch.stack(wv)
+    return _head(model, x), torch.stack(wk), torch.stack(wv)
 
 
 class _TreePagedKV:
@@ -307,7 +401,7 @@ class _TreePagedKV:
                                     layer=self.layer)
 
 
-def _forward_tree_paged(model, tokens: torch.Tensor, pool: KVCache,
+def _forward_tree_paged(model, tokens: torch.Tensor, pool,
                         table: torch.Tensor, pos0, depths: tuple, anc):
     """Paged twin of :func:`_forward_tree`: node queries attend the
     committed cache through the block table (the tree kernel on the
@@ -315,25 +409,27 @@ def _forward_tree_paged(model, tokens: torch.Tensor, pool: KVCache,
     mode; no dense view is gathered).  Returns ``(logits, wk, wv)``; the
     pool is only read."""
     cfg = model.config
-    x = embed_tokens(model, tokens, _tree_positions(pos0, depths,
-                                                    tokens.device))
+    positions = _tree_positions(pos0, depths, tokens.device)
+    x = _embed(model, tokens, positions)
     wk, wv = [], []
     for i, blk in enumerate(model.h):
         store = _TreePagedKV(cfg, tuple(pool), table, pos0, anc, layer=i)
-        x, k_i, v_i = _block_tree(cfg, blk, x, None, None, pos0, anc,
-                                  paged=store)
+        x, k_i, v_i = _tree_block(cfg, blk, x, None, None, pos0, positions,
+                                  anc, paged=store)
         wk.append(k_i)
         wv.append(v_i)
-    return lm_head(model, x), torch.stack(wk), torch.stack(wv)
+    return _head(model, x), torch.stack(wk), torch.stack(wv)
 
 
-def validate_decode_config(cfg: GPT2Config, fn_name: str) -> None:
+def validate_decode_config(cfg, fn_name: str) -> None:
     """Reject configs the decode twins cannot serve faithfully (dense
-    attention and dense MLP only, as in the JAX package)."""
-    if cfg.attn_impl != "dense" or cfg.mlp_impl != "dense":
+    attention and dense MLP only, as in the JAX package; a LLaMA config
+    has no ``mlp_impl`` and is dense)."""
+    mlp_impl = getattr(cfg, "mlp_impl", "dense")
+    if cfg.attn_impl != "dense" or mlp_impl != "dense":
         raise ValueError(
             f"{fn_name} supports dense-attention/dense-MLP configs; got "
-            f"attn_impl={cfg.attn_impl!r} mlp_impl={cfg.mlp_impl!r}")
+            f"attn_impl={cfg.attn_impl!r} mlp_impl={mlp_impl!r}")
 
 
 @torch.no_grad()

@@ -1,12 +1,16 @@
 """Build and load the port's CUDA kernels.
 
-Each ``tpudp_torch/csrc/<name>.cu`` has a plain C interface and is
+Each ``tpudp_torch/csrc/<source>.cu`` has a plain C interface and is
 compiled on first use by ``nvcc`` for ``sm_90a`` into a shared library
 under ``tpudp_torch/_build/`` (listed in ``.gitignore``), then loaded
-with ``ctypes``.  No PyTorch header is included, so a build takes
-seconds, not minutes.  The library name carries a hash of the source
-and of every shared header (``csrc/*.cuh``), so an edited kernel is
-rebuilt and a stale one is never loaded.
+with ``ctypes``.  A kernel's source is ``<name>.cu`` unless
+:data:`SOURCE_OF` names another: the int8 variants of the paged kernels
+are further entry points of their fp kernel's source, which instantiates
+the one kernel template for both page types.  No PyTorch header is
+included, so a build takes seconds, not minutes.  The library name
+carries a hash of the source and of every shared header
+(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one is
+never loaded.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
@@ -34,6 +38,10 @@ SIGNATURES = {
                      [_P] * 6 + [_I] * 7 + [_L] * 6 + [_F, _P]),
     "paged_window": ("launch_paged_window",
                      [_P] * 6 + [_I] * 8 + [_L] * 7 + [_F, _P]),
+    "paged_decode_int8": ("launch_paged_decode_int8",
+                          [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _P]),
+    "paged_window_int8": ("launch_paged_window_int8",
+                          [_P] * 8 + [_I] * 8 + [_L] * 11 + [_F, _P]),
     "paged_tree": ("launch_paged_tree",
                    [_P] * 9 + [_I] * 8 + [_L] * 10 + [_F, _P]),
     # The flash kernels take their tensors' strides as one host array of
@@ -43,7 +51,11 @@ SIGNATURES = {
     "flash_dkv": ("launch_flash_dkv", [_P] * 9 + [_I] * 6 + [_F, _P]),
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+#: Kernels whose launch function lives in another kernel's source.
+SOURCE_OF = {"paged_decode_int8": "paged_decode",
+             "paged_window_int8": "paged_window"}
+
+_loaded: dict[str, ctypes.CDLL] = {}  # by source
 
 
 def _nvcc() -> str:
@@ -59,47 +71,53 @@ def _nvcc() -> str:
                        "use")
 
 
-def _library_path(name: str) -> Path:
+def source(name: str) -> str:
+    """The ``csrc`` source (without ``.cu``) holding kernel ``name``."""
+    return SOURCE_OF.get(name, name)
+
+
+def _library_path(src_name: str) -> Path:
     digest = hashlib.sha256()
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{src_name}.cu"]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{src_name}-{digest.hexdigest()[:12]}.so"
 
 
-def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    lib = _library_path(name)
+def _start_build(src_name: str) -> tuple[subprocess.Popen, Path, Path] | None:
+    lib = _library_path(src_name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{src_name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, lib
 
 
-def _finish_build(name: str, job) -> None:
+def _finish_build(src_name: str, job) -> None:
     proc, tmp, lib = job
     out, _ = proc.communicate()
     if proc.returncode:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {name}.cu "
+        raise RuntimeError(f"nvcc failed building {src_name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)  # atomic: another process loads a whole file
 
 
 def build(names=tuple(SIGNATURES)) -> None:
-    """Compile every named kernel that is not built yet, one ``nvcc``
-    per source, all started together."""
-    jobs = {name: _start_build(name) for name in names}
+    """Compile the sources of every named kernel that are not built yet,
+    one ``nvcc`` per source, all started together."""
+    sources = dict.fromkeys(map(source, names))  # ordered, deduplicated
+    jobs = {src: _start_build(src) for src in sources}
     errors = []
-    for name, job in jobs.items():
+    for src, job in jobs.items():
         if job is None:
             continue
         try:
-            _finish_build(name, job)
+            _finish_build(src, job)
         except RuntimeError as exc:
             errors.append(str(exc))
     if errors:
@@ -110,22 +128,24 @@ def launcher(name: str):
     """The ``ctypes`` launch function of kernel ``name``, building and
     loading its library on first use.  It returns a CUDA error code;
     :func:`check` turns a nonzero one into an exception."""
-    lib = _loaded.get(name)
+    src = source(name)
+    lib = _loaded.get(src)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_library_path(name)))
-        symbol, argtypes = SIGNATURES[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        lib = ctypes.CDLL(str(_library_path(src)))
+        for kernel, (symbol, argtypes) in SIGNATURES.items():
+            if source(kernel) == src:
+                fn = getattr(lib, symbol)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
         lib.tpudp_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tpudp_cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
+        _loaded[src] = lib
     return getattr(lib, SIGNATURES[name][0])
 
 
 def check(name: str, code: int) -> None:
     if code:
-        msg = _loaded[name].tpudp_cuda_error_string(code).decode()
+        msg = _loaded[source(name)].tpudp_cuda_error_string(code).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} "
                            f"(cudaError {code})")

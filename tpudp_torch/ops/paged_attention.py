@@ -11,8 +11,10 @@ Two backends behind :func:`paged_attention`, with the JAX op's layouts:
     (``tpudp_torch/csrc``): a one-token window at per-slot depths goes to
     :func:`paged_decode` (K4), everything else — a prefill chunk at a
     shared scalar depth, a multi-token window at per-slot depths — to
-    :func:`paged_window` (K5).  Both compute in float32 and are bounded
-    by a tolerance against the plain version, as the Pallas kernels are.
+    :func:`paged_window` (K5); over an int8 pool to their int8 variants
+    :func:`paged_decode_int8` and :func:`paged_window_int8`.  All compute
+    in float32 and are bounded by a tolerance against the plain version,
+    as the Pallas kernels are.
 
 Tree verify has its own op, :func:`tree_paged_attention`: node queries
 attend the committed cache through the table (strict ``< pos0``) and
@@ -25,13 +27,14 @@ CPU tensors it runs the plain version, which is what the CPU tests see.
 Each wrapper counts its launches in ``.launches`` so a run can show that
 its main path went through the kernel.
 
-Pages are ``(P + 1, T, kv, dh)`` per layer, the trailing page being the
-write scratch; whole-pool mode passes ``(L, P + 1, T, kv, dh)`` plus
-``layer``, and the kernels index that layer through strides.  ``table``
-is ``(b, M)`` with ``-1`` for unmapped entries; ``pos`` is ``(b,)`` (row
-``j`` of slot ``s`` sees keys ``<= pos[s] + j``) or a scalar shared by
-the batch (the prefill window).  int8 pages are not ported yet (ROADMAP
-slice 4).
+Pages are ``(k, v)``, each ``(P + 1, T, kv, dh)`` per layer, the
+trailing page being the write scratch, or the int8 quadruple ``(k, v,
+k_scale, v_scale)``: int8 payloads with float32 ``(P + 1, T, kv)``
+per-vector scales, read as ``int8 * scale``.  Whole-pool mode passes
+``(L, P + 1, T, ...)`` buffers plus ``layer``, and the kernels index that
+layer through strides.  ``table`` is ``(b, M)`` with ``-1`` for unmapped
+entries; ``pos`` is ``(b,)`` (row ``j`` of slot ``s`` sees keys ``<=
+pos[s] + j``) or a scalar shared by the batch (the prefill window).
 """
 
 from __future__ import annotations
@@ -46,24 +49,19 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 
 
-def _fp_pages(pages):
-    """``(k, v)``; the int8 quadruple ``(k, v, k_scale, v_scale)`` is not
-    ported yet."""
-    if len(pages) != 2:
-        raise NotImplementedError(
-            "int8 page pools are not ported yet: ROADMAP.md slice 4 "
-            "(int8 pages with the K4/K5 dequant variants)")
-    return pages
-
-
 def page_tiles(pages, table, dtype):
     """Per-slot ``(b, M, T, kv, dh)`` K/V tiles indexed by the block
-    table.  Unmapped entries (``-1``) read the trailing scratch page,
-    whose contents only ever land where the visibility mask excludes
-    them."""
-    k, v = _fp_pages(pages)
-    scratch = k.shape[0] - 1
+    table; int8 pages dequantize as ``(int8.float() * scale).to(dtype)``,
+    the JAX package's math.  Unmapped entries (``-1``) read the trailing
+    scratch page, whose contents only ever land where the visibility mask
+    excludes them."""
+    scratch = pages[0].shape[0] - 1
     tbl = torch.where(table >= 0, table, scratch).long()
+    if len(pages) == 4:
+        k8, v8, ks, vs = pages
+        return ((k8[tbl].float() * ks[tbl][..., None]).to(dtype),
+                (v8[tbl].float() * vs[tbl][..., None]).to(dtype))
+    k, v = pages
     return k[tbl].to(dtype), v[tbl].to(dtype)
 
 
@@ -104,28 +102,33 @@ def _einsum_paged(q, pages, table, pos, *, dtype, grouped):
                         pr.reshape(b, h, cur, n_pages, page_tokens), vt)
 
 
-def _plain(q, k_pages, v_pages, table, pos, layer):
+def _plain(q, pages, table, pos, layer):
     """A kernel's plain version on the CPU: the GQA einsum family, which
     covers MHA as one head per group."""
-    pages = ((k_pages, v_pages) if layer is None
-             else (k_pages[layer], v_pages[layer]))
+    if layer is not None:
+        pages = tuple(buf[layer] for buf in pages)
     return _einsum_paged(q, pages, table, pos, dtype=q.dtype, grouped=True)
 
 
-def _launch_args(q, k_pages, v_pages, table, pos, layer):
-    """Validate one kernel call and return ``(out, table32, pos32,
-    ints, strides)``: the output buffer, the int32 index tensors the
-    kernel reads, the geometry and the element strides."""
-    if not (q.is_cuda and k_pages.device == q.device
-            and v_pages.device == q.device):
+def _launch_args(q, pages, table, pos, layer):
+    """Validate one kernel call and return ``(out, table32, pos32, ints,
+    strides, scale_strides)``: the output buffer, the int32 index tensors
+    the kernel reads, the geometry, the element strides and, for an int8
+    pool, the scale pool's layer offset and page/token/head strides
+    (``()`` for fp pages)."""
+    k_pages, v_pages = pages[:2]
+    int8 = len(pages) == 4
+    if not (q.is_cuda and all(buf.device == q.device for buf in pages)):
         raise ValueError("paged kernels need q and the pages on one CUDA "
                          "device")
     if q.dtype not in _KERNEL_DTYPES:
         raise TypeError(f"paged kernels take float32 or bfloat16, got "
                         f"{q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+    page_dtype = torch.int8 if int8 else q.dtype
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
         raise TypeError(f"page dtype ({k_pages.dtype}/{v_pages.dtype}) "
-                        f"must equal the query dtype ({q.dtype})")
+                        f"must be {page_dtype} for {q.dtype} queries"
+                        f"{' over an int8 pool' if int8 else ''}")
     if k_pages.shape != v_pages.shape:
         raise ValueError("k and v pages differ in shape")
     whole = layer is not None
@@ -134,6 +137,18 @@ def _launch_args(q, k_pages, v_pages, table, pos, layer):
                          f"kv, dh), got {tuple(k_pages.shape)}")
     if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
         raise ValueError("paged kernels read contiguous page pools")
+    scale_strides = ()
+    if int8:
+        k_scale, v_scale = pages[2:]
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if sc.dtype != torch.float32 or sc.shape != k_pages.shape[:-1]:
+                raise TypeError(f"{name} must be float32 of shape "
+                                f"{tuple(k_pages.shape[:-1])}, got {sc.dtype}"
+                                f" {tuple(sc.shape)}")
+            if not sc.is_contiguous():
+                raise ValueError(f"{name} must be contiguous")
+        scale_strides = ((layer * k_scale.stride(0) if whole else 0),
+                         *k_scale.stride()[-3:])
     b, cur, h, dh = q.shape
     page_tokens, kv, pdh = k_pages.shape[-3:]
     if pdh != dh or dh not in _KERNEL_HEAD_DIMS:
@@ -157,7 +172,24 @@ def _launch_args(q, k_pages, v_pages, table, pos, layer):
     ints = (_KERNEL_DTYPES[q.dtype], b, cur, h, kv, dh, table.shape[1],
             page_tokens)
     strides = (q.stride(0), q.stride(1), q.stride(2), offset, ps, ts, hs)
-    return out, table, pos, ints, strides
+    return out, table, pos, ints, strides, scale_strides
+
+
+def _launch(name, q, pages, table, pos, layer):
+    """Launch K4 (``cur == 1`` kernels take no row count or row stride)
+    or K5, fp or int8, on validated arguments; count the launch."""
+    out, table, pos, ints, strides, scale_strides = _launch_args(
+        q, pages, table, pos, layer)
+    if name.startswith("paged_decode"):
+        ints = ints[:2] + ints[3:]          # no window length
+        strides = strides[:1] + strides[2:]  # no row stride
+    code = _build.launcher(name)(
+        q.data_ptr(), *(buf.data_ptr() for buf in pages), table.data_ptr(),
+        pos.data_ptr(), out.data_ptr(), *ints, *strides, *scale_strides,
+        q.shape[-1] ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(name, code)
+    KERNELS[name].launches += 1
+    return out
 
 
 def paged_decode(q, k_pages, v_pages, table, pos, *, layer=None):
@@ -167,20 +199,8 @@ def paged_decode(q, k_pages, v_pages, table, pos, *, layer=None):
     if q.shape[1] != 1:
         raise ValueError("the paged-decode kernel is a one-token kernel")
     if not q.is_cuda:
-        return _plain(q, k_pages, v_pages, table, pos, layer)
-    out, table, pos, ints, strides = _launch_args(q, k_pages, v_pages,
-                                                  table, pos, layer)
-    dtype_code, b, _, h, kv, dh, m, page_tokens = ints
-    qs_slot, _, qs_head, offset, ps, ts, hs = strides
-    fn = _build.launcher("paged_decode")
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              table.data_ptr(), pos.data_ptr(), out.data_ptr(), dtype_code,
-              b, h, kv, dh, m, page_tokens, qs_slot, qs_head, offset, ps,
-              ts, hs, dh ** -0.5, torch.cuda.current_stream(q.device)
-              .cuda_stream)
-    _build.check("paged_decode", code)
-    paged_decode.launches += 1
-    return out
+        return _plain(q, (k_pages, v_pages), table, pos, layer)
+    return _launch("paged_decode", q, (k_pages, v_pages), table, pos, layer)
 
 
 def paged_window(q, k_pages, v_pages, table, pos, *, layer=None):
@@ -189,17 +209,35 @@ def paged_window(q, k_pages, v_pages, table, pos, *, layer=None):
     ``csrc/paged_window.cu`` on CUDA tensors (the count goes up by one),
     runs the plain version on CPU tensors."""
     if not q.is_cuda:
-        return _plain(q, k_pages, v_pages, table, pos, layer)
-    out, table, pos, ints, strides = _launch_args(q, k_pages, v_pages,
-                                                  table, pos, layer)
-    fn = _build.launcher("paged_window")
-    code = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-              table.data_ptr(), pos.data_ptr(), out.data_ptr(), *ints,
-              *strides, q.shape[-1] ** -0.5,
-              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check("paged_window", code)
-    paged_window.launches += 1
-    return out
+        return _plain(q, (k_pages, v_pages), table, pos, layer)
+    return _launch("paged_window", q, (k_pages, v_pages), table, pos, layer)
+
+
+def paged_decode_int8(q, k_pages, v_pages, k_scale, v_scale, table, pos, *,
+                      layer=None):
+    """K4's int8 variant: :func:`paged_decode` over int8 pages with
+    float32 per-vector scales; ``q`` float32 or bf16.  Launches
+    ``launch_paged_decode_int8`` of ``csrc/paged_decode.cu`` on CUDA
+    tensors (the count goes up by one), runs the plain version —
+    dequantize, then the einsum — on CPU tensors."""
+    if q.shape[1] != 1:
+        raise ValueError("the paged-decode kernel is a one-token kernel")
+    pages = (k_pages, v_pages, k_scale, v_scale)
+    if not q.is_cuda:
+        return _plain(q, pages, table, pos, layer)
+    return _launch("paged_decode_int8", q, pages, table, pos, layer)
+
+
+def paged_window_int8(q, k_pages, v_pages, k_scale, v_scale, table, pos, *,
+                      layer=None):
+    """K5's int8 variant: :func:`paged_window` over int8 pages with
+    float32 per-vector scales.  Launches ``launch_paged_window_int8`` of
+    ``csrc/paged_window.cu`` on CUDA tensors (the count goes up by one),
+    runs the plain version on CPU tensors."""
+    pages = (k_pages, v_pages, k_scale, v_scale)
+    if not q.is_cuda:
+        return _plain(q, pages, table, pos, layer)
+    return _launch("paged_window_int8", q, pages, table, pos, layer)
 
 
 def tree_attention(q, k_cache, v_cache, pos0, wk, wv, anc, *, dtype):
@@ -268,8 +306,8 @@ def paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc, *,
     if not q.is_cuda:
         return _tree_plain(q, k_pages, v_pages, table, pos0, wk, wv, anc,
                            layer)
-    out, table, pos0, ints, strides = _launch_args(q, k_pages, v_pages,
-                                                   table, pos0, layer)
+    out, table, pos0, ints, strides, _ = _launch_args(
+        q, (k_pages, v_pages), table, pos0, layer)
     _, b, t1, _, kv, dh, _, _ = ints
     if t1 > 32:
         raise ValueError(f"the tree kernel takes at most 32 nodes, got {t1}")
@@ -299,13 +337,12 @@ def paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc, *,
     return out
 
 
-paged_decode.launches = 0
-paged_window.launches = 0
-paged_tree.launches = 0
-
 #: Every ported kernel wrapper, by kernel name.
 KERNELS = {"paged_decode": paged_decode, "paged_window": paged_window,
-           "paged_tree": paged_tree}
+           "paged_decode_int8": paged_decode_int8,
+           "paged_window_int8": paged_window_int8, "paged_tree": paged_tree}
+for _fn in KERNELS.values():
+    _fn.launches = 0
 
 
 def paged_attention(q, pages, table, pos, *, dtype, grouped: bool = False,
@@ -316,8 +353,9 @@ def paged_attention(q, pages, table, pos, *, dtype, grouped: bool = False,
     ``impl='einsum'`` runs :func:`_einsum_paged` on one layer's pages;
     ``impl='kernel'`` dispatches as the JAX op does — a vector ``pos``
     with ``cur == 1`` to :func:`paged_decode`, anything else to
-    :func:`paged_window` — and alone takes ``layer`` (whole-pool mode:
-    ``pages`` are the stacked pool)."""
+    :func:`paged_window`, or to their int8 variants for a 4-tuple of
+    pages — and alone takes ``layer`` (whole-pool mode: ``pages`` are the
+    stacked pool)."""
     if impl not in ("einsum", "kernel"):
         raise ValueError(f"unknown paged-attention impl {impl!r}; choose "
                          f"from 'einsum' or 'kernel'")
@@ -329,10 +367,15 @@ def paged_attention(q, pages, table, pos, *, dtype, grouped: bool = False,
     if q.dtype != dtype:
         raise TypeError(f"kernel impl computes in the query dtype "
                         f"({q.dtype}), asked for {dtype}")
-    k_pages, v_pages = _fp_pages(pages)
-    vector_pos = torch.as_tensor(pos).dim() > 0
-    kernel = paged_decode if vector_pos and q.shape[1] == 1 else paged_window
-    return kernel(q, k_pages, v_pages, table, pos, layer=layer)
+    if len(pages) not in (2, 4):
+        raise ValueError(f"pages are (k, v) or (k, v, k_scale, v_scale), "
+                         f"got {len(pages)} buffers")
+    decode = torch.as_tensor(pos).dim() > 0 and q.shape[1] == 1
+    if len(pages) == 4:
+        kernel = paged_decode_int8 if decode else paged_window_int8
+    else:
+        kernel = paged_decode if decode else paged_window
+    return kernel(q, *pages, table, pos, layer=layer)
 
 
 def tree_paged_attention(q, pages, table, pos0, wk, wv, anc, *, dtype,
@@ -343,10 +386,15 @@ def tree_paged_attention(q, pages, table, pos0, wk, wv, anc, *, dtype,
     ancestor-or-self mask ``anc``; the window never enters the pages, so
     rejected branches write nothing.  Runs :func:`paged_tree` (K6 on CUDA
     tensors, its plain version on CPU tensors); ``layer`` is whole-pool
-    mode, as for :func:`paged_attention`'s kernels.  fp pools only."""
+    mode, as for :func:`paged_attention`'s kernels.  fp pools only, as in
+    JAX: the engine verifies trees over an int8 pool on its einsum
+    fallback."""
     if q.dtype != dtype:
         raise TypeError(f"tree attention computes in the query dtype "
                         f"({q.dtype}), asked for {dtype}")
-    k_pages, v_pages = _fp_pages(pages)
-    return paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc,
-                      layer=layer)
+    if len(pages) != 2:
+        raise NotImplementedError(
+            "the tree kernel reads fp pages only; over an int8 pool the "
+            "engine verifies trees on its einsum fallback (gather_pages + "
+            "_forward_tree, Engine.metrics()['paged_attn']['fallbacks'])")
+    return paged_tree(q, *pages, table, pos0, wk, wv, anc, layer=layer)

@@ -26,6 +26,11 @@ Two KV stores, as in the JAX engine:
     kernel and prefill chunks through the paged-window kernel;
     ``'einsum'`` — the default on the CPU — runs their plain PyTorch
     version.  Asking for ``'kernel'`` on the CPU raises.
+    ``kv_dtype='int8'`` stores the pool quantized (int8 payloads, one
+    float32 scale per token and KV head, same page ids): the kernels are
+    then their int8 variants, and tree verify — which the tree kernel
+    does not take over int8, in JAX either — runs the einsum path, a
+    fallback ``metrics()['paged_attn']`` lists.
 
 Sampling is per slot: greedy rows take the argmax; sampled rows draw
 from the slot's own ``torch.Generator``, seeded from the request's
@@ -46,10 +51,12 @@ root-to-leaf path is committed.  A step where no slot drafted runs the
 plain decode step, and a drafter that raises or proposes out-of-vocab
 ids is quarantined: the engine decodes without it, outputs unchanged.
 
-The JAX engine's fused decode windows and fused speculation, the dense
-copy cache, int8 pages, tenancy, co-resident models, canaries, the
-watchdog, the drafter timeout and fault hooks are later slices: each
-such option raises ``NotImplementedError`` naming its ROADMAP item.
+The model is a ``tpudp_torch`` GPT-2 or LLaMA (grouped-query heads: the
+KV store is ``kv_heads`` wide).  The JAX engine's fused decode windows
+and fused speculation, the dense copy cache, tenancy, co-resident
+models, canaries, the watchdog, the drafter timeout and fault hooks are
+later slices: each such option raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -80,7 +87,6 @@ _UNPORTED = {
                        "fused speculation with a model drafter)"),
     "fuse_stream": (False, "slice 3 (decode_fuse: CUDA-graph window)"),
     "prefix_cache_blocks": (0, "slice 8 (dense copy prefix cache)"),
-    "kv_dtype": (None, "slice 4 (int8 pages with the K4/K5 variants)"),
     "tenants": (None, "slice 8 (tenancy)"),
     "models": (None, "slice 8 (co-resident models)"),
     "canary_every_s": (None, "slice 8 (robustness: serving canary)"),
@@ -90,6 +96,24 @@ _UNPORTED = {
     "step_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
     "token_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
 }
+
+
+#: The paged step families, as ``metrics()["paged_attn"]["dispatch"]``
+#: names them.
+PAGED_FAMILIES = ("decode_paged", "verify_paged", "prefill_paged",
+                  "tree_verify_paged")
+
+
+def paged_dispatch(paged_attn: str, kv_dtype: str | None) -> dict:
+    """Which impl each paged family runs, decided once at build time
+    (``tpudp/serve/engine.py``'s ``paged_attn_dispatch``): tree verify
+    has no int8 kernel (JAX's ``_tree_paged`` raises for int8 pools
+    too), so a kernel engine over an int8 pool verifies trees on the
+    einsum path."""
+    table = dict.fromkeys(PAGED_FAMILIES, paged_attn)
+    if paged_attn == "kernel" and kv_dtype == "int8":
+        table["tree_verify_paged"] = "einsum"
+    return table
 
 
 class FinishReason(str, enum.Enum):
@@ -253,8 +277,8 @@ def resolve_device(device) -> torch.device:
 class Engine:
     """Continuous-batching engine over ``num_slots`` slots.
 
-    ``model`` is a ``tpudp_torch`` GPT-2 (dense attention and MLP); it is
-    moved to ``device`` (default ``"cuda"``; no card and no
+    ``model`` is a ``tpudp_torch`` GPT-2 or LLaMA (dense attention and
+    MLP); it is moved to ``device`` (default ``"cuda"``; no card and no
     ``device="cpu"`` raises) and otherwise left as the caller has it —
     its forwards here run under ``torch.no_grad()``, so a model that is
     being trained keeps its gradients.  ``max_len`` bounds ``prompt +
@@ -262,7 +286,8 @@ class Engine:
     to a ``prefill_chunk`` multiple).  ``kv_pages > 0`` selects the paged
     KV store with pages of ``prefill_chunk`` tokens and ``paged_attn``
     its backend (``None`` resolves to ``'kernel'`` on CUDA, ``'einsum'``
-    on the CPU).  ``queue_limit`` bounds the submit queue
+    on the CPU); ``kv_dtype='int8'`` quantizes the pool's payloads.
+    ``queue_limit`` bounds the submit queue
     (:class:`QueueFull`).  ``speculate_k > 0`` turns on speculative
     decoding with ``drafter`` (default ``NgramDrafter()``) and, with
     ``speculate_tree`` (a ``TREE_SHAPES`` name, a ``TreeShape`` or a
@@ -273,6 +298,7 @@ class Engine:
     def __init__(self, model, *, device="cuda", num_slots: int = 8,
                  max_len: int | None = None, prefill_chunk: int = 16,
                  kv_pages: int = 0, paged_attn: str | None = None,
+                 kv_dtype: str | None = None,
                  queue_limit: int | None = None, speculate_k: int = 0,
                  drafter=None, speculate_tree=None, **unported):
         for name, value in unported.items():
@@ -303,6 +329,12 @@ class Engine:
                 f"'einsum' on the CPU), 'einsum' (the plain PyTorch "
                 f"version) or 'kernel' (the CUDA kernels); got "
                 f"{paged_attn!r}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
+        if kv_dtype is not None and not kv_pages:
+            raise ValueError("kv_dtype requires kv_pages > 0 — quantized KV "
+                             "lives in the page pool")
         if paged_attn == "kernel" and not kv_pages:
             raise ValueError("paged_attn='kernel' requires kv_pages > 0 — "
                              "the kernels read through the block table")
@@ -372,7 +404,10 @@ class Engine:
         self.queue_limit = queue_limit
         self._paged = kv_pages > 0
         self.kv_pages = kv_pages
+        self.kv_dtype = kv_dtype
         self.paged_attn = paged_attn
+        self.paged_attn_dispatch = (paged_dispatch(paged_attn, kv_dtype)
+                                    if self._paged else {})
         self._max_pages = self.max_len // prefill_chunk  # table width
         self._mstates: dict[str | None, _ModelState] = {
             None: _ModelState(self.model)}
@@ -404,7 +439,7 @@ class Engine:
                 f"request needs; raise kv_pages")
         ms = self._mstates[None]
         ms.pool = PagePool(ms.config, self.kv_pages, self.prefill_chunk,
-                           self.device)
+                           self.device, self.kv_dtype)
         ms.index = PageIndex(ms.pool)
         ms.table = np.full((self.num_slots, self._max_pages), -1, np.int32)
         ms.slot_nodes = [dict() for _ in range(self.num_slots)]
@@ -592,9 +627,15 @@ class Engine:
             p = self.page_pool
             out["page_pools"] = [
                 {"num_pages": p.num_pages, "used_pages": p.used_pages,
-                 "free_pages": p.free_pages, "page_bytes": p.page_bytes()}]
-            out["paged_attn"] = {"requested": self.paged_attn_requested,
-                                 "resolved": self.paged_attn}
+                 "free_pages": p.free_pages, "page_bytes": p.page_bytes(),
+                 "kv_dtype": p.kv_dtype}]
+            out["paged_attn"] = {
+                "requested": self.paged_attn_requested,
+                "resolved": self.paged_attn,
+                "dispatch": dict(self.paged_attn_dispatch),
+                "fallbacks": sorted(
+                    f for f, impl in self.paged_attn_dispatch.items()
+                    if self.paged_attn == "kernel" and impl != "kernel")}
         if self.stats.get("draft_tokens"):
             out["acceptance_rate"] = self.acceptance_rate
         return out
@@ -1016,13 +1057,13 @@ class Engine:
         tree = (shape.depths, shape.ancestors)
         if self._paged:
             table = self._to_device(ms.table, torch.int32)
-            if self.paged_attn == "kernel":
+            if self.paged_attn_dispatch["tree_verify_paged"] == "kernel":
                 logits, wk, wv = _forward_tree_paged(
                     ms.model, tokens, ms.pool.pages, table, lengths, *tree)
             else:
-                logits, wk, wv = _forward_tree(
-                    ms.model, tokens, gather_pages(ms.pool.pages, table),
-                    lengths, *tree)
+                view = gather_pages(ms.pool.pages, table, ms.config.dtype)
+                logits, wk, wv = _forward_tree(ms.model, tokens, view,
+                                               lengths, *tree)
         else:
             logits, wk, wv = _forward_tree(ms.model, tokens, ms.cache,
                                            lengths, *tree)
@@ -1031,9 +1072,12 @@ class Engine:
             self._topk, self._topp, self._row_generators(active))
         # Every layer in one write per depth: the KV store viewed with
         # the layer axis behind the position, (pages or slots, position,
-        # layers, kv, dh), takes path node d's (slots, 1, layers, kv, dh).
-        k_all, v_all = (ms.pool.pages if self._paged else ms.cache)
-        k_all, v_all = (b.permute(1, 2, 0, 3, 4) for b in (k_all, v_all))
+        # layers, kv, dh) — int8 scales (pages, position, layers, kv) —
+        # takes path node d's (slots, 1, layers, kv, dh); an int8 write
+        # quantizes each (layer, KV head) vector, as JAX's per-layer
+        # commit does.
+        store = ms.pool.pages if self._paged else ms.cache
+        views = tuple(b.permute(1, 2, 0, *range(3, b.dim())) for b in store)
         rows = torch.arange(self.num_slots, device=self.device)
         act = self._to_device(active, torch.bool)
         for d in range(path.shape[1]):
@@ -1041,11 +1085,11 @@ class Engine:
             k_d, v_d = (w[:, rows, node].transpose(0, 1)[:, None]
                         for w in (wk, wv))
             if self._paged:
-                write_token_pages((k_all, v_all), k_d, v_d, table,
-                                  lengths + d, act & (d < n_emit))
+                write_token_pages(views, k_d, v_d, table, lengths + d,
+                                  act & (d < n_emit))
             else:
-                update_cache_rows(k_all, k_d, lengths + d)
-                update_cache_rows(v_all, v_d, lengths + d)
+                update_cache_rows(views[0], k_d, lengths + d)
+                update_cache_rows(views[1], v_d, lengths + d)
         self._replay(active, out, n_emit, n_cand, "tree_verify_steps",
                      emitted)
 

@@ -5,14 +5,15 @@ of ``tpudp/serve/prefix_cache.py``'s ``_Node``, ``PagePool`` and
 Host-side bookkeeping is plain Python with the JAX package's allocation
 order, refcount discipline and eviction order, so identical operation
 sequences give identical page ids; the one device object is the pool
-buffer, a :class:`KVCache` of torch tensors on the engine's device.
+buffer, a :class:`KVCache` (or, with ``kv_dtype="int8"``, an
+:class:`Int8Pages`) of torch tensors on the engine's device.
 The dense copy cache (``PrefixCache``, ``copy_block_in/out``) is not
 ported: the port's engine reuses prefixes through the page tables.
 """
 
 from __future__ import annotations
 
-from tpudp_torch.models.generate import KVCache
+from tpudp_torch.models.generate import Int8Pages, KVCache
 
 
 class _Node:
@@ -37,20 +38,27 @@ class PagePool:
     trailing scratch page (index ``num_pages``) that absorbs masked
     writes.  A page is free (on the free list) or allocated (rc >= 1);
     ``alloc`` hands out rc=1, every extra holder ``share``s, every holder
-    ``release``s, and rc 0 returns the page to the free list."""
+    ``release``s, and rc 0 returns the page to the free list.
+    ``kv_dtype="int8"`` stores the payloads quantized (:class:`Int8Pages`)
+    with the same page ids and allocation order."""
 
     def __init__(self, cfg, num_pages: int, page_tokens: int,
-                 device="cpu"):
+                 device="cpu", kv_dtype: str | None = None):
         if num_pages < 1:
             raise ValueError(f"num_pages must be >= 1, got {num_pages}")
         if page_tokens < 1:
             raise ValueError(
                 f"page_tokens must be >= 1, got {page_tokens}")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_dtype must be None or 'int8', got {kv_dtype!r}")
         self.config = cfg
         self.num_pages = num_pages
         self.page_tokens = page_tokens
+        self.kv_dtype = kv_dtype
         self.scratch = num_pages
-        self.pages = KVCache.zeros(cfg, num_pages + 1, page_tokens, device)
+        cls = Int8Pages if kv_dtype == "int8" else KVCache
+        self.pages = cls.zeros(cfg, num_pages + 1, page_tokens, device)
         self._rc: dict[int, int] = {}
         self._free = list(range(num_pages - 1, -1, -1))
 
@@ -63,7 +71,8 @@ class PagePool:
         return self.num_pages - len(self._free)
 
     def page_bytes(self) -> int:
-        """Device bytes of one page across k and v."""
+        """Device bytes of one page across k and v (and their scales in
+        int8 mode)."""
         total = sum(buf.numel() * buf.element_size() for buf in self.pages)
         return total // (self.num_pages + 1)
 
