@@ -9,7 +9,10 @@ which fails the run (nonzero exit, no result line) when it fails:
 
   1. device — the card's name and power limit, as nvidia-smi reports them;
   2. build — every CUDA kernel of the port, from ``tpudp_torch/csrc``,
-     one nvcc per source, all started together;
+     one nvcc per source, all started together; then the HGMMA (wgmma)
+     instructions in the SASS of the flash forward and dk/dv libraries,
+     counted with ``cuobjdump -sass`` — none in either fails the run (the
+     bf16 flash kernels must run on the tensor cores);
   3. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs: fragmented block tables (pages shared between
      slots, ``-1`` tails, whole-pool ``layer=`` mode), GPT-2 small's
@@ -72,10 +75,13 @@ which fails the run (nonzero exit, no result line) when it fails:
      kernels against their plain PyTorch versions on q, k, v taken as
      strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
      GPT-2 small's heads (h 12, dh 64, b 4) at t 128 and 2048, dh 128 at
-     t 256, and t 96 through the public op with its 128 blocks clamped to
-     96 (its autograd gradients too); causal and not, float32 (atol =
-     rtol = 2e-5 forward, 1e-4 gradients; ``lse`` always at 2e-5) and
-     bfloat16 (atol 2e-2 and rtol 1.6e-2, two bf16 ulps);
+     t 256, dh 32 at t 256 (a scale not exact in bf16), t 200 (a partial
+     tile at 64 and at 128 rows), and t 96 through the public op with
+     its 128 blocks clamped to 96 (its autograd gradients too); causal
+     and not, float32 (atol = rtol = 2e-5 forward, 1e-4 gradients;
+     ``lse`` always at 2e-5) and bfloat16 (atol 2e-2 and rtol 1.6e-2, two
+     bf16 ulps; the tensor-core kernels round P and dS to bf16, the plain
+     versions do not);
   6. training main path — GPT-2 small at full width (random weights from
      --seed, bfloat16, context 2048, ``attn_impl='flash'``) trained by
      ``tpudp_torch.train`` with ``make_optimizer(learning_rate=0.01)``
@@ -95,7 +101,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      tree kernel the
      gathered cache K/V and the window under a boolean mask; its causal
      forward, and its autograd backward — dq, dk and dv in one — for the
-     flash kernels), with CUDA events.
+     flash kernels), with CUDA events around each call queued behind a
+     device spin, so they time the device and not the host's submission.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -106,6 +113,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -136,13 +144,34 @@ LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
                  d_model=768, num_heads=12, num_kv_heads=3, mlp_hidden=2048)
 # Flash checks: name -> (batch, time, heads, head dim).
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
-               "dh128-t256": (2, 256, 4, 128), "t96-clamped": (2, 96, 4, 64)}
+               "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
+               "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64)}
+# The sources whose bf16 kernels run on the tensor cores.
+WGMMA_SOURCES = ("flash_fwd", "flash_dkv")
+# Device cycles spun ahead of each timed call (about 1 ms at the H100's
+# clocks), long enough for the host to queue the call behind them.
+SPIN_CYCLES = 2_000_000
 TRAIN_BATCH, TRAIN_T = 4, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def hgmma_counts(build) -> dict:
+    """HGMMA instructions in the SASS of each built WGMMA_SOURCES library,
+    by ``cuobjdump -sass``."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    counts = {}
+    for src in WGMMA_SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass",
+                               str(build.library_path(src))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts[src] = sum("HGMMA" in line for line in sass.splitlines())
+    return counts
 
 
 def device_line() -> str:
@@ -941,7 +970,9 @@ def train_main_path(torch, np, fa, seed: int) -> dict:
 
 
 def time_ms(torch, fn, n=50):
-    """Median of ``n`` single-launch CUDA-event timings, after warm-up."""
+    """Median of ``n`` single-call CUDA-event timings, after warm-up.
+    Each call is queued behind a device spin, so the events bracket its
+    device time, not the host's time to submit it."""
     for _ in range(5):
         fn(0)
     torch.cuda.synchronize()
@@ -949,6 +980,7 @@ def time_ms(torch, fn, n=50):
     for i in range(n):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn(i)
         b.record()
@@ -1248,6 +1280,11 @@ def main(argv=None) -> int:
         _build.build()
         print(f"build: {time.perf_counter() - t0:.2f}s for "
               f"{sorted(_build.SIGNATURES)}", flush=True)
+        hgmma = hgmma_counts(_build)
+        print(f"build: HGMMA instructions in the SASS {hgmma}", flush=True)
+        if not all(hgmma.values()):
+            raise SmokeFailure(f"a tensor-core flash library has no HGMMA "
+                               f"instruction: {hgmma}")
         check_kernels(torch, pa, "cuda")
         check_tree_kernels(torch, pa, "cuda")
         check_int8_kernels(torch, pa, "cuda")

@@ -173,3 +173,81 @@ def test_flash_dispatch_follows_the_jax_rule(monkeypatch):
         attention.multihead_attention(q, k, v, causal=True, impl="ring")
     with pytest.raises(ValueError, match="unknown"):
         attention.multihead_attention(q, k, v, causal=True, impl="nope")
+
+
+def _bf16(x):
+    """Round a float32 tensor to bf16 and back, as the kernels round."""
+    return x.to(torch.bfloat16).float()
+
+
+def _tensor_core_forward(q, k, v, causal, tile=64):
+    """The bf16 forward kernel's arithmetic on bf16 ``(b, t, h, dh)``
+    inputs: float32 scores, the scale applied to them in float32, an
+    online softmax over 64-key tiles whose probabilities are rounded to
+    bf16 before ``P V`` (the sum ``l`` keeps them in float32), float32
+    accumulation; ``o`` in bf16, ``lse`` float32 ``(b, h, t)``."""
+    b, t, h, dh = q.shape
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * fa._scale(dh)
+    if causal:
+        s = s.masked_fill(~fa._causal_mask(t, q.device), float("-inf"))
+    m = torch.full((b, h, t, 1), float("-inf"))
+    l = torch.zeros((b, h, t, 1))
+    acc = torch.zeros((b, h, t, dh))
+    for k0 in range(0, t, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        base = torch.where(torch.isinf(m_new), torch.zeros_like(m_new), m_new)
+        alpha = torch.exp(m - base)
+        p = torch.exp(st - base)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        vt = v[:, k0:k0 + tile].float()
+        acc = acc * alpha + torch.einsum("bhqk,bkhd->bhqd", _bf16(p), vt)
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    o = (acc / l_safe).transpose(1, 2).to(torch.bfloat16)
+    return o, (m + torch.log(l_safe))[..., 0]
+
+
+def _tensor_core_backward(q, k, v, do, lse, delta, causal):
+    """The bf16 backward's arithmetic (K3's, and K2's once it moves to the
+    tensor cores): ``p`` and ``ds`` in float32, rounded to bf16 before
+    the products ``p^T do``, ``ds^T q`` and ``ds k``, float32
+    accumulation, the scale applied once in float32; ``(dq, dk, dv)`` in
+    bf16."""
+    scale = fa._scale(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    p = torch.exp(s * scale - lse[..., None])
+    if causal:
+        p = p.masked_fill(~fa._causal_mask(q.shape[1], q.device), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", _bf16(ds), k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", _bf16(ds), q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", _bf16(p), do.float())
+    return [x.to(torch.bfloat16) for x in (dq, dk, dv)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("t", [96, 128, 256])
+def test_tensor_core_rounding_fits_the_card_tolerance(t, dh, causal):
+    """Why the bf16 kernels on the tensor cores still meet the card's
+    unchanged bf16 checks: a plain model of their roundings (P and dS to
+    bf16 before the products that consume them, float32 accumulation,
+    the scale applied in float32) against the plain versions the card
+    compares them with, on bf16 N(0, 1) inputs — ``o``, dq, dk and dv
+    within atol 2e-2 and rtol 1.6e-2, ``lse`` within 2e-5."""
+    q, k, v, do = (torch.as_tensor(x).to(torch.bfloat16)
+                   for x in _qkv(10 + t + dh, b=1, t=t, h=2, dh=dh, n=4))
+    o_ref, lse_ref = fa._flash_fwd_plain(q, k, v, causal)
+    o, lse = _tensor_core_forward(q, k, v, causal)
+    bf16_tol = dict(atol=2e-2, rtol=1.6e-2)
+    torch.testing.assert_close(o.float(), o_ref.float(), **bf16_tol)
+    torch.testing.assert_close(lse, lse_ref, atol=2e-5, rtol=2e-5)
+    delta = fa._delta(o_ref, do)
+    want = (fa._dq_plain(q, k, v, do, lse_ref, delta, causal),
+            *fa._dkv_plain(q, k, v, do, lse_ref, delta, causal))
+    got = _tensor_core_backward(q, k, v, do, lse_ref, delta, causal)
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(g.float(), w.float(), **bf16_tol,
+                                   msg=lambda m, name=name: f"{name}: {m}")

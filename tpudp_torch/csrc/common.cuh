@@ -89,6 +89,16 @@ extern "C" const char* tpudp_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Expands BODY once for the head dim `dh` (32, 64 or 128), with `kDH`
+// bound; returns cudaErrorInvalidValue for any other.
+#define TPUDP_HEAD_DIM(dh, ...)                                           \
+  do {                                                                    \
+    if ((dh) == 32) { constexpr int kDH = 32; __VA_ARGS__; }              \
+    else if ((dh) == 64) { constexpr int kDH = 64; __VA_ARGS__; }         \
+    else if ((dh) == 128) { constexpr int kDH = 128; __VA_ARGS__; }       \
+    else return cudaErrorInvalidValue;                                    \
+  } while (0)
+
 // Expands BODY once for each supported (element type, head dim) pair,
 // with `scalar_t` and `kDH` bound; returns cudaErrorInvalidValue for any
 // other pair.  dtype_code: 0 = float32, 1 = bfloat16.
@@ -96,16 +106,10 @@ extern "C" const char* tpudp_cuda_error_string(int code) {
   do {                                                                    \
     if ((dtype_code) == 0) {                                              \
       using scalar_t = float;                                             \
-      if ((dh) == 32) { constexpr int kDH = 32; __VA_ARGS__; }            \
-      else if ((dh) == 64) { constexpr int kDH = 64; __VA_ARGS__; }       \
-      else if ((dh) == 128) { constexpr int kDH = 128; __VA_ARGS__; }     \
-      else return cudaErrorInvalidValue;                                  \
+      TPUDP_HEAD_DIM(dh, __VA_ARGS__);                                    \
     } else if ((dtype_code) == 1) {                                       \
       using scalar_t = __nv_bfloat16;                                     \
-      if ((dh) == 32) { constexpr int kDH = 32; __VA_ARGS__; }            \
-      else if ((dh) == 64) { constexpr int kDH = 64; __VA_ARGS__; }       \
-      else if ((dh) == 128) { constexpr int kDH = 128; __VA_ARGS__; }     \
-      else return cudaErrorInvalidValue;                                  \
+      TPUDP_HEAD_DIM(dh, __VA_ARGS__);                                    \
     } else {                                                              \
       return cudaErrorInvalidValue;                                       \
     }                                                                     \

@@ -76,7 +76,9 @@ def source(name: str) -> str:
     return SOURCE_OF.get(name, name)
 
 
-def _library_path(src_name: str) -> Path:
+def library_path(src_name: str) -> Path:
+    """The shared library built from ``csrc/<src_name>.cu`` (named by the
+    hash of its sources and flags; it exists once built)."""
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{src_name}.cu"]:
         digest.update(src.name.encode())
@@ -86,7 +88,7 @@ def _library_path(src_name: str) -> Path:
 
 
 def _start_build(src_name: str) -> tuple[subprocess.Popen, Path, Path] | None:
-    lib = _library_path(src_name)
+    lib = library_path(src_name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(exist_ok=True)
@@ -132,7 +134,7 @@ def launcher(name: str):
     lib = _loaded.get(src)
     if lib is None:
         build((name,))
-        lib = ctypes.CDLL(str(_library_path(src)))
+        lib = ctypes.CDLL(str(library_path(src)))
         for kernel, (symbol, argtypes) in SIGNATURES.items():
             if source(kernel) == src:
                 fn = getattr(lib, symbol)

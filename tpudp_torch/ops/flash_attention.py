@@ -18,12 +18,19 @@ tensors it runs the plain version, which is what the CPU tests see.
 Each counts its launches in ``.launches``.  The kernels read q, k, v and
 do through their strides, so the views of the qkv projection the model
 passes are never transposed or copied; ``lse`` and ``delta`` are
-float32 ``(b, h, t)``.  All math is float32 whatever the input dtype
-(fp32 or bf16); outputs take the inputs' dtypes.
+float32 ``(b, h, t)``; outputs take the inputs' dtypes.  The kernels
+pick their route by dtype.  bfloat16 inputs (the training path) go to
+the tensor-core kernels of K1 and K3, which multiply bf16 operands with
+float32 accumulation and round the probabilities ``p`` (and, in K3,
+``ds``) to bf16 before the products that consume them; the plain
+versions keep those in float32, a divergence held within the bf16
+tolerance by ``tests/test_torch_flash_attention.py``.  float32 inputs,
+and K2 for either dtype, run in float32 throughout on the CUDA cores.
 
-The kernels tile at 64 rows whatever ``block_q`` / ``block_k`` say: the
-blocks are checked as the JAX op checks them (clamped to ``time``, which
-must divide by them), and only the summation order depends on them.
+The kernels choose their own tiles (64 rows, or 64 keys, at a time)
+whatever ``block_q`` / ``block_k`` say: the blocks are checked as the
+JAX op checks them (clamped to ``time``, which must divide by them), and
+only the summation order depends on the tiling.
 """
 
 from __future__ import annotations
