@@ -299,22 +299,32 @@ def test_flash_kernels_match_plain(card, causal, dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("do_layout", ["transposed", "broadcast"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_autograd_matches_plain_backward(card, causal):
+def test_flash_autograd_matches_plain_backward(card, causal, dtype,
+                                               do_layout):
     """The public op's autograd on the card (kernels forward and
-    backward, a non-contiguous do) against the plain backward, fp32."""
-    qkv, q, k, v, do = _projection(card, 2, 128, 4, 64, torch.float32, 9)
+    backward) against the plain backward, with a do that is not
+    contiguous: a (b, h, t, dh) tensor seen as (b, t, h, dh), or one
+    head-dim row broadcast over batch, time and heads (zero strides)."""
+    dt = getattr(torch, dtype)
+    qkv, q, k, v, do = _projection(card, 2, 128, 4, 64, dt, 9)
     qkv.requires_grad_(True)
     q, k, v = (z.reshape(2, 128, 4, 64) for z in qkv.chunk(3, dim=-1))
     o = fa.flash_attention(q, k, v, causal=causal)
-    do_t = do.transpose(1, 2).contiguous().transpose(1, 2)  # strided do
-    grads = torch.autograd.grad(o, (q, k, v), do_t)
+    if do_layout == "transposed":
+        do_s = do.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        do_s = do[:1, :1, :1].expand(do.shape)
+    grads = torch.autograd.grad(o, (q, k, v), do_s)
     o_ref, lse_ref = fa._flash_fwd_plain(q.detach(), k.detach(), v.detach(),
                                          causal)
     want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), o_ref,
-                               lse_ref, do, causal)
+                               lse_ref, do_s.contiguous(), causal)
     for got, ref in zip(grads, want):
-        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FLASH_TOL[dt][1])
 
 
 @pytest.mark.cuda

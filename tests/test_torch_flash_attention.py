@@ -175,6 +175,31 @@ def test_flash_dispatch_follows_the_jax_rule(monkeypatch):
         attention.multihead_attention(q, k, v, causal=True, impl="nope")
 
 
+@pytest.mark.parametrize("layout", ["projection view", "transposed",
+                                    "broadcast", "misaligned rows"])
+def test_kernel_input_copies_only_what_the_kernels_cannot_read(layout):
+    """The kernels read q, k, v and do through their strides: a view of
+    the qkv projection or of a (b, h, t, dh) tensor goes to them as it
+    is; a broadcast (zero-stride) tensor, which the bf16 kernels' tensor
+    maps cannot step through, and rows off 16-byte boundaries are copied
+    to contiguous tensors first, with their values kept."""
+    b, t, h, dh = 2, 64, 3, 32
+    base = torch.randn(b, t, 3 * h * dh).to(torch.bfloat16)
+    q = base[..., :h * dh].reshape(b, t, h, dh)
+    x = {"projection view": base[..., h * dh:2 * h * dh].reshape(b, t, h, dh),
+         "transposed": torch.randn(b, h, t, dh).to(torch.bfloat16)
+         .transpose(1, 2),
+         "broadcast": torch.randn(dh).to(torch.bfloat16).expand(b, t, h, dh),
+         "misaligned rows": torch.randn(b, t, h, dh + 1).to(torch.bfloat16)
+         [..., :dh]}[layout]
+    got = fa._kernel_input(x, q)
+    assert torch.equal(got, x)
+    if layout in ("projection view", "transposed"):
+        assert got.data_ptr() == x.data_ptr() and got.stride() == x.stride()
+    else:
+        assert got.is_contiguous() and got.data_ptr() != x.data_ptr()
+
+
 def _bf16(x):
     """Round a float32 tensor to bf16 and back, as the kernels round."""
     return x.to(torch.bfloat16).float()

@@ -123,8 +123,9 @@ def _flash_bwd_plain(q, k, v, o, lse, do, causal: bool):
 
 def _kernel_input(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``x`` checked against ``q`` (device, dtype, shape); returned as it
-    is when its head dim is contiguous and every row starts on a 16-byte
-    boundary, else as a contiguous copy."""
+    is when its head dim is contiguous, no other dim is broadcast (a zero
+    stride, which the tensor maps of the bf16 kernels do not take) and
+    every row starts on a 16-byte boundary, else as a contiguous copy."""
     if x.device != q.device:
         raise ValueError("flash kernels need every tensor on one CUDA "
                          "device")
@@ -136,7 +137,7 @@ def _kernel_input(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
                          f"{tuple(q.shape)}")
     size = x.element_size()
     if (x.stride(-1) != 1 or x.data_ptr() % 16
-            or any(s * size % 16 for s in x.stride()[:3])):
+            or any(s == 0 or s * size % 16 for s in x.stride()[:3])):
         x = x.contiguous()
     return x
 
