@@ -10,9 +10,9 @@ which fails the run (nonzero exit, no result line) when it fails:
   1. device — the card's name and power limit, as nvidia-smi reports them;
   2. build — every CUDA kernel of the port, from ``tpudp_torch/csrc``,
      one nvcc per source, all started together; then the HGMMA (wgmma)
-     instructions in the SASS of the flash forward and dk/dv libraries,
-     counted with ``cuobjdump -sass`` — none in either fails the run (the
-     bf16 flash kernels must run on the tensor cores);
+     instructions in the SASS of the flash forward, dq and dk/dv
+     libraries, counted with ``cuobjdump -sass`` — none in any of them
+     fails the run (the bf16 flash kernels must run on the tensor cores);
   3. kernels vs plain — each kernel against its plain PyTorch version on
      the same inputs: fragmented block tables (pages shared between
      slots, ``-1`` tails, whole-pool ``layer=`` mode), GPT-2 small's
@@ -23,9 +23,10 @@ which fails the run (nonzero exit, no result line) when it fails:
      in float32, and both round outputs above 2 to a 1/64 grid);
   3b. tree kernel vs plain — the paged-tree kernel against its plain
      version on the same fragmented tables, node queries and window K/V
-     as strided views of one projection, the trees fork2x2, fork3+1 and
-     chain4, GPT-2 small's heads and a grouped-query shape, per-layer and
-     whole-pool, with phase 3's tolerances;
+     as strided views of one projection, the trees fork2x2, fork3+1,
+     chain4 and a 32-node tree (the kernel's widest), GPT-2 small's heads
+     and a grouped-query shape, per-layer and whole-pool, with phase 3's
+     tolerances;
   3c. int8 kernels vs plain — the int8 variants of the paged-decode and
      paged-window kernels against their plain version (dequantize, then
      the einsum) on phase 3's fragmented tables over pools quantized by
@@ -57,7 +58,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      every tree window the paged-tree kernel once per layer (the tree
      run), and every plain decode step the paged-decode kernel; the
      tokens must agree with the plain engine's under phase 4's near-tie
-     rule;
+     rule; no kernel engine of phases 4 and 4b may list a fallback in
+     ``metrics()["paged_attn"]``;
   4c. LLaMA main path — ``benchmarks/matrix_bench.py``'s ``llama_gqa``
      widths (12 layers, d 768, 12 query heads over 3 KV heads, SwiGLU
      hidden 2048, vocab 32000; context 1024, float32, random weights
@@ -70,7 +72,20 @@ which fails the run (nonzero exit, no result line) when it fails:
      must agree with the plain int8 run's under phase 4's near-tie rule
      (the gap read from the plain int8 prefill); agreement with the fp32
      run, page bytes, tokens/s, TTFT and a profiled decode step on each
-     pool are printed, not gated;
+     pool are printed, not gated; the fallbacks may name only tree verify
+     over int8 (as in JAX);
+  4d. routes — the shapes the kernels do not take, served by the kernel
+     engine through the einsum path as decided at build time: GPT-2
+     small's widths over 16 heads (head dim 48) cut to 2 layers, whose
+     engine must list all four paged families in
+     ``metrics()["paged_attn"]["fallbacks"]`` and launch no kernel; the
+     phase-4 model with a 40-node ``speculate_tree``, which must list
+     tree verify alone, verify trees and launch no tree kernel while its
+     decode and prefill go through theirs; both serving tokens that agree
+     with the plain engine's under phase 4's near-tie rule; and
+     ``multihead_attention(impl='flash')`` at head dim 48 routed to the
+     dense math (counted once, no flash kernel launched) and equal to
+     it;
   5. flash kernels vs plain — the forward (``o``, ``lse``), dq and dk/dv
      kernels against their plain PyTorch versions on q, k, v taken as
      strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
@@ -89,7 +104,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      ``tpudp_torch.train`` with ``make_optimizer(learning_rate=0.01)``
      for 2 warm-up and 8 timed steps at batch 4 x 2048 tokens from a
      numpy seed.  Each flash kernel must launch once per layer and step;
-     the same weights and batches trained with ``attn_impl='dense'``
+     no call may be routed to the dense math; the same weights and
+     batches trained with ``attn_impl='dense'``
      (no flash launch) must give per-step losses within rtol 2e-2 (bf16
      dense scores round otherwise than the kernels' float32 ones).  Each
      run then takes one step split into forward / backward / optimizer
@@ -155,13 +171,16 @@ FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64)}
 # The largest error a 64-token tile of a bf16 flash output may have
 # relative to the reference's norm there: 3x the largest that sound
-# kernels read.  On an H100 the kernels read 0.0012-0.0033 over phase
-# 5's cases (dq, bit-equal to its plain version, 0); a plain model of the
-# tensor-core kernels' roundings reads 0.0023-0.0030 on the CPU; a forward
-# that drops one key tile from the rows past t/2 at t 2048 reads 0.25.
+# kernels read.  On an H100 the tensor-core kernels read 0.0012-0.0033
+# over phase 5's cases (o, dq, dk and dv); a plain model of their
+# roundings reads 0.0023-0.0030 on the CPU; a forward that drops one key
+# tile from the rows past t/2 at t 2048 reads 0.25.
 BF16_TILE_REL_ERR = 1e-2
 # The sources whose bf16 kernels run on the tensor cores.
-WGMMA_SOURCES = ("flash_fwd", "flash_dkv")
+WGMMA_SOURCES = ("flash_fwd", "flash_dq", "flash_dkv")
+# A tree of 40 nodes (13 first steps, two continuations each): wider than
+# the tree kernel's 32.
+WIDE_TREE = (-1,) + (0,) * 13 + tuple(1 + i // 2 for i in range(26))
 # Device cycles spun ahead of each call timed on the device clock alone
 # (about 1 ms at the H100's clocks), long enough for the host to queue
 # the call behind them.
@@ -300,17 +319,22 @@ def check_tree_kernels(torch, pa, device) -> None:
     """Phase 3b: K6 against ``_tree_plain``.  The fragmented tables map
     every position up to ``pos0 + T``, a superset of the strictly
     visible cache."""
-    from tpudp_torch.serve.speculate import TREE_SHAPES
+    from tpudp_torch.serve.speculate import TREE_SHAPES, TreeShape
 
     shapes = {"gpt2": dict(h=12, kv=12, dh=64),
               "gqa": dict(h=32, kv=8, dh=128)}
     tol = {torch.float32: dict(atol=2e-5, rtol=2e-5),
            torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    # 32 nodes, the kernel's widest: 7 first steps, 24 second, 3 each.
+    trees = {name: TREE_SHAPES[name]
+             for name in ("fork2x2", "fork3+1", "chain4")}
+    trees["wide32"] = TreeShape("wide32", (-1,) + (0,) * 7 + tuple(
+        1 + i // 3 for i in range(24)))
     failures = []
     seed = 100
     for sname, dims in shapes.items():
-        for tree in ("fork2x2", "fork3+1", "chain4"):
-            anc = TREE_SHAPES[tree].ancestors
+        for tree, shape in trees.items():
+            anc = shape.ancestors
             for dtype in (torch.float32, torch.bfloat16):
                 for layer in (None, 1):
                     seed += 1
@@ -517,6 +541,9 @@ def main_path(torch, np, pa, seed: int):
     launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
     if eng.paged_attn != "kernel":
         raise SmokeFailure(f"paged_attn resolved to {eng.paged_attn!r}")
+    fallbacks = eng.metrics()["paged_attn"]["fallbacks"]
+    if fallbacks:
+        raise SmokeFailure(f"the main path fell back on {fallbacks}")
     for name in SERVE_KERNELS:
         if launches[name] == 0:
             raise SmokeFailure(f"kernel {name} never launched on the main "
@@ -608,6 +635,9 @@ def spec_main_path(torch, np, pa, model, prompts, seed: int) -> dict:
         if steps == 0 or st["draft_accepted"] == 0:
             raise SmokeFailure(f"the {label} run verified {steps} windows "
                                f"and accepted {st['draft_accepted']} drafts")
+        fallbacks = eng.metrics()["paged_attn"]["fallbacks"]
+        if fallbacks:
+            raise SmokeFailure(f"the {label} run fell back on {fallbacks}")
         want = {name: 0 for name in pa.KERNELS}
         want.update(paged_decode=cfg.num_layers * st["decode_steps"],
                     paged_window=cfg.num_layers * (
@@ -671,6 +701,11 @@ def llama_main_path(torch, np, pa, seed: int) -> dict:
                            f"{launches}, its steps need {want}")
     if any(runs["int8 plain"][2].values()):
         raise SmokeFailure("the plain int8 engine launched a kernel")
+    for label, allowed in (("int8 kernel", ["tree_verify_paged"]),
+                           ("fp32 kernel", [])):
+        fallbacks = runs[label][0].metrics()["paged_attn"]["fallbacks"]
+        if fallbacks != allowed:
+            raise SmokeFailure(f"the {label} run falls back on {fallbacks}")
     fp_launches = runs["fp32 kernel"][2]
     if not (fp_launches["paged_decode"] and fp_launches["paged_window"]):
         raise SmokeFailure(f"the fp32 run launched {fp_launches}")
@@ -695,6 +730,80 @@ def llama_main_path(torch, np, pa, seed: int) -> dict:
     torch.cuda.empty_cache()
     return {name: launches[name]
             for name in ("paged_decode_int8", "paged_window_int8")}
+
+
+# -- phase 4d: shapes the kernels do not take -----------------------------
+
+
+def routes_path(torch, np, pa, fa, model, prompts, seed: int) -> None:
+    """Phase 4d: a head dim and a tree the kernels do not take, served by
+    kernel engines whose build-time dispatch sends them to the einsum
+    path, and flash attention at head dim 48 routed to the dense math."""
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.ops import attention
+    from tpudp_torch.serve import Engine, NgramDrafter
+    from tpudp_torch.serve.engine import PAGED_FAMILIES
+
+    cfg48 = gpt2.GPT2Config(num_layers=2, num_heads=16)  # head dim 48
+    model48 = gpt2.build(cfg48, seed, "cuda")
+    work = prompts[1:5]
+    eng, handles, wall, launches = serve_spec(torch, Engine, model48, work,
+                                              pa)
+    fallbacks = eng.metrics()["paged_attn"]["fallbacks"]
+    print(f"routes head-dim-48 kernel engine: {serve_summary(handles, wall)},"
+          f" fallbacks {fallbacks}, launches {launches}", flush=True)
+    if (eng.paged_attn != "kernel" or fallbacks != sorted(PAGED_FAMILIES)
+            or any(launches.values())):
+        raise SmokeFailure(f"the head-dim-48 engine ({eng.paged_attn}) "
+                           f"falls back on {fallbacks} and launched "
+                           f"{launches}")
+    _, ref, _, _ = serve_spec(torch, Engine, model48, work, pa,
+                              paged_attn="einsum")
+    agree_with_plain(torch, np, model48, work, handles, ref,
+                     "routes head-dim-48")
+    del model48
+
+    cfg = model.config
+    work = spec_prompts(np, seed, cfg.vocab_size, prompts)[:4]
+    eng, handles, wall, launches = serve_spec(
+        torch, Engine, model, work, pa, speculate_k=2,
+        speculate_tree=WIDE_TREE,
+        drafter=NgramDrafter(max_ngram=3, min_ngram=2))
+    st = eng.stats
+    fallbacks = eng.metrics()["paged_attn"]["fallbacks"]
+    print(f"routes {len(WIDE_TREE)}-node tree kernel engine: "
+          f"{serve_summary(handles, wall)}, fallbacks {fallbacks}, launches "
+          f"{launches}, stats {dict(st)}", flush=True)
+    want = {name: 0 for name in pa.KERNELS}
+    want.update(paged_decode=cfg.num_layers * st["decode_steps"],
+                paged_window=cfg.num_layers * (st["prefill_chunks"]
+                                               + st["verify_steps"]))
+    if (fallbacks != ["tree_verify_paged"] or launches != want
+            or st["tree_verify_steps"] == 0):
+        raise SmokeFailure(f"the wide-tree engine falls back on {fallbacks},"
+                           f" launched {launches} (its steps need {want}) "
+                           f"and verified {st['tree_verify_steps']} trees")
+    _, ref, _, _ = serve_spec(torch, Engine, model, work, pa,
+                              paged_attn="einsum")
+    agree_with_plain(torch, np, model, work, handles, ref,
+                     f"routes {len(WIDE_TREE)}-node tree")
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((2, 256, 4, 48), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    before = (attention.dense_routes,
+              {name: fn.launches for name, fn in fa.KERNELS.items()})
+    got = attention.multihead_attention(q, k, v, causal=True, impl="flash",
+                                        dtype=torch.bfloat16)
+    after = (attention.dense_routes,
+             {name: fn.launches for name, fn in fa.KERNELS.items()})
+    want = attention.dense_attention(q, k, v, causal=True,
+                                     dtype=torch.bfloat16)
+    print(f"routes flash head-dim-48: dense routes {before[0]} -> "
+          f"{after[0]}, flash launches {after[1]}", flush=True)
+    if after != (before[0] + 1, before[1]) or not torch.equal(got, want):
+        raise SmokeFailure("flash attention at head dim 48 was not routed "
+                           "to the dense math")
 
 
 # -- phase 5: flash kernels vs their plain versions -----------------------
@@ -971,10 +1080,16 @@ def train_main_path(torch, np, fa, seed: int) -> dict:
         device="cuda")
     batches = [(tok[:, :-1], tok[:, 1:]) for tok in tokens]
 
+    from tpudp_torch.ops import attention
+
     for fn in fa.KERNELS.values():
         fn.launches = 0
+    routes = attention.dense_routes
     flash = train_run(torch, train, gpt2, cfg, seed, batches, fa.KERNELS)
     launches = flash["launches"]
+    if attention.dense_routes != routes:
+        raise SmokeFailure(f"{attention.dense_routes - routes} flash calls "
+                           f"of the training path went to the dense math")
     for name, n in launches.items():
         if n != cfg.num_layers * n_steps:
             raise SmokeFailure(f"kernel {name} launched {n} times in "
@@ -1358,6 +1473,7 @@ def main(argv=None) -> int:
         launches.update(spec_main_path(torch, np, pa, model, prompts,
                                        args.seed))
         launches.update(llama_main_path(torch, np, pa, args.seed))
+        routes_path(torch, np, pa, fa, model, prompts, args.seed)
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
         records = timings(torch, pa, model, prompts, launches)

@@ -338,3 +338,135 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.zeros(1, 64, 2, 64, device=card)
     with pytest.raises(ValueError, match="one CUDA device"):
         fa.flash_fwd(q, q.cpu(), q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 2048, 12, 64), (2, 256, 4, 32),
+                                   (2, 256, 4, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_autograd_backward_on_the_tensor_cores(card, causal, shape):
+    """The bf16 backward through K2 and K3 on the tensor cores, by the
+    public op's autograd: at the training path's shape (b 4, t 2048, h
+    12, dh 64) and at head dims 32 and 128, against the plain backward at
+    the bf16 tolerance, each backward kernel launched once."""
+    qkv, q, k, v, do = _projection(card, *shape, torch.bfloat16,
+                                   seed=sum(shape))
+    qkv.requires_grad_(True)
+    q, k, v = (z.reshape(shape) for z in qkv.chunk(3, dim=-1))
+    o = fa.flash_attention(q, k, v, causal=causal)
+    before = {n: fn.launches for n, fn in fa.KERNELS.items()}
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert {n: fn.launches - before[n] for n, fn in fa.KERNELS.items()} == {
+        "flash_fwd": 0, "flash_dq": 1, "flash_dkv": 1}
+    o_ref, lse_ref = fa._flash_fwd_plain(q.detach(), k.detach(), v.detach(),
+                                         causal)
+    want = fa._flash_bwd_plain(q.detach(), k.detach(), v.detach(), o_ref,
+                               lse_ref, do, causal)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got.float(), ref.float(),
+                                   **FLASH_TOL[torch.bfloat16][1])
+
+
+def _tree32():
+    """32 nodes, the tree kernel's widest: 7 first steps, 24 second."""
+    from tpudp_torch.serve.speculate import TreeShape
+
+    return TreeShape("wide32", (-1,) + (0,) * 7 + tuple(
+        1 + i // 3 for i in range(24)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("whole_pool", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(12, 12, 64), (32, 8, 128), (8, 2, 32)])
+@pytest.mark.parametrize("shape", ["fork2x2", "fork3+1", "chain4", "wide32"])
+def test_tree_kernel_shared_tile_matches_plain(card, shape, heads, dtype,
+                                               whole_pool):
+    """K6's shared K/V tile against its plain version: GPT-2's heads, a
+    grouped-query shape (4 query heads a KV head, so up to 128 rows read
+    one KV head) and head dim 32 at 4 groups, the trees of the engine and
+    a 32-node one, per layer and
+    whole-pool, slots at depths past several 32-key tiles and at 0, with
+    page-table rows that share pages, map a stale page past the visible
+    edge and leave the rest unmapped (every visible entry is mapped, as
+    the engine guarantees); tolerances as above."""
+    dt = getattr(torch, dtype)
+    tree = _tree32() if shape == "wide32" else TREE_SHAPES[shape]
+    anc = tree.ancestors
+    t1 = len(anc)
+    h, kv, dh = heads
+    rng = np.random.default_rng(t1 + h + dh)
+    page_tokens, n_pages = 16, 24
+    table = np.full((4, 8), -1, np.int32)
+    table[0, :5] = [3, 7, 1, 20, 9]
+    table[1, :6] = [3, 7, 11, 12, 13, 14]
+    table[2, :4] = [5, 21, 6, 22]  # 22: stale, past the visible edge
+    pos0 = np.array([70, 96, 40, 0], np.int32)
+    k, v = (torch.as_tensor(rng.standard_normal(
+        (LAYERS, n_pages + 1, page_tokens, kv, dh), np.float32)).to(card, dt)
+        for _ in range(2))
+    proj = torch.as_tensor(rng.standard_normal(
+        (4, t1, (h + 2 * kv) * dh), np.float32)).to(card, dt)
+    q, wk, wv = proj.split([h * dh, kv * dh, kv * dh], dim=-1)
+    q = q.reshape(4, t1, h, dh)
+    wk, wv = wk.reshape(4, t1, kv, dh), wv.reshape(4, t1, kv, dh)
+    pos0 = torch.as_tensor(pos0).to(card)
+    table = torch.as_tensor(table).to(card)
+    pages, layer = ((k, v), 1) if whole_pool else ((k[1], v[1]), None)
+    before = pa.paged_tree.launches
+    got = pa.tree_paged_attention(q, pages, table, pos0, wk, wv, anc,
+                                  dtype=dt, layer=layer)
+    assert pa.paged_tree.launches == before + 1
+    want = pa._tree_plain(q, k, v, table, pos0, wk, wv, anc, 1)
+    tol = (dict(atol=2e-5, rtol=2e-5) if dt == torch.float32
+           else dict(atol=2e-2, rtol=1.6e-2))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+def test_head_dim_48_routes_on_the_card(card):
+    """Head dim 48, which no kernel takes: a paged engine on the card
+    resolves to the kernels, sends every family to the einsum path at
+    build time (all four listed as fallbacks), serves the plain engine's
+    greedy tokens and launches no kernel; ``impl='flash'`` runs the
+    dense math, counted once, with no flash launch, and its autograd
+    matches the dense math's."""
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.ops import attention
+    from tpudp_torch.serve import Engine
+    from tpudp_torch.serve.engine import PAGED_FAMILIES
+
+    cfg = gpt2.GPT2Config(vocab_size=64, max_seq_len=64, num_layers=1,
+                          num_heads=2, d_model=96)
+    model = gpt2.build(cfg, 0, card)
+    prompts = [np.arange(5, dtype=np.int32), np.arange(9, 20, dtype=np.int32)]
+    before = {n: fn.launches for n, fn in pa.KERNELS.items()}
+    tokens = {}
+    for paged_attn in (None, "einsum"):
+        eng = Engine(model, num_slots=2, max_len=32, prefill_chunk=8,
+                     kv_pages=8, paged_attn=paged_attn)
+        handles = [eng.submit(p, 4) for p in prompts]
+        eng.run_until_complete()
+        tokens[paged_attn] = [h.tokens for h in handles]
+        if paged_attn is None:
+            m = eng.metrics()["paged_attn"]
+            assert m["resolved"] == "kernel"
+            assert m["fallbacks"] == sorted(PAGED_FAMILIES)
+    assert tokens[None] == tokens["einsum"]
+    assert {n: fn.launches for n, fn in pa.KERNELS.items()} == before
+
+    qkv, q, k, v, do = _projection(card, 2, 128, 2, 48, torch.float32, 4)
+    qkv.requires_grad_(True)
+    q, k, v = (z.reshape(2, 128, 2, 48) for z in qkv.chunk(3, dim=-1))
+    flash_before = {n: fn.launches for n, fn in fa.KERNELS.items()}
+    routes = attention.dense_routes
+    o = attention.multihead_attention(q, k, v, causal=True, impl="flash")
+    assert attention.dense_routes == routes + 1
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    assert {n: fn.launches for n, fn in fa.KERNELS.items()} == flash_before
+    o_ref = attention.dense_attention(q, k, v, causal=True,
+                                      dtype=torch.float32)
+    want = torch.autograd.grad(o_ref, (q, k, v), do)
+    torch.testing.assert_close(o, o_ref, atol=0, rtol=0)
+    for got, ref in zip(grads, want):
+        torch.testing.assert_close(got, ref, atol=0, rtol=0)

@@ -234,11 +234,10 @@ def _tensor_core_forward(q, k, v, causal, tile=64):
 
 
 def _tensor_core_backward(q, k, v, do, lse, delta, causal):
-    """The bf16 backward's arithmetic (K3's, and K2's once it moves to the
-    tensor cores): ``p`` and ``ds`` in float32, rounded to bf16 before
-    the products ``p^T do``, ``ds^T q`` and ``ds k``, float32
-    accumulation, the scale applied once in float32; ``(dq, dk, dv)`` in
-    bf16."""
+    """The bf16 backward's arithmetic (K2's and K3's): ``p`` and ``ds``
+    in float32, rounded to bf16 before the products ``p^T do``, ``ds^T
+    q`` and ``ds k``, float32 accumulation, the scale applied once in
+    float32; ``(dq, dk, dv)`` in bf16."""
     scale = fa._scale(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     p = torch.exp(s * scale - lse[..., None])

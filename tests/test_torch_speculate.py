@@ -25,8 +25,11 @@ from tpudp_torch.models import gpt2
 from tpudp_torch.ops import sampling
 from tpudp_torch.serve import speculate
 
+# d_model 48, not the 32 of tests/test_speculate.py: the JAX drafter's
+# program is jitted on the model config, so the same config compiled here
+# first would hide the compile that file counts when a worker runs both.
 TINY = dict(vocab_size=61, max_seq_len=64, num_layers=2, num_heads=2,
-            d_model=32)
+            d_model=48)
 
 
 def _context(kind: str) -> np.ndarray:

@@ -1,11 +1,11 @@
 // Shared device code of the flash-attention kernels that run on the
-// float32 CUDA cores: K2 (flash_dq.cu, both dtypes) and the float32
-// kernels of K1 (flash_fwd.cu) and K3 (flash_dkv.cu), which replace
-// tpudp/ops/flash_attention.py's _dq_kernel, _fwd_kernel and _dkv_kernel.
+// float32 CUDA cores: the float32 kernels of K1 (flash_fwd.cu), K2
+// (flash_dq.cu) and K3 (flash_dkv.cu), which replace
+// tpudp/ops/flash_attention.py's _fwd_kernel, _dq_kernel and _dkv_kernel.
 // It holds the strided (b, t, h, dh) view every flash kernel takes, the
 // tile geometry, shared-memory tile loads and the two register-blocked
-// tile products those kernels are built from.  The bf16 kernels of K1
-// and K3 run on the tensor cores instead (flash_sm90.cuh).
+// tile products those kernels are built from.  The bf16 kernels of K1,
+// K2 and K3 run on the tensor cores instead (flash_sm90.cuh).
 //
 // Bound on this card: operations, as for every flash kernel (4 to 8 dh
 // flops per visible (query, key) pair against a few bytes per row), but
@@ -13,8 +13,7 @@
 // shared-memory bandwidth: each 4 x 4 register-block step reads 8 floats
 // of shared memory for 16 FMAs.  float32 keeps these kernels because
 // their checks hold o to 2e-5 and the gradients to 1e-4, which TF32
-// tensor cores would not meet; K2's bf16 path is the next to move to the
-// tensor cores.
+// tensor cores would not meet.
 //
 // Geometry: a block of kThreads = 256 threads works on 64-row tiles.  The
 // threads form a 16 x 16 grid (ty, tx); thread (ty, tx) owns rows

@@ -1,5 +1,5 @@
 // Hopper building blocks of the bf16 flash-attention kernels (flash_fwd.cu
-// K1 and flash_dkv.cu K3; K2's redesign reuses them): swizzled bf16 tiles
+// K1, flash_dq.cu K2 and flash_dkv.cu K3): swizzled bf16 tiles
 // in shared memory filled by TMA (the tensor map of a strided (b, t, h, D)
 // view, encoded on the host by cuTensorMapEncodeTiled, fetched through the
 // CUDA runtime so that no library links against libcuda, and

@@ -9,7 +9,12 @@ policy of the transformer models, as in the JAX package:
   * ``'flash'`` — :func:`tpudp_torch.ops.flash_attention.flash_attention`
     (the K1-K3 kernels) when the token count divides by 128, the dense
     math otherwise: the reference's own contract, not a fallback on
-    failure;
+    failure.  On a CUDA device the kernels also need a head dim of 32,
+    64 or 128 and float32 or bfloat16 inputs; :func:`flash_route`
+    sends any other call to the dense math, the JAX package's other
+    implementation, decided from the shapes before any launch, and
+    counts it in ``dense_routes`` (the plain versions on the CPU take
+    every head dim and dtype, so the CPU follows the JAX rule alone);
   * ``'ring'`` — sequence-parallel ring attention is not ported yet.
 """
 
@@ -17,9 +22,28 @@ from __future__ import annotations
 
 import torch
 
-from tpudp_torch.ops.flash_attention import flash_attention
+from tpudp_torch.ops.flash_attention import (_KERNEL_DTYPES,
+                                             _KERNEL_HEAD_DIMS,
+                                             flash_attention)
 
 _IMPLS = ("dense", "flash", "ring")
+
+#: ``impl='flash'`` calls :func:`flash_route` sent to the dense math
+#: because the kernels have no instance for their head dim or dtype.
+dense_routes = 0
+
+
+def flash_route(shape, dtype, device_type: str) -> str:
+    """``'flash'`` or ``'dense'`` for an ``impl='flash'`` call on ``(b,
+    t, h, dh)`` inputs of ``dtype`` on ``device_type``: dense when ``t %
+    128`` (the JAX rule) or, on CUDA, when the kernels do not take the
+    head dim or dtype."""
+    if shape[1] % 128:
+        return "dense"
+    if device_type == "cuda" and (shape[-1] not in _KERNEL_HEAD_DIMS
+                                  or dtype not in _KERNEL_DTYPES):
+        return "dense"
+    return "flash"
 
 
 def dense_attention(q, k, v, *, causal: bool, dtype) -> torch.Tensor:
@@ -39,7 +63,10 @@ def dense_attention(q, k, v, *, causal: bool, dtype) -> torch.Tensor:
 def multihead_attention(q, k, v, *, causal: bool, impl: str = "dense",
                         dtype=torch.float32) -> torch.Tensor:
     """``(B, T, H, Dh)`` q/k/v -> ``(B, T, H, Dh)`` attention output,
-    by the JAX package's dispatch rule (module docstring)."""
+    by the JAX package's dispatch rule (module docstring).  An
+    ``impl='flash'`` call whose token count divides by 128 but whose head
+    dim or dtype the CUDA kernels lack runs the dense math and adds one
+    to the module's ``dense_routes``."""
     if impl not in _IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; choose from "
                          f"{', '.join(map(repr, _IMPLS))}")
@@ -47,6 +74,10 @@ def multihead_attention(q, k, v, *, causal: bool, impl: str = "dense",
         raise NotImplementedError(
             "ring attention is not ported yet: ROADMAP.md slice 6b "
             "(ring attention)")
-    if impl == "flash" and q.shape[1] % 128 == 0:
-        return flash_attention(q, k, v, causal=causal)
+    if impl == "flash":
+        if flash_route(q.shape, q.dtype, q.device.type) == "flash":
+            return flash_attention(q, k, v, causal=causal)
+        if q.shape[1] % 128 == 0:
+            global dense_routes
+            dense_routes += 1
     return dense_attention(q, k, v, causal=causal, dtype=dtype)

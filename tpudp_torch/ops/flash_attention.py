@@ -20,12 +20,14 @@ do through their strides, so the views of the qkv projection the model
 passes are never transposed or copied; ``lse`` and ``delta`` are
 float32 ``(b, h, t)``; outputs take the inputs' dtypes.  The kernels
 pick their route by dtype.  bfloat16 inputs (the training path) go to
-the tensor-core kernels of K1 and K3, which multiply bf16 operands with
-float32 accumulation and round the probabilities ``p`` (and, in K3,
-``ds``) to bf16 before the products that consume them; the plain
-versions keep those in float32, a divergence held within the bf16
-tolerance by ``tests/test_torch_flash_attention.py``.  float32 inputs,
-and K2 for either dtype, run in float32 throughout on the CUDA cores.
+the tensor-core kernels, which multiply bf16 operands with float32
+accumulation and round the probabilities ``p`` (K1, K3) and ``ds`` (K2,
+K3) to bf16 before the products that consume them; the plain versions
+keep those in float32, a divergence held within the bf16 tolerance by
+``tests/test_torch_flash_attention.py``.  float32 inputs run in float32
+throughout on the CUDA cores.  The kernels take head dims 32, 64 and
+128; :func:`tpudp_torch.ops.attention.flash_route` sends other head dims
+to the dense math before any of them is called.
 
 The kernels choose their own tiles (64 rows, or 64 keys, at a time)
 whatever ``block_q`` / ``block_k`` say: the blocks are checked as the

@@ -47,6 +47,8 @@ from tpudp_torch.ops import _build
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
+#: The most tree nodes K6 takes: one 32-bit ancestor mask a node row.
+TREE_KERNEL_MAX_NODES = 32
 
 
 def page_tiles(pages, table, dtype):
@@ -281,10 +283,14 @@ def _tree_plain(q, k_pages, v_pages, table, pos0, wk, wv, anc, layer):
 def _ancestor_masks(anc, device) -> torch.Tensor:
     """The ``(T+1, T+1)`` mask as ``(T+1,)`` int32 row bitmasks (bit
     ``c`` of row ``j`` set iff ``anc[j][c]``) on ``device``, built once
-    per tree shape and device."""
-    rows = tuple(tuple(row) for row in
-                 torch.as_tensor(anc, dtype=torch.bool).tolist())
-    return _masks_on(rows, device)
+    per tree shape and device.  A tuple of tuples (``TreeShape.ancestors``,
+    what the engine passes) is the cache key as it is, so a tree step
+    pays no conversion on the host."""
+    if not (isinstance(anc, tuple) and all(isinstance(r, tuple)
+                                           for r in anc)):
+        anc = tuple(tuple(row) for row in
+                    torch.as_tensor(anc, dtype=torch.bool).tolist())
+    return _masks_on(anc, device)
 
 
 @functools.lru_cache(maxsize=64)
@@ -309,8 +315,9 @@ def paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc, *,
     out, table, pos0, ints, strides, _ = _launch_args(
         q, (k_pages, v_pages), table, pos0, layer)
     _, b, t1, _, kv, dh, _, _ = ints
-    if t1 > 32:
-        raise ValueError(f"the tree kernel takes at most 32 nodes, got {t1}")
+    if t1 > TREE_KERNEL_MAX_NODES:
+        raise ValueError(f"the tree kernel takes at most "
+                         f"{TREE_KERNEL_MAX_NODES} nodes, got {t1}")
     for name, w in (("wk", wk), ("wv", wv)):
         if w.device != q.device or w.dtype != q.dtype:
             raise ValueError(f"{name} must be a {q.dtype} tensor on "

@@ -28,9 +28,12 @@ Two KV stores, as in the JAX engine:
     version.  Asking for ``'kernel'`` on the CPU raises.
     ``kv_dtype='int8'`` stores the pool quantized (int8 payloads, one
     float32 scale per token and KV head, same page ids): the kernels are
-    then their int8 variants, and tree verify — which the tree kernel
-    does not take over int8, in JAX either — runs the einsum path, a
-    fallback ``metrics()['paged_attn']`` lists.
+    then their int8 variants.  Where the kernels cannot take the
+    engine's shapes, a kernel engine runs that family on the einsum
+    path, decided at build time by :func:`paged_dispatch` and listed in
+    ``metrics()['paged_attn']['fallbacks']``: every family at a head dim
+    other than 32, 64 or 128, and tree verify over an int8 pool (as in
+    JAX) or over a tree of more than 32 nodes.
 
 Sampling is per slot: greedy rows take the argmax; sampled rows draw
 from the slot's own ``torch.Generator``, seeded from the request's
@@ -74,7 +77,8 @@ from tpudp_torch.models.generate import (KVCache, _forward_cached,
                                          update_cache_rows,
                                          validate_decode_config,
                                          write_token_pages)
-from tpudp_torch.ops.paged_attention import KERNELS
+from tpudp_torch.ops.paged_attention import (_KERNEL_HEAD_DIMS, KERNELS,
+                                             TREE_KERNEL_MAX_NODES)
 from tpudp_torch.ops.sampling import (sample_tokens, verify_tokens,
                                       verify_tree_tokens)
 from tpudp_torch.serve.prefix_cache import PageIndex, PagePool
@@ -98,20 +102,35 @@ _UNPORTED = {
 }
 
 
+#: Device types the kernel backend runs on: the kernels are CUDA's.
+KERNEL_DEVICES = ("cuda",)
+
 #: The paged step families, as ``metrics()["paged_attn"]["dispatch"]``
 #: names them.
 PAGED_FAMILIES = ("decode_paged", "verify_paged", "prefill_paged",
                   "tree_verify_paged")
 
 
-def paged_dispatch(paged_attn: str, kv_dtype: str | None) -> dict:
-    """Which impl each paged family runs, decided once at build time
-    (``tpudp/serve/engine.py``'s ``paged_attn_dispatch``): tree verify
-    has no int8 kernel (JAX's ``_tree_paged`` raises for int8 pools
-    too), so a kernel engine over an int8 pool verifies trees on the
-    einsum path."""
+def paged_dispatch(paged_attn: str, kv_dtype: str | None,
+                   head_dim: int | None = None,
+                   tree_nodes: int | None = None) -> dict:
+    """Which impl each paged family runs, decided once at build time from
+    the engine's shapes (``tpudp/serve/engine.py``'s
+    ``paged_attn_dispatch``).  A kernel engine sends a family to the
+    einsum path wherever the kernels cannot take it, as JAX does where a
+    feature lacks kernel support: every family at a head dim outside
+    ``_KERNEL_HEAD_DIMS`` (32, 64, 128); tree verify over an int8 pool
+    (JAX's ``_tree_paged`` raises for int8 pools too) or over a tree of
+    more than ``TREE_KERNEL_MAX_NODES`` nodes (the tree kernel keeps one
+    32-bit ancestor mask a row).  ``head_dim`` / ``tree_nodes`` None
+    leave that check out."""
     table = dict.fromkeys(PAGED_FAMILIES, paged_attn)
-    if paged_attn == "kernel" and kv_dtype == "int8":
+    if paged_attn != "kernel":
+        return table
+    if head_dim is not None and head_dim not in _KERNEL_HEAD_DIMS:
+        return dict.fromkeys(PAGED_FAMILIES, "einsum")
+    if kv_dtype == "int8" or (tree_nodes is not None
+                              and tree_nodes > TREE_KERNEL_MAX_NODES):
         table["tree_verify_paged"] = "einsum"
     return table
 
@@ -338,7 +357,7 @@ class Engine:
         if paged_attn == "kernel" and not kv_pages:
             raise ValueError("paged_attn='kernel' requires kv_pages > 0 — "
                              "the kernels read through the block table")
-        if paged_attn == "kernel" and self.device.type != "cuda":
+        if paged_attn == "kernel" and self.device.type not in KERNEL_DEVICES:
             raise ValueError("paged_attn='kernel' runs the CUDA kernels; "
                              "it needs a CUDA device")
         self.paged_attn_requested = paged_attn
@@ -406,8 +425,12 @@ class Engine:
         self.kv_pages = kv_pages
         self.kv_dtype = kv_dtype
         self.paged_attn = paged_attn
-        self.paged_attn_dispatch = (paged_dispatch(paged_attn, kv_dtype)
-                                    if self._paged else {})
+        self.paged_attn_dispatch = (
+            paged_dispatch(paged_attn, kv_dtype,
+                           cfg.d_model // cfg.num_heads,
+                           len(self.speculate_tree.parents)
+                           if self.speculate_tree is not None else None)
+            if self._paged else {})
         self._max_pages = self.max_len // prefill_chunk  # table width
         self._mstates: dict[str | None, _ModelState] = {
             None: _ModelState(self.model)}
@@ -838,7 +861,7 @@ class Engine:
                 ms.model, tokens, ms.pool.pages,
                 self._to_device(ms.table[s][None], torch.int32), start,
                 torch.ones(1, dtype=torch.bool, device=self.device),
-                impl=self.paged_attn)
+                impl=self.paged_attn_dispatch["prefill_paged"])
         else:
             row = KVCache(ms.cache.k[:, s:s + 1], ms.cache.v[:, s:s + 1])
             logits, _ = _forward_cached(ms.model, tokens, row, start)
@@ -867,7 +890,9 @@ class Engine:
 
             def forward(pool, tokens, lens, act):
                 return _forward_paged(ms.model, tokens, pool, table, lens,
-                                      act, impl=self.paged_attn)
+                                      act,
+                                      impl=self.paged_attn_dispatch[
+                                          "decode_paged"])
             state = ms.pool.pages
         else:
             def forward(cache, tokens, lens, act):
@@ -1027,7 +1052,8 @@ class Engine:
             logits, _ = _forward_paged(
                 ms.model, tokens, ms.pool.pages,
                 self._to_device(ms.table, torch.int32), lengths,
-                self._to_device(active, torch.bool), impl=self.paged_attn)
+                self._to_device(active, torch.bool),
+                impl=self.paged_attn_dispatch["verify_paged"])
         else:
             logits, _ = _forward_cached(ms.model, tokens, ms.cache, lengths)
         out, n_emit = verify_tokens(
