@@ -20,7 +20,12 @@ which fails the run (nonzero exit, no result line) when it fails:
      float32 (atol = rtol = 2e-5: only the summation order differs) and
      bfloat16 (atol 2e-2 and rtol 1.6e-2, two bf16 ulps: the plain
      path rounds probabilities to bf16 before P.V, the kernels keep them
-     in float32, and both round outputs above 2 to a 1/64 grid);
+     in float32, and both round outputs above 2 to a 1/64 grid); then the
+     paged-window kernel at the edges of its schedule (``WINDOW_EDGES``:
+     head dim 32, 128 rows a KV head, depth 0, a depth of 1,000 keys
+     split across blocks, a 64-row chunk over 64-token pages) in the
+     schedule's 8-row tiles and the kernel's widest (32 rows), each case
+     called twice back to back so a merge ticket left unreset would show;
   3b. tree kernel vs plain — the paged-tree kernel against its plain
      version on the same fragmented tables, node queries and window K/V
      as strided views of one projection, the trees fork2x2, fork3+1,
@@ -35,7 +40,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      3-token windows, per-layer and whole-pool, float32 queries (atol =
      rtol = 2e-5: the plain path dequantizes to the same float32 values)
      and bfloat16 queries (phase 3's bf16 tolerance: the plain path
-     rounds the dequantized K/V to bf16, the kernels keep float32);
+     rounds the dequantized K/V to bf16, the kernels keep float32); then
+     the int8 window variant at phase 3's schedule edges;
   4. main path — GPT-2 small at full width (random weights from --seed,
      float32) served by ``Engine(kv_pages=512)`` on the card, which
      resolves to the CUDA kernels; 8 greedy requests of 17-300 prompt
@@ -111,7 +117,9 @@ which fails the run (nonzero exit, no result line) when it fails:
      run then takes one step split into forward / backward / optimizer
      between CUDA events and one step under ``torch.profiler`` (device
      ms by kernel, the device's busy share);
-  7. timing — each kernel at its main path's shapes against its byte /
+  7. timing — each kernel at its main path's shapes (the paged-window
+     kernel at a prefill chunk and at phase 4b's verify window, each
+     record tagged with its ``case``) against its byte /
      flop bound, its plain version and one PyTorch library call (a
      yardstick the port never calls: ``scaled_dot_product_attention`` on
      the gathered K/V for the paged kernels — dequantized, with the KV
@@ -220,18 +228,19 @@ def device_line() -> str:
 
 
 def fragmented_case(torch, *, b, h, kv, dh, page_tokens, max_pages, cur,
-                    scalar_pos, dtype, layers, seed, device):
+                    scalar_pos, dtype, layers, seed, device, depth=None):
     """A pool and block tables shaped like copy-on-write traffic: slots
     0-3 map the same prefix pages, every slot continues into private
     pages, entries past each slot's window are ``-1`` except for a few
     mapped stale pages, and the pool holds ``layers`` layers (one
     selected by ``layer``, the others noise).  Every entry a query can
-    see is mapped, as the engine guarantees."""
+    see is mapped, as the engine guarantees.  A scalar depth is drawn
+    page-aligned unless ``depth`` gives it."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     t_max = max_pages * page_tokens
     if scalar_pos:
         p0 = int(torch.randint(0, t_max - cur, (1,), generator=g))
-        p0 -= p0 % page_tokens
+        p0 = p0 - p0 % page_tokens if depth is None else depth
         pos = torch.tensor(p0)
         last = torch.full((b,), p0 + cur - 1)
     else:
@@ -299,6 +308,76 @@ def check_kernels(torch, pa, device) -> list[str]:
         raise SmokeFailure(f"kernels disagree with the plain version: "
                            f"{failures}")
     return lines
+
+
+# K5's edges: name -> (query heads, KV heads, head dim, page tokens,
+# table pages, window rows, depth).  One slot at a scalar depth given as a
+# host int, as the engine's prefill sends it, so the wrapper's schedule
+# splits the keys as on the main path.
+WINDOW_EDGES = {
+    "dh32": (8, 4, 32, 16, 64, 16, 144),
+    "rows128": (16, 4, 64, 16, 64, 32, 200),  # 32 positions x 4 heads
+    "depth0": (12, 3, 64, 16, 64, 16, 0),
+    "depth1000": (12, 12, 64, 16, 64, 16, 1000),
+    "page64": (12, 3, 64, 64, 16, 64, 320),   # a 64-row chunk
+}
+
+
+def check_window_edges(torch, pa, device, int8: bool) -> None:
+    """K5 (or K5-int8) at the edges of its schedule, WINDOW_EDGES, in
+    whole-pool mode against its plain version at phase 3's tolerances,
+    in the schedule's row tiles and in the kernel's widest (32 rows, four
+    a warp); each case runs twice back to back, so a merge ticket left
+    unreset by the first call would show in the second."""
+    tol = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    label = "kernel-check int8 edge" if int8 else "kernel-check edge"
+    failures = []
+    seed = 300 + 100 * int8
+    row_cap = pa.ROW_TILE_ROWS
+    cases = [(name, dims, dtype, rows)
+             for rows in (row_cap, pa.TILE_ROWS)
+             for name, dims in WINDOW_EDGES.items()
+             for dtype in (torch.float32, torch.bfloat16)]
+    try:
+        for name, dims, dtype, rows in cases:
+            h, kv, dh, page_tokens, max_pages, cur, depth = dims
+            pa.ROW_TILE_ROWS = rows
+            seed += 1
+            q, k, v, table, _ = fragmented_case(
+                torch, b=1, h=h, kv=kv, dh=dh, page_tokens=page_tokens,
+                max_pages=max_pages, cur=cur, scalar_pos=True,
+                dtype=torch.float32 if int8 else dtype, layers=2, seed=seed,
+                device=device, depth=depth)
+            if int8:
+                pages = int8_pool(torch, k, v,
+                                  (slice(None), int(table[0, 0]), 0, 0))
+                q = q.to(dtype)
+            else:
+                pages = (k, v)
+            sched = pa.window_schedule(1, cur, h, kv, depth + cur,
+                                       pa._sm_count(q.device))
+            want = pa._einsum_paged(q, tuple(buf[1] for buf in pages),
+                                    table, depth, dtype=dtype, grouped=True)
+            t = tol[dtype]
+            for run in (1, 2):
+                got = pa.paged_attention(q, pages, table, depth, dtype=dtype,
+                                         impl="kernel", layer=1)
+                torch.cuda.synchronize()
+                err, ok = compare(torch, got, want, t)
+                case = f"{name} {str(dtype)[6:]} rows {rows} run {run}"
+                print(f"{label} {case}: row_tile={sched.row_tile} splits="
+                      f"{sched.splits} grid={sched.grid} max_abs_err="
+                      f"{err:.3e} atol={t['atol']} rtol={t['rtol']} "
+                      f"{'ok' if ok else 'MISS'}", flush=True)
+                if not ok:
+                    failures.append(case)
+    finally:
+        pa.ROW_TILE_ROWS = row_cap
+    if failures:
+        raise SmokeFailure(f"the {'int8 ' if int8 else ''}window kernel "
+                           f"disagrees with its plain version at its "
+                           f"edges: {failures}")
 
 
 def window_views(torch, q, kv, seed):
@@ -1163,7 +1242,8 @@ def timed(prefix, readings) -> dict:
 
 
 def timing_line(r, library: str) -> str:
-    return (f"timing {r['name']}: {r['ms']:.4f} ms (device "
+    name = f"{r['name']} {r['case']}" if "case" in r else r["name"]
+    return (f"timing {name}: {r['ms']:.4f} ms (device "
             f"{r['device_ms']:.4f}, host {r['host_ms']:.4f}; bound "
             f"{r['bound_ms']:.4f} ms by {r['bound_by']}), plain "
             f"{r['plain_ms']:.4f} ms (device {r['plain_device_ms']:.4f}), "
@@ -1176,7 +1256,8 @@ def timing_case(torch, cfg, pos_list, cur, scalar, device, seed,
     """Whole-pool inputs at the main path's shapes: a (layers, 513, 16,
     kv heads, dh) float32 pool — quantized by the port's quantizer for
     ``kv_dtype="int8"`` — and one table row per slot mapping distinct
-    pages up to its depth.  Returns ``q, pages, table, pos``."""
+    pages up to its depth.  Returns ``q, pages, table, pos`` (``pos`` a
+    host int for a scalar depth, else an int32 tensor on the card)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     page_tokens, max_pages, n_pages = 16, 64, 512
     h, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
@@ -1192,8 +1273,9 @@ def timing_case(torch, cfg, pos_list, cur, scalar, device, seed,
         for i in range((p + cur - 1) // page_tokens + 1):
             table[s, i] = perm.pop()
     q = torch.randn((b, cur, h, dh), generator=gd, device=device)
-    pos = (torch.tensor(pos_list[0]) if scalar
-           else torch.tensor(pos_list)).to(device, torch.int32)
+    # A prefill chunk's depth is a host int, as the engine passes it.
+    pos = (pos_list[0] if scalar
+           else torch.tensor(pos_list).to(device, torch.int32))
     pages = ((k, v) if kv_dtype is None
              else int8_pool(torch, k, v, (slice(None), 0, 0, 0)))
     return q, pages, table.to(device), pos
@@ -1208,7 +1290,7 @@ def kernel_record(torch, F, pa, name, q, pages, table, pos, launches):
     fn = pa.KERNELS[name]
     b, cur, h, dh = q.shape
     page_tokens, kvh = pages[0].shape[2], pages[0].shape[3]
-    pos_v = pos.expand(b)
+    pos_v = torch.as_tensor(pos, device=q.device).expand(b)
     pos_l = pos_v.tolist()
 
     def layer_of(i):
@@ -1346,12 +1428,27 @@ def timings(torch, pa, model, prompts, launches):
                                            "cuda", 2, kv_dtype)
         rec.append(kernel_record(torch, F, pa, "paged_window" + suffix, q,
                                  pages, table, pos, launches))
+        rec[-1]["case"] = "prefill"
         del pages
+    # Sequence verify: phase 4b's k+1 = 5 windows of the eight slots at
+    # the decode depths, GPT-2 small over a float32 pool.
+    q, pages, table, pos = timing_case(torch, cfg, decode_pos, 5, False,
+                                       "cuda", 4)
+    rec.append(kernel_record(torch, F, pa, "paged_window", q, pages, table,
+                             pos, launches))
+    rec[-1]["case"] = "verify"
+    del pages
     # Tree verify: fork2x2 windows of the eight slots at phase 4's
     # decode depths.
     rec.append(tree_record(torch, F, pa, cfg, decode_pos, launches))
     for r in rec:
         print(timing_line(r, "sdpa"), flush=True)
+    sms = pa._sm_count(torch.device("cuda"))
+    for label, args in (("gpt2 prefill", (1, 16, 12, 12, 160)),
+                        ("llama-gqa prefill", (1, 16, 12, 3, 160)),
+                        ("gpt2 verify", (8, 5, 12, 12, 1024))):
+        print(f"schedule paged_window {label}: "
+              f"{pa.window_schedule(*args, sms=sms)}", flush=True)
     return rec
 
 
@@ -1467,8 +1564,10 @@ def main(argv=None) -> int:
             raise SmokeFailure(f"a tensor-core flash library has no HGMMA "
                                f"instruction: {hgmma}")
         check_kernels(torch, pa, "cuda")
+        check_window_edges(torch, pa, "cuda", int8=False)
         check_tree_kernels(torch, pa, "cuda")
         check_int8_kernels(torch, pa, "cuda")
+        check_window_edges(torch, pa, "cuda", int8=True)
         model, prompts, launches = main_path(torch, np, pa, args.seed)
         launches.update(spec_main_path(torch, np, pa, model, prompts,
                                        args.seed))

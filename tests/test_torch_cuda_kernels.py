@@ -118,6 +118,70 @@ def test_int8_kernel_matches_plain(card, traffic, dtype, heads):
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# K5's edges: (query heads, KV heads, head dim, page tokens, table pages,
+# window rows, depth) of one slot at a host-int depth, as the engine's
+# prefill passes it: head dim 32, a window of 128 rows a KV head (32
+# positions x 4 query heads: four row tiles), depth 0, a depth near 1,000
+# keys (several key splits), and a 64-row chunk over 64-token pages.
+WINDOW_EDGES = {
+    "dh32": (8, 4, 32, 16, 64, 16, 144),
+    "rows128": (16, 4, 64, 16, 64, 32, 200),
+    "depth0": (12, 3, 64, 16, 64, 16, 0),
+    "depth1000": (12, 12, 64, 16, 64, 16, 1000),
+    "page64": (12, 3, 64, 64, 16, 64, 320),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 32])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", list(WINDOW_EDGES))
+def test_window_kernel_edges_match_plain(card, monkeypatch, edge, dtype,
+                                         pool, rows):
+    """K5 and K5-int8 at the edges of their schedule against the plain
+    version, whole-pool, at the tolerances above, in row tiles of up to
+    8 rows (the schedule's) and 32 (the kernel's widest, four rows a
+    warp); each call made twice back to back (a merge ticket left
+    unreset by the first would break the second), one launch counted per
+    call."""
+    from tpudp_torch.models.generate import _quantize_kv
+
+    monkeypatch.setattr(pa, "ROW_TILE_ROWS", rows)
+    h, kv, dh, page_tokens, max_pages, cur, depth = WINDOW_EDGES[edge]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(len(edge) + 7 * dh + depth)
+    n_vis = (depth + cur - 1) // page_tokens + 1
+    n_pages = n_vis + 4
+    table = np.full((1, max_pages), -1, np.int32)
+    table[0, :n_vis] = rng.permutation(n_pages)[:n_vis]
+    k, v = (torch.as_tensor(rng.standard_normal(
+        (LAYERS, n_pages + 1, page_tokens, kv, dh), np.float32)).to(card)
+        for _ in range(2))
+    if pool == "int8":
+        (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+        pages, kernel = (k8, v8, ks, vs), pa.paged_window_int8
+    else:
+        pages, kernel = (k.to(dt), v.to(dt)), pa.paged_window
+    q = torch.as_tensor(rng.standard_normal((1, cur, h, dh),
+                                            np.float32)).to(card, dt)
+    table = torch.as_tensor(table).to(card)
+    sched = pa.window_schedule(1, cur, h, kv, depth + cur,
+                               pa._sm_count(q.device))
+    if edge == "depth1000":
+        assert sched.splits > 1
+    want = pa._einsum_paged(q, tuple(buf[1] for buf in pages), table, depth,
+                            dtype=dt, grouped=True)
+    tol = (dict(atol=2e-5, rtol=2e-5) if dt == torch.float32
+           else dict(atol=2e-2, rtol=1.6e-2))
+    for _ in range(2):
+        before = kernel.launches
+        got = pa.paged_attention(q, pages, table, depth, dtype=dt,
+                                 impl="kernel", layer=1)
+        assert kernel.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
 @pytest.mark.cuda
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
     rng = np.random.default_rng(9)

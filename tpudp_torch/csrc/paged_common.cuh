@@ -1,7 +1,10 @@
 // Shared device code of the paged-attention kernels (paged_decode.cu,
-// paged_window.cu, paged_tree.cu): the page view and the one
-// online-softmax loop that folds a query row's visible keys, read through
-// the block table, into a running max / denominator / accumulator.
+// paged_window.cu, paged_tree.cu): the page view; the one-warp-a-row
+// online-softmax loop of the decode kernel (fold_keys); and the shared
+// key tiles of the window and tree kernels, whose blocks own every query
+// row that reads one KV head and fold each 32-key tile of K/V, staged
+// once in shared memory, into all of those rows (StagedRows, KeyStages,
+// stage_keys, fold_key_tiles, row_scores, fold_tile).
 //
 // Layouts (all element strides, the last dimension contiguous):
 //   pages  one layer of the pool, (P+1, T, kv, dh); the trailing page is
@@ -122,6 +125,269 @@ __device__ __forceinline__ void fold_keys(const float* q_s,
     }
     m = m_new;
   }
+}
+
+
+// -- Shared key tiles (paged_window.cu, paged_tree.cu) ---------------------
+//
+// A block of kTileWarps warps owns up to kTileRows query rows that read
+// one KV head; warp w folds rows w + kTileWarps * rr for rr < nr.  Key
+// tiles of kTileKeys keys are staged in shared memory once for all of
+// them: page ids resolved once a key, K and V rows copied by cp.async, 16
+// bytes a thread along each row, into two stages, so the next tile
+// streams in while this one is folded.  Scores run with lane = key (each
+// lane reads its key's row once for all of its warp's rows), P.V with
+// lane = output dims, both out of shared memory, in float32.
+
+constexpr int kTileWarps = 8;
+constexpr int kRowsPerWarp = 4;
+constexpr int kTileRows = kTileWarps * kRowsPerWarp;  // query rows a block
+constexpr int kTileKeys = 32;                          // keys a tile, one a lane
+
+// The padded row layout of a staged tile of P (the page element type):
+// a row holds DH elements padded by 16 bytes, so the lanes of a quarter
+// warp reading 16 bytes of eight consecutive rows hit 32 distinct banks
+// (pitches of 4 mod 32 words at 4- and 2-byte elements and dh 64/128,
+// 12 and 20 words at int8).  kQ: a block's query rows, float32.
+template <typename P, int DH>
+struct StagedRows {
+  static constexpr int kChunks = DH * (int)sizeof(P) / 16;  // 16 B a row
+  static constexpr int kN = 16 / (int)sizeof(P);            // elements a chunk
+  static constexpr int kPitch = DH * (int)sizeof(P) + 16;   // bytes a row
+  static constexpr int kTile = kTileKeys * kPitch;
+  static constexpr int kQ = kTileRows * DH * 4;
+};
+
+// Two stages of staged key tiles in shared memory: K and V rows, each
+// key's page id (-1: no weight) and, over int8 pages, its k_scale and
+// v_scale, so the fold reads nothing from global memory.
+template <typename P, int DH>
+struct KeyStages {
+  static constexpr int kScales = kInt8Pages<P> ? 2 : 0;
+  static constexpr size_t kBytes =
+      4 * StagedRows<P, DH>::kTile + 2 * kTileKeys * 4 * (1 + kScales);
+  uint8_t* k;        // stage i at + i * kTile
+  uint8_t* v;
+  int* page;         // [2][kTileKeys]
+  float* k_scale;    // [2][kTileKeys], int8 pages only
+  float* v_scale;
+
+  // The stages laid out from `base` (16-byte aligned), kBytes long.
+  __device__ __forceinline__ static KeyStages at(uint8_t* base) {
+    constexpr int kTile = StagedRows<P, DH>::kTile;
+    int* page = reinterpret_cast<int*>(base + 4 * kTile);
+    float* scales = reinterpret_cast<float*>(page + 2 * kTileKeys);
+    return {base, base + 2 * kTile, page, scales, scales + 2 * kTileKeys};
+  }
+};
+
+// 16 bytes global -> shared, asynchronously (L2 only).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+// Key tile kt (keys kt * kTileKeys ..) into stage kt % 2, by every
+// thread of the block: page ids once a key (-1 past `limit` or on an
+// unmapped entry), K and V rows by cp.async, 16 bytes a thread along
+// each row, and over int8 pages the key's two scales.  A key with no
+// page gets a zero V row, which its zero weight in the P.V loop keeps
+// finite.  Commits one cp.async group.
+template <typename P, int DH>
+__device__ __forceinline__ void stage_keys(const KeyStages<P, DH>& st, int kt,
+                                           const PageView<P>& pv,
+                                           const int* trow, int page_tokens,
+                                           int kv_head, int limit) {
+  using M = StagedRows<P, DH>;
+  const int stage = kt & 1;
+  const long long head_off = kv_head * pv.head_stride;
+  for (int i = threadIdx.x; i < kTileKeys * M::kChunks; i += blockDim.x) {
+    const int r = i / M::kChunks, c = i % M::kChunks;
+    const int key = kt * kTileKeys + r;
+    const int page = key <= limit ? trow[key / page_tokens] : -1;
+    const long long row = key % page_tokens;
+    if (c == 0) {
+      st.page[stage * kTileKeys + r] = page;
+      if constexpr (kInt8Pages<P>) {
+        if (page >= 0) {
+          const long long so = page * pv.s_page_stride +
+                               row * pv.s_tok_stride +
+                               kv_head * pv.s_head_stride;
+          cp_async4(st.k_scale + stage * kTileKeys + r, pv.k_scale + so);
+          cp_async4(st.v_scale + stage * kTileKeys + r, pv.v_scale + so);
+        }
+      }
+    }
+    const int dst = stage * M::kTile + r * M::kPitch + 16 * c;
+    if (page < 0) {
+      *reinterpret_cast<uint4*>(st.v + dst) = make_uint4(0u, 0u, 0u, 0u);
+      continue;
+    }
+    const long long off =
+        page * pv.page_stride + row * pv.tok_stride + head_off;
+    cp_async16(st.k + dst, reinterpret_cast<const uint8_t*>(pv.k + off) +
+                               16 * c);
+    cp_async16(st.v + dst, reinterpret_cast<const uint8_t*>(pv.v + off) +
+                               16 * c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Scores of one staged row (lane's own: key or window node) against
+// each of the warp's query rows: sc[rr] = q_row(rr) . row, for rr < nr.
+template <typename P, int DH>
+__device__ __forceinline__ void row_scores(const uint8_t* row,
+                                           const float* q_s, int warp,
+                                           int nr,
+                                           float (&sc)[kRowsPerWarp]) {
+  using M = StagedRows<P, DH>;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) sc[rr] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < M::kChunks; ++c) {
+    float x[M::kN];
+    Vec16<P>::load(reinterpret_cast<const P*>(row + 16 * c), x);
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      if (rr >= nr) break;  // warp-uniform
+      const float* qr = q_s + (warp + kTileWarps * rr) * DH + c * M::kN;
+#pragma unroll
+      for (int e = 0; e < M::kN; e += 4) {
+        const float4 qv = *reinterpret_cast<const float4*>(qr + e);
+        sc[rr] += qv.x * x[e] + qv.y * x[e + 1] + qv.z * x[e + 2] +
+                  qv.w * x[e + 3];
+      }
+    }
+  }
+}
+
+// Fold one tile into the warp's rows: lane i holds key i's score in
+// sc[rr] (visible iff bit i of vis[rr], warp-uniform); v is the tile's
+// staged V rows, all 32 finite (a key without a row has a zero one).
+// v_scale is the lane's key's V scale over int8 pages: it joins the
+// key's P.V weight, not the denominator.  The P.V loop runs over every
+// key of the tile, unrolled, with the invisible ones at weight 0, so the
+// V rows' shared-memory loads issue ahead of their products.
+template <typename P, int DH>
+__device__ __forceinline__ void fold_tile(
+    const float (&sc)[kRowsPerWarp], const unsigned (&vis)[kRowsPerWarp],
+    const uint8_t* v, float v_scale, int nr, float (&m)[kRowsPerWarp],
+    float (&l)[kRowsPerWarp], float (&acc)[kRowsPerWarp][DH / 32]) {
+  using M = StagedRows<P, DH>;
+  const int lane = threadIdx.x & 31;
+  float p[kRowsPerWarp];
+  unsigned any = 0;
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    p[rr] = 0.f;
+    if (rr >= nr || !vis[rr]) continue;  // warp-uniform
+    const bool seen = (vis[rr] >> lane) & 1u;
+    const float s = seen ? sc[rr] : kNegInf;
+    const float m_new = fmaxf(m[rr], warp_max(s));
+    const float alpha = expf(m[rr] - m_new);
+    p[rr] = seen ? expf(s - m_new) : 0.f;
+    l[rr] = l[rr] * alpha + warp_sum(p[rr]);
+    if constexpr (kInt8Pages<P>) p[rr] *= v_scale;
+#pragma unroll
+    for (int i = 0; i < DH / 32; ++i) acc[rr][i] *= alpha;
+    m[rr] = m_new;
+    any |= vis[rr];
+  }
+  if (!any) return;  // warp-uniform
+#pragma unroll 8
+  for (int t = 0; t < kTileKeys; ++t) {
+    const P* vr = reinterpret_cast<const P*>(v + t * M::kPitch);
+    float vx[DH / 32];
+#pragma unroll
+    for (int i = 0; i < DH / 32; ++i) vx[i] = to_f32(vr[lane + 32 * i]);
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+      if (rr >= nr) break;
+      const float pt = __shfl_sync(kFullMask, p[rr], t);
+#pragma unroll
+      for (int i = 0; i < DH / 32; ++i) acc[rr][i] += pt * vx[i];
+    }
+  }
+}
+
+// Fold key tiles [kt0, kt1) into the warp's rows (m, l, acc): the caller
+// has staged tile kt0 (stage_keys) so that its copy overlaps the caller's
+// own staging of the query rows q_s, which the first barrier here
+// covers.  visible(kt, mapped, vis) gives each row's 32-bit mask of the
+// tile's keys (mapped: the ballot of the staged page ids), warp-uniform.
+// Over int8 pages the key's scale leaves the dot product (s = k_scale *
+// sum q * k8: the dequantized dot in another summation order) and its
+// v_scale joins the P.V weight.
+template <typename P, int DH, typename Visible>
+__device__ __forceinline__ void fold_key_tiles(
+    const KeyStages<P, DH>& st, const PageView<P>& pv, const int* trow,
+    int page_tokens, int kv_head, int limit, int kt0, int kt1,
+    const float* q_s, int warp, int nr, Visible visible,
+    float (&m)[kRowsPerWarp], float (&l)[kRowsPerWarp],
+    float (&acc)[kRowsPerWarp][DH / 32]) {
+  using M = StagedRows<P, DH>;
+  const int lane = threadIdx.x & 31;
+  float sc[kRowsPerWarp];
+  unsigned vis[kRowsPerWarp];
+  for (int kt = kt0; kt < kt1; ++kt) {
+    if (kt + 1 < kt1) {  // streams in while this tile is folded
+      stage_keys<P, DH>(st, kt + 1, pv, trow, page_tokens, kv_head, limit);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();  // tile kt, its page ids and scales are in
+    const int stage = kt & 1;
+    const int slot = stage * kTileKeys + lane;
+    const unsigned mapped = __ballot_sync(kFullMask, st.page[slot] >= 0);
+    if (nr > 0 && mapped) {
+      row_scores<P, DH>(st.k + stage * M::kTile + lane * M::kPitch, q_s,
+                        warp, nr, sc);
+      float v_scale = 1.f;
+      if constexpr (kInt8Pages<P>) {
+        const bool has = (mapped >> lane) & 1u;
+        const float k_scale = has ? st.k_scale[slot] : 0.f;
+        v_scale = has ? st.v_scale[slot] : 0.f;
+#pragma unroll
+        for (int rr = 0; rr < kRowsPerWarp; ++rr) sc[rr] *= k_scale;
+      }
+      visible(kt, mapped, vis);
+      fold_tile<P, DH>(sc, vis, st.v + stage * M::kTile, v_scale, nr, m, l,
+                       acc);
+    }
+    __syncthreads();  // every reader of this stage is done before reuse
+  }
+}
+
+// The block's query rows, pre-scaled, float32: row i of q_s is flattened
+// row row0 + i, i.e. window position (row0 + i) / groups at query head
+// kv_head * groups + (row0 + i) % groups.
+template <typename T, int DH>
+__device__ __forceinline__ void stage_queries(
+    float* q_s, const T* q, int s, int kv_head, int groups, int row0,
+    int rows, long long q_slot_stride, long long q_row_stride,
+    long long q_head_stride, float scale) {
+  for (int i = threadIdx.x; i < rows * DH; i += blockDim.x) {
+    const int r = row0 + i / DH, d = i % DH;
+    const T* qr = q + s * q_slot_stride + (r / groups) * q_row_stride +
+                  (kv_head * groups + r % groups) * q_head_stride;
+    q_s[i] = to_f32(qr[d]) * scale;
+  }
+}
+
+// How many of a block's `rows` rows warp `warp` folds.
+__device__ __forceinline__ int warp_rows(int rows, int warp) {
+  return rows > warp ? (rows - warp + kTileWarps - 1) / kTileWarps : 0;
 }
 
 }  // namespace tpudp

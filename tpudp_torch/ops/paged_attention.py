@@ -11,10 +11,11 @@ Two backends behind :func:`paged_attention`, with the JAX op's layouts:
     (``tpudp_torch/csrc``): a one-token window at per-slot depths goes to
     :func:`paged_decode` (K4), everything else — a prefill chunk at a
     shared scalar depth, a multi-token window at per-slot depths — to
-    :func:`paged_window` (K5); over an int8 pool to their int8 variants
-    :func:`paged_decode_int8` and :func:`paged_window_int8`.  All compute
-    in float32 and are bounded by a tolerance against the plain version,
-    as the Pallas kernels are.
+    :func:`paged_window` (K5, its grid from :func:`window_schedule`);
+    over an int8 pool to their int8 variants :func:`paged_decode_int8`
+    and :func:`paged_window_int8`.  All compute in float32 and are
+    bounded by a tolerance against the plain version, as the Pallas
+    kernels are.
 
 Tree verify has its own op, :func:`tree_paged_attention`: node queries
 attend the committed cache through the table (strict ``< pos0``) and
@@ -40,6 +41,7 @@ pos[s] + j``) or a scalar shared by the batch (the prefill window).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -49,6 +51,86 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 #: The most tree nodes K6 takes: one 32-bit ancestor mask a node row.
 TREE_KERNEL_MAX_NODES = 32
+#: Query rows and keys a block of K5 or K6 folds together
+#: (``csrc/paged_common.cuh`` ``kTileRows``, ``kTileKeys``).
+TILE_ROWS = TILE_KEYS = 32
+#: Streaming multiprocessors of an H100 SXM: the default card of
+#: :func:`window_schedule`.
+H100_SMS = 132
+
+
+class WindowSchedule(NamedTuple):
+    """How K5 cuts one call.  Block ``(rt * splits + split, kv_head,
+    slot)`` folds row tile ``rt`` (:meth:`rows`) of the ``cur * groups``
+    rows reading ``kv_head`` against its share of their key tiles
+    (:meth:`key_tiles`).  Of a (row tile, KV head, slot)'s ``splits``
+    blocks, the first :meth:`used` share the key tiles its rows see, and
+    the last of those to finish merges their partials; the others exit
+    at once."""
+
+    row_tile: int   # query rows a block, at most TILE_ROWS
+    row_tiles: int  # row tiles a (KV head, slot)
+    splits: int     # blocks launched for one row tile's keys
+    grid: tuple     # (row_tiles * splits, kv, b)
+
+    def rows(self, rt: int, cur: int, groups: int, kv_head: int):
+        """``(window position, query head)`` of row tile ``rt``'s rows:
+        flattened row ``r`` is position ``r // groups`` at query head
+        ``kv_head * groups + r % groups``."""
+        end = min((rt + 1) * self.row_tile, cur * groups)
+        return [(r // groups, kv_head * groups + r % groups)
+                for r in range(rt * self.row_tile, end)]
+
+    def used(self, n_tiles: int) -> int:
+        """The splits that fold a block's ``n_tiles`` key tiles (keys
+        ``0 ..`` the visibility edge of its last row): one a tile, up to
+        ``splits``."""
+        return max(1, min(self.splits, n_tiles))
+
+    def key_tiles(self, n_tiles: int, split: int) -> range:
+        """The key tiles split ``split`` folds of a block's ``n_tiles``:
+        an even share, in order (none past :meth:`used`)."""
+        used = self.used(n_tiles)
+        if split >= used:
+            return range(0)
+        return range(split * n_tiles // used, (split + 1) * n_tiles // used)
+
+
+#: The most query rows of a K5 block (the kernel takes up to TILE_ROWS:
+#: fewer rows a block give more blocks, each with a shorter fold), the
+#: most key splits K5 launches for a row tile, and the most blocks a SM
+#: the splits may bring a call to (PERF.md §6, PR 7: the sweep,
+#: ``chip_window_sweep.py``, that chose them).
+ROW_TILE_ROWS = 8
+MAX_SPLITS = 16
+BLOCKS_PER_SM = 8
+
+
+def window_schedule(b: int, cur: int, h: int, kv: int, n_keys: int,
+                    sms: int = H100_SMS) -> WindowSchedule:
+    """K5's grid for ``b`` slots of ``cur`` query rows at ``h`` query
+    heads over ``kv`` KV heads, whose last row sees at most ``n_keys``
+    keys (the table's capacity where the depths stay on the card).
+
+    The ``cur * h / kv`` rows reading one KV head are cut into the fewest
+    row tiles of at most :data:`ROW_TILE_ROWS`, of even width.  A prefill
+    chunk is one slot, so its (row tile, KV head, slot) blocks are few,
+    and a block walks its key tiles in order: so the key range is split
+    across up to :data:`MAX_SPLITS` blocks, one a key tile of the block
+    that sees the fewest keys (the first row tile), within
+    :data:`BLOCKS_PER_SM` blocks a SM of the card's ``sms``.  The kernel
+    shares the key tiles a block really sees among as many of its splits
+    as there are tiles."""
+    groups = h // kv
+    n_rows = cur * groups
+    row_tiles = -(-n_rows // ROW_TILE_ROWS)
+    row_tile = -(-n_rows // row_tiles)
+    blocks = b * kv * row_tiles
+    first_keys = n_keys - cur + min(cur, (row_tile - 1) // groups + 1)
+    key_tiles = max(1, -(-first_keys // TILE_KEYS))
+    splits = max(1, min(key_tiles, MAX_SPLITS, BLOCKS_PER_SM * sms // blocks))
+    return WindowSchedule(row_tile, row_tiles, splits,
+                          (row_tiles * splits, kv, b))
 
 
 def page_tiles(pages, table, dtype):
@@ -112,12 +194,26 @@ def _plain(q, pages, table, pos, layer):
     return _einsum_paged(q, pages, table, pos, dtype=q.dtype, grouped=True)
 
 
-def _launch_args(q, pages, table, pos, layer):
-    """Validate one kernel call and return ``(out, table32, pos32, ints,
-    strides, scale_strides)``: the output buffer, the int32 index tensors
-    the kernel reads, the geometry, the element strides and, for an int8
-    pool, the scale pool's layer offset and page/token/head strides
-    (``()`` for fp pages)."""
+def _host_depth(pos) -> int | None:
+    """``pos`` as an int where it is one depth the host holds for the
+    whole batch (the engine's prefill passes its chunk start), else
+    ``None``; a tensor on the card is never read back."""
+    if isinstance(pos, int):
+        return pos
+    if isinstance(pos, torch.Tensor) and pos.is_cuda:
+        return None
+    pos = torch.as_tensor(pos)
+    return int(pos) if pos.dim() == 0 else None
+
+
+def _launch_args(q, pages, table, pos, layer, *, by_value=False):
+    """Validate one kernel call and return ``(out, table32, pos32, depth,
+    ints, strides, scale_strides)``: the output buffer, the int32 index
+    tensors the kernel reads, :func:`_host_depth`, the geometry, the
+    element strides and, for an int8 pool, the scale pool's layer offset
+    and page/token/head strides (``()`` for fp pages).  With
+    ``by_value``, a host depth gives ``pos32 = None``: the caller passes
+    ``depth`` to the kernel as an argument."""
     k_pages, v_pages = pages[:2]
     int8 = len(pages) == 4
     if not (q.is_cuda and all(buf.device == q.device for buf in pages)):
@@ -166,29 +262,77 @@ def _launch_args(q, pages, table, pos, layer):
     table = torch.as_tensor(table).to(q.device, torch.int32).contiguous()
     if table.dim() != 2 or table.shape[0] != b:
         raise ValueError(f"table must be ({b}, M), got {tuple(table.shape)}")
-    pos = torch.as_tensor(pos).to(q.device, torch.int32)
-    pos = pos.expand(b).contiguous()
+    depth = _host_depth(pos)
+    if depth is not None:
+        # Filled in on the card or passed by value: a copy from pageable
+        # host memory would wait for the stream to drain.
+        pos = None if by_value else torch.full(
+            (b,), depth, dtype=torch.int32, device=q.device)
+    else:
+        pos = torch.as_tensor(pos).to(q.device, torch.int32)
+        pos = pos.expand(b).contiguous()
     out = torch.empty((b, cur, h, dh), dtype=q.dtype, device=q.device)
     offset = layer * k_pages.stride(0) if whole else 0
     ps, ts, hs = k_pages.stride()[-4:-1]
     ints = (_KERNEL_DTYPES[q.dtype], b, cur, h, kv, dh, table.shape[1],
             page_tokens)
     strides = (q.stride(0), q.stride(1), q.stride(2), offset, ps, ts, hs)
-    return out, table, pos, ints, strides, scale_strides
+    return out, table, pos, depth, ints, strides, scale_strides
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_tickets: dict = {}  # by device: K5's merge tickets, all 0 between launches
+
+
+def _window_tickets(device, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed merge tickets on ``device``, made once and
+    kept: the block that merges a (row tile, KV head, slot) resets its
+    ticket to 0, so every launch on the device's stream finds them
+    zeroed."""
+    buf = _tickets.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _tickets[device] = buf
+    return buf
 
 
 def _launch(name, q, pages, table, pos, layer):
     """Launch K4 (``cur == 1`` kernels take no row count or row stride)
-    or K5, fp or int8, on validated arguments; count the launch."""
-    out, table, pos, ints, strides, scale_strides = _launch_args(
-        q, pages, table, pos, layer)
-    if name.startswith("paged_decode"):
+    or K5 (with its schedule, scratch and tickets, and a host depth by
+    value), fp or int8, on validated arguments; count the launch."""
+    window = not name.startswith("paged_decode")
+    out, table32, pos32, depth, ints, strides, scale_strides = _launch_args(
+        q, pages, table, pos, layer, by_value=window)
+    ptrs = ()
+    if not window:
         ints = ints[:2] + ints[3:]          # no window length
         strides = strides[:1] + strides[2:]  # no row stride
+    else:
+        _, b, cur, h, kv, _, max_pages, page_tokens = ints
+        # Keys the last row sees: from a host depth, else the capacity.
+        n_keys = max_pages * page_tokens
+        if depth is not None:
+            n_keys = min(depth + cur, n_keys)
+        sched = window_schedule(b, cur, h, kv, n_keys, _sm_count(q.device))
+        part = tickets = None
+        if sched.splits > 1:  # (splits, b, cur, h) partial acc, then m, l
+            rows = sched.splits * out.numel() // out.shape[-1]
+            part = torch.empty(rows * (out.shape[-1] + 2),
+                               dtype=torch.float32, device=q.device)
+            tickets = _window_tickets(q.device, b * kv * sched.row_tiles)
+        ptrs = (part, tickets)
+        ints += (sched.row_tile, sched.splits,
+                 0 if depth is None else depth)
     code = _build.launcher(name)(
-        q.data_ptr(), *(buf.data_ptr() for buf in pages), table.data_ptr(),
-        pos.data_ptr(), out.data_ptr(), *ints, *strides, *scale_strides,
-        q.shape[-1] ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), *(buf.data_ptr() for buf in pages), table32.data_ptr(),
+        None if pos32 is None else pos32.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ptrs), *ints,
+        *strides, *scale_strides, q.shape[-1] ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(name, code)
     KERNELS[name].launches += 1
     return out
@@ -208,8 +352,11 @@ def paged_decode(q, k_pages, v_pages, table, pos, *, layer=None):
 def paged_window(q, k_pages, v_pages, table, pos, *, layer=None):
     """K5: multi-token paged window.  ``q`` ``(b, cur, h, dh)``; ``pos``
     ``(b,)`` or a scalar (broadcast over the batch).  Launches
-    ``csrc/paged_window.cu`` on CUDA tensors (the count goes up by one),
-    runs the plain version on CPU tensors."""
+    ``csrc/paged_window.cu`` on CUDA tensors, once, on the grid
+    :func:`window_schedule` picks (the count goes up by one); a depth
+    the host holds, such as the engine's prefill chunk start, goes to
+    the kernel by value and sizes the key split.  Runs the plain version
+    on CPU tensors."""
     if not q.is_cuda:
         return _plain(q, (k_pages, v_pages), table, pos, layer)
     return _launch("paged_window", q, (k_pages, v_pages), table, pos, layer)
@@ -312,7 +459,7 @@ def paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc, *,
     if not q.is_cuda:
         return _tree_plain(q, k_pages, v_pages, table, pos0, wk, wv, anc,
                            layer)
-    out, table, pos0, ints, strides, _ = _launch_args(
+    out, table, pos0, _, ints, strides, _ = _launch_args(
         q, (k_pages, v_pages), table, pos0, layer)
     _, b, t1, _, kv, dh, _, _ = ints
     if t1 > TREE_KERNEL_MAX_NODES:
