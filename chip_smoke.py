@@ -41,7 +41,12 @@ which fails the run (nonzero exit, no result line) when it fails:
      rtol = 2e-5: the plain path dequantizes to the same float32 values)
      and bfloat16 queries (phase 3's bf16 tolerance: the plain path
      rounds the dequantized K/V to bf16, the kernels keep float32); then
-     the int8 window variant at phase 3's schedule edges;
+     the int8 window variant at phase 3's schedule edges; then the
+     paged-decode kernel and its int8 variant at the edges of theirs
+     (``DECODE_EDGES``: depths 0, 31, 32 and 63, a slot at 1,023 keys
+     beside one at 0, head dims 32 and 128, 1, 4 and 8 query heads a KV
+     head, 64-token pages, an idle slot whose output must be zeros) over
+     float32, bf16 and int8 pools, each case called twice back to back;
   4. main path — GPT-2 small at full width (random weights from --seed,
      float32) served by ``Engine(kv_pages=512)`` on the card, which
      resolves to the CUDA kernels; 8 greedy requests of 17-300 prompt
@@ -119,7 +124,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      ms by kernel, the device's busy share);
   7. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
-     record tagged with its ``case``) against its byte /
+     record tagged with its ``case``; the schedules of both paged
+     kernels printed after) against its byte /
      flop bound, its plain version and one PyTorch library call (a
      yardstick the port never calls: ``scaled_dot_product_attention`` on
      the gathered K/V for the paged kernels — dequantized, with the KV
@@ -378,6 +384,96 @@ def check_window_edges(torch, pa, device, int8: bool) -> None:
         raise SmokeFailure(f"the {'int8 ' if int8 else ''}window kernel "
                            f"disagrees with its plain version at its "
                            f"edges: {failures}")
+
+
+# K4's edges: name -> (query heads, KV heads, head dim, page tokens, table
+# pages, per-slot depths); an idle slot (its table row all -1) has depth
+# None and attends nothing.  Tile edges, one slot near the capacity of
+# 1,024 keys beside one at 0, head dims 32 and 128, groups 1, 4 and 8 (two
+# row tiles a KV head), 64-token pages, and an idle slot.
+DECODE_EDGES = {
+    "tile-edges": (12, 12, 64, 16, 64, (0, 31, 32, 63)),
+    "capacity": (12, 3, 64, 16, 64, (1023, 0)),
+    "dh32": (16, 2, 32, 16, 64, (100, 317, 5)),
+    "dh128": (32, 8, 128, 16, 64, (200, 31, 640)),
+    "groups8": (16, 2, 64, 16, 64, (150, 999, 64)),
+    "page64": (12, 3, 64, 64, 16, (1000, 63, 64)),
+    "idle": (12, 12, 64, 16, 64, (300, None, 50)),
+}
+# An idle slot's depth: the kernel walks its tiles and finds no page.
+IDLE_DEPTH = 40
+
+
+def decode_edge_case(torch, dims, seed, device):
+    """Float32 whole-pool inputs (2 layers) for one DECODE_EDGES case: each
+    slot maps distinct pages up to its depth, the idle slot none; returns
+    ``q, k, v, table, pos`` and the idle slots."""
+    h, kv, dh, page_tokens, max_pages, depths = dims
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    n_pages = sum(d // page_tokens + 1 for d in depths if d is not None) + 2
+    perm = torch.randperm(n_pages, generator=g).tolist()
+    table = torch.full((len(depths), max_pages), -1, dtype=torch.int32)
+    for s, d in enumerate(depths):
+        for i in range(0 if d is None else d // page_tokens + 1):
+            table[s, i] = perm.pop()
+    gd = torch.Generator(device=device).manual_seed(seed)
+    shape = (2, n_pages + 1, page_tokens, kv, dh)
+    k = torch.randn(shape, generator=gd, device=device)
+    v = torch.randn(shape, generator=gd, device=device)
+    q = torch.randn((len(depths), 1, h, dh), generator=gd, device=device)
+    pos = torch.tensor([IDLE_DEPTH if d is None else d for d in depths],
+                       dtype=torch.int32)
+    idle = [s for s, d in enumerate(depths) if d is None]
+    return q, k, v, table.to(device), pos.to(device), idle
+
+
+def check_decode_edges(torch, pa, device) -> None:
+    """K4 and K4-int8 at the edges of their schedule, DECODE_EDGES, in
+    whole-pool mode against the plain version (zeros for an idle slot)
+    at phase 3's tolerances, over float32, bf16 and int8 pools (float32
+    and bf16 queries); each case runs twice back to back, so a merge
+    ticket left unreset by the first call would show in the second."""
+    tol = {torch.float32: dict(atol=2e-5, rtol=2e-5),
+           torch.bfloat16: dict(atol=2e-2, rtol=1.6e-2)}
+    pools = (("fp32", torch.float32), ("bf16", torch.bfloat16),
+             ("int8", torch.float32), ("int8", torch.bfloat16))
+    failures = []
+    seed = 500
+    for name, dims in DECODE_EDGES.items():
+        for pool, dtype in pools:
+            seed += 1
+            q, k, v, table, pos, idle = decode_edge_case(torch, dims, seed,
+                                                         device)
+            if pool == "int8":
+                pages = int8_pool(torch, k, v,
+                                  (slice(None), int(table[0, 0]), 0, 0))
+            else:
+                pages = (k.to(dtype), v.to(dtype))
+            q = q.to(dtype)
+            want = pa._einsum_paged(q, tuple(buf[1] for buf in pages), table,
+                                    pos, dtype=dtype, grouped=True)
+            want[idle] = 0.0
+            t = tol[dtype]
+            sched = pa.decode_schedule(q.shape[0], q.shape[2], dims[1],
+                                       dims[4] * dims[3],
+                                       pa._sm_count(q.device))
+            for run in (1, 2):
+                got = pa.paged_attention(q, pages, table, pos, dtype=dtype,
+                                         impl="kernel", layer=1)
+                torch.cuda.synchronize()
+                err, ok = compare(torch, got, want, t)
+                ok = ok and not got[idle].any()
+                case = f"{name} {pool}/{str(dtype)[6:]} run {run}"
+                print(f"kernel-check decode edge {case}: row_tile="
+                      f"{sched.row_tile} lanes={sched.lanes} splits="
+                      f"{sched.splits} grid={sched.grid} max_abs_err="
+                      f"{err:.3e} atol={t['atol']} rtol={t['rtol']} "
+                      f"{'ok' if ok else 'MISS'}", flush=True)
+                if not ok:
+                    failures.append(case)
+    if failures:
+        raise SmokeFailure(f"the decode kernels disagree with their plain "
+                           f"version at their edges: {failures}")
 
 
 def window_views(torch, q, kv, seed):
@@ -1444,6 +1540,10 @@ def timings(torch, pa, model, prompts, launches):
     for r in rec:
         print(timing_line(r, "sdpa"), flush=True)
     sms = pa._sm_count(torch.device("cuda"))
+    for label, args in (("gpt2 decode", (8, 12, 12, 1024)),
+                        ("llama-gqa decode", (8, 12, 3, 1024))):
+        print(f"schedule paged_decode {label}: "
+              f"{pa.decode_schedule(*args, sms=sms)}", flush=True)
     for label, args in (("gpt2 prefill", (1, 16, 12, 12, 160)),
                         ("llama-gqa prefill", (1, 16, 12, 3, 160)),
                         ("gpt2 verify", (8, 5, 12, 12, 1024))):
@@ -1568,6 +1668,7 @@ def main(argv=None) -> int:
         check_tree_kernels(torch, pa, "cuda")
         check_int8_kernels(torch, pa, "cuda")
         check_window_edges(torch, pa, "cuda", int8=True)
+        check_decode_edges(torch, pa, "cuda")
         model, prompts, launches = main_path(torch, np, pa, args.seed)
         launches.update(spec_main_path(torch, np, pa, model, prompts,
                                        args.seed))

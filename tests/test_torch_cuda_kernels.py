@@ -182,6 +182,73 @@ def test_window_kernel_edges_match_plain(card, monkeypatch, edge, dtype,
         torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
+# K4's edges: (query heads, KV heads, head dim, page tokens, table pages,
+# per-slot depths; None: an idle slot, its table row all -1): tile edges,
+# a slot at the capacity of 1,024 keys beside one at 0, head dims 32 and
+# 128, 1, 4 and 8 query heads a KV head, 64-token pages, an idle slot.
+DECODE_EDGES = {
+    "tile-edges": (12, 12, 64, 16, 64, (0, 31, 32, 63)),
+    "capacity": (12, 3, 64, 16, 64, (1023, 0)),
+    "dh32": (16, 2, 32, 16, 64, (100, 317, 5)),
+    "dh128": (32, 8, 128, 16, 64, (200, 31, 640)),
+    "groups8": (16, 2, 64, 16, 64, (150, 999, 64)),
+    "page64": (12, 3, 64, 64, 16, (1000, 63, 64)),
+    "idle": (12, 12, 64, 16, 64, (300, None, 50)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_splits", [pa.DECODE_MAX_SPLITS, 1])
+@pytest.mark.parametrize("pool", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("edge", list(DECODE_EDGES))
+def test_decode_kernel_edges_match_plain(card, monkeypatch, edge, dtype,
+                                         pool, max_splits):
+    """K4 and K4-int8 at the edges of their schedule against the plain
+    version (zeros for an idle slot), whole-pool, at the tolerances
+    above, with the key split and without (one split: no merge); each
+    call made twice back to back (a merge ticket left unreset by the
+    first would break the second), one launch counted per call."""
+    from tpudp_torch.models.generate import _quantize_kv
+
+    monkeypatch.setattr(pa, "DECODE_MAX_SPLITS", max_splits)
+    h, kv, dh, page_tokens, max_pages, depths = DECODE_EDGES[edge]
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(len(edge) + 7 * dh)
+    n_vis = [0 if d is None else d // page_tokens + 1 for d in depths]
+    n_pages = sum(n_vis) + 2
+    perm = list(rng.permutation(n_pages))
+    table = np.full((len(depths), max_pages), -1, np.int32)
+    for s, n in enumerate(n_vis):
+        table[s, :n] = [perm.pop() for _ in range(n)]
+    k, v = (torch.as_tensor(rng.standard_normal(
+        (LAYERS, n_pages + 1, page_tokens, kv, dh), np.float32)).to(card)
+        for _ in range(2))
+    if pool == "int8":
+        (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+        pages, kernel = (k8, v8, ks, vs), pa.paged_decode_int8
+    else:
+        pages, kernel = (k.to(dt), v.to(dt)), pa.paged_decode
+    q = torch.as_tensor(rng.standard_normal((len(depths), 1, h, dh),
+                                            np.float32)).to(card, dt)
+    table = torch.as_tensor(table).to(card)
+    pos = torch.tensor([40 if d is None else d for d in depths],
+                       dtype=torch.int32, device=card)
+    idle = [s for s, d in enumerate(depths) if d is None]
+    want = pa._einsum_paged(q, tuple(buf[1] for buf in pages), table, pos,
+                            dtype=dt, grouped=True)
+    want[idle] = 0.0
+    tol = (dict(atol=2e-5, rtol=2e-5) if dt == torch.float32
+           else dict(atol=2e-2, rtol=1.6e-2))
+    for _ in range(2):
+        before = kernel.launches
+        got = pa.paged_attention(q, pages, table, pos, dtype=dt,
+                                 impl="kernel", layer=1)
+        assert kernel.launches == before + 1
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert not got[idle].any()
+
+
 @pytest.mark.cuda
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(card):
     rng = np.random.default_rng(9)

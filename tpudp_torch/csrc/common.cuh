@@ -1,13 +1,15 @@
 // Device helpers shared by every kernel of the port: element loads and
 // stores widened to float32 (int8 page payloads load the same way), warp
-// reductions, the masking sentinel of the TPU kernels, the error-string
-// export every library carries, and the (element type, head dim)
-// dispatch of the launch functions.
+// reductions, the masking sentinel of the TPU kernels, the opt-in to
+// more than 48 KB of dynamic shared memory, the error-string export every
+// library carries, and the (element type, head dim) dispatch of the
+// launch functions.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace tpudp {
@@ -80,6 +82,24 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFullMask, x, o);
   return x;
+}
+
+// Opt Kernel into `bytes` of dynamic shared memory where that is over the
+// 48 KB default: once a device (the attribute holds for the device's
+// context, and Kernel's bytes never change), not on every launch.
+template <auto Kernel>
+cudaError_t allow_smem(size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  static std::atomic<unsigned long long> done{0};  // a bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev % 64);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace tpudp

@@ -1,10 +1,10 @@
 // Shared device code of the paged-attention kernels (paged_decode.cu,
-// paged_window.cu, paged_tree.cu): the page view; the one-warp-a-row
-// online-softmax loop of the decode kernel (fold_keys); and the shared
-// key tiles of the window and tree kernels, whose blocks own every query
-// row that reads one KV head and fold each 32-key tile of K/V, staged
-// once in shared memory, into all of those rows (StagedRows, KeyStages,
-// stage_keys, fold_key_tiles, row_scores, fold_tile).
+// paged_window.cu, paged_tree.cu): the page view; the shared key tiles,
+// whose blocks own every query row that reads one KV head and fold each
+// 32-key tile of K/V, staged once in shared memory, into all of those
+// rows (StagedRows, KeyStages, stage_keys, fold_key_tiles, row_scores,
+// fold_tile); and the merge of a key split's partials in the launch
+// (merge_key_splits).
 //
 // Layouts (all element strides, the last dimension contiguous):
 //   pages  one layer of the pool, (P+1, T, kv, dh); the trailing page is
@@ -60,75 +60,7 @@ inline PageView<int8_t> int8_page_view(
           s_page_stride, s_tok_stride, s_head_stride};
 }
 
-// One warp folds keys [first, limit] of one query row into (m, l, acc).
-// Keys come in tiles of 32, one key per lane: lane i scores key base+i
-// against the pre-scaled query q_s (shared memory, read as a broadcast),
-// the tile updates the online softmax once, and the P.V product is
-// accumulated with lane i owning output dims i, i+32, ...  Tiles start at
-// `first` and step by `step` keys, so several warps can split one row's
-// keys.  Runs in float32 whatever P is.  Over int8 pages the key's scale
-// leaves the dot product (s = k_scale * sum q * k8: the dequantized dot
-// in another summation order), and each P.V weight takes the key's
-// v_scale, broadcast from its lane with the page id.
-template <typename P, int DH>
-__device__ __forceinline__ void fold_keys(const float* q_s,
-                                          const PageView<P>& pv,
-                                          const int* trow, int page_tokens,
-                                          int kv_head, int first, int step,
-                                          int limit, float& m, float& l,
-                                          float (&acc)[DH / 32]) {
-  const int lane = threadIdx.x & 31;
-  const long long head_off = kv_head * pv.head_stride;
-  for (int base = first; base <= limit; base += step) {
-    const int key = base + lane;
-    const int page = key <= limit ? trow[key / page_tokens] : -1;
-    float s = kNegInf;
-    float v_scale = 1.f;
-    if (page >= 0) {
-      const long long row = (long long)(key % page_tokens);
-      const P* kr =
-          pv.k + page * pv.page_stride + row * pv.tok_stride + head_off;
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < DH; d += Vec16<P>::N) {
-        float kx[Vec16<P>::N];
-        Vec16<P>::load(kr + d, kx);
-#pragma unroll
-        for (int e = 0; e < Vec16<P>::N; ++e) dot += q_s[d + e] * kx[e];
-      }
-      s = dot;
-      if constexpr (kInt8Pages<P>) {
-        const long long so = page * pv.s_page_stride + row * pv.s_tok_stride +
-                             kv_head * pv.s_head_stride;
-        s *= pv.k_scale[so];
-        v_scale = pv.v_scale[so];
-      }
-    }
-    const float tile_max = warp_max(s);
-    if (tile_max <= kNegInf) continue;  // no visible mapped key in the tile
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    const float p = page >= 0 ? expf(s - m_new) : 0.f;
-    l = l * alpha + warp_sum(p);
-#pragma unroll
-    for (int i = 0; i < DH / 32; ++i) acc[i] *= alpha;
-    for (int t = 0; t < 32; ++t) {
-      const int pg = __shfl_sync(kFullMask, page, t);
-      float pt = __shfl_sync(kFullMask, p, t);
-      if constexpr (kInt8Pages<P>) pt *= __shfl_sync(kFullMask, v_scale, t);
-      if (pg < 0) continue;  // warp-uniform: the broadcast value
-      const P* vr = pv.v + pg * pv.page_stride +
-                    (long long)((base + t) % page_tokens) * pv.tok_stride +
-                    head_off;
-#pragma unroll
-      for (int i = 0; i < DH / 32; ++i) acc[i] += pt * to_f32(vr[lane + 32 * i]);
-    }
-    m = m_new;
-  }
-}
-
-
-// -- Shared key tiles (paged_window.cu, paged_tree.cu) ---------------------
+// -- Shared key tiles (paged_window.cu, paged_tree.cu, paged_decode.cu)
 //
 // A block of kTileWarps warps owns up to kTileRows query rows that read
 // one KV head; warp w folds rows w + kTileWarps * rr for rr < nr.  Key
@@ -137,7 +69,10 @@ __device__ __forceinline__ void fold_keys(const float* q_s,
 // bytes a thread along each row, into two stages, so the next tile
 // streams in while this one is folded.  Scores run with lane = key (each
 // lane reads its key's row once for all of its warp's rows), P.V with
-// lane = output dims, both out of shared memory, in float32.
+// lane = output dims, both out of shared memory, in float32.  The decode
+// kernel uses the same pieces the other way round: each key lane (one to
+// four warps) stages and folds key tiles of its own into all of its
+// block's rows.
 
 constexpr int kTileWarps = 8;
 constexpr int kRowsPerWarp = 4;
@@ -158,26 +93,27 @@ struct StagedRows {
   static constexpr int kQ = kTileRows * DH * 4;
 };
 
-// Two stages of staged key tiles in shared memory: K and V rows, each
-// key's page id (-1: no weight) and, over int8 pages, its k_scale and
-// v_scale, so the fold reads nothing from global memory.
-template <typename P, int DH>
+// S stages (tile kt in stage kt % S) of staged key tiles in shared
+// memory: K and V rows, each key's page id (-1: no weight) and, over
+// int8 pages, its k_scale and v_scale, so the fold reads nothing from
+// global memory.
+template <typename P, int DH, int S = 2>
 struct KeyStages {
   static constexpr int kScales = kInt8Pages<P> ? 2 : 0;
   static constexpr size_t kBytes =
-      4 * StagedRows<P, DH>::kTile + 2 * kTileKeys * 4 * (1 + kScales);
+      2 * S * StagedRows<P, DH>::kTile + S * kTileKeys * 4 * (1 + kScales);
   uint8_t* k;        // stage i at + i * kTile
   uint8_t* v;
-  int* page;         // [2][kTileKeys]
-  float* k_scale;    // [2][kTileKeys], int8 pages only
+  int* page;         // [S][kTileKeys]
+  float* k_scale;    // [S][kTileKeys], int8 pages only
   float* v_scale;
 
   // The stages laid out from `base` (16-byte aligned), kBytes long.
   __device__ __forceinline__ static KeyStages at(uint8_t* base) {
     constexpr int kTile = StagedRows<P, DH>::kTile;
-    int* page = reinterpret_cast<int*>(base + 4 * kTile);
-    float* scales = reinterpret_cast<float*>(page + 2 * kTileKeys);
-    return {base, base + 2 * kTile, page, scales, scales + 2 * kTileKeys};
+    int* page = reinterpret_cast<int*>(base + 2 * S * kTile);
+    float* scales = reinterpret_cast<float*>(page + S * kTileKeys);
+    return {base, base + S * kTile, page, scales, scales + S * kTileKeys};
   }
 };
 
@@ -244,12 +180,16 @@ __device__ __forceinline__ void stage_keys(const KeyStages<P, DH>& st, int kt,
 }
 
 // Scores of one staged row (lane's own: key or window node) against
-// each of the warp's query rows: sc[rr] = q_row(rr) . row, for rr < nr.
+// each of the warp's query rows: sc[rr] = q_row(rr) . row, for rr < nr,
+// where q_row(rr) is row first + step * rr of q_s (a warp of the window
+// and tree kernels folds rows warp + kTileWarps * rr; a decode warp all
+// of its block's rows, 0, 1, ...).
 template <typename P, int DH>
 __device__ __forceinline__ void row_scores(const uint8_t* row,
-                                           const float* q_s, int warp,
+                                           const float* q_s, int first,
                                            int nr,
-                                           float (&sc)[kRowsPerWarp]) {
+                                           float (&sc)[kRowsPerWarp],
+                                           int step = kTileWarps) {
   using M = StagedRows<P, DH>;
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) sc[rr] = 0.f;
@@ -260,7 +200,7 @@ __device__ __forceinline__ void row_scores(const uint8_t* row,
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
       if (rr >= nr) break;  // warp-uniform
-      const float* qr = q_s + (warp + kTileWarps * rr) * DH + c * M::kN;
+      const float* qr = q_s + (first + step * rr) * DH + c * M::kN;
 #pragma unroll
       for (int e = 0; e < M::kN; e += 4) {
         const float4 qv = *reinterpret_cast<const float4*>(qr + e);
@@ -320,14 +260,40 @@ __device__ __forceinline__ void fold_tile(
   }
 }
 
+// Fold the tile staged in `stage` of st into the warp's rows (m, l,
+// acc): rows first + step * rr of q_s for rr < nr (see row_scores), row
+// rr seeing the tile's keys in vis[rr] (warp-uniform; mapped: the ballot
+// of the staged page ids).  Over int8 pages the key's scale leaves the
+// dot product (s = k_scale * sum q * k8: the dequantized dot in another
+// summation order) and its v_scale joins the P.V weight.
+template <typename P, int DH, int S>
+__device__ __forceinline__ void fold_staged_tile(
+    const KeyStages<P, DH, S>& st, int stage, unsigned mapped,
+    const unsigned (&vis)[kRowsPerWarp], const float* q_s, int first,
+    int step, int nr, float (&m)[kRowsPerWarp], float (&l)[kRowsPerWarp],
+    float (&acc)[kRowsPerWarp][DH / 32]) {
+  using M = StagedRows<P, DH>;
+  const int lane = threadIdx.x & 31;
+  float sc[kRowsPerWarp];
+  row_scores<P, DH>(st.k + stage * M::kTile + lane * M::kPitch, q_s, first,
+                    nr, sc, step);
+  float v_scale = 1.f;
+  if constexpr (kInt8Pages<P>) {
+    const int slot = stage * kTileKeys + lane;
+    const bool has = (mapped >> lane) & 1u;
+    const float k_scale = has ? st.k_scale[slot] : 0.f;
+    v_scale = has ? st.v_scale[slot] : 0.f;
+#pragma unroll
+    for (int rr = 0; rr < kRowsPerWarp; ++rr) sc[rr] *= k_scale;
+  }
+  fold_tile<P, DH>(sc, vis, st.v + stage * M::kTile, v_scale, nr, m, l, acc);
+}
+
 // Fold key tiles [kt0, kt1) into the warp's rows (m, l, acc): the caller
 // has staged tile kt0 (stage_keys) so that its copy overlaps the caller's
 // own staging of the query rows q_s, which the first barrier here
 // covers.  visible(kt, mapped, vis) gives each row's 32-bit mask of the
 // tile's keys (mapped: the ballot of the staged page ids), warp-uniform.
-// Over int8 pages the key's scale leaves the dot product (s = k_scale *
-// sum q * k8: the dequantized dot in another summation order) and its
-// v_scale joins the P.V weight.
 template <typename P, int DH, typename Visible>
 __device__ __forceinline__ void fold_key_tiles(
     const KeyStages<P, DH>& st, const PageView<P>& pv, const int* trow,
@@ -335,9 +301,7 @@ __device__ __forceinline__ void fold_key_tiles(
     const float* q_s, int warp, int nr, Visible visible,
     float (&m)[kRowsPerWarp], float (&l)[kRowsPerWarp],
     float (&acc)[kRowsPerWarp][DH / 32]) {
-  using M = StagedRows<P, DH>;
   const int lane = threadIdx.x & 31;
-  float sc[kRowsPerWarp];
   unsigned vis[kRowsPerWarp];
   for (int kt = kt0; kt < kt1; ++kt) {
     if (kt + 1 < kt1) {  // streams in while this tile is folded
@@ -348,22 +312,12 @@ __device__ __forceinline__ void fold_key_tiles(
     }
     __syncthreads();  // tile kt, its page ids and scales are in
     const int stage = kt & 1;
-    const int slot = stage * kTileKeys + lane;
-    const unsigned mapped = __ballot_sync(kFullMask, st.page[slot] >= 0);
+    const unsigned mapped =
+        __ballot_sync(kFullMask, st.page[stage * kTileKeys + lane] >= 0);
     if (nr > 0 && mapped) {
-      row_scores<P, DH>(st.k + stage * M::kTile + lane * M::kPitch, q_s,
-                        warp, nr, sc);
-      float v_scale = 1.f;
-      if constexpr (kInt8Pages<P>) {
-        const bool has = (mapped >> lane) & 1u;
-        const float k_scale = has ? st.k_scale[slot] : 0.f;
-        v_scale = has ? st.v_scale[slot] : 0.f;
-#pragma unroll
-        for (int rr = 0; rr < kRowsPerWarp; ++rr) sc[rr] *= k_scale;
-      }
       visible(kt, mapped, vis);
-      fold_tile<P, DH>(sc, vis, st.v + stage * M::kTile, v_scale, nr, m, l,
-                       acc);
+      fold_staged_tile<P, DH>(st, stage, mapped, vis, q_s, warp, kTileWarps,
+                              nr, m, l, acc);
     }
     __syncthreads();  // every reader of this stage is done before reuse
   }
@@ -385,9 +339,80 @@ __device__ __forceinline__ void stage_queries(
   }
 }
 
-// How many of a block's `rows` rows warp `warp` folds.
-__device__ __forceinline__ int warp_rows(int rows, int warp) {
-  return rows > warp ? (rows - warp + kTileWarps - 1) / kTileWarps : 0;
+// How many of a block's `rows` rows warp `warp` of `warps` folds, rows
+// warp, warp + warps, ...
+__device__ __forceinline__ int warp_rows(int rows, int warp,
+                                         int warps = kTileWarps) {
+  return rows > warp ? (rows - warp + warps - 1) / warps : 0;
+}
+
+// The merge of a key split, in the launch.  The first `used` of a row
+// group's `splits` blocks (split = 0 .. used - 1) each hold a partial
+// (m, l, acc) of the warp's nr rows, row rr written to output row
+// out_row(rr) of n_out; part is float32 scratch of splits * n_out *
+// (DH + 2) elements: (splits, n_out, DH) sums, then (splits, n_out, 2)
+// maxima and denominators.  Each block stores its partials, then takes
+// the group's ticket after a __threadfence; the last to arrive resets the
+// ticket to 0 for the next launch and merges every partial in split
+// order (its own from the scratch too, so the output does not depend on
+// which split merges), leaving the merged (m, l, acc) in the warp's rows
+// and returning true.  The other blocks return false and are done.
+template <int DH, typename OutRow>
+__device__ __forceinline__ bool merge_key_splits(
+    float* part, unsigned* ticket, int split, int used, int splits,
+    long long n_out, int nr, OutRow out_row, float (&m)[kRowsPerWarp],
+    float (&l)[kRowsPerWarp], float (&acc)[kRowsPerWarp][DH / 32]) {
+  __shared__ int last;
+  const int lane = threadIdx.x & 31;
+  float* part_acc = part;                       // (splits, n_out, DH)
+  float2* part_ml =
+      reinterpret_cast<float2*>(part + splits * n_out * DH);  // (.., 2)
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    if (rr >= nr) break;
+    const long long o = split * n_out + out_row(rr);
+#pragma unroll
+    for (int i = 0; i < DH / 32; ++i)
+      part_acc[o * DH + lane + 32 * i] = acc[rr][i];
+    if (lane == 0) part_ml[o] = make_float2(m[rr], l[rr]);
+  }
+  __threadfence();  // the partial is visible before the ticket is taken
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(ticket, 1u) == (unsigned)used - 1;
+    if (last) *ticket = 0;  // every split has taken its ticket: reset
+  }
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  // One pass, rescaling the running sums as the maximum grows.
+#pragma unroll
+  for (int rr = 0; rr < kRowsPerWarp; ++rr) {
+    if (rr >= nr) break;
+    const long long o = out_row(rr);
+    m[rr] = kNegInf;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DH / 32; ++i) acc[rr][i] = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < used; ++sp) {
+      const long long po = sp * n_out + o;
+      const float2 part_m_l = __ldcg(part_ml + po);
+      float part_acc_i[DH / 32];
+#pragma unroll
+      for (int i = 0; i < DH / 32; ++i)
+        part_acc_i[i] = __ldcg(part_acc + po * DH + lane + 32 * i);
+      const float m_new = fmaxf(m[rr], part_m_l.x);
+      const float alpha = expf(m[rr] - m_new);
+      const float w = expf(part_m_l.x - m_new);
+      l[rr] = l[rr] * alpha + part_m_l.y * w;
+#pragma unroll
+      for (int i = 0; i < DH / 32; ++i)
+        acc[rr][i] = acc[rr][i] * alpha + part_acc_i[i] * w;
+      m[rr] = m_new;
+    }
+  }
+  return true;
 }
 
 }  // namespace tpudp

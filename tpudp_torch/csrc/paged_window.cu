@@ -54,7 +54,7 @@
 // mma.sync path for bf16 pools is possible later work.
 //
 // The int8 variant (launch_paged_window_int8) runs the same kernel over
-// int8 pages with float32 per-vector scales, as paged_decode.cu's does:
+// int8 pages with float32 per-vector scales, as the decode kernel does:
 // the TPU kernel's `int8` branch dequantizes whole page blocks in VMEM,
 // here the key's scale leaves the dot product and its v_scale joins the
 // key's P.V weight.
@@ -74,7 +74,6 @@ __global__ void __launch_bounds__(kTileWarps * 32)
                         long long q_head_stride, float scale) {
   using M = StagedRows<P, DH>;
   extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int last;
   float* q_s = reinterpret_cast<float*>(smem);  // (row_tile, DH)
   const KeyStages<P, DH> st = KeyStages<P, DH>::at(smem + M::kQ);
 
@@ -138,62 +137,12 @@ __global__ void __launch_bounds__(kTileWarps * 32)
            r % groups;
   };
   if (used > 1) {
-    // This split's partial, then a ticket: the last split to finish
-    // merges them all.
-    const long long n_out = (long long)gridDim.z * cur * heads;
-    float* part_acc = part;                            // (splits, n_out, DH)
-    float* part_ml = part + splits * n_out * DH;       // (splits, n_out, 2)
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      if (rr >= nr) break;
-      const long long o = split * n_out + out_row(rr);
-#pragma unroll
-      for (int i = 0; i < DH / 32; ++i)
-        part_acc[o * DH + lane + 32 * i] = acc[rr][i];
-      if (lane == 0)
-        reinterpret_cast<float2*>(part_ml)[o] = make_float2(m[rr], l[rr]);
-    }
-    __threadfence();  // the partial is visible before the ticket is taken
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned* t = ticket + ((long long)s * gridDim.y + kv_head) * row_tiles +
-                    rt;
-      last = atomicAdd(t, 1u) == (unsigned)used - 1;
-      if (last) *t = 0;  // every split has taken its ticket: reset
-    }
-    __syncthreads();
-    if (!last) return;
-    __threadfence();
-    // The partials merge in split order, this block's own from the
-    // scratch too, so the output does not depend on which split merges;
-    // one pass, rescaling the running sums as the maximum grows.
-    const float2* ml = reinterpret_cast<const float2*>(part_ml);
-#pragma unroll
-    for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      if (rr >= nr) break;
-      const long long o = out_row(rr);
-      m[rr] = kNegInf;
-      l[rr] = 0.f;
-#pragma unroll
-      for (int i = 0; i < DH / 32; ++i) acc[rr][i] = 0.f;
-#pragma unroll 4
-      for (int sp = 0; sp < used; ++sp) {
-        const long long po = sp * n_out + o;
-        const float2 part_m_l = __ldcg(ml + po);
-        float part_acc_i[DH / 32];
-#pragma unroll
-        for (int i = 0; i < DH / 32; ++i)
-          part_acc_i[i] = __ldcg(part_acc + po * DH + lane + 32 * i);
-        const float m_new = fmaxf(m[rr], part_m_l.x);
-        const float alpha = expf(m[rr] - m_new);
-        const float w = expf(part_m_l.x - m_new);
-        l[rr] = l[rr] * alpha + part_m_l.y * w;
-#pragma unroll
-        for (int i = 0; i < DH / 32; ++i)
-          acc[rr][i] = acc[rr][i] * alpha + part_acc_i[i] * w;
-        m[rr] = m_new;
-      }
-    }
+    unsigned* t =
+        ticket + ((long long)s * gridDim.y + kv_head) * row_tiles + rt;
+    if (!merge_key_splits<DH>(part, t, split, used, splits,
+                              (long long)gridDim.z * cur * heads, nr, out_row,
+                              m, l, acc))
+      return;  // another split merges
   }
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
@@ -219,11 +168,8 @@ int launch_window(const T* q, const PageView<P>& pv, const int* table,
   const int row_tiles = (cur * groups + row_tile - 1) / row_tile;
   const auto kernel = paged_window_kernel<T, P, DH>;
   const size_t bytes = StagedRows<P, DH>::kQ + KeyStages<P, DH>::kBytes;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem<paged_window_kernel<T, P, DH>>(bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(row_tiles * splits, kv_heads, batch);
   kernel<<<grid, kTileWarps * 32, bytes, stream>>>(
       q, pv, table, pos, out, part, ticket, cur, heads, groups, max_pages,

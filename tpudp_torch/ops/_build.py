@@ -34,15 +34,16 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 #: C signature of each kernel's launch function, in argument order.
 SIGNATURES = {
+    # The decode and window kernels take the key split's scratch and
+    # tickets and, after the geometry, their schedule: the row-tile width
+    # and split count, and for the window kernels a depth shared by the
+    # batch (read where the depth pointer is null).
     "paged_decode": ("launch_paged_decode",
-                     [_P] * 6 + [_I] * 7 + [_L] * 6 + [_F, _P]),
-    # The window kernels also take the key split's scratch and tickets
-    # and, after the geometry, the row-tile width, the split count and a
-    # depth shared by the batch (read where the depth pointer is null).
+                     [_P] * 8 + [_I] * 9 + [_L] * 6 + [_F, _P]),
     "paged_window": ("launch_paged_window",
                      [_P] * 8 + [_I] * 11 + [_L] * 7 + [_F, _P]),
     "paged_decode_int8": ("launch_paged_decode_int8",
-                          [_P] * 8 + [_I] * 7 + [_L] * 10 + [_F, _P]),
+                          [_P] * 10 + [_I] * 9 + [_L] * 10 + [_F, _P]),
     "paged_window_int8": ("launch_paged_window_int8",
                           [_P] * 10 + [_I] * 11 + [_L] * 11 + [_F, _P]),
     "paged_tree": ("launch_paged_tree",

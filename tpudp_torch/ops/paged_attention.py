@@ -9,9 +9,10 @@ Two backends behind :func:`paged_attention`, with the JAX op's layouts:
     mask, float32 softmax, and the P.V product.
   * ``impl='kernel'`` — the hand-written CUDA kernels
     (``tpudp_torch/csrc``): a one-token window at per-slot depths goes to
-    :func:`paged_decode` (K4), everything else — a prefill chunk at a
-    shared scalar depth, a multi-token window at per-slot depths — to
-    :func:`paged_window` (K5, its grid from :func:`window_schedule`);
+    :func:`paged_decode` (K4, its grid from :func:`decode_schedule`),
+    everything else — a prefill chunk at a shared scalar depth, a
+    multi-token window at per-slot depths — to :func:`paged_window` (K5,
+    its grid from :func:`window_schedule`);
     over an int8 pool to their int8 variants :func:`paged_decode_int8`
     and :func:`paged_window_int8`.  All compute in float32 and are
     bounded by a tolerance against the plain version, as the Pallas
@@ -131,6 +132,94 @@ def window_schedule(b: int, cur: int, h: int, kv: int, n_keys: int,
     splits = max(1, min(key_tiles, MAX_SPLITS, BLOCKS_PER_SM * sms // blocks))
     return WindowSchedule(row_tile, row_tiles, splits,
                           (row_tiles * splits, kv, b))
+
+
+#: The query rows one warp of a K4 block folds (``csrc/paged_common.cuh``
+#: ``kRowsPerWarp``): a K4 block's row tile.
+ROWS_PER_WARP = 4
+#: The warps a K4 block fits its key lanes in and the most key lanes it
+#: has (``csrc/paged_decode.cu`` ``kDecodeLanes``), and the most key
+#: splits it launches for a (row tile, KV head, slot) (PERF.md §6: the
+#: sweep, ``chip_window_sweep.py sweep``, that chose them).
+DECODE_BLOCK_WARPS, DECODE_KEY_LANES = 8, 4
+DECODE_MAX_SPLITS = 8
+
+
+class DecodeSchedule(NamedTuple):
+    """How K4 cuts one call.  Block ``(rt, kv_head, split * b + slot)``
+    folds row tile ``rt`` (:meth:`rows`) of the ``groups`` query heads
+    reading ``kv_head`` against its share of the slot's key tiles
+    (:meth:`key_tiles`).  Of a (row tile, KV head, slot)'s ``splits``
+    blocks, the first :meth:`used` share the tiles the slot sees, and the
+    last of those to finish merges their partials; the others exit at
+    once.  A block's warps form ``lanes`` key lanes of ``row_warps`` warps
+    that fold their tiles side by side (:meth:`lane_tiles`), a lane's
+    warp ``j`` folding the row tile's heads ``j, j + row_warps, ...``, and
+    the lanes merge in shared memory."""
+
+    row_warps: int  # warps a key lane, sharing its tiles
+    lanes: int      # key lanes a block
+    row_tile: int   # query heads a block
+    row_tiles: int  # row tiles a (KV head, slot)
+    splits: int     # blocks launched for one row tile's keys
+    grid: tuple     # (row_tiles, kv, splits * b)
+
+    @property
+    def warps(self) -> int:
+        """Warps a block."""
+        return self.lanes * self.row_warps
+
+    def rows(self, rt: int, groups: int, kv_head: int):
+        """The query heads of row tile ``rt`` of ``kv_head``'s
+        ``groups``."""
+        end = min((rt + 1) * self.row_tile, groups)
+        return [kv_head * groups + r
+                for r in range(rt * self.row_tile, end)]
+
+    def used(self, n_tiles: int) -> int:
+        """The splits that fold a slot's ``n_tiles`` key tiles: one per
+        ``lanes`` tiles, at least one, up to ``splits``."""
+        return max(1, min(self.splits, -(-n_tiles // self.lanes)))
+
+    def key_tiles(self, n_tiles: int, split: int) -> range:
+        """The key tiles split ``split`` folds of a slot's ``n_tiles``:
+        an even share, in order (none past :meth:`used`)."""
+        used = self.used(n_tiles)
+        if split >= used:
+            return range(0)
+        return range(split * n_tiles // used, (split + 1) * n_tiles // used)
+
+    def lane_tiles(self, n_tiles: int, split: int, lane: int) -> range:
+        """The key tiles key lane ``lane`` of split ``split`` folds:
+        every ``lanes``-th of the split's share, from its ``lane``-th."""
+        return self.key_tiles(n_tiles, split)[lane::self.lanes]
+
+
+def decode_schedule(b: int, h: int, kv: int, n_keys: int,
+                    sms: int = H100_SMS) -> DecodeSchedule:
+    """K4's grid for ``b`` slots of one query row at ``h`` query heads
+    over ``kv`` KV heads, whose rows see at most ``n_keys`` keys (the
+    table's capacity: the depths stay on the card).
+
+    The ``h / kv`` query heads reading one KV head are cut into the
+    fewest row tiles of at most :data:`ROWS_PER_WARP`, of even width; a
+    key lane has the largest of 1, 2 and 4 warps within the row tile, and
+    a block as many key lanes as fit in :data:`DECODE_BLOCK_WARPS` warps,
+    up to :data:`DECODE_KEY_LANES`, as the kernel derives them; the key
+    range is split across up to :data:`DECODE_MAX_SPLITS` blocks, one
+    per key lanes' worth of key tiles, within :data:`BLOCKS_PER_SM`
+    blocks a SM of the card's ``sms``."""
+    groups = h // kv
+    row_tiles = -(-groups // ROWS_PER_WARP)
+    row_tile = -(-groups // row_tiles)
+    row_warps = 1 << (row_tile.bit_length() - 1)
+    lanes = min(DECODE_KEY_LANES, DECODE_BLOCK_WARPS // row_warps)
+    blocks = b * kv * row_tiles
+    key_tiles = max(1, -(-n_keys // TILE_KEYS))
+    splits = max(1, min(-(-key_tiles // lanes), DECODE_MAX_SPLITS,
+                        BLOCKS_PER_SM * sms // blocks))
+    return DecodeSchedule(row_warps, lanes, row_tile, row_tiles, splits,
+                          (row_tiles, kv, splits * b))
 
 
 def page_tiles(pages, table, dtype):
@@ -285,48 +374,56 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-_tickets: dict = {}  # by device: K5's merge tickets, all 0 between launches
+_merge_buffers: dict = {}  # by (device, dtype): K4's and K5's split merge
 
 
-def _window_tickets(device, n: int) -> torch.Tensor:
-    """At least ``n`` zeroed merge tickets on ``device``, made once and
-    kept: the block that merges a (row tile, KV head, slot) resets its
-    ticket to 0, so every launch on the device's stream finds them
-    zeroed."""
-    buf = _tickets.get(device)
+def _merge_buffer(device, dtype, n: int) -> torch.Tensor:
+    """At least ``n`` elements of ``dtype`` on ``device`` for K4's and K5's
+    key-split merge, made once and kept (grown when a call needs more):
+    int32 merge tickets, all 0 between launches, since the block that
+    merges a (row tile, KV head, slot) resets its ticket to 0; and the
+    float32 scratch of the splits' partials, which a launch writes before
+    it reads.  Launches on the device's stream run one after another, so
+    each finds the tickets zeroed and the scratch its own."""
+    buf = _merge_buffers.get((device, dtype))
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _tickets[device] = buf
+        buf = torch.zeros(max(n, 4096), dtype=dtype, device=device)
+        _merge_buffers[device, dtype] = buf
     return buf
 
 
 def _launch(name, q, pages, table, pos, layer):
-    """Launch K4 (``cur == 1`` kernels take no row count or row stride)
-    or K5 (with its schedule, scratch and tickets, and a host depth by
-    value), fp or int8, on validated arguments; count the launch."""
+    """Launch K4 (on :func:`decode_schedule`'s grid; ``cur == 1`` kernels
+    take no row count, row stride or host depth) or K5 (on
+    :func:`window_schedule`'s, a host depth by value), fp or int8, with
+    the key split's scratch and tickets (:func:`_merge_buffer`), on
+    validated arguments; count the launch."""
     window = not name.startswith("paged_decode")
     out, table32, pos32, depth, ints, strides, scale_strides = _launch_args(
         q, pages, table, pos, layer, by_value=window)
-    ptrs = ()
-    if not window:
-        ints = ints[:2] + ints[3:]          # no window length
-        strides = strides[:1] + strides[2:]  # no row stride
-    else:
-        _, b, cur, h, kv, _, max_pages, page_tokens = ints
-        # Keys the last row sees: from a host depth, else the capacity.
-        n_keys = max_pages * page_tokens
+    _, b, cur, h, kv, _, max_pages, page_tokens = ints
+    # Keys the last row sees: from a host depth, else the capacity.
+    n_keys = max_pages * page_tokens
+    if window:
         if depth is not None:
             n_keys = min(depth + cur, n_keys)
         sched = window_schedule(b, cur, h, kv, n_keys, _sm_count(q.device))
-        part = tickets = None
-        if sched.splits > 1:  # (splits, b, cur, h) partial acc, then m, l
-            rows = sched.splits * out.numel() // out.shape[-1]
-            part = torch.empty(rows * (out.shape[-1] + 2),
-                               dtype=torch.float32, device=q.device)
-            tickets = _window_tickets(q.device, b * kv * sched.row_tiles)
-        ptrs = (part, tickets)
-        ints += (sched.row_tile, sched.splits,
-                 0 if depth is None else depth)
+        sched_ints = (sched.row_tile, sched.splits,
+                      0 if depth is None else depth)
+    else:
+        sched = decode_schedule(b, h, kv, n_keys, _sm_count(q.device))
+        sched_ints = (sched.row_tile, sched.splits)
+        ints = ints[:2] + ints[3:]          # no window length
+        strides = strides[:1] + strides[2:]  # no row stride
+    part = tickets = None
+    if sched.splits > 1:  # (splits, b, cur, h) partial acc, then m, l
+        rows = sched.splits * out.numel() // out.shape[-1]
+        part = _merge_buffer(q.device, torch.float32,
+                             rows * (out.shape[-1] + 2))
+        tickets = _merge_buffer(q.device, torch.int32,
+                                b * kv * sched.row_tiles)
+    ptrs = (part, tickets)
+    ints += sched_ints
     code = _build.launcher(name)(
         q.data_ptr(), *(buf.data_ptr() for buf in pages), table32.data_ptr(),
         None if pos32 is None else pos32.data_ptr(), out.data_ptr(),
@@ -340,8 +437,9 @@ def _launch(name, q, pages, table, pos, layer):
 
 def paged_decode(q, k_pages, v_pages, table, pos, *, layer=None):
     """K4: one-token paged decode.  ``q`` ``(b, 1, h, dh)``; ``pos``
-    ``(b,)``.  Launches ``csrc/paged_decode.cu`` on CUDA tensors (the
-    count goes up by one), runs the plain version on CPU tensors."""
+    ``(b,)``.  Launches ``csrc/paged_decode.cu`` on CUDA tensors, once,
+    on the grid :func:`decode_schedule` picks for the table's capacity
+    (the count goes up by one); runs the plain version on CPU tensors."""
     if q.shape[1] != 1:
         raise ValueError("the paged-decode kernel is a one-token kernel")
     if not q.is_cuda:
