@@ -97,6 +97,24 @@ which fails the run (nonzero exit, no result line) when it fails:
      ``multihead_attention(impl='flash')`` at head dim 48 routed to the
      dense math (counted once, no flash kernel launched) and equal to
      it;
+  4e. fused decode windows — phase 4's eight prompts at once (8 slots,
+     96 new tokens each) through GPT-2 small over an fp32 pool (K4) and
+     LLaMA-GQA over an int8 pool (K4-int8), greedy, each with
+     ``decode_fuse=8`` and 1, then GPT-2 sampled (temperature 0.8, top-k
+     40, top-p 0.95, per-request seeds) both ways, in turns (fused,
+     single, single, fused).  Each fused run must
+     replay one captured CUDA graph (``metrics()["fused_window"]``),
+     launch the paged-decode kernel 12 times per single decode step,
+     warm-up iteration and replayed iteration, make at most 1/8 x 1.25
+     host dispatches (single steps plus windows) per decoded token
+     (``benchmarks/serve_bench.py``'s ``dispatch_ok``) and list no decode
+     family in its fallbacks; greedy tokens must agree with
+     ``decode_fuse=1`` under phase 4's near-tie rule, sampled tokens
+     must be identical.  Prints tokens/s and TTFT p50 both ways, the
+     p50 wall ms of single decode steps and of windows, ms per replayed
+     iteration, and a window of each model under ``torch.profiler``.
+     Phases 4 and 4c also print the p50 wall ms of their single decode
+     steps (host ms per ``Engine.step``);
   5. flash kernels vs plain — the forward (``o``, ``lse``), dq and dk/dv
      kernels against their plain PyTorch versions on q, k, v taken as
      strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
@@ -163,6 +181,9 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12       # outside the tensor cores
 BF16_FLOP_PER_S = 989e12      # tensor cores, dense
 NEW_TOKENS = 32  # per request on the main path
+# Phase 4e: the window length and new tokens per request (decode-bound),
+# and benchmarks/serve_bench.py's slack on the fused dispatch bound 1/N.
+FUSE, FUSE_NEW_TOKENS, FUSED_DISPATCH_EPS = 8, 96, 0.25
 REPLACES = {
     "paged_decode": "tpudp/ops/paged_attention.py:161",
     "paged_window": "tpudp/ops/paged_attention.py:319",
@@ -612,27 +633,54 @@ def make_prompts(np, seed: int, vocab: int):
     return prompts
 
 
+def drive(eng, done, step_ms: list, windows: list | None = None) -> None:
+    """Step ``eng`` until ``done()``.  Of the steps that ran no prefill
+    chunk, the wall ms of each single decode step go to ``step_ms`` and,
+    with ``windows``, each fused window's wall ms and replays to
+    ``windows`` (a step ends in the fetch of its tokens, so its wall time
+    holds the host's scheduling and the device's work)."""
+    st = eng.stats
+    while not done():
+        before = (st["decode_steps"], st["prefill_chunks"],
+                  st["fused_windows"])
+        replays = eng._window.replays if eng._window is not None else 0
+        t0 = time.perf_counter()
+        eng.step()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if st["prefill_chunks"] != before[1]:
+            continue
+        if st["decode_steps"] == before[0] + 1:
+            step_ms.append(ms)
+        elif windows is not None and st["fused_windows"] == before[2] + 1:
+            windows.append((ms, eng._window.replays - replays))
+
+
+def p50(values) -> float:
+    return sorted(values)[len(values) // 2] if values else float("nan")
+
+
 def serve(torch, Engine, model, prompts, paged_attn, kv_dtype=None):
     """Serve the prompts on one engine: 0-6 at once, 7 (prompt 0's
     prefix) once request 0 has retired; the page bookkeeping is checked
-    at both points, outside the timing.  Returns the engine, handles and
-    wall seconds of the serving."""
+    at both points, outside the timing.  Returns the engine, handles,
+    wall seconds of the serving and the wall ms of its single decode
+    steps (:func:`drive`)."""
     eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
                  kv_pages=512, paged_attn=paged_attn, kv_dtype=kv_dtype)
+    step_ms: list[float] = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     handles = [eng.submit(p, NEW_TOKENS) for p in prompts[:7]]
-    while not handles[0].done:
-        eng.step()
+    drive(eng, lambda: handles[0].done, step_ms)
     wall = time.perf_counter() - t0
     eng.check_paged()
     t0 = time.perf_counter()
     handles.append(eng.submit(prompts[7], NEW_TOKENS))
-    eng.run_until_complete()
+    drive(eng, lambda: not (eng.queue_depth or eng.slots_in_use), step_ms)
     torch.cuda.synchronize()
     wall += time.perf_counter() - t0
     eng.check_paged()
-    return eng, handles, wall
+    return eng, handles, wall, step_ms
 
 
 SERVE_KERNELS = ("paged_decode", "paged_window")  # phase 4's path
@@ -660,11 +708,12 @@ def int8_plain_logits(torch, np, model, seq):
 
 
 def agree_with_plain(torch, np, model, prompts, handles, ref, label,
-                     kv_dtype=None):
-    """Tokens of ``handles`` equal the plain engine's ``ref`` or differ
-    first where the plain logits' top-2 gap is below 1e-3 (a near-tie
-    of the random weights); raises otherwise.  Over an int8 pool the gap
-    is read from the plain int8 prefill of the sequence."""
+                     kv_dtype=None, against="the plain engine"):
+    """Tokens of ``handles`` equal the plain engine's ``ref`` (or those
+    of the engine ``against`` names) or differ first where the plain
+    logits' top-2 gap is below 1e-3 (a near-tie of the random weights);
+    raises otherwise.  Over an int8 pool the gap is read from the plain
+    int8 prefill of the sequence."""
     from tpudp_torch.models.generate import KVCache, _forward_cached
 
     for i, (h, r) in enumerate(zip(handles, ref)):
@@ -689,7 +738,7 @@ def agree_with_plain(torch, np, model, prompts, handles, ref, label,
         if gap >= 1e-3:
             raise SmokeFailure(f"{label} request {i} diverges at token {t} "
                                f"with a top-2 gap of {gap} (not a near-tie)")
-    print(f"{label} tokens agree with the plain engine "
+    print(f"{label} tokens agree with {against} "
           f"({sum(h.tokens == r.tokens for h, r in zip(handles, ref))}/"
           f"{len(handles)} identical)", flush=True)
 
@@ -712,7 +761,7 @@ def main_path(torch, np, pa, seed: int):
 
     for fn in pa.KERNELS.values():
         fn.launches = 0
-    eng, handles, wall = serve(torch, Engine, model, prompts, None)
+    eng, handles, wall, step_ms = serve(torch, Engine, model, prompts, None)
     launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
     if eng.paged_attn != "kernel":
         raise SmokeFailure(f"paged_attn resolved to {eng.paged_attn!r}")
@@ -731,8 +780,11 @@ def main_path(torch, np, pa, seed: int):
     n_tok = sum(len(h.tokens) for h in handles)
     print(f"main-path kernel engine: {serve_summary(handles, wall)}, "
           f"launches {launches}, stats {dict(eng.stats)}", flush=True)
+    print(f"main-path kernel engine: host ms per Engine.step (single "
+          f"decode steps, p50 of {len(step_ms)}) {p50(step_ms):.3f}",
+          flush=True)
 
-    _, ref, ref_wall = serve(torch, Engine, model, prompts, "einsum")
+    _, ref, ref_wall, _ = serve(torch, Engine, model, prompts, "einsum")
     if any(fn.launches != launches[n] for n, fn in pa.KERNELS.items()):
         raise SmokeFailure("the plain engine launched a kernel")
     print(f"main-path plain engine: {n_tok / ref_wall:.1f} tokens/s",
@@ -854,8 +906,8 @@ def llama_main_path(torch, np, pa, seed: int) -> dict:
                                         ("fp32 kernel", None, None)):
         for fn in pa.KERNELS.values():
             fn.launches = 0
-        eng, handles, wall = serve(torch, Engine, model, prompts,
-                                   paged_attn, kv_dtype)
+        eng, handles, wall, step_ms = serve(torch, Engine, model, prompts,
+                                            paged_attn, kv_dtype)
         launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
         if not all(h.ok and len(h.tokens) == NEW_TOKENS for h in handles):
             raise SmokeFailure(f"a request of the {label} run did not "
@@ -863,8 +915,9 @@ def llama_main_path(torch, np, pa, seed: int) -> dict:
         page_bytes = eng.page_pool.page_bytes()
         print(f"llama-path {label} engine: {serve_summary(handles, wall)}, "
               f"page_bytes {page_bytes}, launches {launches}, stats "
-              f"{dict(eng.stats)}, paged_attn {eng.metrics()['paged_attn']}",
-              flush=True)
+              f"{dict(eng.stats)}, paged_attn {eng.metrics()['paged_attn']}, "
+              f"host ms per Engine.step (single decode steps, p50 of "
+              f"{len(step_ms)}) {p50(step_ms):.3f}", flush=True)
         runs[label] = (eng, handles, launches, page_bytes)
     eng, handles, launches, _ = runs["int8 kernel"]
     st = eng.stats
@@ -979,6 +1032,142 @@ def routes_path(torch, np, pa, fa, model, prompts, seed: int) -> None:
     if after != (before[0] + 1, before[1]) or not torch.equal(got, want):
         raise SmokeFailure("flash attention at head dim 48 was not routed "
                            "to the dense math")
+
+
+# -- phase 4e: fused decode windows (CUDA graphs over K4 and K4-int8) -----
+
+
+def serve_fused(torch, Engine, model, prompts, pa, fuse, kv_dtype=None,
+                sampled=False):
+    """Phase 4's eight prompts at once on a fresh ``decode_fuse=fuse``
+    engine, FUSE_NEW_TOKENS each (sampled: temperature 0.8, top-k 40,
+    top-p 0.95, request ``i`` seeded ``i``), the kernel counts zeroed
+    just before and read just after.  Returns the engine, handles, wall
+    seconds, counts, the wall ms of its single decode steps, and for
+    each window that ran no prefill chunk its wall ms and replays."""
+    eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
+                 kv_pages=512, kv_dtype=kv_dtype, decode_fuse=fuse)
+    sampling = (dict(temperature=0.8, top_k=40, top_p=0.95) if sampled
+                else {})
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    step_ms: list[float] = []
+    windows: list[tuple[float, int]] = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, FUSE_NEW_TOKENS, seed=i, **sampling)
+               for i, p in enumerate(prompts)]
+    drive(eng, lambda: not (eng.queue_depth or eng.slots_in_use), step_ms,
+          windows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
+    eng.check_paged()
+    if not all(h.ok and len(h.tokens) == FUSE_NEW_TOKENS for h in handles):
+        raise SmokeFailure("a request did not complete")
+    return eng, handles, wall, launches, step_ms, windows
+
+
+def check_fused_run(eng, handles, launches, kernel, label) -> None:
+    """Phase 4e's gates on a ``decode_fuse=FUSE`` run: every window went
+    through the one captured graph, the paged-decode kernel launched once
+    a layer per single step, warm-up iteration and replayed iteration,
+    host dispatches per decoded token within the fused bound, and no
+    decode family on a fallback."""
+    st = eng.stats
+    m = eng.metrics()
+    w = m.get("fused_window")
+    layers = eng.config.num_layers
+    if not (w and w["graph"] and w["captures"] == 1 and w["replays"]
+            and st["fused_windows"]):
+        raise SmokeFailure(f"{label}: the windows did not replay a captured "
+                           f"graph: {w}, stats {dict(st)}")
+    want = layers * (st["decode_steps"] + w["replays"] + 2)
+    if launches[kernel] != want:
+        raise SmokeFailure(f"{label}: {kernel} launched {launches[kernel]}, "
+                           f"{layers} a layer per decode step, warm-up and "
+                           f"replayed iteration need {want}")
+    decoded = st["tokens"] - len(handles)  # first tokens ride the prefill
+    per_token = (st["decode_steps"] + st["fused_windows"]) / decoded
+    bound = (1 / FUSE) * (1 + FUSED_DISPATCH_EPS)
+    fallbacks = m["paged_attn"]["fallbacks"]
+    print(f"{label}: {st['fused_windows']} windows, {st['fused_steps']} "
+          f"fused steps, {w['replays']} replays of {w['captures']} captured "
+          f"graph, {st['decode_steps']} single decode steps; host dispatches "
+          f"per decoded token {per_token:.4f} (bound {bound:.4f}); "
+          f"{kernel} launches {launches[kernel]} = {layers} x (decode "
+          f"steps + replays + 2 warm-up); fallbacks {fallbacks}", flush=True)
+    if per_token > bound:
+        raise SmokeFailure(f"{label}: {per_token:.4f} host dispatches per "
+                           f"decoded token, over {bound:.4f}")
+    if {"decode_paged", "fused_decode_paged"} & set(fallbacks):
+        raise SmokeFailure(f"{label}: decode falls back on {fallbacks}")
+
+
+def fused_summary(handles, wall, step_ms, windows) -> str:
+    iters = sum(r for _, r in windows)
+    return (f"{serve_summary(handles, wall)}; single decode steps p50 "
+            f"{p50(step_ms):.3f} ms ({len(step_ms)}); windows without a "
+            f"prefill chunk p50 {p50([ms for ms, _ in windows]):.3f} ms "
+            f"({len(windows)}), "
+            + (f"{sum(ms for ms, _ in windows) / iters:.3f} ms per replayed "
+               f"iteration" if iters else "no replayed iteration"))
+
+
+def fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
+    """Phase 4e: GPT-2 small over an fp32 pool (K4) and LLaMA-GQA over an
+    int8 pool (K4-int8), greedy, then GPT-2 sampled, each run with
+    ``decode_fuse=FUSE`` and 1 in turns (fused, single, single, fused);
+    a profiled window of each model.  Returns the fused runs'
+    paged-decode launches."""
+    from tpudp_torch.models import llama
+    from tpudp_torch.serve import Engine
+
+    launched = {}
+    cases = (("gpt2 greedy", model, prompts, None, False),
+             ("gpt2 sampled", model, prompts, None, True),
+             ("llama int8 greedy", None, None, "int8", False))
+    for label, case_model, case_prompts, kv_dtype, sampled in cases:
+        if case_model is None:
+            cfg = llama.LlamaConfig(**LLAMA_GQA)
+            case_model = llama.build(cfg, seed, "cuda")
+            case_prompts = make_prompts(np, seed, cfg.vocab_size)
+        kernel = "paged_decode_int8" if kv_dtype else "paged_decode"
+        runs = {FUSE: [], 1: []}
+        for fuse in (FUSE, 1, 1, FUSE):
+            run = serve_fused(torch, Engine, case_model, case_prompts, pa,
+                              fuse, kv_dtype, sampled)
+            eng, handles, wall, launches, step_ms, windows = run
+            print(f"fused-path {label} decode_fuse={fuse} (run "
+                  f"{len(runs[fuse]) + 1}): "
+                  f"{fused_summary(handles, wall, step_ms, windows)}; "
+                  f"stats {dict(eng.stats)}", flush=True)
+            runs[fuse].append(run)
+        single = runs[1][0][1]
+        for eng, handles, _, launches, _, _ in runs[FUSE]:
+            check_fused_run(eng, handles, launches, kernel,
+                            f"fused-path {label}")
+            launched[kernel] = launched.get(kernel, 0) + launches[kernel]
+            if sampled:
+                same = sum(h.tokens == r.tokens
+                           for h, r in zip(handles, single))
+                if same != len(handles):
+                    raise SmokeFailure(f"fused-path {label}: {same}/"
+                                       f"{len(handles)} sampled requests "
+                                       f"equal their decode_fuse=1 tokens")
+                print(f"fused-path {label} tokens equal decode_fuse=1 "
+                      f"({same}/{len(handles)} identical)", flush=True)
+            else:
+                agree_with_plain(torch, np, case_model, case_prompts,
+                                 handles, single, f"fused-path {label}",
+                                 kv_dtype, against="decode_fuse=1")
+        if not sampled:
+            profile_decode_step(torch, Engine, case_model, case_prompts,
+                                f"fused-path {label} window",
+                                kv_dtype=kv_dtype, decode_fuse=FUSE)
+    del case_model
+    torch.cuda.empty_cache()
+    return launched
 
 
 # -- phase 5: flash kernels vs their plain versions -----------------------
@@ -1674,6 +1863,9 @@ def main(argv=None) -> int:
                                        args.seed))
         launches.update(llama_main_path(torch, np, pa, args.seed))
         routes_path(torch, np, pa, fa, model, prompts, args.seed)
+        for name, n in fused_path(torch, np, pa, model, prompts,
+                                  args.seed).items():
+            launches[name] += n
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
         records = timings(torch, pa, model, prompts, launches)

@@ -137,8 +137,8 @@ def test_kernel_backend_needs_the_card(setup):
     assert m["paged_attn"] == {
         "requested": None, "resolved": "einsum",
         "dispatch": dict.fromkeys(("decode_paged", "verify_paged",
-                                   "prefill_paged", "tree_verify_paged"),
-                                  "einsum"),
+                                   "prefill_paged", "fused_decode_paged",
+                                   "tree_verify_paged"), "einsum"),
         "fallbacks": []}
     assert set(m["kernel_launches"]) == {
         "paged_decode", "paged_window", "paged_decode_int8",
@@ -146,7 +146,7 @@ def test_kernel_backend_needs_the_card(setup):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("drafter_timeout_s", 0.5), ("decode_fuse", 4),
+    ("drafter_timeout_s", 0.5), ("step_timeout_s", 1.0),
     ("prefix_cache_blocks", 8), ("models", {"draft": None}),
     ("tenants", {}), ("canary_every_s", 1.0)])
 def test_unported_options_raise(setup, option, value):
@@ -154,7 +154,7 @@ def test_unported_options_raise(setup, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Engine(model, device="cpu", **{option: value})
     Engine(model, device="cpu", max_len=48, **{option: {
-        "drafter_timeout_s": None, "decode_fuse": 1,
+        "drafter_timeout_s": None, "step_timeout_s": None,
         "prefix_cache_blocks": 0, "models": None, "tenants": None,
         "canary_every_s": None}[option]})
     with pytest.raises(TypeError, match="unexpected"):

@@ -250,7 +250,8 @@ class _NoTree:
      ValueError, "propose_tree"),
     (dict(speculate_k=2, speculate_tree="nope"), ValueError,
      "unknown tree shape"),
-    (dict(speculate_k=2, decode_fuse=4), NotImplementedError, "slice 3"),
+    (dict(speculate_k=2, decode_fuse=4, drafter="model"),
+     NotImplementedError, "slice 3"),
     (dict(speculate_k=2, drafter_timeout_s=1.0), NotImplementedError,
      "slice 8"),
 ])
@@ -260,6 +261,8 @@ def test_speculation_validation(setup, kw, exc, match):
         other = gpt2.build(gpt2.GPT2Config(**{**TINY, "vocab_size": 64}), 0,
                            "cpu")
         kw = {**kw, "drafter": DraftModelDrafter(other)}
+    if kw.get("drafter") == "model":  # fused speculation is not ported
+        kw = {**kw, "drafter": DraftModelDrafter(model)}
     with pytest.raises(exc, match=match):
         Engine(model, device="cpu", max_len=48, prefill_chunk=8, **kw)
 

@@ -41,6 +41,7 @@ pos[s] + j``) or a scalar shared by the batch (the prefill window).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import NamedTuple
 
@@ -375,6 +376,10 @@ def _sm_count(device) -> int:
 
 
 _merge_buffers: dict = {}  # by (device, dtype): K4's and K5's split merge
+#: Every merge buffer a larger one replaced: a CUDA graph captured
+#: around a launch holds the address of the buffer it was given, so no
+#: buffer is ever freed while the process may replay such a graph.
+_retired_buffers: list = []
 
 
 def _merge_buffer(device, dtype, n: int) -> torch.Tensor:
@@ -384,10 +389,17 @@ def _merge_buffer(device, dtype, n: int) -> torch.Tensor:
     merges a (row tile, KV head, slot) resets its ticket to 0; and the
     float32 scratch of the splits' partials, which a launch writes before
     it reads.  Launches on the device's stream run one after another, so
-    each finds the tickets zeroed and the scratch its own."""
+    each finds the tickets zeroed and the scratch its own.  A buffer that
+    grows at least doubles, and the one it replaces stays allocated
+    (:data:`_retired_buffers`) for the graphs that captured it; a graph's
+    warm-up must size the buffer before its capture, so the capture never
+    grows it into the graph's private pool."""
     buf = _merge_buffers.get((device, dtype))
     if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 4096), dtype=dtype, device=device)
+        size = max(n, 4096) if buf is None else max(n, 2 * buf.numel())
+        if buf is not None:
+            _retired_buffers.append(buf)
+        buf = torch.zeros(size, dtype=dtype, device=device)
         _merge_buffers[device, dtype] = buf
     return buf
 
@@ -595,6 +607,36 @@ KERNELS = {"paged_decode": paged_decode, "paged_window": paged_window,
            "paged_window_int8": paged_window_int8, "paged_tree": paged_tree}
 for _fn in KERNELS.values():
     _fn.launches = 0
+
+
+class GraphLaunches:
+    """The paged-kernel launches one CUDA graph holds.  Capturing a graph
+    calls the wrappers, which count a launch each, but runs nothing;
+    :meth:`capturing` takes those counts back and keeps them, and
+    :meth:`replayed` adds them once for every replay, when the kernels
+    do run.  So ``KERNELS[name].launches`` counts kernels that ran,
+    eager or replayed."""
+
+    def __init__(self):
+        self.per_replay: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """Around a capture: the counts return to their values before it
+        in any case, and only a capture that completes is kept."""
+        before = {name: fn.launches for name, fn in KERNELS.items()}
+        try:
+            yield self
+        finally:
+            made = {name: fn.launches - before[name]
+                    for name, fn in KERNELS.items()}
+            for name, fn in KERNELS.items():
+                fn.launches = before[name]
+        self.per_replay = {name: n for name, n in made.items() if n}
+
+    def replayed(self, times: int = 1) -> None:
+        for name, made in self.per_replay.items():
+            KERNELS[name].launches += made * times
 
 
 def paged_attention(q, pages, table, pos, *, dtype, grouped: bool = False,

@@ -1,6 +1,8 @@
 """Per-row masked token sampling and speculative acceptance — the port
 of ``tpudp/ops/sampling.py``'s ``truncate_logits``, ``sample_tokens``,
-``verify_tokens``, ``tree_depths`` and ``verify_tree_tokens``.
+``verify_tokens``, ``tree_depths`` and ``verify_tree_tokens``, with
+:func:`sample_rows`, the sync-free body of ``sample_tokens`` that a CUDA
+graph of the engine's fused decode window holds.
 
 Row-wise semantics, as in the JAX op:
 
@@ -59,26 +61,44 @@ def sample_tokens(logits: torch.Tensor, temperature, top_k, top_p,
     ``generators`` holds one ``torch.Generator`` per row on the logits'
     device, or ``None`` for a row that must not draw this call (its
     token is the argmax and its generator stays where it was).  Returns
-    ``(n,)`` int64 token ids on the logits' device."""
+    ``(n,)`` int64 token ids on the logits' device.  The temperatures
+    are read on the host (a sync where they are a device tensor): a call
+    where no row samples is one argmax; otherwise every row goes through
+    :func:`sample_rows`, the body the engine's fused decode window
+    runs."""
     dev = logits.device
     temps = torch.as_tensor(temperature, dtype=torch.float32).cpu().tolist()
-    toks = torch.argmax(logits, dim=-1)
-    rows = [i for i, g in enumerate(generators)
-            if g is not None and temps[i] > 0]
-    if not rows:
-        return toks
-    temperature = torch.as_tensor(temperature, dtype=torch.float32,
-                                  device=dev)
-    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev)
-    top_p = torch.as_tensor(top_p, dtype=torch.float32, device=dev)
-    idx = torch.tensor(rows, device=dev)
-    scaled = logits[idx] / temperature[idx, None]
-    if bool(((top_k[idx] > 0) | (top_p[idx] < 1.0)).any()):
-        scaled = truncate_logits(scaled, top_k[idx], top_p[idx])
-    probs = torch.softmax(scaled, dim=-1)
-    for j, i in enumerate(rows):
-        toks[i] = _draw(probs[j], generators[i])
-    return toks
+    gens = [g if g is not None and temps[i] > 0 else None
+            for i, g in enumerate(generators)]
+    if not any(g is not None for g in gens):
+        return torch.argmax(logits, dim=-1)
+    return sample_rows(
+        logits, torch.as_tensor(temperature, dtype=torch.float32, device=dev),
+        torch.as_tensor(top_k, dtype=torch.int64, device=dev),
+        torch.as_tensor(top_p, dtype=torch.float32, device=dev), gens)
+
+
+def sample_rows(logits: torch.Tensor, temperature: torch.Tensor,
+                top_k: torch.Tensor, top_p: torch.Tensor,
+                generators) -> torch.Tensor:
+    """:func:`sample_tokens` over every row with no host sync and no
+    branch on device values, so a CUDA graph can hold it.
+    ``temperature``/``top_k``/``top_p`` are ``(n,)`` tensors on the
+    logits' device; each row whose generator is not ``None`` draws once.
+
+    Every row is scaled, by temperature 1 where its temperature is 0 (so
+    the draw never sees inf or nan), and truncated (a row with ``top_k
+    <= 0`` and ``top_p >= 1`` comes out unchanged); rows at temperature
+    0, and rows without a generator, take the argmax.  A sampled row
+    gets the same token from the same generator offset whatever else
+    shares the call: scaling, truncation and softmax are row-wise."""
+    greedy = torch.argmax(logits, dim=-1)
+    scaled = logits / torch.where(temperature > 0, temperature,
+                                  1.0)[:, None]
+    probs = torch.softmax(truncate_logits(scaled, top_k, top_p), dim=-1)
+    drawn = torch.stack([greedy[i] if g is None else _draw(probs[i], g)
+                         for i, g in enumerate(generators)])
+    return torch.where(temperature > 0, drawn, greedy)
 
 
 def _draw(probs: torch.Tensor, generator) -> torch.Tensor:

@@ -54,12 +54,28 @@ root-to-leaf path is committed.  A step where no slot drafted runs the
 plain decode step, and a drafter that raises or proposes out-of-vocab
 ids is quarantined: the engine decodes without it, outputs unchanged.
 
+Fused decode windows (``decode_fuse=N > 1``): on a pure-decode
+iteration (nothing queued, no slot prefilling, no live drafter) the
+engine runs up to N decode iterations as one window
+(``tpudp_torch.serve.fused``) — on the card one CUDA graph of a whole
+decode iteration, replayed with no host sync in between — fetches its
+tokens once, and replays their commits through the single-step path's
+``_commit``, so stats, retirements and later single steps continue
+exactly.  Any other iteration runs the single-step path; speculation
+wins over fusing.  ``decode_fuse=1``, the default, builds no window and
+is the single-step engine.  ``fuse_stream=True`` adds
+:attr:`Engine.fused_stream`, a bounded ring of ``(slot, token)`` in the
+order the window's iterations committed them.  JAX's ring is filled by
+a callback inside its loop, token by token; the port fills it per
+window, after the fetch.  It is observability only, never the commit
+path.
+
 The model is a ``tpudp_torch`` GPT-2 or LLaMA (grouped-query heads: the
-KV store is ``kv_heads`` wide).  The JAX engine's fused decode windows
-and fused speculation, the dense copy cache, tenancy, co-resident
-models, canaries, the watchdog, the drafter timeout and fault hooks are
-later slices: each such option raises ``NotImplementedError`` naming its
-ROADMAP item.
+KV store is ``kv_heads`` wide).  The JAX engine's fused speculation (a
+model drafter inside the window), the dense copy cache, tenancy,
+co-resident models, canaries, the watchdog, the drafter timeout and
+fault hooks are later slices: each such option raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -81,15 +97,13 @@ from tpudp_torch.ops.paged_attention import (_KERNEL_HEAD_DIMS, KERNELS,
                                              TREE_KERNEL_MAX_NODES)
 from tpudp_torch.ops.sampling import (sample_tokens, verify_tokens,
                                       verify_tree_tokens)
+from tpudp_torch.serve.fused import FusedWindow
 from tpudp_torch.serve.prefix_cache import PageIndex, PagePool
 from tpudp_torch.serve.speculate import NgramDrafter, tree_shape
 
 #: Options of the JAX engine this port does not have yet: name ->
 #: (the value that means "off", the ROADMAP.md item that brings it).
 _UNPORTED = {
-    "decode_fuse": (1, "slice 3 (decode_fuse: CUDA-graph window, and "
-                       "fused speculation with a model drafter)"),
-    "fuse_stream": (False, "slice 3 (decode_fuse: CUDA-graph window)"),
     "prefix_cache_blocks": (0, "slice 8 (dense copy prefix cache)"),
     "tenants": (None, "slice 8 (tenancy)"),
     "models": (None, "slice 8 (co-resident models)"),
@@ -108,7 +122,7 @@ KERNEL_DEVICES = ("cuda",)
 #: The paged step families, as ``metrics()["paged_attn"]["dispatch"]``
 #: names them.
 PAGED_FAMILIES = ("decode_paged", "verify_paged", "prefill_paged",
-                  "tree_verify_paged")
+                  "fused_decode_paged", "tree_verify_paged")
 
 
 def paged_dispatch(paged_attn: str, kv_dtype: str | None,
@@ -312,14 +326,18 @@ class Engine:
     ``speculate_tree`` (a ``TREE_SHAPES`` name, a ``TreeShape`` or a
     parents tuple of depth ``<= speculate_k``), tree verify; every
     request then reserves ``speculate_k`` scratch positions of
-    ``max_len``."""
+    ``max_len``.  ``decode_fuse > 1`` runs pure-decode iterations as
+    fused windows of up to that many decode iterations, and
+    ``fuse_stream`` (which needs ``decode_fuse >= 2``) keeps their
+    commits in :attr:`fused_stream`."""
 
     def __init__(self, model, *, device="cuda", num_slots: int = 8,
                  max_len: int | None = None, prefill_chunk: int = 16,
                  kv_pages: int = 0, paged_attn: str | None = None,
                  kv_dtype: str | None = None,
                  queue_limit: int | None = None, speculate_k: int = 0,
-                 drafter=None, speculate_tree=None, **unported):
+                 drafter=None, speculate_tree=None, decode_fuse: int = 1,
+                 fuse_stream: bool = False, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -339,6 +357,14 @@ class Engine:
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if speculate_k < 0:
             raise ValueError(f"speculate_k must be >= 0, got {speculate_k}")
+        if decode_fuse < 1:
+            raise ValueError(
+                f"decode_fuse must be >= 1 (1 disables the fused decode "
+                f"window), got {decode_fuse}")
+        if fuse_stream and decode_fuse <= 1:
+            raise ValueError(
+                "fuse_stream requires decode_fuse >= 2 — the stream tap "
+                "rides the fused decode window")
         if kv_pages < 0:
             raise ValueError(f"kv_pages must be >= 0 (0 keeps the dense "
                              f"slot arena), got {kv_pages}")
@@ -393,6 +419,15 @@ class Engine:
                 f"max_len ({self.max_len}) must exceed speculate_k "
                 f"({speculate_k}) — every request reserves k scratch "
                 f"positions for the speculative window")
+        if (speculate_k and decode_fuse > 1 and speculate_tree is None
+                and dcfg is not None
+                and dcfg.max_seq_len >= self.max_len + speculate_k):
+            # Where JAX runs draft, verify and accept as one fused program
+            # (its _spec_fusable): the port has no such program yet.
+            raise NotImplementedError(
+                "Engine(decode_fuse=...) with a model drafter fuses "
+                "speculation, which is not ported yet: ROADMAP.md slice 3 "
+                "(DraftModelDrafter and fused speculation)")
         self.speculate_tree = None
         if speculate_tree is not None:
             if speculate_k == 0:
@@ -446,6 +481,14 @@ class Engine:
         self._temps = np.zeros(num_slots, np.float32)
         self._topk = np.zeros(num_slots, np.int64)
         self._topp = np.ones(num_slots, np.float32)
+        self.decode_fuse = decode_fuse
+        # Built at the first fused window: decode_fuse=1 never builds one.
+        self._window: FusedWindow | None = None
+        self.fused_stream: collections.deque | None = None
+        if fuse_stream:
+            # A few windows' worth of tokens: overflow drops the oldest.
+            self.fused_stream = collections.deque(
+                maxlen=max(4 * num_slots * decode_fuse, 64))
         self._slots: list[Request | None] = [None] * num_slots
         self._queue: collections.deque[Request] = collections.deque()
         self._next_id = 0
@@ -561,8 +604,9 @@ class Engine:
         """One scheduler iteration: admit queued requests into free
         slots, run at most one prefill chunk, then one batched step for
         every decoding slot — a tree verify window, a sequence verify
-        window or a plain decode step, in that order of preference.
-        Returns the ``(request, token)`` pairs emitted."""
+        window, a fused decode window or a plain decode step, in that
+        order of preference.  Returns the ``(request, token)`` pairs
+        emitted."""
         emitted: list[tuple[Request, int]] = []
         if self._closed:
             return emitted
@@ -570,18 +614,25 @@ class Engine:
         slot = self._next_prefill_slot()
         if slot is not None:
             self._run_prefill_chunk(slot, emitted)
+        # Fuse only on pure-decode iterations: nothing queued (admission
+        # must not wait on a slot a window would free) and nothing
+        # prefilling (a chunk must not stall behind a window).
+        fuse = (self.decode_fuse > 1 and self.queue_depth == 0
+                and self._next_prefill_slot() is None)
         ms = self._mstates[None]
         active = self._decoding(ms)
         if active.any() and self._paged:
             # Back every table entry the step writes before dispatch;
             # page pressure resolves here, on the host.
-            active = self._ensure_decode_pages(ms, active)
+            active = self._ensure_decode_pages(ms, active, fuse)
         if active.any():
             if self._speculating:
                 if self.speculate_tree is not None:
                     self._run_verify_tree(ms, active, emitted)
                 else:
                     self._run_verify(ms, active, emitted)
+            elif fuse:
+                self._run_decode_fused(ms, active, emitted)
             else:
                 self._run_decode(ms, active, emitted)
         self.stats["steps"] += 1
@@ -661,6 +712,12 @@ class Engine:
                     if self.paged_attn == "kernel" and impl != "kernel")}
         if self.stats.get("draft_tokens"):
             out["acceptance_rate"] = self.acceptance_rate
+        if self._window is not None:
+            w = self._window
+            out["fused_window"] = {"decode_fuse": self.decode_fuse,
+                                   "graph": w.graph is not None,
+                                   "captures": w.captures,
+                                   "replays": w.replays}
         return out
 
     # -- internals -----------------------------------------------------
@@ -797,15 +854,28 @@ class Engine:
                                    f"to position {upto}")
             ms.table[s, pidx] = page
 
-    def _ensure_decode_pages(self, ms: _ModelState, active) -> np.ndarray:
+    def _ensure_decode_pages(self, ms: _ModelState, active,
+                             fuse: bool = False) -> np.ndarray:
         """Back the pages the step writes for each active slot — its
-        next token, or the whole ``k + 1`` verify window when speculating
-        — before dispatch; returns the active mask recomputed after any
-        page-pressure vacates."""
-        ahead = self.speculate_k + 1 if self._speculating else 1
+        next token, the whole ``k + 1`` verify window when speculating,
+        or the fused window's tokens up to the request's budget — before
+        dispatch; returns the active mask recomputed after any
+        page-pressure vacates.  As in the dispatch, a live drafter's
+        window wins over fusing: backing only the fused window's
+        positions would send the verify window's tail to the scratch
+        page."""
         for s in np.nonzero(active)[0]:
-            if self._slots[s] is not None:
-                self._ensure_pages(ms, s, int(self._len[s]) + ahead)
+            r = self._slots[s]
+            if r is None:
+                continue
+            if self._speculating:
+                ahead = self.speculate_k + 1
+            elif fuse:
+                ahead = min(r.max_new_tokens - len(r.tokens),
+                            self.decode_fuse)
+            else:
+                ahead = 1
+            self._ensure_pages(ms, s, int(self._len[s]) + ahead)
         return self._decoding(ms)
 
     def check_paged(self) -> None:
@@ -907,6 +977,70 @@ class Engine:
         for s in np.nonzero(active)[0]:
             self._len[s] += 1  # the fed token's KV landed this step
             self._commit(int(s), int(toks[s]), emitted)
+
+    def _fused_window(self, ms: _ModelState) -> FusedWindow:
+        """The engine's one fused window, built at its first use over the
+        model's KV store: the paged pool through the window's own block
+        table (``fused_decode_paged``'s impl), or the dense arena."""
+        if self._window is None:
+            if self._paged:
+                impl = self.paged_attn_dispatch["fused_decode_paged"]
+
+                def forward(tokens, lens, running, table):
+                    return _forward_paged(ms.model, tokens, ms.pool.pages,
+                                          table, lens, running,
+                                          impl=impl)[0]
+            else:
+                def forward(tokens, lens, running, table):
+                    return _forward_cached(ms.model, tokens, ms.cache,
+                                           lens)[0]
+            self._window = FusedWindow(
+                forward, num_slots=self.num_slots, n_steps=self.decode_fuse,
+                table_pages=self._max_pages if self._paged else None,
+                generators=self._gens, device=self.device)
+        return self._window
+
+    def _run_decode_fused(self, ms: _ModelState, active, emitted) -> None:
+        """One fused window: up to ``decode_fuse`` decode iterations, one
+        fetch, then the window's commits replayed slot by slot through
+        the single-step path's ``_commit`` — retirements, timestamps,
+        prefix publishes and stats as N single steps would leave them;
+        ``_len`` and ``_last`` advance per commit, so a later single step
+        resumes exactly.  The window stops each row at its EOS or budget,
+        so the replay's own retirement checks agree with it.  The host
+        knows the budgets, so the window runs ``min(decode_fuse, largest
+        budget)`` iterations; EOS stops are known only after the fetch."""
+        budgets = np.zeros(self.num_slots, np.int64)
+        eos = np.full(self.num_slots, -1, np.int64)
+        for s in np.nonzero(active)[0]:
+            r = self._slots[s]
+            budgets[s] = r.max_new_tokens - len(r.tokens)
+            if r.eos_id is not None:
+                eos[s] = r.eos_id
+        values = dict(last=self._last, lens=self._len, running=active,
+                      temps=self._temps, top_k=self._topk, top_p=self._topp,
+                      budgets=budgets, eos=eos)
+        if self._paged:
+            values["table"] = ms.table
+        out, n_emit, iters = self._fused_window(ms).run(
+            values, min(self.decode_fuse, int(budgets.max())))
+        self.stats["fused_windows"] += 1
+        self.stats["fused_steps"] += iters
+        # A row commits once per iteration it ran, so n_emit.sum() is the
+        # window's active-slot-step count.
+        self.stats["active_slot_steps"] += int(n_emit.sum())
+        if self.fused_stream is not None:
+            for j in range(int(n_emit.max())):
+                self.fused_stream.extend(
+                    (int(s), int(out[s, j]))
+                    for s in np.nonzero(n_emit > j)[0])
+        for s in np.nonzero(active)[0]:
+            r = self._slots[s]
+            for j in range(int(n_emit[s])):
+                if self._slots[s] is not r:
+                    break  # retired (EOS / budget) mid-replay
+                self._len[s] += 1  # the fed token's KV landed
+                self._commit(int(s), int(out[s, j]), emitted)
 
     # -- speculation -----------------------------------------------------
 

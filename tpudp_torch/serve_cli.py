@@ -20,6 +20,11 @@ the counterpart of ``examples/serve_gpt2.py``.
     python -m tpudp_torch.serve_cli --device cpu --paged 64 \\
         --speculate-k 3 --speculate-tree fork2x2
 
+    # Fused decode windows of up to 8 iterations (on the card one CUDA
+    # graph of a decode iteration, replayed; on the CPU its eager loop):
+    python -m tpudp_torch.serve_cli --device cpu --layers 2 --d-model 64 \\
+        --vocab 256 --paged 64 --decode-fuse 8 --fuse-stream
+
 Weights are random, drawn from ``--seed``: the output shows the serving
 path, not a trained model.  Request 0's tokens stream as they land while
 the others decode in the same batched steps.
@@ -73,6 +78,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="verify drafts as this token tree (chain2, "
                         "chain3, chain4, fork2x2, fork3+1); needs "
                         "--speculate-k >= its depth")
+    p.add_argument("--decode-fuse", type=int, default=1, metavar="N",
+                   help="run pure-decode iterations as fused windows of up "
+                        "to N decode iterations (1: off)")
+    p.add_argument("--fuse-stream", action="store_true",
+                   help="keep the windows' (slot, token) commits in "
+                        "Engine.fused_stream (needs --decode-fuse >= 2)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for a rehearsal)")
     p.add_argument("--seed", type=int, default=0)
@@ -89,6 +100,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--kv-heads is a llama-family option")
     if args.speculate_k < 0:
         p.error("--speculate-k must be >= 0")
+    if args.decode_fuse < 1:
+        p.error("--decode-fuse must be >= 1")
+    if args.fuse_stream and args.decode_fuse < 2:
+        p.error("--fuse-stream requires --decode-fuse >= 2")
     return args
 
 
@@ -113,7 +128,9 @@ def main(argv=None) -> dict:
                     prefill_chunk=math.gcd(args.prefill_chunk, args.seq_len),
                     kv_pages=args.paged, kv_dtype=args.kv_dtype,
                     speculate_k=args.speculate_k,
-                    speculate_tree=args.speculate_tree)
+                    speculate_tree=args.speculate_tree,
+                    decode_fuse=args.decode_fuse,
+                    fuse_stream=args.fuse_stream)
     print(f"[serve] RANDOM-INIT family={args.family} weights from seed "
           f"{args.seed} on {engine.device}; paged_attn="
           f"{engine.paged_attn if args.paged else 'dense arena'}"
@@ -153,10 +170,17 @@ def main(argv=None) -> dict:
                 f"verify steps={engine.stats['tree_verify_steps']} draft "
                 f"acceptance="
                 f"{'n/a' if rate is None else format(rate, '.2f')}")
+    fused = ""
+    if args.decode_fuse > 1:
+        fused = (f" | fused windows={engine.stats['fused_windows']} fused "
+                 f"steps={engine.stats['fused_steps']}"
+                 f"{' (CUDA graph)' if engine.device.type == 'cuda' else ''}")
+        if engine.fused_stream is not None:
+            fused += f", stream holds {len(engine.fused_stream)}"
     print(f"[serve] {len(handles)} requests, {total} tokens in {dt:.3f}s "
           f"({total / dt:.1f} tokens/s on {engine.device}) | decode steps="
           f"{engine.stats['decode_steps']} prefill chunks="
-          f"{engine.stats['prefill_chunks']}{extra}{spec}")
+          f"{engine.stats['prefill_chunks']}{extra}{spec}{fused}")
     return m
 
 
