@@ -140,7 +140,29 @@ which fails the run (nonzero exit, no result line) when it fails:
      run then takes one step split into forward / backward / optimizer
      between CUDA events and one step under ``torch.profiler`` (device
      ms by kernel, the device's busy share);
-  7. timing — each kernel at its main path's shapes (the paged-window
+  7. data-parallel VGG-11 — the training ladder through the port's entry
+     points (``tpudp_torch.parts.part*.main`` and ``cli.run_part`` with
+     an ``argv``), VGG-11 at full width, global batch 256, synthetic
+     CIFAR-10-shaped data, world size 1 over NCCL; no port kernel may
+     launch.  7a: the four Parts, Part 2b also under ``--ring``,
+     ``--bf16-grads`` and ``--int8-grads``, the ``ring_bidir``,
+     ``allreduce_hd`` and ``allreduce_a2a`` rungs, and int8 error
+     feedback (``Trainer(compress='int8_ef', sync='none')``), float32, on
+     5,120 train and 1,024 test images (20 iterations, one log window,
+     then the eval): every loss finite, the reference's lines printed,
+     and every rung but bf16's within ``VGG_LOSS_RTOL`` of Part 1's loss
+     after 20 iterations (int8 error feedback within ``VGG_EF_RTOL``).
+     7b: Parts 1, 2b (all-reduce and ring) and 3 in float32 and bfloat16
+     for 5 log windows: images/s and ms per step over the 4 steady
+     windows (the warm-up window left out), peak device memory, the
+     share of the card's peak from the FLOPs of the model's own shapes,
+     and one profiled step of Parts 1 and 3 (device ms by kind of
+     kernel, host gaps, busy share).  7c: two ranks on the one card over
+     gloo with CUDA tensors (``allreduce`` and ``auto``, 4 steps at
+     global batch 256) must end with bit-equal parameters and buffers;
+     prints the gradient all-reduce's wall ms a step (gloo, staged
+     through the host);
+  8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
      kernels printed after) against its byte /
@@ -166,8 +188,11 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import queue
 import shutil
 import subprocess
 import sys
@@ -222,6 +247,27 @@ WIDE_TREE = (-1,) + (0,) * 13 + tuple(1 + i // 2 for i in range(26))
 SPIN_CYCLES = 2_000_000
 TRAIN_BATCH, TRAIN_T = 4, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+# Phase 7: the reference's global batch; 7a's synthetic sets (20
+# iterations, one log window, then the eval); 7b's train set (5 windows:
+# the warm-up window and 4 steady ones); 7c's steps and its ranks' limit.
+VGG_BATCH, VGG_TRAIN, VGG_TEST = 256, 5_120, 1_024
+VGG_BENCH_WINDOWS = 5
+VGG_BENCH_TRAIN = VGG_BENCH_WINDOWS * 20 * VGG_BATCH
+GLOO_STEPS, GLOO_TIMEOUT = 4, 300
+# 7a's limits on a rung's loss after 20 iterations against Part 1's, at
+# world size 1.  The first window (lr 0.1, the loss climbing from 2.3 to
+# about 10) magnifies any difference: with cuDNN's default algorithms
+# three Part 1 runs on an H100 spread by 1.4% in one run of this script
+# and 8.1% in another (7a's first line prints it), as much as a rung's
+# own effect could be.  7a so runs the ladder with deterministic cuDNN,
+# where every rung but bf16 and int8 error feedback computes Part 1's
+# gradients exactly (one-rank collectives and division by 1 are exact):
+# any difference beyond float32 rounding is a fault.  int8 error feedback
+# moves each update onto a 127-level grid (16.5% from Part 1's loss on an
+# H100): it is held at the same limit to a plain loop of error feedback
+# on the same batches (plain_ef_loss), which the grid's roundings do not
+# separate from it.
+VGG_LOSS_RTOL = 1e-5
 
 
 class SmokeFailure(RuntimeError):
@@ -1313,7 +1359,7 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_call(torch, fn) -> dict | None:
+def profile_call(torch, fn, categorize=kernel_category) -> dict | None:
     """Device time of one call of ``fn`` by kernel category (ms), the
     largest kernels outside the port's own and the matmuls, the number
     of device kernels and the device's busy share of the call's wall
@@ -1338,7 +1384,7 @@ def profile_call(torch, fn) -> dict | None:
     by_cat: dict[str, float] = {}
     other: dict[str, float] = {}
     for e in kernels:
-        cat = kernel_category(e.name)
+        cat = categorize(e.name)
         ms = e.time_range.elapsed_us() / 1e3
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
         if cat == "other":
@@ -1484,7 +1530,489 @@ def train_main_path(torch, np, fa, seed: int) -> dict:
     return launches
 
 
-# -- phase 7: timing -------------------------------------------------------
+# -- phase 7: the data-parallel VGG-11 ladder -----------------------------
+
+
+def vgg_forward_macs(cfg, size=32, channels=3, classes=10) -> int:
+    """Multiply-adds of one image's forward pass through the VGG of
+    ``cfg``, from its layer shapes (3x3 convolutions, then the head)."""
+    macs = 0
+    for v in cfg:
+        if v == "M":
+            size //= 2
+        else:
+            macs += size * size * 9 * channels * int(v)
+            channels = int(v)
+    return macs + channels * size * size * classes
+
+
+def vgg_category(name: str) -> str:
+    """A device kernel of the VGG step by what it does (by its name)."""
+    low = name.lower()
+    if "nccl" in low:
+        return "nccl"
+    if any(tag in low for tag in ("conv", "gemm", "xmma", "cutlass", "nvjet",
+                                  "dgrad", "wgrad", "fprop", "winograd",
+                                  "cudnn")):
+        return "conv+matmul"
+    if any(tag in low for tag in ("batch_norm", "batchnorm", "welford",
+                                  "bn_")):
+        return "batchnorm"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer"
+    if "pool" in low:
+        return "maxpool"
+    if "elementwise" in low or "vectorized" in low:
+        return "elementwise"
+    return "other"
+
+
+def run_quiet(fn):
+    """Call ``fn`` with its standard output captured: ``(result, text)``;
+    the text is printed if ``fn`` raises."""
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+    except BaseException:
+        print(buf.getvalue(), flush=True)
+        raise
+    return out, buf.getvalue()
+
+
+def check_reference_lines(text: str, label: str, windows: int) -> None:
+    """The reference's lines, as a Part prints them for one epoch of
+    ``windows`` log windows and its eval."""
+    wanted = [f"Training loss after {20 * (i + 1)} iterations is "
+              for i in range(windows)]
+    wanted += [f"Average Pass time in iter {20 * (i + 1)} is "
+               for i in range(1, windows)]
+    wanted += ["Training time after 1 epoch is ", "Test set: Average loss: "]
+    lines = text.splitlines()
+    for prefix in wanted:
+        if not any(line.startswith(prefix) for line in lines):
+            raise SmokeFailure(f"{label}: no line {prefix!r} in its output")
+
+
+def ef_trainer(argv):
+    """The int8 error-feedback rung: the port's Trainer with
+    ``compress='int8_ef'`` and ``sync='none'`` over the Parts' data and
+    model (the JAX CLI has no compress flag; its Trainer takes one)."""
+    from tpudp_torch import cli
+    from tpudp_torch.mesh import initialize_distributed, make_mesh
+    from tpudp_torch.models import vgg
+    from tpudp_torch.trainer import Trainer
+
+    args = cli.build_parser("int8_ef").parse_args(argv)
+    initialize_distributed(args.device)  # world size 1 (NCCL on the card)
+    train_loader, test_loader = cli.make_loaders(args, 0, 1)
+    model = vgg.build(vgg.CONFIGS["VGG11"], args.seed, args.device)
+    trainer = Trainer(model, make_mesh(), "none",
+                      compress="int8_ef")
+    try:
+        trainer.fit(train_loader, test_loader)
+    finally:
+        train_loader.close()
+        test_loader.close()
+    return trainer
+
+
+def plain_ef_loss(torch) -> float:
+    """The int8 error-feedback rung's loss after 20 iterations from a
+    plain loop at world size 1 on the batches, model and SGD of
+    ``ef_trainer``: each step's gradients plus the residual, rounded onto
+    127 ticks of their largest magnitude, and the residual set to what
+    the rounding dropped."""
+    import torch.nn.functional as F
+
+    from tpudp_torch import cli
+    from tpudp_torch.data import device_place
+    from tpudp_torch.models import vgg
+
+    args = cli.build_parser("plain_ef").parse_args(
+        vgg_argv(VGG_TRAIN) + ["--prefetch", "0"])
+    loader, _ = cli.make_loaders(args, 0, 1, log=lambda line: None)
+    place = device_place("cuda")
+    model = vgg.build(vgg.CONFIGS["VGG11"], args.seed, "cuda").train()
+    params = list(model.parameters())
+    opt = torch.optim.SGD(params, lr=0.1, momentum=0.9, weight_decay=1e-4)
+    residual = [torch.zeros_like(p) for p in params]
+    total = torch.zeros((), device="cuda")
+    loader.set_epoch(0)
+    for batch in loader:
+        images, labels, _ = place(batch)
+        opt.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(images, train=True), labels.long())
+        loss.backward()
+        wanted = [p.grad + e for p, e in zip(params, residual)]
+        unit = torch.cat([w.reshape(-1) for w in wanted]).abs().max() / 127
+        for p, w, e in zip(params, wanted, residual):
+            sent = torch.round(w / unit).clamp(-127, 127) * unit
+            p.grad.copy_(sent)
+            e.copy_(w - sent)
+        opt.step()
+        total += loss.detach()
+    return float(total) / len(loader)
+
+
+def vgg_ladder():
+    """name -> a call of the port's entry point for that rung."""
+    from tpudp_torch import cli
+    from tpudp_torch.parts import part1, part2a, part2b, part3
+
+    def rung(sync):
+        return lambda a: cli.run_part(sync, sync, argv=a)
+
+    return {
+        "part1 (none)": part1.main,
+        "part2a (coordinator)": part2a.main,
+        "part2b (allreduce)": part2b.main,
+        "part2b --ring": lambda a: part2b.main(a + ["--ring"]),
+        "part2b --bf16-grads": lambda a: part2b.main(a + ["--bf16-grads"]),
+        "part2b --int8-grads": lambda a: part2b.main(a + ["--int8-grads"]),
+        "part3 (auto, DDP)": part3.main,
+        "ring_bidir": rung("ring_bidir"),
+        "allreduce_hd": rung("allreduce_hd"),
+        "allreduce_a2a": rung("allreduce_a2a"),
+        "int8_ef": ef_trainer,
+    }
+
+
+def vgg_argv(train_size: int, dtype: str = "float32") -> list[str]:
+    return ["--synthetic-train-size", str(train_size),
+            "--synthetic-test-size", str(VGG_TEST), "--dtype", dtype]
+
+
+def vgg_ladder_path(torch, np) -> dict:
+    """7a: every rung once through its entry point at world size 1 over
+    NCCL; each window loss finite, the reference's lines printed, and
+    every rung but bf16's and int8 error feedback's at Part 1's loss
+    after 20 iterations, int8 error feedback at a plain loop's.  Part 1
+    runs three times first with cuDNN's default algorithms, which print
+    their run-to-run spread; the ladder then runs with deterministic
+    cuDNN, so that its gate holds the rungs' own differences."""
+    from tpudp_torch.parts import part1
+
+    repeats = []
+    for _ in range(3):
+        trainer, _ = run_quiet(lambda: part1.main(vgg_argv(VGG_TRAIN)))
+        repeats.append(trainer.records[0]["loss"])
+    spread = (max(repeats) - min(repeats)) / min(repeats)
+    print(f"vgg-ladder part1 x3, cuDNN's default algorithms: losses after "
+          f"20 iterations {[repr(x) for x in repeats]} (spread "
+          f"{spread:.3e})", flush=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        return ladder_losses(np)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def ladder_losses(np) -> dict:
+    import torch
+
+    t0 = time.perf_counter()
+    plain_ef = plain_ef_loss(torch)
+    print(f"vgg-ladder plain int8 error feedback: loss after 20 iterations "
+          f"{plain_ef!r}, {time.perf_counter() - t0:.1f} s", flush=True)
+    losses = {}
+    for label, main in vgg_ladder().items():
+        t0 = time.perf_counter()
+        trainer, text = run_quiet(lambda: main(vgg_argv(VGG_TRAIN)))
+        check_reference_lines(text, label, windows=1)
+        windows = [r for r in trainer.records if r["kind"] == "train_window"]
+        ev = trainer.records[-1]
+        if len(windows) != 1 or not all(np.isfinite(
+                [r["loss"] for r in windows] + [ev["avg_loss"]])):
+            raise SmokeFailure(f"vgg-ladder {label}: windows {windows}, "
+                               f"eval {ev}")
+        losses[label] = windows[0]["loss"]
+        base = losses["part1 (none)"]
+        rel = abs(losses[label] - base) / abs(base)
+        want, name = ((plain_ef, "the plain loop's") if label == "int8_ef"
+                      else (base, "part 1's"))
+        err = abs(losses[label] - want) / abs(want)
+        print(f"vgg-ladder {label}: loss after 20 iterations "
+              f"{losses[label]!r} (part 1 {base!r}, relative difference "
+              f"{rel:.3e}"
+              + (f"; plain loop {plain_ef!r}, relative difference {err:.3e}"
+                 if label == "int8_ef" else "")
+              + f"), eval loss {ev['avg_loss']:.4f} accuracy "
+              f"{ev['accuracy']:.4f}, {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del trainer
+        if label != "part2b --bf16-grads" and err > VGG_LOSS_RTOL:
+            raise SmokeFailure(f"vgg-ladder {label}: loss after 20 "
+                               f"iterations {losses[label]!r} differs from "
+                               f"{name} {want!r} by {err:.3e} (rtol "
+                               f"{VGG_LOSS_RTOL})")
+    return losses
+
+
+def vgg_loader_ms(torch, batches: int = 20) -> float:
+    """ms a batch of the Parts' train loader alone on this thread: the
+    numpy crop, flip and normalize of a global batch, then the copy to
+    the card through pinned memory."""
+    from tpudp_torch import cli
+    from tpudp_torch.data import device_place
+
+    args = cli.build_parser("loader").parse_args(
+        vgg_argv(batches * VGG_BATCH) + ["--prefetch", "0"])
+    loader, _ = cli.make_loaders(args, 0, 1, log=lambda line: None)
+    place = device_place("cuda")
+    it = iter(loader)
+    place(next(it))  # the first batch off the clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = 0
+    for batch in it:
+        place(batch)
+        n += 1
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def vgg_bench_path(torch, np) -> list[dict]:
+    """7b: images/s over the steady windows (the warm-up window left out),
+    ms per step, peak memory and a profiled step of Parts 1, 2b
+    (allreduce, ring) and 3 in float32 and bfloat16."""
+    from tpudp_torch.models.vgg import CONFIGS
+    from tpudp_torch.parts import part1, part2b, part3
+
+    flop = 6 * vgg_forward_macs(CONFIGS["VGG11"])  # fwd + bwd, 2 a MAC
+    loader_ms = vgg_loader_ms(torch)
+    print(f"vgg-bench loader alone (numpy augment of {VGG_BATCH} images, "
+          f"then pinned copy to the card): {loader_ms:.3f} ms a batch",
+          flush=True)
+    runs = {"part1": part1.main, "part2b allreduce": part2b.main,
+            "part2b ring": lambda a: part2b.main(a + ["--ring"]),
+            "part3 ddp": part3.main}
+    out = []
+    for dtype, peak in (("float32", FP32_FLOP_PER_S),
+                        ("bfloat16", BF16_FLOP_PER_S)):
+        for label, main in runs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            trainer, text = run_quiet(lambda: main(vgg_argv(VGG_BENCH_TRAIN,
+                                                            dtype)))
+            check_reference_lines(text, label, windows=VGG_BENCH_WINDOWS)
+            steady = [r for r in trainer.records
+                      if r["kind"] == "train_window" and not r["warmup_window"]]
+            if len(steady) != VGG_BENCH_WINDOWS - 1 or not all(
+                    np.isfinite([r["loss"] for r in steady])):
+                raise SmokeFailure(f"vgg-bench {label} {dtype}: steady "
+                                   f"windows {steady}")
+            secs = sum(r["sec_per_iter"] for r in steady)
+            images_s = len(steady) * VGG_BATCH / secs
+            rec = {"run": label, "dtype": dtype, "images_s": images_s,
+                   "ms_per_step": 1e3 * secs / len(steady),
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "share_of_peak": images_s * flop / peak}
+            if label in ("part1", "part3 ddp"):
+                rng = np.random.default_rng(0)
+                x = torch.as_tensor(rng.normal(size=(VGG_BATCH, 32, 32, 3))
+                                    .astype(np.float32), device="cuda")
+                y = torch.as_tensor(rng.integers(0, 10, VGG_BATCH),
+                                    device="cuda")
+                trainer.train_step(trainer.state, x, y)  # off the clock
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    trainer.train_step(trainer.state, x, y)
+                torch.cuda.synchronize()
+                rec["step_alone_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+                rec["profile"] = profile_call(
+                    torch, lambda: trainer.train_step(trainer.state, x, y),
+                    vgg_category)
+            out.append(rec)
+            prof = rec.get("profile")
+            print(f"vgg-bench {label} {dtype}: {images_s:.1f} images/s over "
+                  f"{len(steady)} steady windows of 20 steps at batch "
+                  f"{VGG_BATCH}, {rec['ms_per_step']:.3f} ms/step, peak "
+                  f"{rec['peak_gib']:.3f} GiB, "
+                  f"{100 * rec['share_of_peak']:.2f}% of the {dtype} peak "
+                  f"({flop / 1e9:.4f} GFLOP a trained image)"
+                  + ("" if "step_alone_ms" not in rec else
+                     f"; the step alone on one device batch "
+                     f"{rec['step_alone_ms']:.3f} ms")
+                  + ("" if prof is None else
+                     f"; profiled step {prof['wall_ms']:.2f} ms wall, device "
+                     f"busy {100 * prof['busy_share']:.1f}%, host gaps "
+                     f"{prof['wall_ms'] * (1 - prof['busy_share']):.2f} ms, "
+                     f"{prof['kernels']} device kernels, device ms by kind "
+                     f"{prof['device_ms']}, largest other kernels "
+                     f"{prof['top_other_ms']}"), flush=True)
+            del trainer
+            torch.cuda.empty_cache()
+    return out
+
+
+def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
+    """7c: one of two ranks on the one card, over gloo with CUDA tensors:
+    each rung's 4 steps at global batch 256, then the hash of the rank's
+    parameters and buffers, its ms per step and the wall ms of each
+    step's gradient reduction as the rung runs it (gloo, staged through
+    the host): the all-reduce rung's sync call inside the step, timed
+    from the end of the backward pass; DDP's bucket all-reduces from the
+    first bucket's hook call to the last bucket's completion, overlapping
+    the backward pass."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.algorithms.ddp_comm_hooks import default_hooks
+
+    sys.path.insert(0, ROOT)
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.models import vgg
+    from tpudp_torch.parallel.sync import sync_allreduce
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    out = {"rank": rank}
+    comm = []  # (start, end) of each gradient reduction of the step
+
+    def timed_sync(grads, group):
+        torch.cuda.synchronize()  # the backward pass's end
+        t0 = time.perf_counter()
+        reduced = sync_allreduce(grads, group)
+        torch.cuda.synchronize()
+        comm.append((t0, time.perf_counter()))
+        return reduced
+
+    def timed_bucket(state, bucket):
+        t0 = time.perf_counter()
+
+        def done(fut):
+            comm.append((t0, time.perf_counter()))
+            return fut.value()
+
+        return default_hooks.allreduce_hook(state, bucket).then(done)
+
+    try:
+        mesh = make_mesh()
+        rng = np.random.default_rng(1)
+        half = VGG_BATCH // world
+        batches = [(torch.as_tensor(rng.normal(size=(VGG_BATCH, 32, 32, 3))
+                                    .astype(np.float32)[rank * half:
+                                                        (rank + 1) * half],
+                                    device="cuda"),
+                    torch.as_tensor(rng.integers(0, 10, VGG_BATCH)
+                                    [rank * half:(rank + 1) * half],
+                                    device="cuda"))
+                   for _ in range(GLOO_STEPS)]
+        for sync in ("allreduce", "auto"):
+            model = vgg.build(vgg.CONFIGS["VGG11"], 0, "cuda")
+            spec = train.make_optimizer()
+            state = train.init_state(model, spec, mesh)
+            step = train.make_train_step(
+                model, spec, mesh, timed_sync if sync == "allreduce" else sync)
+            if sync == "auto":
+                step.ddp.register_comm_hook(None, timed_bucket)
+            step_ms, losses, comm_ms, buckets = [], [], [], []
+            for x, y in batches:
+                comm.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, x, y)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(loss))
+                comm_ms.append(1e3 * (max(e for _, e in comm)
+                                      - min(b for b, _ in comm)))
+                buckets.append(len(comm))
+            flat = torch.cat([t.detach().reshape(-1).float() for t in
+                              list(model.parameters())
+                              + list(model.buffers())]).cpu().numpy()
+            out[sync] = {"hash": hashlib.sha256(flat.tobytes()).hexdigest(),
+                         "losses": losses, "step_ms": step_ms,
+                         "comm_ms": comm_ms, "reductions": buckets}
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        results.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def gloo_two_rank_path() -> None:
+    """7c: two ranks on the one card over gloo, CUDA tensors: both end
+    each rung with bit-equal parameters and buffers."""
+    import multiprocessing
+
+    from tpudp_torch.mesh import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=gloo_rank, args=(r, 2, init, results))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, deadline = [], time.monotonic() + GLOO_TIMEOUT
+    try:
+        while len(got) < len(procs):
+            try:
+                got.append(results.get(timeout=1.0))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs if p.exitcode]
+                if dead or time.monotonic() > deadline:
+                    raise SmokeFailure(
+                        f"vgg-gloo: {len(got)} of {len(procs)} ranks "
+                        f"reported (exit codes {dead}, limit "
+                        f"{GLOO_TIMEOUT} s)") from None
+        got.sort(key=lambda r: r["rank"])
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in got:
+        if "error" in r:
+            raise SmokeFailure(f"gloo rank {r['rank']} failed:\n{r['error']}")
+    what = {"allreduce": ("the all-reduce rung's sync call in the step, "
+                          "one all-reduce a gradient", "sync call"),
+            "auto": ("DDP's bucket all-reduces, first hook call to last "
+                     "completion, overlapping the backward pass", "bucket")}
+    for sync in ("allreduce", "auto"):
+        a, b = got[0][sync], got[1][sync]
+        same = a["hash"] == b["hash"] and a["losses"] == b["losses"]
+        steady = sorted(a["comm_ms"][1:])[len(a["comm_ms"][1:]) // 2]
+        print(f"vgg-gloo {sync}: 2 ranks on one card over gloo (CUDA "
+              f"tensors), {GLOO_STEPS} steps at batch {VGG_BATCH}: losses "
+              f"{[round(x, 4) for x in a['losses']]}, ms per step "
+              f"{[round(x, 1) for x in a['step_ms']]}, grad all-reduce wall "
+              f"ms a step {[round(x, 2) for x in a['comm_ms']]} (rank 1 "
+              f"{[round(x, 2) for x in b['comm_ms']]}; median after the "
+              f"first step {steady:.2f}; {what[sync][0]}, "
+              f"{a['reductions'][-1]} {what[sync][1]}(s) a step; gloo, staged "
+              f"through the host), parameters and buffers bit-equal across "
+              f"ranks: {same}", flush=True)
+        if not same:
+            raise SmokeFailure(f"vgg-gloo {sync}: the ranks' parameters or "
+                               f"buffers differ after {GLOO_STEPS} steps")
+
+
+def vgg_path(torch, np) -> dict:
+    """Phase 7: the ladder (7a), throughput (7b), two gloo ranks (7c)."""
+    import torch.distributed as dist
+
+    try:
+        losses = vgg_ladder_path(torch, np)
+        bench = vgg_bench_path(torch, np)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    gloo_two_rank_path()
+    return {"losses": losses, "bench": bench}
+
+
+# -- phase 8: timing -------------------------------------------------------
 
 
 def time_ms(torch, fn, n=50):
@@ -1813,6 +2341,13 @@ def flash_timings(torch, fa, launches):
     return records
 
 
+def kernel_launches(pa, fa) -> dict:
+    """Every port kernel's launch count so far."""
+    return {name: fn.launches
+            for kernels in (pa.KERNELS, fa.KERNELS)
+            for name, fn in kernels.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1868,6 +2403,12 @@ def main(argv=None) -> int:
             launches[name] += n
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
+        before = kernel_launches(pa, fa)
+        vgg_path(torch, np)
+        if kernel_launches(pa, fa) != before:
+            raise SmokeFailure("the VGG path launched a port kernel")
+        print("vgg: port kernel launches in phase 7: 0 (the path runs "
+              "cuDNN convolutions, cuBLAS and NCCL only)", flush=True)
         records = timings(torch, pa, model, prompts, launches)
         records += flash_timings(torch, fa, train_launches)
     except Exception:  # every phase failure ends the run without a result

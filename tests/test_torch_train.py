@@ -174,11 +174,16 @@ def test_unported_options_name_their_roadmap_item():
     for kwargs in ({"remat": True}, {"loss_chunk": 16}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             train.make_train_step(model, spec, **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A mesh is ported (tpudp_torch.mesh.Mesh); anything else is refused.
+    with pytest.raises(TypeError, match="Mesh"):
         train.make_train_step(model, spec, object())
-    for kwargs in ({"skip_nonfinite": 3}, {"compress": "int8_ef"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.make_optimizer(**kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train.make_optimizer(skip_nonfinite=3)
+    # compress='int8_ef' is ported: it needs a mesh, and names the rest.
+    with pytest.raises(ValueError, match="needs a mesh"):
+        train.init_state(model, train.make_optimizer(compress="int8_ef"))
+    with pytest.raises(ValueError, match="unknown compress"):
+        train.make_optimizer(compress="int4")
     with pytest.raises(ValueError, match="total_steps"):
         train.make_optimizer(schedule="cosine")
 

@@ -9,11 +9,17 @@ slice (ROADMAP.md).  Ported so far:
     attention kernels, their int8 variants over an int8 page pool
     (``kv_dtype="int8"``), and speculative decoding through the
     paged-window and paged-tree kernels (``serve_cli``);
+  * the data-parallel VGG-11 ladder — the four Part trainers
+    (``tpudp_torch.parts``) over the 11 gradient sync rungs
+    (``tpudp_torch.parallel``) on ``torch.distributed`` process groups
+    (``tpudp_torch.mesh``), with the epoch ``tpudp_torch.trainer.Trainer``
+    and the JAX package's data pipeline (``tpudp_torch.data``);
   * single-device GPT-2 training — ``tpudp_torch.train``
     (``make_optimizer``, ``init_state``, ``make_train_step``), with flash
     attention's forward, dq and dk/dv kernels behind
     ``tpudp_torch.ops.flash_attention`` (``train_cli``).
 
-Every kernel is written in CUDA for ``sm_90a`` (``tpudp_torch/csrc``).
+Every kernel is written in CUDA for ``sm_90a`` (``tpudp_torch/csrc``);
+the VGG ladder runs none (cuDNN, cuBLAS and NCCL do its work).
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """

@@ -1,0 +1,288 @@
+"""The CLI shared by the Part entry points — the port of ``tpudp/cli.py``.
+
+The same flags as the JAX package's, with two changes:
+
+  * ``--platform`` becomes ``--device {cuda,cpu}`` (default ``cuda``; no
+    card and no ``--device cpu`` is an error, never a silent CPU run);
+  * ``--num-devices N`` spawns N local ranks, one process each (NCCL
+    needs one card a rank; gloo runs any number on the CPU), where JAX
+    builds a mesh of N local devices.  Each rank loads its own shard of
+    the data, as the reference's ``DistributedSampler`` ranks do.
+
+``--master``/``--num-nodes``/``--rank`` join a multi-process run at the
+reference's port 6585, one rank a process.  Flags of later slices
+(checkpoints, resilience, the watchdog, SyncBN, GSPMD, remat, the
+native augment backend, profiler and metrics endpoints) are refused with
+their ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import multiprocessing
+import os
+import sys
+
+import torch
+import torch.distributed as dist
+
+from tpudp_torch.data import (DataLoader, Prefetcher, ShardedSampler,
+                              load_cifar10)
+from tpudp_torch.mesh import (PORT, free_port, initialize_distributed,
+                              make_mesh)
+from tpudp_torch.models import vgg
+from tpudp_torch.trainer import Trainer
+
+GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
+
+#: Flags of later slices: dest -> (the value that means "off", the
+#: ROADMAP.md item that brings it).
+_UNPORTED_FLAGS = {
+    "checkpoint_dir": (None, "slice 7c (Trainer checkpoints)"),
+    "checkpoint_async": (False, "slice 7c (Trainer checkpoints)"),
+    "keep_checkpoints": (None, "slice 7c (Trainer checkpoints)"),
+    "eval_only": (False, "slice 7c (Trainer checkpoints)"),
+    "sync_bn": (False, "slice 7c (SyncBN and GSPMD)"),
+    "remat": (False, "slice 6b (remat)"),
+    "verify_replicas": (False, "slice 8 (robustness: replica "
+                               "verification)"),
+    "profile_dir": (None, "slice 8 (obs: profiler traces)"),
+    "step_timeout": (None, "slice 8 (robustness: watchdog)"),
+    "resilience": (False, "slice 8 (resilience)"),
+    "max_rollbacks": (None, "slice 8 (resilience)"),
+    "spike_factor": (None, "slice 8 (resilience)"),
+    "flight_dir": (None, "slice 8 (obs: flight recorder)"),
+    "metrics_port": (None, "slice 8 (obs: metrics endpoint)"),
+}
+
+
+def build_parser(description: str) -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description=description)
+    p.add_argument("--master", type=str, default=None,
+                   help="coordinator IP for multi-process runs (reference "
+                        "--master)")
+    p.add_argument("--num-nodes", type=int, default=None,
+                   help="number of processes (reference --num-nodes)")
+    p.add_argument("--rank", type=int, default=None,
+                   help="this process's rank (reference --rank)")
+    p.add_argument("--epochs", type=int, default=1,
+                   help="epochs to train (reference default 1)")
+    p.add_argument("--num-devices", type=int, default=None,
+                   help="spawn N local ranks, one process each (default 1)")
+    p.add_argument("--batch-size", type=int, default=GLOBAL_BATCH_SIZE,
+                   help="GLOBAL batch size (split across ranks)")
+    p.add_argument("--data-root", type=str, default="./data")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--timing-mode", choices=["fused", "split"],
+                   default="fused")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"],
+                   default="float32")
+    p.add_argument("--model", choices=["vgg11", "vgg13", "vgg16", "vgg19"],
+                   default="vgg11", help="VGG variant (reference: VGG-11)")
+    p.add_argument("--checkpoint-dir", type=str, default=None)
+    p.add_argument("--checkpoint-async", action="store_true")
+    p.add_argument("--keep-checkpoints", type=int, default=None,
+                   metavar="N")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where the ranks run (default cuda: the card)")
+    p.add_argument("--synthetic-train-size", type=int, default=50_000,
+                   help="synthetic-fallback train set size (smoke runs)")
+    p.add_argument("--synthetic-test-size", type=int, default=10_000)
+    p.add_argument("--data-backend", choices=["auto", "native", "numpy"],
+                   default="auto",
+                   help="host augmentation backend ('auto' is numpy)")
+    p.add_argument("--eval-only", action="store_true")
+    p.add_argument("--sync-bn", action="store_true")
+    p.add_argument("--spmd-mode", choices=["shard_map", "gspmd"],
+                   default=None,
+                   help="Part 3 (auto rung) only; 'shard_map' (default) is "
+                        "DistributedDataParallel with each rank's own "
+                        "BatchNorm statistics")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="split each rank's batch into N sequential "
+                        "microbatches before the one sync and update")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="batches prepared ahead on a background thread, "
+                        "copied to the device there; 0 disables")
+    p.add_argument("--verify-replicas", action="store_true")
+    p.add_argument("--metrics-jsonl", type=str, default=None,
+                   metavar="PATH",
+                   help="append one JSON line per train window / eval / "
+                        "epoch to PATH (rank 0 only)")
+    p.add_argument("--profile-dir", type=str, default=None)
+    p.add_argument("--step-timeout", type=float, default=None)
+    p.add_argument("--resilience", action="store_true")
+    p.add_argument("--max-rollbacks", type=int, default=None, metavar="N")
+    p.add_argument("--spike-factor", type=float, default=None, metavar="X")
+    p.add_argument("--flight-dir", type=str, default=None, metavar="DIR")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="N")
+    return p
+
+
+def _refuse_unported(args) -> None:
+    for dest, (off, item) in _UNPORTED_FLAGS.items():
+        if getattr(args, dest) != off:
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"error: {flag} is not ported yet: ROADMAP.md "
+                             f"{item}")
+    if args.data_backend == "native":
+        raise SystemExit("error: --data-backend native is not ported yet: "
+                         "ROADMAP.md slice 7c (native augment backend)")
+
+
+def run_part(sync: str, description: str, *, single_device: bool = False,
+             argv=None) -> Trainer | None:
+    """Parse flags, join or spawn the ranks, build data, model and
+    Trainer, and fit.  Returns this process's Trainer, or None where it
+    spawned local ranks (they print; the call returns when all exit)."""
+    args = build_parser(description).parse_args(argv)
+    _refuse_unported(args)
+    if args.spmd_mode is not None:
+        if sync != "auto":
+            raise SystemExit(
+                "error: --spmd-mode applies only to the Part 3 'auto' rung "
+                "(the other Parts' sync strategies are explicit collectives "
+                "by definition)")
+        if args.spmd_mode == "gspmd":
+            raise SystemExit("error: --spmd-mode gspmd is not ported yet: "
+                             "ROADMAP.md slice 7c (SyncBN and GSPMD)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(
+            "error: no CUDA card is available; the Parts run on the card "
+            "by default — pass --device cpu to run on the CPU")
+    local = args.num_devices or 1
+    multi_node = args.master is not None or (args.num_nodes or 1) > 1
+    if local < 1:
+        raise SystemExit(f"error: --num-devices must be >= 1 (got {local})")
+    if multi_node and local > 1:
+        raise SystemExit("error: --num-devices spawns local ranks; with "
+                         "--master/--num-nodes each process is one rank")
+    if single_device:
+        return _run_rank(args, sync, False, 0, 1, None)
+    if multi_node:
+        if args.master is None or args.num_nodes is None or args.rank is None:
+            raise SystemExit("error: a multi-process run needs --master, "
+                             "--num-nodes and --rank")
+        return _run_rank(args, sync, True, args.rank, args.num_nodes,
+                         f"tcp://{args.master}:{PORT}")
+    if local == 1 or dist.is_initialized():
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        return _run_rank(args, sync, True, rank, world, None)
+    if args.device == "cuda" and local > torch.cuda.device_count():
+        raise SystemExit(
+            f"error: --num-devices {local} needs {local} cards (NCCL takes "
+            f"one card a rank; this machine has "
+            f"{torch.cuda.device_count()}) — pass --device cpu for gloo "
+            "ranks on the CPU")
+    _spawn(args, sync, local)
+    return None
+
+
+def _spawn(args, sync: str, world: int) -> None:
+    """Run ``world`` local ranks as processes; a rank that fails stops
+    the others and fails the run."""
+    init_method = f"tcp://127.0.0.1:{free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(args, sync, rank, world, init_method),
+                         name=f"tpudp-rank{rank}")
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    failed = None
+    try:
+        while any(p.is_alive() for p in procs) and failed is None:
+            for p in procs:
+                p.join(timeout=0.2)
+                if p.exitcode not in (None, 0):
+                    failed = p
+                    break
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+    failed = failed or next((p for p in procs if p.exitcode), None)
+    if failed is not None:
+        raise SystemExit(f"error: {failed.name} failed (exit code "
+                         f"{failed.exitcode})")
+
+
+def _rank_entry(args, sync, rank, world, init_method) -> None:
+    """A spawned rank: train, then leave the process group."""
+    try:
+        _run_rank(args, sync, True, rank, world, init_method)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def make_loaders(args, rank: int, world: int, log=print) -> tuple:
+    """This rank's train and test loaders for the parsed ``args``: its
+    shard of the data (CIFAR-10 from ``--data-root``, else the synthetic
+    stand-in), at the global batch over ``world``, behind a Prefetcher
+    unless ``--prefetch 0``."""
+    if args.batch_size % world:
+        raise SystemExit(
+            f"error: --batch-size {args.batch_size} must be divisible by the "
+            f"rank count ({world}) — every rank takes an equal shard")
+    train_set, test_set, synthetic = load_cifar10(
+        args.data_root, synthetic_train_size=args.synthetic_train_size,
+        synthetic_test_size=args.synthetic_test_size)
+    if synthetic:
+        log("[tpudp] CIFAR-10 not found on disk; using synthetic stand-in "
+            "data")
+    log(f"[tpudp] train samples={len(train_set.images)} "
+        f"test samples={len(test_set.images)}")
+    batch = args.batch_size // world
+    train_loader = DataLoader(
+        train_set, batch,
+        sampler=ShardedSampler(len(train_set.images), world, rank,
+                               shuffle=True, seed=args.seed),
+        train=True, seed=args.seed)
+    test_loader = DataLoader(
+        test_set, batch,
+        sampler=ShardedSampler(len(test_set.images), world, rank,
+                               shuffle=False),
+        train=False)
+    if args.prefetch > 0:
+        train_loader = Prefetcher(train_loader, depth=args.prefetch)
+        test_loader = Prefetcher(test_loader, depth=args.prefetch)
+    return train_loader, test_loader
+
+
+def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
+              init_method: str | None) -> Trainer:
+    """One rank's run: with ``data_parallel`` (every Part but Part 1) it
+    joins the process group through ``init_method`` and trains over it."""
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    elif world > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = None
+    if data_parallel:
+        initialize_distributed(device, world, rank, init_method=init_method)
+        mesh = make_mesh()
+    log = print if rank == 0 else (lambda line: None)
+    train_loader, test_loader = make_loaders(args, rank, world, log)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    model = vgg.build(vgg.CONFIGS[args.model.upper()], args.seed, device,
+                      dtype=dtype)
+    trainer = Trainer(model, mesh, sync, timing_mode=args.timing_mode,
+                      grad_accum=args.grad_accum,
+                      metrics_jsonl=args.metrics_jsonl, log_fn=log)
+    log(f"[tpudp] model={args.model} sync={sync} devices={world} "
+        f"device={device.type} global_batch={args.batch_size} "
+        f"dtype={args.dtype} data=numpy+prefetch{args.prefetch}")
+    try:
+        trainer.fit(train_loader, test_loader, epochs=args.epochs)
+    finally:
+        for loader in (train_loader, test_loader):
+            if isinstance(loader, Prefetcher):
+                loader.close()
+    sys.stdout.flush()
+    return trainer

@@ -1,0 +1,56 @@
+"""Deterministic shard-aware sampling — the port's copy of
+``tpudp/data/sampler.py`` (the reference's ``DistributedSampler``).
+
+Shuffle every index with a numpy generator seeded by ``seed + epoch``,
+pad to a multiple of the shard count by wrapping around, then take the
+strided slice ``indices[shard::num_shards]``: the same indices and
+validity masks as the JAX package's, per (epoch, shard).  (The JAX
+sampler's ``reshuffle_each_epoch`` and ``batch_contiguous`` serve its
+checkpoint resume, which is not ported.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class ShardedSampler:
+    """One shard's sample order; see the module docstring."""
+
+    def __init__(self, dataset_size: int, num_shards: int = 1,
+                 shard_index: int = 0, *, shuffle: bool = True,
+                 seed: int = 0):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} out of range "
+                             f"[0, {num_shards})")
+        self.dataset_size = dataset_size
+        self.num_shards = num_shards
+        self.shard_index = shard_index
+        self.shuffle = shuffle
+        self.seed = seed
+        # Every shard sees the same number of samples (wrap-around pad).
+        self.num_samples = -(-dataset_size // num_shards)
+        self.total_size = self.num_samples * num_shards
+
+    def indices(self, epoch: int = 0) -> np.ndarray:
+        return self.indices_and_mask(epoch)[0]
+
+    def indices_and_mask(self, epoch: int = 0
+                         ) -> tuple[np.ndarray, np.ndarray]:
+        """``(indices, valid)``: ``valid`` is False for the wrap-around
+        padding, which training counts and evaluation weights 0."""
+        if self.shuffle:
+            order = np.random.default_rng(self.seed + epoch).permutation(
+                self.dataset_size)
+        else:
+            order = np.arange(self.dataset_size)
+        valid = np.ones(self.total_size, dtype=bool)
+        if self.total_size > self.dataset_size:
+            pad = self.total_size - self.dataset_size
+            order = np.concatenate([order, order[:pad]])
+            valid[self.dataset_size:] = False
+        sel = slice(self.shard_index, None, self.num_shards)
+        return order[sel], valid[sel]
+
+    def __len__(self) -> int:
+        return self.num_samples

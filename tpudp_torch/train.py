@@ -1,6 +1,7 @@
-"""Single-device LM training — the port of ``tpudp/train.py``'s
-``make_optimizer``, ``TrainState``, ``init_state`` and the ``mesh is
-None`` branch of ``make_train_step``.
+"""Train, eval and forward steps — the port of ``tpudp/train.py``'s
+``make_optimizer``, ``TrainState``, ``init_state``, ``make_train_step``
+(its single-device and ``shard_map`` data-parallel branches),
+``eval_metrics``, ``make_eval_step`` and ``make_forward_step``.
 
   * :func:`make_optimizer` returns an :class:`OptimizerSpec`, the
     counterpart of the optax chain: SGD with momentum and the weight
@@ -8,30 +9,42 @@ None`` branch of ``make_train_step``.
     ``torch.optim.SGD``), or AdamW with optax's defaults; optional
     global-norm clipping by optax's own rule; constant, ``'cosine'`` or
     ``'linear'`` learning-rate schedules by optax's formulas, evaluated at
-    optax's step count (0 for the first update).
+    optax's step count (0 for the first update); ``compress='int8_ef'``,
+    the error-feedback int8 all-reduce that optax runs first in its chain.
   * :func:`init_state` turns the model's gradients on and builds the
-    ``torch.optim`` optimizer; :class:`TrainState` carries the model, the
+    ``torch.optim`` optimizer (and, for ``compress``, this rank's
+    error-feedback residuals); :class:`TrainState` carries the model, the
     optimizer, the host step count and a device-resident ``loss_sum``
     that the host reads only when it logs (the step never calls
     ``.item()``).
-  * :func:`make_train_step` returns ``step(state, tokens, targets) ->
-    (state, loss)``: forward, mean cross entropy, backward, optional
-    clipping, the optimizer update, ``loss_sum += loss``.  PyTorch updates
-    the parameters and the optimizer state in place where JAX returns new
+  * :func:`make_train_step` returns ``step(state, inputs, targets) ->
+    (state, loss)``: forward in training mode, mean cross entropy,
+    backward, and with a :class:`~tpudp_torch.mesh.Mesh` the sync rung
+    (``tpudp_torch.parallel.sync``), the loss and the model's buffers
+    (BatchNorm's running statistics) averaged over the ranks, then
+    clipping and the optimizer update.  ``sync='auto'`` wraps the model
+    in ``DistributedDataParallel(broadcast_buffers=False)``, whose
+    bucketed all-reduce overlaps the backward pass.  PyTorch updates the
+    parameters and the optimizer state in place where JAX returns new
     ones, so the returned state is the same object, advanced.
 
-Multi-device meshes, ``remat``, chunked losses, skipping non-finite
-steps and compressed gradients are later slices: each raises
-``NotImplementedError`` naming its ROADMAP item.
+``remat``, chunked losses and skipping non-finite steps are later
+slices: each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from tpudp_torch.mesh import Mesh
+from tpudp_torch.parallel.compress import Int8ErrorFeedback
+from tpudp_torch.parallel.sync import get_sync
 
 
 @dataclass(frozen=True)
@@ -47,6 +60,7 @@ class OptimizerSpec:
     total_steps: int | None
     optimizer: str
     clip_norm: float | None
+    compress: str | None = None
 
     def lr_at(self, count: int) -> float:
         """The learning rate of update number ``count`` (0-based), by
@@ -99,7 +113,9 @@ def make_optimizer(learning_rate: float = 0.1, momentum: float = 0.9,
                    compress: str | None = None) -> OptimizerSpec:
     """The JAX ``make_optimizer`` with the same arguments and defaults
     (``torch.optim.SGD(lr, momentum, weight_decay)``; see the module
-    docstring).  ``momentum`` is ignored by AdamW, as in optax."""
+    docstring).  ``momentum`` is ignored by AdamW, as in optax.
+    ``compress='int8_ef'`` needs a mesh at :func:`init_state` and a step
+    built with ``sync='none'``."""
     if schedule not in (None, "cosine", "linear"):
         raise ValueError(f"unknown schedule {schedule!r}")
     if schedule is not None and total_steps is None:
@@ -112,40 +128,49 @@ def make_optimizer(learning_rate: float = 0.1, momentum: float = 0.9,
     if optimizer not in ("sgd", "adamw"):
         raise ValueError(f"unknown optimizer {optimizer!r}; choose 'sgd' "
                          f"or 'adamw'")
+    if compress not in (None, "int8_ef"):
+        raise ValueError(f"unknown compress {compress!r}; choose 'int8_ef'")
     if skip_nonfinite is not None:
         raise NotImplementedError(
             "skip_nonfinite is not ported yet: ROADMAP.md slice 8 "
             "(robustness: skipping non-finite steps)")
-    if compress is not None:
-        raise NotImplementedError(
-            "compress is not ported yet: ROADMAP.md slice 7 (data-parallel "
-            "gradient sync)")
     return OptimizerSpec(learning_rate, momentum, weight_decay, schedule,
-                         warmup_steps, total_steps, optimizer, clip_norm)
+                         warmup_steps, total_steps, optimizer, clip_norm,
+                         compress)
 
 
 @dataclass
 class TrainState:
     """The model, its ``torch.optim`` optimizer, the number of updates
-    taken, and the cumulative training loss kept on the device."""
+    taken, the cumulative training loss kept on the device, and (with
+    ``compress``) this rank's error-feedback compressor."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     loss_sum: torch.Tensor
+    compressor: Int8ErrorFeedback | None = None
 
 
-def init_state(model: torch.nn.Module, optimizer: OptimizerSpec
-               ) -> TrainState:
+def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
+               mesh: Mesh | None = None) -> TrainState:
     """Turn on (and leave on) the model's gradients and bind the
-    optimizer to its parameters."""
+    optimizer to its parameters; a ``compress`` optimizer also gets its
+    residuals here, for ``mesh``'s ranks."""
     model.requires_grad_(True).train()
     device = next(model.parameters()).device
+    compressor = None
+    if optimizer.compress is not None:
+        if mesh is None:
+            raise ValueError(f"compress={optimizer.compress!r} needs a "
+                             "mesh: it replaces the gradient collective")
+        compressor = Int8ErrorFeedback(model.parameters())
     return TrainState(model=model,
                       optimizer=optimizer.build(model.parameters()),
                       step=0,
                       loss_sum=torch.zeros((), dtype=torch.float32,
-                                           device=device))
+                                           device=device),
+                      compressor=compressor)
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
@@ -159,18 +184,49 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def batch_stats(model: torch.nn.Module) -> list[torch.Tensor]:
+    """The model's floating-point buffers — the counterpart of flax's
+    ``batch_stats`` collection (BatchNorm's running statistics)."""
+    return [b for b in model.buffers() if b.is_floating_point()]
+
+
+def _mean_over_ranks(tensors: list[torch.Tensor], mesh: Mesh) -> None:
+    """Replace each tensor by its mean over ``mesh``'s ranks, in place,
+    with one all-reduce of their concatenation."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    flat /= mesh.size
+    for t, piece in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(piece.reshape(t.shape))
+
+
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a tpudp_torch.mesh.Mesh or None, "
+                        f"got {type(mesh).__name__}")
+
+
 def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
-                    mesh=None, *, grad_accum: int = 1, remat: bool = False,
+                    mesh: Mesh | None = None, sync: str = "allreduce", *,
+                    grad_accum: int = 1, remat: bool = False,
                     loss_chunk: int | None = None):
-    """``step(state, tokens, targets) -> (state, loss)`` for one device:
-    ``(B, T)`` int tokens and next-token targets, mean cross entropy over
-    every position.  ``grad_accum`` splits the batch into that many equal
-    microbatches and takes the mean of their gradients (and losses)
-    before the one update, as the JAX step does."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is not ported yet: ROADMAP.md slice 7 "
-            "(data-parallel training over torch.distributed)")
+    """``step(state, inputs, targets) -> (state, loss)``: mean cross
+    entropy of ``model(inputs, train=True)`` over every position (images
+    with labels ``(B,)``, or ``(B, T)`` tokens with next-token targets).
+    ``grad_accum`` splits the batch into that many equal microbatches and
+    takes the mean of their gradients (and losses) before the one
+    update, as the JAX step does; BatchNorm sees them one after another.
+
+    With ``mesh`` each rank passes its own shard of the global batch; the
+    gradients are reduced by ``sync`` (see the module docstring), and the
+    returned loss is the mean over ranks.  Without one, ``sync`` is not
+    used (JAX's single-device branch).  ``sync`` names a rung of
+    ``SYNC_STRATEGIES`` or is a function of theirs, ``(grads, group) ->
+    grads`` (a rung wrapped to time it, say).  ``step.ddp`` is the
+    ``DistributedDataParallel`` wrapper of ``sync='auto'`` (else
+    ``None``), for its communication hooks."""
+    _check_mesh(mesh)
+    sync_fn = sync if callable(sync) else get_sync(sync)
     if remat:
         raise NotImplementedError(
             "remat is not ported yet: ROADMAP.md slice 6b (remat)")
@@ -180,26 +236,56 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             "loss)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if optimizer.compress is not None and mesh is not None and \
+            sync != "none":
+        raise ValueError(f"compress={optimizer.compress!r} replaces the sync "
+                         f"collective; pass sync='none' (got {sync!r})")
+    forward = model
+    ddp = mesh is not None and sync == "auto"
+    if ddp:
+        from torch.nn.parallel import DistributedDataParallel
 
-    def step(state: TrainState, tokens: torch.Tensor,
+        forward = DistributedDataParallel(model, broadcast_buffers=False)
+    stats = batch_stats(model)
+
+    def step(state: TrainState, inputs: torch.Tensor,
              targets: torch.Tensor):
-        if tokens.shape[0] % grad_accum:
-            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+        if inputs.shape[0] % grad_accum:
+            raise ValueError(f"batch {inputs.shape[0]} does not split into "
                              f"{grad_accum} equal microbatches")
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        for x, y in zip(tokens.chunk(grad_accum), targets.chunk(grad_accum)):
-            logits = model(x, train=True)
-            ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                 y.reshape(-1).long())
-            ce.backward()
+        loss = torch.zeros((), dtype=torch.float32, device=inputs.device)
+        micro = list(zip(inputs.chunk(grad_accum),
+                         targets.chunk(grad_accum)))
+        for i, (x, y) in enumerate(micro):
+            # DDP all-reduces the accumulated gradients once, on the last
+            # microbatch's backward.
+            quiet = ddp and i < len(micro) - 1
+            with forward.no_sync() if quiet else contextlib.nullcontext():
+                logits = forward(x, train=True)
+                ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                     y.reshape(-1).long())
+                ce.backward()
             loss = loss + ce.detach()
         params = [p for p in model.parameters() if p.grad is not None]
         if grad_accum > 1:
             for p in params:
                 p.grad.div_(grad_accum)
             loss = loss / grad_accum
+        if mesh is not None:
+            if not ddp:
+                synced = sync_fn([p.grad for p in params], None)
+                for p, g in zip(params, synced):
+                    if g is not p.grad:
+                        p.grad.copy_(g)
+            loss = loss.reshape(1)
+            _mean_over_ranks([loss] + stats, mesh)
+            loss = loss.reshape(())
+        if state.compressor is not None:
+            for p, g in zip(params, state.compressor([p.grad
+                                                      for p in params])):
+                p.grad.copy_(g)
         if optimizer.clip_norm is not None:
             clip_by_global_norm([p.grad for p in params], optimizer.clip_norm)
         for group in opt.param_groups:
@@ -209,4 +295,61 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
         state.loss_sum += loss
         return state, loss
 
+    step.ddp = forward if ddp else None
     return step
+
+
+def eval_metrics(model: torch.nn.Module, inputs: torch.Tensor,
+                 labels: torch.Tensor, weights: torch.Tensor
+                 ) -> torch.Tensor:
+    """Weighted ``(loss_sum, correct, count)`` of one batch as a float32
+    3-vector.  ``weights`` is per sample ``(batch,)``; over tokens each
+    sample's weight covers its sequence, so ``count`` counts weighted
+    positions."""
+    with torch.no_grad():
+        logits = model(inputs, train=False).float()
+        labels = labels.long()
+        per = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              labels.reshape(-1),
+                              reduction="none").reshape(labels.shape)
+        w = weights.float().reshape(
+            weights.shape + (1,) * (per.ndim - weights.ndim)).expand(
+                per.shape)
+        correct = (logits.argmax(-1) == labels).float()
+        return torch.stack([(per * w).sum(), (correct * w).sum(), w.sum()])
+
+
+def make_eval_step(model: torch.nn.Module, mesh: Mesh | None = None):
+    """``eval_step(state, images, labels, weights) -> (loss_sum, correct,
+    count)``: padded samples weigh 0; with ``mesh`` each rank evaluates
+    its shard and the sums are all-reduced over the ranks."""
+    _check_mesh(mesh)
+
+    def eval_step(state, images, labels, weights):
+        del state  # the model is updated in place
+        sums = eval_metrics(model, images, labels, weights)
+        if mesh is not None:
+            dist.all_reduce(sums)
+        return tuple(sums.unbind())
+
+    return eval_step
+
+
+def make_forward_step(model: torch.nn.Module, mesh: Mesh | None = None):
+    """The training-mode forward alone, ``forward(state, images) ->
+    logits``, for the ``split`` timing mode: the running statistics it
+    would update are put back, as JAX discards its mutated
+    ``batch_stats``.  Each rank runs its own shard; nothing is reduced."""
+    _check_mesh(mesh)
+    stats = batch_stats(model)
+
+    def forward(state, images):
+        del state
+        with torch.no_grad():
+            saved = [b.clone() for b in stats]
+            logits = model(images, train=True)
+            for b, s in zip(stats, saved):
+                b.copy_(s)
+        return logits
+
+    return forward

@@ -1,0 +1,267 @@
+"""The epoch loop — the port of ``tpudp/train.py``'s ``Trainer``.
+
+It reproduces the reference's printed metrics and cadence
+(``src/Part 2a/main.py:19-145``): the mean training loss every
+``log_every`` iterations, the average pass time with the first window
+left out, the epoch's wall time, and the test-set summary.
+
+``timing_mode='fused'`` times whole steps: the host queues steps back to
+back and synchronizes with the device once a log window, when it reads
+the device-resident ``loss_sum``.  ``'split'`` times the training-mode
+forward alone before each step (``make_forward_step``) and reports the
+rest as the backward, as the JAX Trainer does.
+
+The port's Trainer takes a model already built (the JAX one initializes
+its own from ``seed`` and ``input_shape``).  The data-parallel rung
+(``strategy='dp'``, ``spmd_mode='shard_map'``) is ported; the options
+of later slices raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from tpudp_torch.data.prefetch import device_place
+from tpudp_torch.mesh import Mesh
+from tpudp_torch.obs.format import reference_window_lines
+from tpudp_torch.train import (init_state, make_eval_step, make_forward_step,
+                               make_optimizer, make_train_step)
+from tpudp_torch.utils.finite import check_finite
+
+#: Options of the JAX Trainer this port does not have yet: name -> (the
+#: value that means "off", the ROADMAP.md item that brings it).
+_UNPORTED = {
+    "strategy": ("dp", "slice 7b (other parallel strategies)"),
+    "strategy_options": (None, "slice 7b (other parallel strategies)"),
+    "watchdog": (None, "slice 8 (robustness: watchdog)"),
+    "remat": (False, "slice 6b (remat)"),
+    "loss_chunk": (None, "slice 6b (chunked loss)"),
+    "verify_replicas": (False, "slice 8 (robustness: replica "
+                               "verification)"),
+    "step_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
+    "track_grad_norm": (False, "slice 8 (obs: device counters)"),
+    "track_sdc_fingerprint": (False, "slice 8 (SDC defense)"),
+    "sdc_fault_hook": (None, "slice 8 (SDC defense)"),
+    "flight_dir": (None, "slice 8 (obs: flight recorder)"),
+}
+
+
+def fence(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU, whose
+    operations finish before they return)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class Trainer:
+    """Epoch loop with the reference's printed metrics and cadence.
+
+    ``model`` is a built module on its device (a ``tpudp_torch`` VGG or
+    GPT-2); ``mesh`` (:func:`tpudp_torch.mesh.make_mesh`) makes the step
+    data-parallel over its ranks with the ``sync`` rung, each rank
+    feeding its own shard.  Every train window, eval and epoch appends a
+    record to :attr:`records` (and, on rank 0, one JSON line to
+    ``metrics_jsonl``); a window record carries ``samples_per_sec``
+    (this rank's samples over the window's wall time) and
+    ``warmup_window`` (the first window of an epoch, which holds the
+    warm-up)."""
+
+    def __init__(self, model: torch.nn.Module, mesh: Mesh | None = None,
+                 sync: str = "allreduce", *, learning_rate: float = 0.1,
+                 momentum: float = 0.9, weight_decay: float = 1e-4,
+                 spmd_mode: str = "shard_map", timing_mode: str = "fused",
+                 log_every: int = 20,
+                 log_fn: Callable[[str], None] = print, grad_accum: int = 1,
+                 metrics_jsonl: str | None = None,
+                 compress: str | None = None, **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED:
+                raise TypeError(f"Trainer() got an unexpected keyword "
+                                f"argument {name!r}")
+            off, item = _UNPORTED[name]
+            if value != off:
+                raise NotImplementedError(
+                    f"Trainer({name}=...) is not ported yet: ROADMAP.md "
+                    f"{item}")
+        if spmd_mode == "gspmd":
+            raise NotImplementedError(
+                "Trainer(spmd_mode='gspmd') is not ported yet: ROADMAP.md "
+                "slice 7c (SyncBN and GSPMD)")
+        if spmd_mode != "shard_map":
+            raise ValueError(f"unknown spmd_mode {spmd_mode!r}")
+        if timing_mode not in ("fused", "split"):
+            raise ValueError(f"unknown timing_mode {timing_mode!r}")
+        if compress is not None:
+            if mesh is None:
+                raise ValueError(
+                    "compress needs the shard_map DP rung with a mesh "
+                    f"(strategy='dp', spmd_mode={spmd_mode!r})")
+            if sync != "none":
+                raise ValueError(
+                    f"compress={compress!r} replaces the sync collective; "
+                    f"pass sync='none' (got sync={sync!r})")
+        self.model = model
+        self.mesh = mesh
+        self.sync = sync
+        self.device = next(model.parameters()).device
+        self.timing_mode = timing_mode
+        self.log_every = log_every
+        self.log = log_fn
+        self.records: list[dict] = []
+        self.metrics_jsonl = (metrics_jsonl if mesh is None or mesh.rank == 0
+                              else None)
+        self._last_window_loss: float | None = None
+        self.optimizer = make_optimizer(learning_rate, momentum, weight_decay,
+                                        compress=compress)
+        self.state = init_state(model, self.optimizer, mesh)
+        self.train_step = make_train_step(model, self.optimizer, mesh, sync,
+                                          grad_accum=grad_accum)
+        self.fwd_step = (make_forward_step(model, mesh)
+                         if timing_mode == "split" else None)
+        self.eval_step = make_eval_step(model, mesh)
+        self._place = device_place(self.device)
+
+    def _device_batch(self, batch) -> tuple:
+        """The batch's arrays as tensors on the trainer's device (batches
+        a Prefetcher already placed pass through)."""
+        if all(isinstance(a, torch.Tensor) and a.device == self.device
+               for a in batch):
+            return tuple(batch)
+        return self._place(batch)
+
+    def _install_place_hook(self, loader) -> None:
+        """Have a loader that takes one (a Prefetcher) copy its batches
+        to the device on its own thread, ahead of the steps."""
+        if hasattr(loader, "set_place"):
+            loader.set_place(self._place)
+
+    def _emit_metrics(self, record: dict) -> None:
+        if "loss" in record:
+            self._last_window_loss = record["loss"]
+        self.records.append(record)
+        if self.metrics_jsonl is not None:
+            with open(self.metrics_jsonl, "a") as f:
+                f.write(json.dumps(record) + "\n")
+
+    def metrics(self) -> dict:
+        """Optimizer step, cumulative training loss and its mean per
+        step, and the last window's loss (reads the device)."""
+        step = self.state.step
+        loss_sum = float(self.state.loss_sum)
+        out = {"step": step, "loss_sum": loss_sum,
+               "loss_mean": loss_sum / max(step, 1)}
+        if self._last_window_loss is not None:
+            out["last_window_loss"] = self._last_window_loss
+        return out
+
+    def train_epoch(self, loader, epoch: int = 0) -> float:
+        """One epoch; returns its mean window loss and prints the
+        reference's lines."""
+        loader.set_epoch(epoch)
+        self._install_place_hook(loader)
+        fwd_t = bwd_t = 0.0
+        losses = []
+        prev_loss_sum = float(self.state.loss_sum)
+        split = self.timing_mode == "split"
+        window_start = time.perf_counter()
+        window_samples = 0
+        it = 0
+        for it, batch in enumerate(loader, start=1):
+            images, labels, _ = self._device_batch(batch)
+            window_samples += images.shape[0]
+            if split:
+                t0 = time.perf_counter()
+                self.fwd_step(self.state, images)
+                fence(self.device)
+                t1 = time.perf_counter()
+                self.state, _ = self.train_step(self.state, images, labels)
+                fence(self.device)
+                t2 = time.perf_counter()
+                fwd_t += t1 - t0
+                # the step recomputes the forward; the rest is backward
+                bwd_t += max(t2 - t1 - (t1 - t0), 0.0)
+            else:
+                self.state, _ = self.train_step(self.state, images, labels)
+            if it % self.log_every == 0:
+                fence(self.device)
+                window_time = time.perf_counter() - window_start
+                cum = float(self.state.loss_sum)  # one read a window
+                losses.append(check_finite(
+                    (cum - prev_loss_sum) / self.log_every, step=it))
+                prev_loss_sum = cum
+                for line in reference_window_lines(
+                        it, losses[-1], window_time, self.log_every,
+                        fwd_t=fwd_t if split else None,
+                        bwd_t=bwd_t if split else None,
+                        first_window=it == self.log_every):
+                    self.log(line)
+                self._emit_metrics({
+                    "kind": "train_window", "epoch": epoch, "iter": it,
+                    "loss": losses[-1],
+                    "sec_per_iter": window_time / self.log_every,
+                    "samples_per_sec": window_samples / window_time,
+                    "warmup_window": it == self.log_every,
+                })
+                window_samples = 0
+                fwd_t = bwd_t = 0.0
+                window_start = time.perf_counter()
+        if it % self.log_every:  # the ragged final window
+            cum = float(self.state.loss_sum)
+            losses.append(check_finite(
+                (cum - prev_loss_sum) / (it % self.log_every), step=it))
+        return float(np.mean(losses)) if losses else 0.0
+
+    def evaluate(self, loader, *, epoch: int | None = None
+                 ) -> tuple[float, float]:
+        """A full test pass; returns ``(average loss per sample,
+        accuracy)`` and prints the reference's summary line.  The sums
+        stay on the device until the one read at the end; a non-finite
+        loss fails with the epoch and batch count."""
+        self._install_place_hook(loader)
+        sums = torch.zeros(3, dtype=torch.float32, device=self.device)
+        it = 0
+        for batch in loader:
+            images, labels, weights = self._device_batch(batch)
+            sums += torch.stack(self.eval_step(self.state, images, labels,
+                                               weights))
+            it += 1
+        loss_sum, correct, count = sums.tolist()
+        count = max(count, 1.0)
+        avg_loss = check_finite(
+            loss_sum / count, step=self.state.step, what="eval loss",
+            context=(f"epoch {epoch}, " if epoch is not None else "")
+            + f"{it} eval batches")
+        accuracy = correct / count
+        self.log(
+            "Test set: Average loss: {:.4f}, Accuracy: {}/{} ({:.0f}%)\n"
+            .format(avg_loss, int(correct), int(count), 100.0 * accuracy))
+        self._emit_metrics({"kind": "eval", "avg_loss": avg_loss,
+                            "accuracy": accuracy, "count": count})
+        return avg_loss, accuracy
+
+    def fit(self, train_loader, test_loader=None, epochs: int = 1, *,
+            resilience=None) -> None:
+        """The reference's epoch loop: train, print the epoch's wall
+        time, evaluate.  (Resuming from a checkpoint, and with it JAX's
+        ``start_epoch``, ``epoch_end_fn`` and mid-epoch fast-forward, is
+        ROADMAP.md slice 7c.)"""
+        if resilience is not None:
+            raise NotImplementedError(
+                "Trainer.fit(resilience=...) is not ported yet: ROADMAP.md "
+                "slice 8 (resilience)")
+        for epoch in range(epochs):
+            start = time.perf_counter()
+            self.train_epoch(train_loader, epoch)
+            fence(self.device)
+            epoch_s = time.perf_counter() - start
+            self.log("Training time after {} epoch is {}".format(
+                epoch + 1, epoch_s))
+            self._emit_metrics({"kind": "epoch", "epoch": epoch,
+                                "seconds": epoch_s})
+            if test_loader is not None:
+                self.evaluate(test_loader, epoch=epoch)
