@@ -151,7 +151,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      5,120 train and 1,024 test images (20 iterations, one log window,
      then the eval): every loss finite, the reference's lines printed,
      and every rung but bf16's within ``VGG_LOSS_RTOL`` of Part 1's loss
-     after 20 iterations (int8 error feedback within ``VGG_EF_RTOL``).
+     after 20 iterations (int8 error feedback within it of a plain loop
+     of error feedback on the same batches).
      7b: Parts 1, 2b (all-reduce and ring) and 3 in float32 and bfloat16
      for 5 log windows: images/s and ms per step over the 4 steady
      windows (the warm-up window left out), peak device memory, the
@@ -161,7 +162,33 @@ which fails the run (nonzero exit, no result line) when it fails:
      gloo with CUDA tensors (``allreduce`` and ``auto``, 4 steps at
      global batch 256) must end with bit-equal parameters and buffers;
      prints the gradient all-reduce's wall ms a step (gloo, staged
-     through the host);
+     through the host); then Part 2b ``--sync-bn`` and Part 3
+     ``--spmd-mode gspmd`` (4 steps each, deterministic cuDNN) must end
+     bit-equal across ranks with a first loss within ``SYNC_BN_RTOL`` of
+     one rank's at the global batch.  Every Part runs on the loader's
+     ``'auto'`` backend and fails unless it resolved to the native one;
+     7b prints the loader alone on both backends, holds the native
+     batches (4 train, 1 eval) byte-equal to numpy's, and runs Part 1 on
+     the numpy and native loaders in turns in both dtypes (``vgg-ab``
+     lines: images/s of each run);
+  9. (run after phase 7, before the timing phase) ResNet at ImageNet
+     geometry — ``tpudp_torch.train_resnet.main``
+     (the port of ``examples/train_resnet.py``): ResNet-50 at full width,
+     224x224, 1000 classes, global batch 256, the example's synthetic
+     set on the native loader, bfloat16 for 30 steps and float32 (TF32
+     off) for 20, logged every 10: images/s over the steady windows, ms a
+     step, peak memory, the share of the card's peak from the model's own
+     FLOPs (``resnet_forward_macs``), the step alone on one device batch
+     and one profiled step (device ms by kind); the loader alone at 224
+     on both backends; ResNet-50's train-mode logits at 224 (flax's
+     init, batch 4) on the card in bfloat16 and float32 against the
+     CPU's float32 logits, within ``RESNET_RTOL``; ResNet-101 and
+     ResNet-152 for 5 bfloat16 steps at batch 64 (finite losses, ms a
+     step, peak memory, the step alone, one profiled step's busy share);
+     then ResNet-50 bfloat16 again in child processes, with every core
+     and with the loader's OpenMP threads capped at
+     ``RESNET_OMP_CAP`` (``resnet threads`` lines: ms a step of each
+     run); no port kernel may launch;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -254,6 +281,32 @@ VGG_BATCH, VGG_TRAIN, VGG_TEST = 256, 5_120, 1_024
 VGG_BENCH_WINDOWS = 5
 VGG_BENCH_TRAIN = VGG_BENCH_WINDOWS * 20 * VGG_BATCH
 GLOO_STEPS, GLOO_TIMEOUT = 4, 300
+# Phase 9: ResNet-50's global batch, image size, train set, steps a
+# dtype and log window; the step alone's repeats; the loader's batches
+# (numpy's crop at 224 takes hundreds of ms a batch); ResNet-101's and
+# ResNet-152's batch and steps.
+RESNET_BATCH, RESNET_SIZE, RESNET_TRAIN = 256, 224, 2048
+RESNET_STEPS = {"bfloat16": 30, "float32": 20}
+RESNET_LOG_EVERY, RESNET_ALONE_STEPS = 10, 5
+RESNET_NUMPY_BATCHES, RESNET_NATIVE_BATCHES = 4, 11
+RESNET_DEEP_BATCH, RESNET_DEEP_STEPS = 64, 5
+# ResNet-50's logits on the card against the CPU's float32 ones (flax's
+# init, train mode, a batch of 4 at 224): relative error norms.  bfloat16
+# rounding alone reads 0.0103 at 64x64 on the CPU (its own float32
+# against its bfloat16; PERF.md, tests/test_torch_resnet.py); float32
+# with TF32 off as tests/test_torch_cuda_resnet.py holds it.
+RESNET_CHECK_BATCH = 4
+RESNET_RTOL = {"bfloat16": 0.03, "float32": 1e-4}
+# The loader's OpenMP threads capped (OMP_NUM_THREADS) in the child runs
+# that weigh the in-run step against the step alone.
+RESNET_OMP_CAP = 4
+# 7c's BatchNorm cases: name -> (sync rung, spmd_mode, the model's
+# bn_axis): Part 2b --sync-bn and Part 3 --spmd-mode gspmd.
+GLOO_BN_CASES = {"part2b --sync-bn": ("allreduce", "shard_map", "data"),
+                 "part3 --spmd-mode gspmd": ("auto", "gspmd", None)}
+# 7c: SyncBN's first loss against one rank at the global batch, as
+# tests/test_sync_bn.py pins it for JAX.
+SYNC_BN_RTOL = 1e-6
 # 7a's limits on a rung's loss after 20 iterations against Part 1's, at
 # world size 1.  The first window (lr 0.1, the loss climbing from 2.3 to
 # about 10) magnifies any difference: with cuDNN's default algorithms
@@ -1383,10 +1436,12 @@ def profile_call(torch, fn, categorize=kernel_category) -> dict | None:
         return None
     by_cat: dict[str, float] = {}
     other: dict[str, float] = {}
+    by_name: dict[str, float] = {}
     for e in kernels:
         cat = categorize(e.name)
         ms = e.time_range.elapsed_us() / 1e3
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + ms
         if cat == "other":
             other[e.name[:70]] = other.get(e.name[:70], 0.0) + ms
     busy_us, edge = 0.0, float("-inf")
@@ -1399,7 +1454,9 @@ def profile_call(torch, fn, categorize=kernel_category) -> dict | None:
             "device_ms": {k: round(v, 3) for k, v in sorted(
                 by_cat.items(), key=lambda kv: -kv[1])},
             "top_other_ms": {k: round(v, 3) for k, v in sorted(
-                other.items(), key=lambda kv: -kv[1])[:4]}}
+                other.items(), key=lambda kv: -kv[1])[:4]},
+            "top_ms": {k: round(v, 3) for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]}}
 
 
 def profile_decode_step(torch, Engine, model, prompts, label, **kw):
@@ -1551,13 +1608,14 @@ def vgg_category(name: str) -> str:
     low = name.lower()
     if "nccl" in low:
         return "nccl"
+    # BatchNorm first: cuDNN's own BatchNorm kernels carry "cudnn" too.
+    if any(tag in low for tag in ("batch_norm", "batchnorm", "welford",
+                                  "bn_")):
+        return "batchnorm"
     if any(tag in low for tag in ("conv", "gemm", "xmma", "cutlass", "nvjet",
                                   "dgrad", "wgrad", "fprop", "winograd",
                                   "cudnn")):
         return "conv+matmul"
-    if any(tag in low for tag in ("batch_norm", "batchnorm", "welford",
-                                  "bn_")):
-        return "batchnorm"
     if "multi_tensor" in low or "foreach" in low:
         return "optimizer"
     if "pool" in low:
@@ -1606,6 +1664,9 @@ def ef_trainer(argv):
     args = cli.build_parser("int8_ef").parse_args(argv)
     initialize_distributed(args.device)  # world size 1 (NCCL on the card)
     train_loader, test_loader = cli.make_loaders(args, 0, 1)
+    if train_loader.loader.backend != "native":
+        raise SmokeFailure(f"int8_ef: the loader resolved to "
+                           f"{train_loader.loader.backend}, not native")
     model = vgg.build(vgg.CONFIGS["VGG11"], args.seed, args.device)
     trainer = Trainer(model, make_mesh(), "none",
                       compress="int8_ef")
@@ -1720,6 +1781,8 @@ def ladder_losses(np) -> dict:
         t0 = time.perf_counter()
         trainer, text = run_quiet(lambda: main(vgg_argv(VGG_TRAIN)))
         check_reference_lines(text, label, windows=1)
+        if label != "int8_ef":  # its Trainer prints no banner
+            check_native_banner(text, f"vgg-ladder {label}")
         windows = [r for r in trainer.records if r["kind"] == "train_window"]
         ev = trainer.records[-1]
         if len(windows) != 1 or not all(np.isfinite(
@@ -1749,16 +1812,12 @@ def ladder_losses(np) -> dict:
     return losses
 
 
-def vgg_loader_ms(torch, batches: int = 20) -> float:
-    """ms a batch of the Parts' train loader alone on this thread: the
-    numpy crop, flip and normalize of a global batch, then the copy to
-    the card through pinned memory."""
-    from tpudp_torch import cli
+def loader_ms(torch, loader) -> float:
+    """ms a batch of ``loader`` alone on this thread (its crop, flip and
+    normalize of a batch, then the copy to the card through pinned
+    memory), over every batch but the first."""
     from tpudp_torch.data import device_place
 
-    args = cli.build_parser("loader").parse_args(
-        vgg_argv(batches * VGG_BATCH) + ["--prefetch", "0"])
-    loader, _ = cli.make_loaders(args, 0, 1, log=lambda line: None)
     place = device_place("cuda")
     it = iter(loader)
     place(next(it))  # the first batch off the clock
@@ -1772,6 +1831,45 @@ def vgg_loader_ms(torch, batches: int = 20) -> float:
     return 1e3 * (time.perf_counter() - t0) / n
 
 
+def vgg_loaders(backend: str, batches: int):
+    """The Parts' train and test loaders on ``backend`` (no prefetch)
+    over ``batches`` global batches of train images."""
+    from tpudp_torch import cli
+
+    args = cli.build_parser("loader").parse_args(
+        vgg_argv(batches * VGG_BATCH)
+        + ["--prefetch", "0", "--data-backend", backend])
+    return cli.make_loaders(args, 0, 1, log=lambda line: None)
+
+
+def check_native_batches(np) -> None:
+    """7b: the native backend's first 4 train batches and first eval
+    batch equal the numpy backend's, byte for byte."""
+    pairs = [vgg_loaders(b, 4) for b in ("native", "numpy")]
+    if pairs[0][0].backend != "native":
+        raise SmokeFailure(f"the native backend resolved to "
+                           f"{pairs[0][0].backend}")
+    compared = 0
+    for (native_ld, numpy_ld), n in zip(zip(*pairs), (4, 1)):
+        for got, want, _ in zip(native_ld, numpy_ld, range(n)):
+            for a, b in zip(got, want):
+                if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                    raise SmokeFailure("a native batch differs from the "
+                                       "numpy backend's")
+            compared += 1
+    print(f"vgg-bench native batches byte-equal to numpy's: {compared} "
+          f"(4 train, 1 eval)", flush=True)
+
+
+def check_native_banner(text: str, label: str) -> None:
+    """A Part's banner must say ``'auto'`` resolved to the native backend:
+    no quiet numpy run on the card."""
+    if "data=native+prefetch" not in text:
+        banner = [line for line in text.splitlines() if "data=" in line]
+        raise SmokeFailure(f"{label}: the loader did not resolve to the "
+                           f"native backend: {banner}")
+
+
 def vgg_bench_path(torch, np) -> list[dict]:
     """7b: images/s over the steady windows (the warm-up window left out),
     ms per step, peak memory and a profiled step of Parts 1, 2b
@@ -1780,10 +1878,12 @@ def vgg_bench_path(torch, np) -> list[dict]:
     from tpudp_torch.parts import part1, part2b, part3
 
     flop = 6 * vgg_forward_macs(CONFIGS["VGG11"])  # fwd + bwd, 2 a MAC
-    loader_ms = vgg_loader_ms(torch)
-    print(f"vgg-bench loader alone (numpy augment of {VGG_BATCH} images, "
-          f"then pinned copy to the card): {loader_ms:.3f} ms a batch",
-          flush=True)
+    for backend in ("numpy", "native"):
+        ms = loader_ms(torch, vgg_loaders(backend, 20)[0])
+        print(f"vgg-bench loader alone ({backend} augment of {VGG_BATCH} "
+              f"32x32 images, then pinned copy to the card): {ms:.3f} ms a "
+              f"batch", flush=True)
+    check_native_batches(np)
     runs = {"part1": part1.main, "part2b allreduce": part2b.main,
             "part2b ring": lambda a: part2b.main(a + ["--ring"]),
             "part3 ddp": part3.main}
@@ -1796,6 +1896,7 @@ def vgg_bench_path(torch, np) -> list[dict]:
             trainer, text = run_quiet(lambda: main(vgg_argv(VGG_BENCH_TRAIN,
                                                             dtype)))
             check_reference_lines(text, label, windows=VGG_BENCH_WINDOWS)
+            check_native_banner(text, f"vgg-bench {label} {dtype}")
             steady = [r for r in trainer.records
                       if r["kind"] == "train_window" and not r["warmup_window"]]
             if len(steady) != VGG_BENCH_WINDOWS - 1 or not all(
@@ -1847,6 +1948,77 @@ def vgg_bench_path(torch, np) -> list[dict]:
     return out
 
 
+def vgg_backend_ab(np) -> None:
+    """7b: Part 1 on the numpy and the native loader in turns (numpy,
+    native, native, numpy) in float32 and bfloat16: images/s over the
+    steady windows of each run, so that the loader's effect end to end is
+    read within one run of this script."""
+    from tpudp_torch.parts import part1
+
+    for dtype in ("float32", "bfloat16"):
+        rates = {"numpy": [], "native": []}
+        for backend in ("numpy", "native", "native", "numpy"):
+            trainer, text = run_quiet(lambda: part1.main(
+                vgg_argv(VGG_BENCH_TRAIN, dtype)
+                + ["--data-backend", backend]))
+            if f"data={backend}+prefetch" not in text:
+                raise SmokeFailure(f"vgg-ab part1 {dtype}: no {backend} "
+                                   f"banner")
+            steady = [r for r in trainer.records if r["kind"] ==
+                      "train_window" and not r["warmup_window"]]
+            if not all(np.isfinite([r["loss"] for r in steady])):
+                raise SmokeFailure(f"vgg-ab part1 {dtype} {backend}: "
+                                   f"steady windows {steady}")
+            rates[backend].append(len(steady) * VGG_BATCH / sum(
+                r["sec_per_iter"] for r in steady))
+            del trainer
+        print(f"vgg-ab part1 {dtype}, loader backends in turns (numpy, "
+              f"native, native, numpy): images/s numpy "
+              f"{[round(x, 1) for x in rates['numpy']]}, native "
+              f"{[round(x, 1) for x in rates['native']]}; native / numpy "
+              f"{sum(rates['native']) / sum(rates['numpy']):.3f}",
+              flush=True)
+
+
+def gloo_batches(np) -> list:
+    """7c's GLOO_STEPS global batches ``(images, labels)`` as numpy
+    arrays; rank r takes rows ``[r * half, (r + 1) * half)``."""
+    rng = np.random.default_rng(1)
+    return [(rng.normal(size=(VGG_BATCH, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, 10, VGG_BATCH)) for _ in range(GLOO_STEPS)]
+
+
+def state_hash(torch, model) -> str:
+    """sha256 of a model's parameters and buffers (float32 bytes)."""
+    import hashlib
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in
+                      list(model.parameters())
+                      + list(model.buffers())]).cpu().numpy()
+    return hashlib.sha256(flat.tobytes()).hexdigest()
+
+
+def one_rank_first_loss(torch, np) -> float:
+    """7c's reference: the first loss of VGG-11 (seed 0) trained by one
+    rank on the whole first global batch, under deterministic cuDNN —
+    what SyncBN's ranks must reproduce (tests/test_sync_bn.py)."""
+    from tpudp_torch import train
+    from tpudp_torch.models import vgg
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = vgg.build(vgg.CONFIGS["VGG11"], 0, "cuda")
+        spec = train.make_optimizer()
+        step = train.make_train_step(model, spec)
+        x, y = gloo_batches(np)[0]
+        _, loss = step(train.init_state(model, spec),
+                       torch.as_tensor(x, device="cuda"),
+                       torch.as_tensor(y, device="cuda"))
+        return float(loss)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
     """7c: one of two ranks on the one card, over gloo with CUDA tensors:
     each rung's 4 steps at global batch 256, then the hash of the rank's
@@ -1856,8 +2028,6 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
     from the end of the backward pass; DDP's bucket all-reduces from the
     first bucket's hook call to the last bucket's completion, overlapping
     the backward pass."""
-    import hashlib
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1895,16 +2065,12 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
 
     try:
         mesh = make_mesh()
-        rng = np.random.default_rng(1)
         half = VGG_BATCH // world
-        batches = [(torch.as_tensor(rng.normal(size=(VGG_BATCH, 32, 32, 3))
-                                    .astype(np.float32)[rank * half:
-                                                        (rank + 1) * half],
+        batches = [(torch.as_tensor(x[rank * half:(rank + 1) * half],
                                     device="cuda"),
-                    torch.as_tensor(rng.integers(0, 10, VGG_BATCH)
-                                    [rank * half:(rank + 1) * half],
+                    torch.as_tensor(y[rank * half:(rank + 1) * half],
                                     device="cuda"))
-                   for _ in range(GLOO_STEPS)]
+                   for x, y in gloo_batches(np)]
         for sync in ("allreduce", "auto"):
             model = vgg.build(vgg.CONFIGS["VGG11"], 0, "cuda")
             spec = train.make_optimizer()
@@ -1925,12 +2091,29 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
                 comm_ms.append(1e3 * (max(e for _, e in comm)
                                       - min(b for b, _ in comm)))
                 buckets.append(len(comm))
-            flat = torch.cat([t.detach().reshape(-1).float() for t in
-                              list(model.parameters())
-                              + list(model.buffers())]).cpu().numpy()
-            out[sync] = {"hash": hashlib.sha256(flat.tobytes()).hexdigest(),
+            out[sync] = {"hash": state_hash(torch, model),
                          "losses": losses, "step_ms": step_ms,
                          "comm_ms": comm_ms, "reductions": buckets}
+        # Part 2b --sync-bn (the all-reduce rung over a model with
+        # cross-rank BatchNorm) and Part 3 --spmd-mode gspmd (DDP with
+        # global-batch BatchNorm), under deterministic cuDNN.
+        torch.backends.cudnn.deterministic = True
+        for case, (sync, mode, axis) in GLOO_BN_CASES.items():
+            model = vgg.build(vgg.CONFIGS["VGG11"], 0, "cuda", bn_axis=axis)
+            spec = train.make_optimizer()
+            state = train.init_state(model, spec, mesh)
+            step = train.make_train_step(model, spec, mesh, sync,
+                                         spmd_mode=mode)
+            losses, step_ms = [], []
+            for x, y in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, x, y)
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(loss))
+            out[case] = {"hash": state_hash(torch, model), "losses": losses,
+                         "step_ms": step_ms}
     except Exception:
         out["error"] = traceback.format_exc()
     finally:
@@ -1939,9 +2122,10 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
             dist.destroy_process_group()
 
 
-def gloo_two_rank_path() -> None:
+def gloo_two_rank_path(torch, np) -> None:
     """7c: two ranks on the one card over gloo, CUDA tensors: both end
-    each rung with bit-equal parameters and buffers."""
+    each rung with bit-equal parameters and buffers, and the BatchNorm
+    cases' first loss is one rank's at the global batch."""
     import multiprocessing
 
     from tpudp_torch.mesh import free_port
@@ -1996,6 +2180,25 @@ def gloo_two_rank_path() -> None:
         if not same:
             raise SmokeFailure(f"vgg-gloo {sync}: the ranks' parameters or "
                                f"buffers differ after {GLOO_STEPS} steps")
+    want = one_rank_first_loss(torch, np)
+    for case in GLOO_BN_CASES:
+        a, b = got[0][case], got[1][case]
+        same = a["hash"] == b["hash"] and a["losses"] == b["losses"]
+        err = abs(a["losses"][0] - want) / abs(want)
+        print(f"vgg-gloo {case}: 2 ranks on one card over gloo, "
+              f"deterministic cuDNN, {GLOO_STEPS} steps at batch "
+              f"{VGG_BATCH}: losses {[repr(x) for x in a['losses']]}, ms "
+              f"per step {[round(x, 1) for x in a['step_ms']]}; step 1 "
+              f"against one rank at the global batch {want!r}: relative "
+              f"difference {err:.3e} (rtol {SYNC_BN_RTOL}); parameters and "
+              f"buffers bit-equal across ranks: {same}", flush=True)
+        if not same:
+            raise SmokeFailure(f"vgg-gloo {case}: the ranks' parameters or "
+                               f"buffers differ after {GLOO_STEPS} steps")
+        if err > SYNC_BN_RTOL:
+            raise SmokeFailure(f"vgg-gloo {case}: step 1's loss "
+                               f"{a['losses'][0]!r} is {err:.3e} from one "
+                               f"rank's at the global batch {want!r}")
 
 
 def vgg_path(torch, np) -> dict:
@@ -2005,11 +2208,266 @@ def vgg_path(torch, np) -> dict:
     try:
         losses = vgg_ladder_path(torch, np)
         bench = vgg_bench_path(torch, np)
+        vgg_backend_ab(np)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    gloo_two_rank_path()
+    gloo_two_rank_path(torch, np)
     return {"losses": losses, "bench": bench}
+
+
+# -- phase 9: ResNet at ImageNet geometry ---------------------------------
+
+
+def resnet_forward_macs(stage_sizes, size=224, width=64,
+                        classes=1000) -> int:
+    """Multiply-adds of one image's forward pass through the ResNet of
+    ``stage_sizes``, from its layer shapes: the 7x7/2 stem, the 3x3/2
+    max-pool's downsampling, each block's three convolutions (the stride
+    on the 3x3) and its projection, then the head."""
+    size = (size + 2 * 3 - 7) // 2 + 1  # stem, 7x7/2, padding 3
+    macs = size * size * 7 * 7 * 3 * width
+    size = (size + 2 * 1 - 3) // 2 + 1  # max-pool, 3x3/2, padding 1
+    channels = width
+    for stage, n in enumerate(stage_sizes):
+        features = width * 2 ** stage
+        out = 4 * features
+        for block in range(n):
+            stride = 2 if stage > 0 and block == 0 else 1
+            macs += size * size * channels * features  # 1x1
+            size_out = (size - 1) // stride + 1
+            macs += size_out * size_out * 9 * features * features  # 3x3
+            macs += size_out * size_out * features * out  # 1x1
+            if block == 0:  # the projection, 1x1 at the stride
+                macs += size_out * size_out * channels * out
+            size, channels = size_out, out
+    return macs + channels * classes
+
+
+def resnet_category(name: str) -> str:
+    """A device kernel of the ResNet step by what it does: as VGG's, with
+    the other reductions (the statistics of the BatchNorm's running
+    update, the global pool) apart."""
+    kind = vgg_category(name)
+    return "reduction" if kind == "other" and "reduce" in name.lower() \
+        else kind
+
+
+def resnet_argv(depth: int, dtype: str, batch: int, steps: int,
+                train_size: int, log_every: int) -> list[str]:
+    return ["--depth", str(depth), "--dtype", dtype, "--batch-size",
+            str(batch), "--steps", str(steps), "--train-size",
+            str(train_size), "--log-every", str(log_every)]
+
+
+def resnet_run(torch, np, argv, label: str) -> dict:
+    """``train_resnet.main(argv)`` with its output captured: every loss
+    finite, the example's lines printed, the loader on the native
+    backend; adds the run's peak device memory."""
+    from tpudp_torch import train_resnet
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run, text = run_quiet(lambda: train_resnet.main(argv))
+    run["peak"] = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in run["records"]]
+    lines = [line for line in text.splitlines()
+             if line.startswith("step ") and "images/s" in line]
+    if not losses or len(lines) != len(losses) or not all(
+            np.isfinite(losses)):
+        raise SmokeFailure(f"resnet {label}: losses {losses}, lines "
+                           f"{lines}")
+    if "data=native" not in text:
+        raise SmokeFailure(f"resnet {label}: the loader did not resolve to "
+                           f"the native backend")
+    return run
+
+
+def resnet_loader_ms(torch, np) -> None:
+    """9: the trainer's loader alone at 224x224, batch 256, both backends
+    (numpy over a few batches only)."""
+    from tpudp_torch import train_resnet
+    from tpudp_torch.data.loader import DataLoader
+
+    for backend, batches in (("numpy", RESNET_NUMPY_BATCHES),
+                             ("native", RESNET_NATIVE_BATCHES)):
+        ds = train_resnet.synthetic_set(batches * RESNET_BATCH,
+                                        RESNET_SIZE, 1000)
+        ld = DataLoader(ds, RESNET_BATCH, train=True, seed=0,
+                        backend=backend,
+                        mean=np.asarray(train_resnet.IMAGENET_MEAN,
+                                        np.float32),
+                        std=np.asarray(train_resnet.IMAGENET_STD,
+                                       np.float32))
+        ms = loader_ms(torch, ld)
+        print(f"resnet loader alone ({backend} augment of {RESNET_BATCH} "
+              f"{RESNET_SIZE}x{RESNET_SIZE} images, then pinned copy to the "
+              f"card; {batches - 1} batches timed): {ms:.3f} ms a batch",
+              flush=True)
+
+
+def resnet_against_cpu(torch, np, seed: int) -> None:
+    """9: ResNet-50's train-mode logits at 224x224 (flax's init, each
+    block's last BatchNorm scale zero) on the card in bfloat16 and in
+    float32 against the CPU's float32 logits of the same weights."""
+    from tpudp_torch.models import resnet
+
+    x = torch.as_tensor(np.random.default_rng(seed + 1).normal(
+        size=(RESNET_CHECK_BATCH, RESNET_SIZE, RESNET_SIZE, 3)).astype(
+            np.float32))
+    errs = {}
+    with torch.no_grad():
+        want = resnet.build(50, seed, "cpu")(x, train=True)
+        for name, dtype in (("bfloat16", torch.bfloat16),
+                            ("float32", torch.float32)):
+            model = resnet.build(50, seed, "cuda", dtype=dtype)
+            got = model(x.cuda(), train=True).cpu()
+            errs[name] = float((got - want).norm() / want.norm())
+            del model
+    print(f"resnet-50 against the CPU (train-mode logits, batch "
+          f"{RESNET_CHECK_BATCH}, {RESNET_SIZE}x{RESNET_SIZE}, flax's init; "
+          f"relative error norm against the CPU's float32): {errs}, limits "
+          f"{RESNET_RTOL}", flush=True)
+    for name, err in errs.items():
+        if not err <= RESNET_RTOL[name]:
+            raise SmokeFailure(f"resnet-50 {name} logits on the card part "
+                               f"from the CPU's by {err}")
+
+
+def resnet_thread_runs(seed: int) -> None:
+    """9: ResNet-50 bfloat16 at the phase's flags in child processes,
+    with every core to the loader's OpenMP threads and with
+    ``OMP_NUM_THREADS=RESNET_OMP_CAP`` (which caps torch's CPU threads
+    too): ms a step over each run's steady windows."""
+    import re
+
+    argv = [sys.executable, "-m", "tpudp_torch.train_resnet",
+            *resnet_argv(50, "bfloat16", RESNET_BATCH,
+                         RESNET_STEPS["bfloat16"], RESNET_TRAIN,
+                         RESNET_LOG_EVERY), "--seed", str(seed)]
+    for cap in (None, RESNET_OMP_CAP):
+        env = {k: v for k, v in os.environ.items()
+               if k != "OMP_NUM_THREADS"}
+        if cap is not None:
+            env["OMP_NUM_THREADS"] = str(cap)
+        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
+                              text=True, timeout=300)
+        ips = [float(v.replace(",", "")) for v in re.findall(
+            r"^step \d+: loss \S+ \(([\d,.]+) images/s\)", proc.stdout,
+            re.M)]
+        if proc.returncode or "data=native" not in proc.stdout or len(
+                ips) != RESNET_STEPS["bfloat16"] // RESNET_LOG_EVERY:
+            raise SmokeFailure(f"resnet threads: the child run failed "
+                               f"(rc {proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr[-4000:]}")
+        ms = [1e3 * RESNET_BATCH / v for v in ips[1:]]
+        print(f"resnet threads: OMP_NUM_THREADS="
+              f"{cap if cap is not None else 'unset'} ({os.cpu_count()} "
+              f"cores): ResNet-50 bfloat16 {sum(ms) / len(ms):.3f} ms a step "
+              f"over {len(ms)} steady windows {[round(m, 3) for m in ms]}",
+              flush=True)
+
+
+def resnet_path(torch, np, seed: int) -> None:
+    """Phase 9: its runs in this process, then the world-size-1 process
+    group they joined is left, then the child runs."""
+    import torch.distributed as dist
+
+    try:
+        resnet_runs(torch, np, seed)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    resnet_thread_runs(seed)
+
+
+def resnet_runs(torch, np, seed: int) -> None:
+    """9: ResNet-50 at full width, 224x224, 1000 classes, global batch
+    256 through ``train_resnet.main`` in bfloat16 and float32 (images/s
+    over the steady windows, ms a step, peak memory, share of the peak,
+    the step alone, a profiled step); then ResNet-101 and ResNet-152 for
+    a few bf16 steps at batch 64."""
+    from tpudp_torch.models import resnet
+
+    resnet_loader_ms(torch, np)
+    resnet_against_cpu(torch, np, seed)
+    flop = 6 * resnet_forward_macs(resnet.STAGES[50])  # fwd + bwd
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(RESNET_BATCH, RESNET_SIZE,
+                                         RESNET_SIZE, 3)).astype(np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, RESNET_BATCH), device="cuda")
+    for dtype, peak in (("bfloat16", BF16_FLOP_PER_S),
+                        ("float32", FP32_FLOP_PER_S)):
+        t0 = time.perf_counter()
+        run = resnet_run(torch, np, resnet_argv(
+            50, dtype, RESNET_BATCH, RESNET_STEPS[dtype], RESNET_TRAIN,
+            RESNET_LOG_EVERY) + ["--seed", str(seed)], f"resnet50 {dtype}")
+        wall = time.perf_counter() - t0
+        steady = run["records"][1:]  # the warm-up window left out
+        secs = sum(r["seconds"] for r in steady)
+        steps = RESNET_LOG_EVERY * len(steady)
+        images_s = steps * RESNET_BATCH / secs
+        step, state = run["step"], run["state"]
+        step(state, x, y)  # off the clock
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(RESNET_ALONE_STEPS):
+            step(state, x, y)
+        torch.cuda.synchronize()
+        alone_ms = 1e3 * (time.perf_counter() - t1) / RESNET_ALONE_STEPS
+        prof = profile_call(torch, lambda: step(state, x, y),
+                            resnet_category)
+        print(f"resnet-50 {dtype}: {RESNET_STEPS[dtype]} steps at batch "
+              f"{RESNET_BATCH}, {RESNET_SIZE}x{RESNET_SIZE}, 1000 classes, "
+              f"window losses {[round(r['loss'], 4) for r in run['records']]}"
+              f", {images_s:.1f} images/s over {len(steady)} steady windows "
+              f"of {RESNET_LOG_EVERY} steps, {1e3 * secs / steps:.3f} "
+              f"ms/step, peak {run['peak'] / 2**30:.3f} GiB, "
+              f"{100 * images_s * flop / peak:.2f}% of the {dtype} peak "
+              f"({flop / 1e9:.4f} GFLOP a trained image); the step alone on "
+              f"one device batch {alone_ms:.3f} ms; "
+              + ("profiler saw no device kernel: device time not measured"
+                 if prof is None else
+                 f"profiled step {prof['wall_ms']:.2f} ms wall, device busy "
+                 f"{100 * prof['busy_share']:.1f}%, {prof['kernels']} device "
+                 f"kernels, device ms by kind {prof['device_ms']}, largest "
+                 f"kernels {prof['top_ms']}")
+              + f"; run wall {wall:.1f} s", flush=True)
+        del run, step, state
+        torch.cuda.empty_cache()
+    for depth in (101, 152):
+        run = resnet_run(torch, np, resnet_argv(
+            depth, "bfloat16", RESNET_DEEP_BATCH, RESNET_DEEP_STEPS,
+            RESNET_DEEP_BATCH * RESNET_DEEP_STEPS, 1)
+            + ["--seed", str(seed)], f"resnet{depth}")
+        ms = sorted(1e3 * r["seconds"] for r in run["records"][1:])
+        step, state = run["step"], run["state"]
+        xs, ys = x[:RESNET_DEEP_BATCH], y[:RESNET_DEEP_BATCH]
+        step(state, xs, ys)  # off the clock
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(RESNET_ALONE_STEPS):
+            step(state, xs, ys)
+        torch.cuda.synchronize()
+        alone_ms = 1e3 * (time.perf_counter() - t1) / RESNET_ALONE_STEPS
+        prof = profile_call(torch, lambda: step(state, xs, ys),
+                            resnet_category)
+        print(f"resnet-{depth} bfloat16: {RESNET_DEEP_STEPS} steps at batch "
+              f"{RESNET_DEEP_BATCH}, losses "
+              f"{[round(r['loss'], 4) for r in run['records']]} (finite), "
+              f"median {ms[len(ms) // 2]:.3f} ms/step after the first, peak "
+              f"{run['peak'] / 2**30:.3f} GiB; the step alone on one device "
+              f"batch {alone_ms:.3f} ms; "
+              + ("profiler saw no device kernel: device time not measured"
+                 if prof is None else
+                 f"profiled step {prof['wall_ms']:.2f} ms wall, device busy "
+                 f"{100 * prof['busy_share']:.1f}%, {prof['kernels']} device "
+                 f"kernels, device ms by kind {prof['device_ms']}"),
+              flush=True)
+        del run, step, state
+        torch.cuda.empty_cache()
 
 
 # -- phase 8: timing -------------------------------------------------------
@@ -2409,6 +2867,12 @@ def main(argv=None) -> int:
             raise SmokeFailure("the VGG path launched a port kernel")
         print("vgg: port kernel launches in phase 7: 0 (the path runs "
               "cuDNN convolutions, cuBLAS and NCCL only)", flush=True)
+        before = kernel_launches(pa, fa)
+        resnet_path(torch, np, args.seed)
+        if kernel_launches(pa, fa) != before:
+            raise SmokeFailure("the ResNet path launched a port kernel")
+        print("resnet: port kernel launches in phase 9: 0 (the path runs "
+              "cuDNN convolutions and cuBLAS only)", flush=True)
         records = timings(torch, pa, model, prompts, launches)
         records += flash_timings(torch, fa, train_launches)
     except Exception:  # every phase failure ends the run without a result

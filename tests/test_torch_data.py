@@ -157,10 +157,18 @@ def test_augment_and_normalize_equal_jax():
                                   jax_loader.normalize_batch(imgs))
 
 
-def test_native_backend_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DataLoader(_images(8), 4, backend="native")
-    assert DataLoader(_images(8), 4).backend == "numpy"
+def test_loader_backends_resolve_as_jax():
+    """``'native'`` and ``'auto'`` run the C++ backend (it builds here),
+    ``'numpy'`` the numpy path, with the same bytes
+    (tests/test_torch_native.py holds both to JAX's loaders)."""
+    native = DataLoader(_images(8), 4, backend="native")
+    auto = DataLoader(_images(8), 4)
+    numpy = DataLoader(_images(8), 4, backend="numpy")
+    assert (native.backend, auto.backend, numpy.backend) == (
+        "native", "native", "numpy")
+    for a, b in zip(native, numpy):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
     with pytest.raises(ValueError):
         DataLoader(_images(8), 4, backend="fast")
 

@@ -5,8 +5,11 @@ Each Part runs full-width VGG-11 at a tiny data size (320 synthetic
 train images, global batch 8: 40 iterations, two log windows) with
 ``--device cpu`` — Parts 2a, 2b and 3 on 2 or 4 gloo ranks — and must
 print the reference's lines, importing nothing of JAX or the JAX
-package.  Without ``--device cpu`` and without a card a Part fails
-naming the card; flags of later slices fail naming their ROADMAP item.
+package, and its banner must name the loader's resolved backend.
+Part 1 runs on the native backend, Part 2b with ``--sync-bn``, Part 3
+with ``--spmd-mode gspmd``.  Without ``--device cpu`` and without a card
+a Part fails naming the card; flags of later slices fail naming their
+ROADMAP item.
 The Trainer's window and eval numbers are held to the JAX Trainer's on
 the same weights and batches.
 """
@@ -28,6 +31,7 @@ from tpudp.data import ShardedSampler as JaxSampler
 from tpudp.models.vgg import VGG as JaxVGG
 from tpudp.train import Trainer as JaxTrainer
 from tpudp_torch.data import DataLoader, ShardedSampler, load_cifar10
+from tpudp_torch.mesh import Mesh
 from tpudp_torch.models import vgg
 from tpudp_torch.parts import part1, part2b, part3
 from tpudp_torch.trainer import Trainer
@@ -53,7 +57,10 @@ def _run_part(module, args, timeout=240):
 
 PART_RUNS = {
     "part1": ("tpudp_torch.parts.part1", [], "none", 1),
-    "part2a-w2": ("tpudp_torch.parts.part2a", ["--num-devices", "2"],
+    "part1-native": ("tpudp_torch.parts.part1", ["--data-backend", "native"],
+                     "none", 1),
+    "part2a-w2": ("tpudp_torch.parts.part2a",
+                  ["--num-devices", "2", "--data-backend", "numpy"],
                   "coordinator", 2),
     "part2b-w4": ("tpudp_torch.parts.part2b", ["--num-devices", "4"],
                   "allreduce", 4),
@@ -62,8 +69,14 @@ PART_RUNS = {
     "part2b-int8-w2": ("tpudp_torch.parts.part2b",
                        ["--int8-grads", "--num-devices", "2"],
                        "allreduce_int8", 2),
+    "part2b-sync-bn-w2": ("tpudp_torch.parts.part2b",
+                          ["--sync-bn", "--num-devices", "2"], "allreduce",
+                          2),
     "part3-w2": ("tpudp_torch.parts.part3", ["--num-devices", "2"], "auto",
                  2),
+    "part3-gspmd-w2": ("tpudp_torch.parts.part3",
+                       ["--spmd-mode", "gspmd", "--num-devices", "2"],
+                       "auto", 2),
 }
 
 
@@ -74,6 +87,9 @@ def test_part_prints_the_reference_lines(case):
     assert out.returncode == 0, out.stderr[-3000:]
     text = out.stdout
     assert f"sync={sync} devices={world} device=cpu" in text
+    # 'auto' resolves to the native backend here (g++ builds it).
+    backend = "numpy" if "numpy" in extra else "native"
+    assert f"data={backend}+prefetch2" in text
     losses = re.findall(r"^Training loss after (\d+) iterations is (\S+)$",
                         text, re.M)
     # 320 images at a global batch of 8: 40 iterations on every rank.
@@ -103,8 +119,6 @@ def test_parts_default_to_the_card():
 LATER_FLAGS = [
     (["--checkpoint-dir", "ck"], "slice 7c"),
     (["--eval-only"], "slice 7c"),
-    (["--sync-bn"], "slice 7c"),
-    (["--data-backend", "native"], "slice 7c"),
     (["--remat"], "slice 6b"),
     (["--resilience"], "slice 8"),
     (["--step-timeout", "5"], "slice 8"),
@@ -122,11 +136,15 @@ def test_later_slice_flags_name_their_roadmap_item(flags, item):
         part1.main(TINY + flags)
 
 
-def test_spmd_mode_is_part3s_and_gspmd_is_later():
-    with pytest.raises(SystemExit, match="ROADMAP.md slice 7c"):
-        part3.main(TINY + ["--spmd-mode", "gspmd"])
+def test_spmd_mode_is_part3s_and_sync_bn_needs_shard_map():
+    """--spmd-mode belongs to Part 3; --sync-bn needs ranks sharing
+    statistics by hand: not Part 1, not gspmd (already global)."""
     with pytest.raises(SystemExit, match="only to the Part 3"):
         part2b.main(TINY + ["--spmd-mode", "shard_map"])
+    with pytest.raises(SystemExit, match="--sync-bn needs a shard_map"):
+        part1.main(TINY + ["--sync-bn"])
+    with pytest.raises(SystemExit, match="--sync-bn needs a shard_map"):
+        part3.main(TINY + ["--sync-bn", "--spmd-mode", "gspmd"])
 
 
 # -- the Trainer against the JAX Trainer -----------------------------------
@@ -194,9 +212,14 @@ def test_trainer_refuses_unported_options():
     model = vgg.VGG(NARROW)
     for kwargs in ({"strategy": "tp"}, {"watchdog": object()},
                    {"remat": True}, {"flight_dir": "x"},
-                   {"spmd_mode": "gspmd"}, {"track_sdc_fingerprint": True}):
+                   {"track_sdc_fingerprint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **kwargs)
+    with pytest.raises(ValueError, match="spmd_mode"):
+        Trainer(model, spmd_mode="auto")
+    with pytest.raises(ValueError, match="shard_map DP rung"):
+        Trainer(model, Mesh(size=1, rank=0), "none", compress="int8_ef",
+                spmd_mode="gspmd")
     with pytest.raises(TypeError, match="unexpected keyword"):
         Trainer(model, flux=1)
     with pytest.raises(ValueError, match="mesh"):

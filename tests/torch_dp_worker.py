@@ -36,6 +36,9 @@ CASES = RUNGS + ("int8_ef",)
 EF_STEPS = 12
 GPT2_CFG = dict(vocab_size=61, max_seq_len=32, num_layers=2, num_heads=2,
                 d_model=32)
+# The tiny ResNet of the JAX package's tests: two one-block stages of
+# width 16 on 32x32 inputs, 10 classes.
+RESNET_STAGES, RESNET_WIDTH = (1, 1), 16
 
 
 def vgg_init(seed: int = 11):
@@ -43,6 +46,38 @@ def vgg_init(seed: int = 11):
     from tpudp_torch.models import vgg
 
     return vgg.random_params(CFG, seed)
+
+
+def resnet_init(seed: int = 18):
+    """The tiny ResNet's flax-layout (params, batch_stats), each block's
+    last BatchNorm scale drawn away from its zero init so that every
+    BatchNorm's statistics reach the loss from the first step."""
+    from tpudp_torch.models import resnet
+
+    params, stats = resnet.random_params(RESNET_STAGES, seed, 10,
+                                         RESNET_WIDTH)
+    rng = np.random.default_rng(seed + 1)
+    for name, tree in params.items():
+        if name.startswith("BottleneckBlock_"):
+            scale = tree["BatchNorm_2"]["scale"]
+            tree["BatchNorm_2"]["scale"] = rng.uniform(
+                0.5, 1.5, scale.shape).astype(np.float32)
+    return params, stats
+
+
+def bn_model(kind: str, bn_axis=None):
+    """The port's narrow VGG (``'vgg'``) or tiny ResNet (``'resnet'``)
+    with its test weights loaded."""
+    from tpudp_torch.models import resnet, vgg
+
+    if kind == "vgg":
+        model = vgg.VGG(CFG, bn_axis=bn_axis)
+        model.load_state_dict(vgg.params_from_jax(*vgg_init()))
+    else:
+        model = resnet.ResNet(RESNET_STAGES, 10, RESNET_WIDTH,
+                              bn_axis=bn_axis)
+        model.load_state_dict(resnet.params_from_jax(*resnet_init()))
+    return model
 
 
 def vgg_batches(world: int, seed: int = 12):
@@ -230,8 +265,40 @@ def job_gpt2(rank, world):
             "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
+def job_sync_bn(rank, world):
+    """Cross-rank BatchNorm: ``STEPS`` steps of the narrow VGG and the
+    tiny ResNet with ``bn_axis='data'`` (the all-reduce rung), the same
+    models with each rank's own statistics (first step only), and the
+    VGG under ``spmd_mode='gspmd'``: ``{case: {"losses", "state"}}``."""
+    import torch
+
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh
+
+    mesh = make_mesh()
+    out = {}
+    cases = [(kind, mode) for kind in ("vgg", "resnet")
+             for mode in ("sync_bn", "local")] + [("vgg", "gspmd")]
+    for kind, mode in cases:
+        model = bn_model(kind, "data" if mode == "sync_bn" else None)
+        spec = train.make_optimizer(**SGD)
+        state = train.init_state(model, spec, mesh)
+        step = train.make_train_step(
+            model, spec, mesh, "auto" if mode == "gspmd" else "allreduce",
+            spmd_mode="gspmd" if mode == "gspmd" else "shard_map")
+        losses = []
+        for x, y in vgg_batches(world)[:1 if mode == "local" else STEPS]:
+            x, y = (torch.as_tensor(shard(a, rank, world)) for a in (x, y))
+            state, loss = step(state, x, y)
+            losses.append(float(loss))
+        out[f"{kind}-{mode}"] = {
+            "losses": losses,
+            "state": {k: v.clone() for k, v in model.state_dict().items()}}
+    return out
+
+
 JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
-        "gpt2": job_gpt2}
+        "gpt2": job_gpt2, "sync_bn": job_sync_bn}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -10,10 +10,13 @@ The same flags as the JAX package's, with two changes:
     the data, as the reference's ``DistributedSampler`` ranks do.
 
 ``--master``/``--num-nodes``/``--rank`` join a multi-process run at the
-reference's port 6585, one rank a process.  Flags of later slices
-(checkpoints, resilience, the watchdog, SyncBN, GSPMD, remat, the
-native augment backend, profiler and metrics endpoints) are refused with
-their ROADMAP.md item.
+reference's port 6585, one rank a process.  ``--data-backend`` picks
+the loader's augment backend (``auto``: the native C++/OpenMP one when
+it builds, as in JAX), ``--sync-bn`` builds the model with cross-rank
+BatchNorm (the shard_map rungs of Parts 2a, 2b and 3), and
+``--spmd-mode gspmd`` runs Part 3 with global-batch BatchNorm.  Flags of
+later slices (checkpoints, resilience, the watchdog, remat, profiler and
+metrics endpoints) are refused with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from tpudp_torch.data import (DataLoader, Prefetcher, ShardedSampler,
 from tpudp_torch.mesh import (PORT, free_port, initialize_distributed,
                               make_mesh)
 from tpudp_torch.models import vgg
+from tpudp_torch.models.norm import DATA_AXIS
 from tpudp_torch.trainer import Trainer
 
 GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
@@ -42,7 +46,6 @@ _UNPORTED_FLAGS = {
     "checkpoint_async": (False, "slice 7c (Trainer checkpoints)"),
     "keep_checkpoints": (None, "slice 7c (Trainer checkpoints)"),
     "eval_only": (False, "slice 7c (Trainer checkpoints)"),
-    "sync_bn": (False, "slice 7c (SyncBN and GSPMD)"),
     "remat": (False, "slice 6b (remat)"),
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
@@ -90,14 +93,19 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--synthetic-test-size", type=int, default=10_000)
     p.add_argument("--data-backend", choices=["auto", "native", "numpy"],
                    default="auto",
-                   help="host augmentation backend ('auto' is numpy)")
+                   help="host augmentation backend ('auto': native "
+                        "C++/OpenMP when it builds, else numpy)")
     p.add_argument("--eval-only", action="store_true")
-    p.add_argument("--sync-bn", action="store_true")
+    p.add_argument("--sync-bn", action="store_true",
+                   help="cross-rank BatchNorm statistics (shard_map rungs "
+                        "only)")
     p.add_argument("--spmd-mode", choices=["shard_map", "gspmd"],
                    default=None,
                    help="Part 3 (auto rung) only; 'shard_map' (default) is "
                         "DistributedDataParallel with each rank's own "
-                        "BatchNorm statistics")
+                        "BatchNorm statistics, 'gspmd' the same with "
+                        "BatchNorm over the global batch (SyncBN "
+                        "semantics, as JAX's partitioned program)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="split each rank's batch into N sequential "
@@ -126,9 +134,6 @@ def _refuse_unported(args) -> None:
             flag = "--" + dest.replace("_", "-")
             raise SystemExit(f"error: {flag} is not ported yet: ROADMAP.md "
                              f"{item}")
-    if args.data_backend == "native":
-        raise SystemExit("error: --data-backend native is not ported yet: "
-                         "ROADMAP.md slice 7c (native augment backend)")
 
 
 def run_part(sync: str, description: str, *, single_device: bool = False,
@@ -138,15 +143,16 @@ def run_part(sync: str, description: str, *, single_device: bool = False,
     spawned local ranks (they print; the call returns when all exit)."""
     args = build_parser(description).parse_args(argv)
     _refuse_unported(args)
-    if args.spmd_mode is not None:
-        if sync != "auto":
-            raise SystemExit(
-                "error: --spmd-mode applies only to the Part 3 'auto' rung "
-                "(the other Parts' sync strategies are explicit collectives "
-                "by definition)")
-        if args.spmd_mode == "gspmd":
-            raise SystemExit("error: --spmd-mode gspmd is not ported yet: "
-                             "ROADMAP.md slice 7c (SyncBN and GSPMD)")
+    if args.spmd_mode is not None and sync != "auto":
+        raise SystemExit(
+            "error: --spmd-mode applies only to the Part 3 'auto' rung "
+            "(the other Parts' sync strategies are explicit collectives "
+            "by definition)")
+    if args.sync_bn and (single_device or args.spmd_mode == "gspmd"):
+        raise SystemExit(
+            "error: --sync-bn needs a shard_map rung (Parts 2a/2b/3) — there "
+            "are no ranks to share statistics in single-device mode, and "
+            "gspmd already takes them over the global batch")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit(
             "error: no CUDA card is available; the Parts run on the card "
@@ -222,8 +228,8 @@ def _rank_entry(args, sync, rank, world, init_method) -> None:
 def make_loaders(args, rank: int, world: int, log=print) -> tuple:
     """This rank's train and test loaders for the parsed ``args``: its
     shard of the data (CIFAR-10 from ``--data-root``, else the synthetic
-    stand-in), at the global batch over ``world``, behind a Prefetcher
-    unless ``--prefetch 0``."""
+    stand-in), at the global batch over ``world``, on the
+    ``--data-backend``, behind a Prefetcher unless ``--prefetch 0``."""
     if args.batch_size % world:
         raise SystemExit(
             f"error: --batch-size {args.batch_size} must be divisible by the "
@@ -241,12 +247,12 @@ def make_loaders(args, rank: int, world: int, log=print) -> tuple:
         train_set, batch,
         sampler=ShardedSampler(len(train_set.images), world, rank,
                                shuffle=True, seed=args.seed),
-        train=True, seed=args.seed)
+        train=True, seed=args.seed, backend=args.data_backend)
     test_loader = DataLoader(
         test_set, batch,
         sampler=ShardedSampler(len(test_set.images), world, rank,
                                shuffle=False),
-        train=False)
+        train=False, backend=args.data_backend)
     if args.prefetch > 0:
         train_loader = Prefetcher(train_loader, depth=args.prefetch)
         test_loader = Prefetcher(test_loader, depth=args.prefetch)
@@ -271,13 +277,17 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
     train_loader, test_loader = make_loaders(args, rank, world, log)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     model = vgg.build(vgg.CONFIGS[args.model.upper()], args.seed, device,
-                      dtype=dtype)
+                      dtype=dtype,
+                      bn_axis=DATA_AXIS if args.sync_bn else None)
     trainer = Trainer(model, mesh, sync, timing_mode=args.timing_mode,
+                      spmd_mode=args.spmd_mode or "shard_map",
                       grad_accum=args.grad_accum,
                       metrics_jsonl=args.metrics_jsonl, log_fn=log)
     log(f"[tpudp] model={args.model} sync={sync} devices={world} "
         f"device={device.type} global_batch={args.batch_size} "
-        f"dtype={args.dtype} data=numpy+prefetch{args.prefetch}")
+        f"dtype={args.dtype} "
+        f"data={getattr(train_loader, 'loader', train_loader).banner()}"
+        f"+prefetch{args.prefetch}")
     try:
         trainer.fit(train_loader, test_loader, epochs=args.epochs)
     finally:

@@ -1,6 +1,6 @@
 """The port's host data pipeline: CIFAR-10 (real or synthetic), the
-reference's augmentation and per-shard sampling, and prefetching onto a
-device."""
+reference's augmentation (the native C++/OpenMP backend or numpy) and
+per-shard sampling, and prefetching onto a device."""
 
 from tpudp_torch.data.cifar10 import (CIFAR10_MEAN, CIFAR10_STD,  # noqa: F401
                                       load_cifar10)

@@ -1,1 +1,2 @@
-"""Models of the port: GPT-2 and its KV-cached decode path."""
+"""Models of the port: GPT-2 and LLaMA with their KV-cached decode path,
+VGG and ResNet."""

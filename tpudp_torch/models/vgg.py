@@ -12,10 +12,10 @@ than ``torch.autocast``: parameters stay float32; each convolution and
 the Linear layer run in ``dtype`` (their inputs, weights and biases cast
 to it); BatchNorm and ReLU run in float32; the logits come back float32.
 
-:class:`BatchNorm` is flax's ``BatchNorm(momentum=0.9, epsilon=1e-5)``:
-training normalizes with the batch's biased variance and updates the
-running variance with that same biased variance (``nn.BatchNorm2d``
-would use the unbiased one), ``running = 0.9 * running + 0.1 * batch``.
+:class:`~tpudp_torch.models.norm.BatchNorm` is flax's
+``BatchNorm(momentum=0.9, epsilon=1e-5)`` with its rule for the running
+variance; ``bn_axis='data'`` makes every one cross-rank SyncBN, as the
+JAX model's ``bn_axis`` does.
 
 :func:`params_from_jax` carries a flax ``(params, batch_stats)`` pair
 across (HWIO kernels to OIHW, Dense ``(in, out)`` to ``(out, in)``), and
@@ -32,6 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudp_torch.models.norm import BatchNorm
+
 # The variant table of the JAX model (and of the reference's `_cfg`).
 CONFIGS: dict[str, tuple] = {
     "VGG11": (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
@@ -43,41 +45,16 @@ CONFIGS: dict[str, tuple] = {
               512, 512, "M", 512, 512, 512, 512, "M"),
 }
 
-MOMENTUM, EPSILON = 0.9, 1e-5  # flax's keep share, as the JAX model sets
-
-
-class BatchNorm(nn.Module):
-    """flax ``BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over
-    the channels of an NCHW tensor (see the module docstring)."""
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        x = x.float()
-        if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, EPSILON)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
-            self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
-                            EPSILON)
-
-
 class VGG(nn.Module):
     """VGG-style convnet on NHWC ``(B, H, W, C)`` float inputs; returns
     float32 logits ``(B, num_classes)``.  ``train=True`` normalizes with
     the batch's statistics and updates the running ones; ``train=False``
-    uses the running statistics (the eval path)."""
+    uses the running statistics (the eval path).  ``bn_axis='data'``
+    takes the training statistics over the ranks (SyncBN)."""
 
     def __init__(self, cfg: Sequence[Any], num_classes: int = 10,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 bn_axis: str | None = None):
         super().__init__()
         self.cfg = tuple(cfg)
         self.dtype = dtype
@@ -88,7 +65,7 @@ class VGG(nn.Module):
                 size //= 2
             else:
                 convs.append(nn.Conv2d(channels, int(v), 3, padding=1))
-                bns.append(BatchNorm(int(v)))
+                bns.append(BatchNorm(int(v), bn_axis))
                 channels = int(v)
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(bns)
@@ -114,8 +91,9 @@ class VGG(nn.Module):
 
 def _factory(name: str):
     def build_variant(num_classes: int = 10,
-                      dtype: torch.dtype = torch.float32) -> VGG:
-        return VGG(CONFIGS[name], num_classes, dtype)
+                      dtype: torch.dtype = torch.float32,
+                      bn_axis: str | None = None) -> VGG:
+        return VGG(CONFIGS[name], num_classes, dtype, bn_axis)
 
     build_variant.__name__ = name
     build_variant.__doc__ = f"A {name} (the JAX package's {name} factory)."
@@ -155,27 +133,30 @@ def params_from_jax(params: dict, batch_stats: dict) -> dict:
     return state
 
 
+def lecun_normal(rng: np.random.Generator, shape, fan_in: int
+                 ) -> np.ndarray:
+    """flax's ``lecun_normal`` drawn from ``rng``: a standard normal
+    truncated at two standard deviations, scaled to variance
+    ``1 / fan_in``; float32."""
+    draw = rng.standard_normal(shape)
+    bad = np.abs(draw) > 2
+    while bad.any():  # truncate at two standard deviations
+        draw[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(draw) > 2
+    # flax divides by the truncated normal's standard deviation.
+    std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
+    return (draw * std).astype(np.float32)
+
+
 def random_params(cfg: Sequence[Any], seed: int, num_classes: int = 10
                   ) -> tuple[dict, dict]:
     """A flax-layout ``(params, batch_stats)`` pair of float32 numpy
     arrays drawn from ``seed`` with the flax initializers' distributions:
-    kernels from flax's ``lecun_normal`` (a normal truncated at two
-    standard deviations, scaled to variance ``1 / fan_in``), zero biases,
+    kernels from :func:`lecun_normal`, zero biases,
     BatchNorm scales of one, running means of zero and variances of one.
     The same pair feeds the flax model and, through
     :func:`params_from_jax`, the port."""
     rng = np.random.default_rng(seed)
-
-    def lecun(shape, fan_in):
-        draw = rng.standard_normal(shape)
-        bad = np.abs(draw) > 2
-        while bad.any():  # truncate at two standard deviations
-            draw[bad] = rng.standard_normal(int(bad.sum()))
-            bad = np.abs(draw) > 2
-        # flax divides by the truncated normal's standard deviation.
-        std = np.sqrt(1.0 / fan_in) / 0.87962566103423978
-        return (draw * std).astype(np.float32)
-
     params, stats = {}, {}
     channels, size, i = 3, 32, 0
     for v in cfg:
@@ -183,8 +164,8 @@ def random_params(cfg: Sequence[Any], seed: int, num_classes: int = 10
             size //= 2
             continue
         v = int(v)
-        params[f"Conv_{i}"] = {"kernel": lecun((3, 3, channels, v),
-                                               9 * channels),
+        params[f"Conv_{i}"] = {"kernel": lecun_normal(
+                                   rng, (3, 3, channels, v), 9 * channels),
                                "bias": np.zeros(v, np.float32)}
         params[f"BatchNorm_{i}"] = {"scale": np.ones(v, np.float32),
                                     "bias": np.zeros(v, np.float32)}
@@ -192,16 +173,18 @@ def random_params(cfg: Sequence[Any], seed: int, num_classes: int = 10
                                    "var": np.ones(v, np.float32)}
         channels, i = v, i + 1
     flat = channels * size * size
-    params["Dense_0"] = {"kernel": lecun((flat, num_classes), flat),
+    params["Dense_0"] = {"kernel": lecun_normal(rng, (flat, num_classes),
+                                                flat),
                          "bias": np.zeros(num_classes, np.float32)}
     return params, stats
 
 
 def build(cfg: Sequence[Any], seed: int, device, num_classes: int = 10,
-          dtype: torch.dtype = torch.float32) -> VGG:
+          dtype: torch.dtype = torch.float32,
+          bn_axis: str | None = None) -> VGG:
     """A :class:`VGG` with :func:`random_params` weights on ``device``,
     its convolution weights in ``channels_last`` memory."""
-    model = VGG(cfg, num_classes, dtype)
+    model = VGG(cfg, num_classes, dtype, bn_axis)
     model.load_state_dict(params_from_jax(*random_params(cfg, seed,
                                                          num_classes)))
     return model.to(device, memory_format=torch.channels_last)

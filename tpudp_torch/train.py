@@ -1,6 +1,6 @@
 """Train, eval and forward steps — the port of ``tpudp/train.py``'s
 ``make_optimizer``, ``TrainState``, ``init_state``, ``make_train_step``
-(its single-device and ``shard_map`` data-parallel branches),
+(its single-device, ``shard_map`` and ``gspmd`` data-parallel branches),
 ``eval_metrics``, ``make_eval_step`` and ``make_forward_step``.
 
   * :func:`make_optimizer` returns an :class:`OptimizerSpec`, the
@@ -24,7 +24,11 @@
     (BatchNorm's running statistics) averaged over the ranks, then
     clipping and the optimizer update.  ``sync='auto'`` wraps the model
     in ``DistributedDataParallel(broadcast_buffers=False)``, whose
-    bucketed all-reduce overlaps the backward pass.  PyTorch updates the
+    bucketed all-reduce overlaps the backward pass.  ``spmd_mode='gspmd'``
+    is JAX's partitioned global program: the ``'auto'`` rung over the
+    model with every BatchNorm set to ``bn_axis='data'``, so the loss,
+    the statistics and the mean gradient are those of one device at the
+    global batch.  PyTorch updates the
     parameters and the optimizer state in place where JAX returns new
     ones, so the returned state is the same object, advanced.
 
@@ -43,6 +47,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from tpudp_torch.mesh import Mesh
+from tpudp_torch.models.norm import DATA_AXIS, BatchNorm
 from tpudp_torch.parallel.compress import Int8ErrorFeedback
 from tpudp_torch.parallel.sync import get_sync
 
@@ -208,8 +213,8 @@ def _check_mesh(mesh) -> None:
 
 def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
                     mesh: Mesh | None = None, sync: str = "allreduce", *,
-                    grad_accum: int = 1, remat: bool = False,
-                    loss_chunk: int | None = None):
+                    spmd_mode: str = "shard_map", grad_accum: int = 1,
+                    remat: bool = False, loss_chunk: int | None = None):
     """``step(state, inputs, targets) -> (state, loss)``: mean cross
     entropy of ``model(inputs, train=True)`` over every position (images
     with labels ``(B,)``, or ``(B, T)`` tokens with next-token targets).
@@ -220,7 +225,10 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
     With ``mesh`` each rank passes its own shard of the global batch; the
     gradients are reduced by ``sync`` (see the module docstring), and the
     returned loss is the mean over ranks.  Without one, ``sync`` is not
-    used (JAX's single-device branch).  ``sync`` names a rung of
+    used (JAX's single-device branch).  ``spmd_mode='gspmd'`` with a
+    mesh sets every BatchNorm of ``model`` to ``bn_axis='data'`` (for
+    good) and runs the ``'auto'`` rung whatever ``sync`` names, as JAX's
+    partitioned step ignores it.  ``sync`` names a rung of
     ``SYNC_STRATEGIES`` or is a function of theirs, ``(grads, group) ->
     grads`` (a rung wrapped to time it, say).  ``step.ddp`` is the
     ``DistributedDataParallel`` wrapper of ``sync='auto'`` (else
@@ -236,6 +244,16 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             "loss)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    if spmd_mode not in ("shard_map", "gspmd"):
+        raise ValueError(f"unknown spmd_mode {spmd_mode!r}")
+    if mesh is not None and spmd_mode == "gspmd":
+        if optimizer.compress is not None:
+            raise ValueError(f"compress={optimizer.compress!r} needs the "
+                             "shard_map DP rung (spmd_mode='shard_map')")
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.bn_axis = DATA_AXIS
+        sync = "auto"
     if optimizer.compress is not None and mesh is not None and \
             sync != "none":
         raise ValueError(f"compress={optimizer.compress!r} replaces the sync "

@@ -13,8 +13,9 @@ rest as the backward, as the JAX Trainer does.
 
 The port's Trainer takes a model already built (the JAX one initializes
 its own from ``seed`` and ``input_shape``).  The data-parallel rung
-(``strategy='dp'``, ``spmd_mode='shard_map'``) is ported; the options
-of later slices raise ``NotImplementedError`` naming their ROADMAP item.
+(``strategy='dp'``, ``spmd_mode='shard_map'`` or ``'gspmd'``) is
+ported; the options of later slices raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -88,16 +89,10 @@ class Trainer:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md "
                     f"{item}")
-        if spmd_mode == "gspmd":
-            raise NotImplementedError(
-                "Trainer(spmd_mode='gspmd') is not ported yet: ROADMAP.md "
-                "slice 7c (SyncBN and GSPMD)")
-        if spmd_mode != "shard_map":
-            raise ValueError(f"unknown spmd_mode {spmd_mode!r}")
         if timing_mode not in ("fused", "split"):
             raise ValueError(f"unknown timing_mode {timing_mode!r}")
         if compress is not None:
-            if mesh is None:
+            if mesh is None or spmd_mode != "shard_map":
                 raise ValueError(
                     "compress needs the shard_map DP rung with a mesh "
                     f"(strategy='dp', spmd_mode={spmd_mode!r})")
@@ -120,6 +115,7 @@ class Trainer:
                                         compress=compress)
         self.state = init_state(model, self.optimizer, mesh)
         self.train_step = make_train_step(model, self.optimizer, mesh, sync,
+                                          spmd_mode=spmd_mode,
                                           grad_accum=grad_accum)
         self.fwd_step = (make_forward_step(model, mesh)
                          if timing_mode == "split" else None)
