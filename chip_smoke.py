@@ -189,6 +189,38 @@ which fails the run (nonzero exit, no result line) when it fails:
      and with the loader's OpenMP threads capped at
      ``RESNET_OMP_CAP`` (``resnet threads`` lines: ms a step of each
      run); no port kernel may launch;
+  10. (run after phase 9, before the timing phase) checkpoints, resume,
+     the supervisor and GPT-2 served from its checkpoint, in a temporary
+     directory outside the checkout.  10a: Part 1 (VGG-11, full width,
+     2,560 train and 512 test images, batch 256) through ``cli.run_part``
+     under deterministic cuDNN — run A trains 2 epochs with
+     ``--checkpoint-async --keep-checkpoints 1``, which must leave one
+     step_N; run B trains 1 with ``--checkpoint-dir``, then a fresh
+     process resumes it from step_1 and stalls a step of epoch 2 under
+     ``--step-timeout``: it must dump its state and exit 42, and the
+     relaunch must print the fast-forward line, end with A's step_2
+     (parameters, BatchNorm statistics, momentum, step, loss_sum) bit for
+     bit and print A's ``Test set:`` line, as must ``--eval-only`` on B's
+     directory.  10b: Part 1's Trainer under ``fit(resilience=)`` with a
+     NaN batch, a raising step and a raising loader, one run each: final
+     parameters, buffers and momentum bit-equal to an uninterrupted run,
+     ``rollbacks``, ``step_retries`` and ``loader_restarts`` one each.
+     10c: ``train_cli --attn flash --dtype bfloat16 --save-checkpoint``
+     trains GPT-2 small (12 x 768, vocab 50,257, 4 x 1024 tokens) for 20
+     steps — each flash kernel 12 launches a step — then ``serve_cli
+     --checkpoint-dir`` serves 8 requests on the kernel engine (K4 and K5
+     launched); the restored weights must equal the trained ones bit for
+     bit, and its greedy tokens must agree with an engine of the trained
+     model held in memory under phase 4's near-tie rule; its tokens, and
+     phase 4's prompts on a kernel engine of the restored model, must
+     agree with the plain engine's on the restored model (K1-K3 are held
+     to their plain versions at t 1024 in phase 5); ``--layers 11`` must
+     exit with its ``error:`` line.  10d: ``ckpt-cost`` lines — for
+     ResNet-50 (bf16, one step in), VGG-11 and the GPT-2 state: bytes on
+     disk, a synchronous save's ms, an asynchronous save's blocking and
+     background ms, a restore's ms without and with verification; then a
+     VGG-11 fit of 2 epochs of 50,000 images with no save, an epoch-end
+     synchronous save and an asynchronous one, in turns;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -216,6 +248,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import os
@@ -252,8 +285,10 @@ SOURCES = {name: f"tpudp_torch/csrc/{name.removesuffix('_int8')}.cu"
 # LLaMA-GQA at benchmarks/matrix_bench.py's llama_gqa widths.
 LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
                  d_model=768, num_heads=12, num_kv_heads=3, mlp_hidden=2048)
-# Flash checks: name -> (batch, time, heads, head dim).
+# Flash checks: name -> (batch, time, heads, head dim); t 1024 is phase
+# 10c's training shape.
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
+               "gpt2-t1024": (4, 1024, 12, 64),
                "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
                "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64)}
 # The largest error a 64-token tile of a bf16 flash output may have
@@ -321,6 +356,16 @@ SYNC_BN_RTOL = 1e-6
 # on the same batches (plain_ef_loss), which the grid's roundings do not
 # separate from it.
 VGG_LOSS_RTOL = 1e-5
+# Phase 10: Part 1's synthetic sets (10 batches of 256 an epoch, 2 eval
+# batches), its epochs, the device call the resumed process stalls (its
+# calls start at epoch 2's first batch: the third batch) and the
+# watchdog's deadline;
+# GPT-2 small trained at 4 x 1024 tokens for 20 steps; the epoch whose
+# checkpoint cost is timed (CIFAR-10's 50,000 images).
+CKPT_TRAIN, CKPT_TEST, CKPT_EPOCHS = 2_560, 512, 2
+CKPT_STALL_CALL, CKPT_STEP_TIMEOUT = 3, 4.0
+GPT2_CKPT_BATCH, GPT2_CKPT_T, GPT2_CKPT_STEPS = 4, 1024, 20
+EPOCH_IMAGES = 50_000
 
 
 class SmokeFailure(RuntimeError):
@@ -2470,6 +2515,492 @@ def resnet_runs(torch, np, seed: int) -> None:
         torch.cuda.empty_cache()
 
 
+# -- phase 10: checkpoints, resume, the supervisor, GPT-2 from its checkpoint
+
+
+def ckpt_argv(root, *extra, train: int = CKPT_TRAIN) -> list[str]:
+    """Part 1's flags at phase 10's size, checkpointing under ``root``."""
+    return ["--synthetic-train-size", str(train), "--synthetic-test-size",
+            str(CKPT_TEST), "--batch-size", str(VGG_BATCH),
+            "--checkpoint-dir", str(root), *extra]
+
+
+def eval_lines(text: str) -> list[str]:
+    return [line for line in text.splitlines()
+            if line.startswith("Test set:")]
+
+
+def same_checkpoint(torch, path_a, path_b) -> bool:
+    """Two checkpoints hold the same state, bit for bit: params, batch
+    statistics, optimizer buffers, step and loss_sum."""
+    from tpudp_torch.utils.checkpoint import _flatten, restore_checkpoint
+
+    a = dict(_flatten(restore_checkpoint(path_a, verify=True)))
+    b = dict(_flatten(restore_checkpoint(path_b, verify=True)))
+    return a.keys() == b.keys() and all(
+        torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
+
+
+def ckpt_child(argv, timeout: float, stall_call: int = 0):
+    """Part 1 in a fresh process with phase 10's deterministic cuDNN (and
+    TF32 off, as this script runs); ``stall_call`` stalls that device
+    call for the watchdog."""
+    code = ("import functools, sys\n"
+            "import torch\n"
+            "torch.backends.cudnn.deterministic = True\n"
+            "torch.backends.cudnn.benchmark = False\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            f"sys.path.insert(0, {ROOT!r})\n"
+            "from tpudp_torch import cli\n"
+            f"if {stall_call}:\n"
+            "    from tpudp_torch.training_faults import StallingStep\n"
+            "    cli.Trainer = functools.partial(cli.Trainer, step_fault_hook="
+            f"StallingStep({{{stall_call}}}, 600.0))\n"
+            "cli.run_part('none', 'Part 1', single_device=True, "
+            "argv=sys.argv[1:])\n")
+    return subprocess.run([sys.executable, "-c", code] + list(argv),
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+
+
+def resume_path(torch, tmp: str):
+    """10a: Part 1 (VGG-11 at full width) through ``cli.run_part`` under
+    deterministic cuDNN.  Run A trains 2 epochs with ``--checkpoint-async
+    --keep-checkpoints 1``, which must leave one step_N.  Run B trains 1
+    epoch with ``--checkpoint-dir``; a fresh process resumes it from
+    step_1 under ``--step-timeout`` and stalls a step of epoch 2, so its
+    watchdog dumps the state and it exits 42; the relaunch fast-forwards
+    from the dump and must end with A's step_2 bit for bit and A's
+    ``Test set:`` line, as must ``--eval-only`` on B's directory.
+    Returns run A's Trainer."""
+    from tpudp_torch.parts import part1
+    from tpudp_torch.utils.checkpoint import read_emergency_sentinel
+
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark(label):
+        marks.append(f"{label} {time.perf_counter() - t0:.1f}s")
+
+    a, text_a = run_quiet(lambda: part1.main(ckpt_argv(
+        f"{tmp}/a", "--epochs", "2", "--checkpoint-async",
+        "--keep-checkpoints", "1")))
+    mark("A")
+    want = eval_lines(text_a)[-1]
+    steps = sorted(d for d in os.listdir(f"{tmp}/a") if d.startswith(
+        "step_") and not d.endswith(".json"))
+    if steps != ["step_2"]:
+        raise SmokeFailure(f"ckpt-resume --checkpoint-async "
+                           f"--keep-checkpoints 1 left {steps}")
+    print("ckpt-resume run A (--checkpoint-async --keep-checkpoints 1) "
+          f"leaves ['step_2']: {want.strip()}", flush=True)
+    run_quiet(lambda: part1.main(ckpt_argv(f"{tmp}/b")))
+    mark("B epoch 1")
+    hung = ckpt_child(ckpt_argv(f"{tmp}/b", "--epochs", "2",
+                                "--step-timeout", str(CKPT_STEP_TIMEOUT)),
+                      300, stall_call=CKPT_STALL_CALL)
+    mark("B epoch 2 (child, stalled)")
+    resumed = (f"resumed from {tmp}/b/step_1" in hung.stdout
+               and "resuming at epoch 1" in hung.stdout)
+    sentinel = read_emergency_sentinel(f"{tmp}/b") or {}
+    if not resumed or hung.returncode != 42 or \
+            "emergency checkpoint saved" not in hung.stdout:
+        raise SmokeFailure(f"ckpt-resume: the resumed, stalled process "
+                           f"exited {hung.returncode} (resumed from step_1: "
+                           f"{resumed}):\n{hung.stdout[-2000:]}"
+                           f"{hung.stderr[-2000:]}")
+    _, text = run_quiet(lambda: part1.main(ckpt_argv(f"{tmp}/b",
+                                                     "--epochs", "2")))
+    mark("B relaunch")
+    per_epoch = CKPT_TRAIN // VGG_BATCH
+    skip = sentinel.get("step", -1) % per_epoch
+    line = (f"fast-forwarded {skip} already-trained batches of epoch 1 "
+            "(mid-epoch resume)")
+    if not skip or line not in text:
+        raise SmokeFailure(f"ckpt-resume: no fast-forward after the dump "
+                           f"(sentinel {sentinel})")
+    if not same_checkpoint(torch, f"{tmp}/a/step_2", f"{tmp}/b/step_2"):
+        raise SmokeFailure("ckpt-resume: run B's step_2 differs from run "
+                           "A's (parameters, buffers or momentum)")
+    if eval_lines(text)[-1] != want:
+        raise SmokeFailure(f"ckpt-resume: run B printed "
+                           f"{eval_lines(text)[-1]!r}, run A {want!r}")
+    print(f"ckpt-resume run B: 1 epoch; a fresh process resumed step_1, "
+          f"stalled at its device call {CKPT_STALL_CALL}: watchdog dump at "
+          f"step {sentinel['step']}, exit 42; the relaunch printed "
+          f"'[tpudp] {line}' and ends bit-equal to run A (parameters, "
+          "buffers, momentum, Test set line)", flush=True)
+    _, text = run_quiet(lambda: part1.main(ckpt_argv(f"{tmp}/b",
+                                                     "--eval-only")))
+    if "Training time" in text or eval_lines(text) != [want]:
+        raise SmokeFailure(f"ckpt-resume --eval-only printed "
+                           f"{eval_lines(text)}, not [{want!r}]")
+    mark("eval-only")
+    print(f"ckpt-resume --eval-only on run B's directory prints the same "
+          f"line and trains nothing ({time.perf_counter() - t0:.1f}s for "
+          f"10a; at {marks})", flush=True)
+    return a
+
+
+def model_state(torch, trainer) -> dict:
+    """Parameters, buffers and momentum by name."""
+    out = {k: v.detach().clone()
+           for k, v in trainer.model.state_dict().items()}
+    opt = trainer.state.optimizer
+    for name, p in trainer.model.named_parameters():
+        buf = opt.state.get(p, {}).get("momentum_buffer")
+        if buf is not None:
+            out["momentum:" + name] = buf.detach().clone()
+    return out
+
+
+def supervisor_path(torch, tmp: str) -> None:
+    """10b: Part 1's Trainer under ``fit(resilience=)`` on the card, with
+    a NaN batch, a raising step and a raising loader (one run each):
+    every run ends bit-equal to an uninterrupted one, and each counter
+    reads one."""
+    from tpudp_torch.data import (DataLoader, Prefetcher, ShardedSampler,
+                                  device_place, load_cifar10)
+    from tpudp_torch.models import vgg
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.trainer import Trainer
+    from tpudp_torch.training_faults import (CorruptingLoader,
+                                             RaisingLoader, RaisingStep)
+
+    train_set, test_set, _ = load_cifar10(
+        f"{tmp}/no-data", synthetic_train_size=CKPT_TRAIN,
+        synthetic_test_size=CKPT_TEST)
+
+    def run(root, nan_at=(), loader_fail=(), hook=None, supervised=True):
+        ld = DataLoader(train_set, VGG_BATCH, sampler=ShardedSampler(
+            CKPT_TRAIN, 1, 0, shuffle=True, seed=0), train=True, seed=0)
+        if nan_at:
+            ld = CorruptingLoader(ld, nan_at=nan_at)
+        if loader_fail:
+            ld = RaisingLoader(ld, fail_at=loader_fail)
+        place = device_place("cuda")
+        ld = Prefetcher(ld, depth=2, place=place)
+        test = Prefetcher(DataLoader(test_set, VGG_BATCH,
+                                     sampler=ShardedSampler(
+                                         CKPT_TEST, 1, 0, shuffle=False),
+                                     train=False), depth=2, place=place)
+        tr = Trainer(vgg.build(vgg.CONFIGS["VGG11"], 0, "cuda"),
+                     log_fn=lambda line: None, step_fault_hook=hook)
+        try:
+            tr.fit(ld, test, CKPT_EPOCHS, resilience=ResiliencePolicy(
+                checkpoint_dir=root) if supervised else None)
+        finally:
+            ld.close()
+            test.close()
+        return tr
+
+    t0 = time.perf_counter()
+    clean = model_state(torch, run(f"{tmp}/sup-clean", supervised=False))
+    per_epoch = CKPT_TRAIN // VGG_BATCH  # draws of epoch 1 start here
+    cases = {"rollbacks": dict(nan_at={per_epoch + 2}),
+             "step_retries": dict(hook=RaisingStep(fail_at={3})),
+             "loader_restarts": dict(loader_fail={per_epoch + 1})}
+    for counter, kw in cases.items():
+        tr = run(f"{tmp}/sup-{counter}", **kw)
+        got = model_state(torch, tr)
+        counts = {k: tr.stats[k] for k in cases}
+        if counts != {k: int(k == counter) for k in cases}:
+            raise SmokeFailure(f"ckpt-supervisor {counter}: counters "
+                               f"{counts}")
+        if got.keys() != clean.keys() or not all(
+                torch.equal(got[k], clean[k]) for k in clean):
+            raise SmokeFailure(f"ckpt-supervisor {counter}: the recovered "
+                               "run differs from the uninterrupted one")
+        print(f"ckpt-supervisor {counter}: counters {counts}, events "
+              f"{[e['kind'] for e in tr.stats['events']]}; final "
+              "parameters, buffers and momentum bit-equal to the "
+              "uninterrupted run", flush=True)
+    print(f"ckpt-supervisor: {time.perf_counter() - t0:.1f}s for 10b",
+          flush=True)
+
+
+GPT2_SERVE_FLAGS = ["--layers", "12", "--d-model", "768", "--heads", "12",
+                    "--vocab", "50257", "--seq-len", str(GPT2_CKPT_T)]
+
+
+def gpt2_checkpoint_path(torch, np, pa, fa, tmp: str, seed: int):
+    """10c: ``train_cli --attn flash --dtype bfloat16 --save-checkpoint``
+    trains GPT-2 small through K1-K3 (held against their plain versions
+    at this shape in phase 5) and saves it; ``serve_cli
+    --checkpoint-dir`` serves it through K4 and K5.  The restored weights
+    equal the trained ones bit for bit and serve_cli's tokens agree with
+    an engine of the trained model held in memory; serve_cli's tokens,
+    and those of phase 4's prompts on a kernel engine of the restored
+    model, agree with the plain engine's on the restored model; a
+    ``--layers`` that does not match exits with its ``error:`` line.
+    Returns the trained state and the launch counts."""
+    from tpudp_torch import serve_cli, train_cli
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.serve import Engine
+
+    root = f"{tmp}/gpt2"
+    t0 = time.perf_counter()
+    for fn in fa.KERNELS.values():
+        fn.launches = 0
+    run, text = run_quiet(lambda: train_cli.train(train_cli.parse_args(
+        GPT2_SERVE_FLAGS + [
+            "--batch-size", str(GPT2_CKPT_BATCH), "--steps",
+            str(GPT2_CKPT_STEPS), "--log-every", "10", "--attn", "flash",
+            "--dtype", "bfloat16", "--seed", str(seed),
+            "--save-checkpoint", root])))
+    launches = {name: fn.launches for name, fn in fa.KERNELS.items()}
+    want = 12 * GPT2_CKPT_STEPS
+    if any(n != want for n in launches.values()):
+        raise SmokeFailure(f"ckpt-gpt2: flash launches {launches}, not "
+                           f"{want} each")
+    if not all(np.isfinite(run["losses"])) or run["checkpoint"] is None:
+        raise SmokeFailure(f"ckpt-gpt2: training failed:\n{text}")
+    print(f"ckpt-gpt2 train_cli --attn flash: {GPT2_CKPT_STEPS} steps at "
+          f"{GPT2_CKPT_BATCH} x {GPT2_CKPT_T}, window losses "
+          f"{[round(x, 4) for x in run['losses']]}, saved "
+          f"{run['checkpoint']}; launches {launches}", flush=True)
+
+    serve_argv = GPT2_SERVE_FLAGS + [
+        "--paged", "512", "--requests", "8", "--max-new-tokens", "16",
+        "--checkpoint-dir", root]
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    out, text = run_quiet(lambda: serve_cli.main(serve_argv))
+    served = {name: fn.launches for name, fn in pa.KERNELS.items()}
+    if not served["paged_decode"] or not served["paged_window"]:
+        raise SmokeFailure(f"ckpt-gpt2: serve_cli launched {served}")
+    if f"restored params from {root}/step_{GPT2_CKPT_STEPS}" not in text:
+        raise SmokeFailure(f"ckpt-gpt2: serve_cli did not restore:\n{text}")
+    launches.update({k: v for k, v in served.items() if v})
+    # serve_cli's model: the trained widths in float32, dense attention
+    held = gpt2.GPT2(dataclasses.replace(run["model"].config,
+                                         dtype=torch.float32,
+                                         attn_impl="dense"))
+    held.load_state_dict({k: v.float() for k, v in
+                          run["model"].state_dict().items()})
+    held = held.to("cuda")
+    restored, _ = serve_cli.build_model(serve_cli.parse_args(serve_argv),
+                                        torch.device("cuda"))
+    # Checkpoint fidelity: the restored weights are the trained ones, and
+    # serve_cli's tokens equal an engine's of the trained model.
+    mine, theirs = held.state_dict(), restored.state_dict()
+    if mine.keys() != theirs.keys() or not all(
+            torch.equal(mine[k], theirs[k]) for k in mine):
+        raise SmokeFailure("ckpt-gpt2: the restored weights differ from the "
+                           "trained model's")
+    cli_tokens = [SimpleNamespace(tokens=t) for t in out["tokens"]]
+
+    def engine_tokens(model, paged_attn):
+        eng = Engine(model, device="cuda", num_slots=3, prefill_chunk=16,
+                     kv_pages=512, paged_attn=paged_attn)
+        handles = [eng.submit(p, 16) for p in out["prompts"]]
+        eng.run_until_complete()
+        return handles
+
+    agree_with_plain(torch, np, held, out["prompts"], cli_tokens,
+                     engine_tokens(held, None), "ckpt-gpt2 serve_cli",
+                     against="the in-memory model's engine")
+    # The kernels: K4/K5 on the trained weights against the plain engine
+    # (no kernel) on the restored model, for serve_cli's requests and
+    # phase 4's prompts.
+    counts = {name: fn.launches for name, fn in pa.KERNELS.items()}
+    agree_with_plain(torch, np, restored, out["prompts"], cli_tokens,
+                     engine_tokens(restored, "einsum"),
+                     "ckpt-gpt2 serve_cli")
+    prompts = make_prompts(np, seed, 50_257)
+    _, ref, _, _ = serve(torch, Engine, restored, prompts, "einsum")
+    if any(fn.launches != counts[n] for n, fn in pa.KERNELS.items()):
+        raise SmokeFailure("ckpt-gpt2: the plain engine launched a kernel")
+    _, got, _, _ = serve(torch, Engine, restored, prompts, None)
+    agree_with_plain(torch, np, restored, prompts, got, ref,
+                     "ckpt-gpt2 phase-4 prompts on the restored model")
+    try:
+        run_quiet(lambda: serve_cli.main(
+            ["--layers", "11"] + serve_argv[2:]))
+    except SystemExit as e:
+        if not str(e).startswith(f"error: checkpoint {root}/step_"):
+            raise SmokeFailure(f"ckpt-gpt2: --layers 11 exited with {e}")
+        print(f"ckpt-gpt2 serve_cli --layers 11: {e}", flush=True)
+    else:
+        raise SmokeFailure("ckpt-gpt2: serve_cli --layers 11 served a "
+                           "12-layer checkpoint")
+    print(f"ckpt-gpt2 serve_cli launches {served}; "
+          f"{time.perf_counter() - t0:.1f}s for 10c", flush=True)
+    del held, restored
+    return run["state"], launches
+
+
+def resnet50_state(torch, np, seed: int):
+    """ResNet-50's training state at ImageNet geometry, one SGD step in
+    (momentum allocated), as phase 9 trains it."""
+    from tpudp_torch import train
+    from tpudp_torch.models import resnet
+
+    model = resnet.build(50, seed, "cuda", dtype=torch.bfloat16)
+    spec = train.make_optimizer(learning_rate=0.1)
+    state = train.init_state(model, spec)
+    step = train.make_train_step(model, spec)
+    rng = np.random.default_rng(seed)
+    x = torch.as_tensor(rng.normal(size=(8, RESNET_SIZE, RESNET_SIZE, 3))
+                        .astype(np.float32), device="cuda")
+    y = torch.as_tensor(rng.integers(0, 1000, 8), device="cuda")
+    state, _ = step(state, x, y)
+    return state
+
+
+def checkpoint_costs(torch, np, tmp: str, states: dict) -> None:
+    """10d: for each state, the blocking ms of a synchronous
+    ``save_checkpoint``, of ``AsyncCheckpointWriter.save`` (cold: its
+    pinned buffers allocated; warm: reused) and its background write,
+    ``restore_checkpoint`` without and with ``verify``, and the bytes on
+    disk; then a VGG-11 epoch of 50,000 images with no save, an epoch-end
+    synchronous save and an asynchronous one."""
+    from tpudp_torch.utils.checkpoint import (STATE_FILE,
+                                              AsyncCheckpointWriter,
+                                              restore_checkpoint,
+                                              save_checkpoint,
+                                              verify_restored)
+
+    def ms(fn, host_only=False):
+        """ms until ``fn`` returns (``host_only``), or until the device
+        work it queued is done too."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if not host_only:
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    for label, state in states.items():
+        root = f"{tmp}/cost-{label}"
+        n_params = sum(p.numel() for p in state.model.parameters())
+        sync_ms = ms(lambda: save_checkpoint(f"{root}/step_1", state))
+        size = os.path.getsize(f"{root}/step_1/{STATE_FILE}")
+        writer = AsyncCheckpointWriter()
+        cold = ms(lambda: writer.save(f"{root}/step_2", state), True)
+        writer.wait()
+        cold_bg = 1e3 * writer.last_write_s
+        warm = ms(lambda: writer.save(f"{root}/step_3", state), True)
+        writer.wait()
+        warm_bg = 1e3 * writer.last_write_s
+        copies = ms(lambda: writer.save(f"{root}/step_4", state))
+        writer.close()
+        load = ms(lambda: restore_checkpoint(f"{root}/step_1", state))
+        verified = ms(lambda: restore_checkpoint(f"{root}/step_1", state,
+                                                 verify=True))
+        tree = restore_checkpoint(f"{root}/step_1")
+        crc = ms(lambda: verify_restored(f"{root}/step_1", tree), True)
+        print(f"ckpt-cost {label}: {n_params / 1e6:.2f}M params, "
+              f"{size} bytes on disk; sync save {sync_ms:.1f} ms; async "
+              f"save returns in {warm:.1f} ms (first {cold:.1f} ms, pinned "
+              f"buffers allocated), its copies to the host done "
+              f"{copies:.1f} ms after the call, background write "
+              f"{warm_bg:.1f} ms (first {cold_bg:.1f} ms); restore "
+              f"{load:.1f} ms, restore with verify {verified:.1f} ms "
+              f"(the checksums alone {crc:.1f} ms)", flush=True)
+        shutil.rmtree(root, ignore_errors=True)
+    vgg_epoch_costs(torch, tmp)
+
+
+def vgg_epoch_costs(torch, tmp: str) -> None:
+    """VGG-11 (Part 1's Trainer, float32) over 50,000 images, 2 epochs a
+    mode: no save, an epoch-end synchronous save, an epoch-end
+    asynchronous save (its last write joined outside the timing and
+    printed apart), in turns (none, sync, async, none).  Per mode: the
+    fit's wall time, its epochs' own times and the time outside them
+    (the saves' blocking time); then each save's blocking ms an epoch,
+    and the mean epoch beside the no-save runs' (what a background write
+    costs the next epoch)."""
+    from tpudp_torch.data import (DataLoader, Prefetcher, ShardedSampler,
+                                  device_place, load_cifar10)
+    from tpudp_torch.models import vgg
+    from tpudp_torch.trainer import Trainer
+    from tpudp_torch.utils.checkpoint import (AsyncCheckpointWriter,
+                                              save_checkpoint)
+
+    train_set, _, _ = load_cifar10(f"{tmp}/no-data",
+                                   synthetic_train_size=EPOCH_IMAGES,
+                                   synthetic_test_size=16)
+    outside: dict[str, list[float]] = {}
+    epoch_s: dict[str, list[float]] = {}
+    for mode in ("none", "sync", "async", "none"):
+        ld = Prefetcher(DataLoader(train_set, VGG_BATCH, sampler=
+                                   ShardedSampler(EPOCH_IMAGES, 1, 0,
+                                                  shuffle=True, seed=0),
+                                   train=True, seed=0), depth=2,
+                        place=device_place("cuda"))
+        tr = Trainer(vgg.build(vgg.CONFIGS["VGG11"], 0, "cuda"),
+                     log_fn=lambda line: None)
+        writer = AsyncCheckpointWriter() if mode == "async" else None
+        root = f"{tmp}/epoch-{mode}"
+
+        def save(epoch, tr=tr, writer=writer, root=root):
+            path = f"{root}/step_{epoch + 1}"
+            if writer is not None:
+                writer.save(path, tr.state)
+            elif mode == "sync":
+                save_checkpoint(path, tr.state)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit(ld, None, 2, epoch_end_fn=save)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tail = ""
+        if writer is not None:
+            t1 = time.perf_counter()
+            writer.close()
+            joined = 1e3 * (time.perf_counter() - t1)
+            tail = f", last write joined {joined:.1f} ms after the fit"
+        ld.close()
+        epochs = [r["seconds"] for r in tr.records if r["kind"] == "epoch"]
+        outside.setdefault(mode, []).append(
+            (wall - sum(epochs)) / len(epochs))
+        epoch_s.setdefault(mode, []).extend(epochs)
+        print(f"ckpt-cost vgg11 epoch ({EPOCH_IMAGES} images, save "
+              f"{mode}): fit of 2 epochs {wall:.3f} s, epoch times "
+              f"{[round(s, 3) for s in epochs]} s, "
+              f"{1e3 * outside[mode][-1]:.1f} ms an epoch outside them"
+              f"{tail}", flush=True)
+        shutil.rmtree(root, ignore_errors=True)
+        del tr
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    base = mean(epoch_s["none"])
+    for mode in ("sync", "async"):
+        blocks = mean(outside[mode]) - mean(outside["none"])
+        print(f"ckpt-cost vgg11 epoch-end {mode} save: blocks "
+              f"{1e3 * blocks:.1f} ms an epoch ({100 * blocks / base:.2f}% "
+              f"of the no-save runs' mean epoch, {base:.3f} s); its epochs "
+              f"{mean(epoch_s[mode]):.3f} s (no-save epochs "
+              f"{[round(x, 3) for x in epoch_s['none']]} s)", flush=True)
+
+
+def checkpoint_path(torch, np, pa, fa, seed: int) -> dict:
+    """Phase 10 (10a-10d) in a temporary directory outside the checkout;
+    returns 10c's kernel launches."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="tpudp-ckpt-")
+    torch.backends.cudnn.deterministic = True
+    try:
+        vgg_trainer = resume_path(torch, tmp)
+        supervisor_path(torch, tmp)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    try:
+        gpt2_state, launches = gpt2_checkpoint_path(torch, np, pa, fa, tmp,
+                                                    seed)
+        checkpoint_costs(torch, np, tmp, {
+            "resnet50": resnet50_state(torch, np, seed),
+            "vgg11": vgg_trainer.state, "gpt2": gpt2_state})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -2873,6 +3404,9 @@ def main(argv=None) -> int:
             raise SmokeFailure("the ResNet path launched a port kernel")
         print("resnet: port kernel launches in phase 9: 0 (the path runs "
               "cuDNN convolutions and cuBLAS only)", flush=True)
+        ckpt_launches = checkpoint_path(torch, np, pa, fa, args.seed)
+        print(f"ckpt: port kernel launches in phase 10c {ckpt_launches}",
+              flush=True)
         records = timings(torch, pa, model, prompts, launches)
         records += flash_timings(torch, fa, train_launches)
     except Exception:  # every phase failure ends the run without a result

@@ -117,11 +117,7 @@ def test_parts_default_to_the_card():
 
 
 LATER_FLAGS = [
-    (["--checkpoint-dir", "ck"], "slice 7c"),
-    (["--eval-only"], "slice 7c"),
     (["--remat"], "slice 6b"),
-    (["--resilience"], "slice 8"),
-    (["--step-timeout", "5"], "slice 8"),
     (["--verify-replicas"], "slice 8"),
     (["--flight-dir", "fd"], "slice 8"),
     (["--metrics-port", "0"], "slice 8"),
@@ -133,6 +129,31 @@ LATER_FLAGS = [
                          ids=[f[0].lstrip("-") for f, _ in LATER_FLAGS])
 def test_later_slice_flags_name_their_roadmap_item(flags, item):
     with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+        part1.main(TINY + flags)
+
+
+# The JAX CLI's validation of the checkpoint and supervisor flags
+# (tpudp/cli.py), before any data or model is built.
+CHECKPOINT_FLAG_ERRORS = [
+    (["--eval-only"], "--eval-only requires --checkpoint-dir"),
+    (["--checkpoint-async"], "--checkpoint-async requires --checkpoint-dir"),
+    (["--keep-checkpoints", "2"], "--keep-checkpoints requires"),
+    (["--resilience"], "--resilience requires --checkpoint-dir"),
+    (["--checkpoint-dir", "ck", "--keep-checkpoints", "0"],
+     "--keep-checkpoints must be >= 1"),
+    (["--checkpoint-dir", "ck", "--max-rollbacks", "2"],
+     "pass --resilience too"),
+    (["--checkpoint-dir", "ck", "--resilience", "--spike-factor", "0.5"],
+     "--spike-factor must be > 1.0"),
+    (["--step-timeout", "0"], "--step-timeout must be > 0"),
+]
+
+
+@pytest.mark.parametrize("flags,message", CHECKPOINT_FLAG_ERRORS,
+                         ids=["-".join(f).lstrip("-")
+                              for f, _ in CHECKPOINT_FLAG_ERRORS])
+def test_checkpoint_flags_are_validated(flags, message):
+    with pytest.raises(SystemExit, match=message):
         part1.main(TINY + flags)
 
 
@@ -210,7 +231,7 @@ def test_trainer_matches_the_jax_trainer(tmp_path, timing_mode):
 
 def test_trainer_refuses_unported_options():
     model = vgg.VGG(NARROW)
-    for kwargs in ({"strategy": "tp"}, {"watchdog": object()},
+    for kwargs in ({"strategy": "tp"}, {"verify_replicas": True},
                    {"remat": True}, {"flight_dir": "x"},
                    {"track_sdc_fingerprint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -225,4 +246,4 @@ def test_trainer_refuses_unported_options():
     with pytest.raises(ValueError, match="mesh"):
         Trainer(model, sync="none", compress="int8_ef")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model).fit([], resilience=object())
+        Trainer(model, sdc_fault_hook=print)

@@ -177,8 +177,9 @@ def test_unported_options_name_their_roadmap_item():
     # A mesh is ported (tpudp_torch.mesh.Mesh); anything else is refused.
     with pytest.raises(TypeError, match="Mesh"):
         train.make_train_step(model, spec, object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_optimizer(skip_nonfinite=3)
+    # skip_nonfinite is ported; JAX refuses it beside compress, as here.
+    with pytest.raises(ValueError, match="compress"):
+        train.make_optimizer(skip_nonfinite=3, compress="int8_ef")
     # compress='int8_ef' is ported: it needs a mesh, and names the rest.
     with pytest.raises(ValueError, match="needs a mesh"):
         train.init_state(model, train.make_optimizer(compress="int8_ef"))

@@ -6,7 +6,7 @@ At the JAX package's example-test sizes (``tests/test_examples.py``:
 prints the example's ``step i: loss ... (... images/s)`` lines with
 finite losses and imports nothing of JAX; its synthetic set and loader
 statistics are the example's, byte for byte; ``--imagenet-root`` trains
-on a local ``.npy`` tree; ``--save-checkpoint`` names its ROADMAP item.
+on a local ``.npy`` tree; ``--save-checkpoint`` saves a restorable state.
 """
 
 import os
@@ -114,9 +114,28 @@ def test_imagenet_root_trains_on_a_local_tree(tmp_path):
     assert all(np.isfinite(v) for _, v in _losses(text))
 
 
-def test_save_checkpoint_names_its_roadmap_item():
-    with pytest.raises(SystemExit, match="ROADMAP.md slice 7c"):
-        train_resnet.main(TINY + ["--save-checkpoint", "ck"])
+def test_save_checkpoint_names_its_roadmap_item(tmp_path):
+    """``--save-checkpoint DIR`` (once refused, naming ROADMAP.md slice
+    7c) probes DIR before any compute and saves the final state to
+    ``DIR/step_<steps>``, which restores into a fresh state bit for bit."""
+    from tpudp_torch import train
+    from tpudp_torch.models import resnet
+    from tpudp_torch.utils import checkpoint as ck
+
+    (tmp_path / "file").write_text("x")
+    with pytest.raises(OSError):
+        train_resnet.main(TINY + ["--save-checkpoint",
+                                  str(tmp_path / "file" / "ck")])
+    run = train_resnet.main(TINY + ["--save-checkpoint",
+                                    str(tmp_path / "ck")])
+    assert run["checkpoint"] == str(tmp_path / "ck" / "step_2")
+    fresh = train.init_state(resnet.ResNet(resnet.STAGES[50], 1000),
+                             train.make_optimizer(learning_rate=0.1))
+    ck.restore_checkpoint(run["checkpoint"], fresh, verify=True)
+    assert fresh.step == 2
+    for a, b in zip(run["model"].state_dict().values(),
+                    fresh.model.state_dict().values()):
+        assert torch.equal(a, b.to(a.dtype))
 
 
 def test_runs_on_the_card_by_default():

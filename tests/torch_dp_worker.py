@@ -297,8 +297,215 @@ def job_sync_bn(rank, world):
     return out
 
 
+# -- checkpoints and the supervisor (tests/test_torch_checkpoint.py and
+#    tests/test_torch_resilience.py) ----------------------------------------
+
+CKPT_TRAIN, CKPT_TEST, CKPT_EPOCHS = 64, 16, 2  # 4 batches a rank and epoch
+
+
+def ckpt_loaders(rank: int, world: int, root: str, depth: int = 0):
+    """This rank's train and test loaders over the synthetic set: global
+    batch 8 x ``world``, shuffled by (seed 3, epoch)."""
+    from tpudp_torch.data import (DataLoader, Prefetcher, ShardedSampler,
+                                  load_cifar10)
+
+    train_set, test_set, _ = load_cifar10(
+        os.path.join(root, "no-data"), synthetic_train_size=CKPT_TRAIN,
+        synthetic_test_size=CKPT_TEST)
+    train = DataLoader(train_set, 8,
+                       sampler=ShardedSampler(len(train_set.images), world,
+                                              rank, shuffle=True, seed=3),
+                       train=True, seed=3, backend="numpy")
+    test = DataLoader(test_set, 8,
+                      sampler=ShardedSampler(len(test_set.images), world,
+                                             rank, shuffle=False),
+                      train=False, backend="numpy")
+    if depth:
+        train = Prefetcher(train, depth=depth)
+    return train, test
+
+
+def ckpt_trainer(mesh=None, compress=None, **kw):
+    """The narrow VGG's Trainer with its test weights (silent unless
+    ``log_fn`` is given)."""
+    from tpudp_torch.trainer import Trainer
+
+    sync = "none" if compress or mesh is None else "allreduce"
+    kw.setdefault("log_fn", lambda line: None)
+    return Trainer(bn_model("vgg"), mesh, sync, learning_rate=0.01,
+                   log_every=2, compress=compress, **kw)
+
+
+def state_of(trainer) -> dict:
+    """Parameters, buffers and the optimizer's buffers, by name."""
+    opt = trainer.state.optimizer
+    out = {k: v.detach().clone()
+           for k, v in trainer.model.state_dict().items()}
+    for name, p in trainer.model.named_parameters():
+        for key, value in opt.state.get(p, {}).items():
+            if hasattr(value, "clone"):
+                out[f"opt:{name}:{key}"] = value.detach().clone()
+    if trainer.state.compressor is not None:
+        out["residuals"] = [e.clone() for e in trainer.state.compressor.error]
+    out["step"] = trainer.state.step
+    out["loss_sum"] = float(trainer.state.loss_sum)
+    return out
+
+
+def _dump_then_fail(trainer, root, per_epoch, at_call):
+    """A step hook that, right before device call ``at_call``, writes the
+    emergency dump of the live state and then raises — an interrupted
+    run that left a mid-epoch dump behind."""
+    from tpudp_torch.resilience import make_emergency_dump
+    from tpudp_torch.training_faults import InjectedTrainingFault
+
+    dump = make_emergency_dump(root, lambda: trainer.state, per_epoch,
+                               log=lambda line: None)
+
+    def hook(kind, index):
+        if kind == "train" and index == at_call:
+            dump()
+            raise InjectedTrainingFault(f"interrupted at call {index}")
+
+    return hook
+
+
+def job_ckpt(rank, world):
+    """Resume at world ``world``: 2 epochs uninterrupted, against 1 epoch
+    + a checkpoint + a fresh Trainer resuming epoch 2, against a run
+    interrupted mid-epoch 1 by an emergency dump and resumed by
+    ``auto_resume`` — each plain and with int8 error feedback; then the
+    rank vote of ``restore_latest_verified`` under a stale listing."""
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.resilience import auto_resume
+    from tpudp_torch.training_faults import InjectedTrainingFault
+    from tpudp_torch.utils import checkpoint as ck
+
+    mesh = make_mesh()
+    out = {}
+    for compress in (None, "int8_ef"):
+        tag = compress or "plain"
+        root = os.path.join(os.environ["TPUDP_TEST_OUT"], f"ck-{tag}")
+        train, test = ckpt_loaders(rank, world, root)
+        a = ckpt_trainer(mesh, compress)
+        a.fit(train, test, CKPT_EPOCHS)
+        out[f"{tag}:A"] = state_of(a)
+
+        b = ckpt_trainer(mesh, compress)
+        b.fit(train, test, 1, epoch_end_fn=lambda e: ck.save_checkpoint(
+            os.path.join(root, f"step_{e + 1}"), b.state))
+        b2 = ckpt_trainer(mesh, compress)
+        _, used, _ = ck.restore_latest_verified(root, b2.state,
+                                                log=lambda line: None)
+        out[f"{tag}:restored"] = state_of(b2)
+        out[f"{tag}:saved"] = state_of(b)
+        b2.fit(train, test, CKPT_EPOCHS, start_epoch=int(used[-1]))
+        out[f"{tag}:B"] = state_of(b2)
+
+        c = ckpt_trainer(mesh, compress)
+        c.step_fault_hook = _dump_then_fail(c, root, len(train), 7)
+        try:
+            c.fit(train, test, CKPT_EPOCHS)
+        except InjectedTrainingFault:
+            pass
+        c2 = ckpt_trainer(mesh, compress)
+        start, skip = auto_resume(c2, root, len(train),
+                                  log=lambda line: None)
+        out[f"{tag}:resume_at"] = (start, skip)
+        c2.fit(train, test, CKPT_EPOCHS, start_epoch=start,
+               skip_batches_first_epoch=skip)
+        out[f"{tag}:C"] = state_of(c2)
+
+    # The vote: rank 1's listing misses the newest step; every rank must
+    # restore the newest step both see.
+    root = os.path.join(os.environ["TPUDP_TEST_OUT"], "ck-vote")
+    t = ckpt_trainer(mesh)
+    for n in (1, 2):
+        t.state.step = n
+        ck.save_checkpoint(os.path.join(root, f"step_{n}"), t.state)
+    real = ck.step_dirs_newest_first
+    if rank == 1:
+        ck.step_dirs_newest_first = lambda r: real(r)[1:]
+    _, used, skipped = ck.restore_latest_verified(root, t.state,
+                                                  log=lambda line: None)
+    out["vote:used"] = os.path.basename(used)
+    out["vote:step"] = t.state.step
+    # Rank 1 sees no checkpoint at all: every rank fails, none hangs.
+    if rank == 1:
+        ck.step_dirs_newest_first = lambda r: []
+        ck.latest_step_dir = lambda r: None
+    entered = ck.coordinated_any(ck.latest_step_dir(root) is not None)
+    try:
+        ck.restore_latest_verified(root, t.state, log=lambda line: None)
+        out["vote:empty"] = "restored"
+    except RuntimeError as e:
+        out["vote:empty"] = str(e)
+    out["vote:entered"] = entered
+    ck.step_dirs_newest_first = real
+    out["vote:writers"] = sorted(os.listdir(root))
+    return out
+
+
+def job_resilience(rank, world):
+    """The supervisor at world ``world``: an uninterrupted 2-epoch run,
+    then runs with a NaN batch on rank 0 alone, a step fault on every
+    rank, and a loader fault on every rank, each under
+    ``fit(resilience=)`` — the ranks vote each recovery."""
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.training_faults import (CorruptingLoader, RaisingLoader,
+                                             RaisingStep)
+
+    mesh = make_mesh()
+    base = os.environ["TPUDP_TEST_OUT"]
+    out = {}
+    cases = {"clean": {}, "nan": {"nan_at": {5} if rank == 0 else ()},
+             "step": {"hook": RaisingStep(fail_at={6})},
+             "loader": {"loader_fail": {5}}}
+    for case, kw in cases.items():
+        root = os.path.join(base, f"res-{case}")
+        train, test = ckpt_loaders(rank, world, root)
+        if kw.get("nan_at"):
+            train = CorruptingLoader(train, nan_at=kw["nan_at"])
+        if kw.get("loader_fail"):
+            train = RaisingLoader(train, fail_at=kw["loader_fail"])
+        t = ckpt_trainer(mesh, step_fault_hook=kw.get("hook"))
+        t.fit(train, test, CKPT_EPOCHS,
+              resilience=ResiliencePolicy(checkpoint_dir=root))
+        res = state_of(t)
+        res["stats"] = {k: v for k, v in t.stats.items() if k != "events"}
+        res["events"] = [e["kind"] for e in t.stats["events"]]
+        out[case] = res
+    return out
+
+
+#: The recovery vote's bound in ``job_lone_fault`` (seconds).
+LONE_FAULT_VOTE_TIMEOUT = 3.0
+
+
+def job_lone_fault(rank, world):
+    """A step fault on the last rank alone under ``fit(resilience=)``:
+    its peers wait inside the step's all-reduce and never vote, so the
+    faulting rank's bounded vote times out and it exits with
+    VOTE_TIMEOUT_EXIT; the peers' all-reduce then fails on the closed
+    connection and their own vote exits alike.  Returns only if a rank
+    was not stopped."""
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.training_faults import RaisingStep
+
+    root = os.path.join(os.environ["TPUDP_TEST_OUT"], "lone")
+    train, test = ckpt_loaders(rank, world, root)
+    hook = RaisingStep(fail_at={6}) if rank == world - 1 else None
+    t = ckpt_trainer(make_mesh(), step_fault_hook=hook, log_fn=print)
+    t.fit(train, test, CKPT_EPOCHS, resilience=ResiliencePolicy(
+        checkpoint_dir=root, vote_timeout_s=LONE_FAULT_VOTE_TIMEOUT))
+    return {"stats": {k: v for k, v in t.stats.items() if k != "events"}}
+
+
 JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
-        "gpt2": job_gpt2, "sync_bn": job_sync_bn}
+        "gpt2": job_gpt2, "sync_bn": job_sync_bn, "ckpt": job_ckpt,
+        "resilience": job_resilience, "lone_fault": job_lone_fault}
 
 
 def main(spec_path: str, rank: int) -> None:
@@ -311,6 +518,7 @@ def main(spec_path: str, rank: int) -> None:
     with open(spec_path) as f:
         spec = json.load(f)
     world = spec["world"]
+    os.environ["TPUDP_TEST_OUT"] = spec["out"]
     initialize_distributed("cpu", num_processes=world, process_id=rank,
                            init_method=spec["init"])
     try:
@@ -320,13 +528,11 @@ def main(spec_path: str, rank: int) -> None:
         dist.destroy_process_group()
 
 
-def run_world(tmp_dir, world: int, jobs, timeout: float = 240.0) -> list:
-    """Run ``world`` ranks of this script on ``jobs`` and return each
-    rank's results; fails (after killing the ranks) on a timeout or a
-    rank's nonzero exit."""
+def launch_world(tmp_dir, world: int, jobs, timeout: float = 240.0):
+    """Run ``world`` ranks of this script on ``jobs``; returns each rank's
+    exit code and output.  Fails (after killing the ranks) when a rank
+    does not end within ``timeout``."""
     import subprocess
-
-    import torch
 
     os.makedirs(tmp_dir, exist_ok=True)
     spec_path = os.path.join(tmp_dir, "spec.json")
@@ -350,8 +556,18 @@ def run_world(tmp_dir, world: int, jobs, timeout: float = 240.0) -> list:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{log}"
+    return [p.returncode for p in procs], logs
+
+
+def run_world(tmp_dir, world: int, jobs, timeout: float = 240.0) -> list:
+    """Run ``world`` ranks of this script on ``jobs`` and return each
+    rank's results; fails (after killing the ranks) on a timeout or a
+    rank's nonzero exit."""
+    import torch
+
+    codes, logs = launch_world(tmp_dir, world, jobs, timeout)
+    for r, (code, log) in enumerate(zip(codes, logs)):
+        assert code == 0, f"rank {r} exited {code}:\n{log}"
     return [torch.load(os.path.join(tmp_dir, f"rank{r}.pt"))
             for r in range(world)]
 

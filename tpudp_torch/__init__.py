@@ -17,7 +17,11 @@ slice (ROADMAP.md).  Ported so far:
   * single-device GPT-2 training — ``tpudp_torch.train``
     (``make_optimizer``, ``init_state``, ``make_train_step``), with flash
     attention's forward, dq and dk/dv kernels behind
-    ``tpudp_torch.ops.flash_attention`` (``train_cli``).
+    ``tpudp_torch.ops.flash_attention`` (``train_cli``);
+  * checkpoints and supervision — ``tpudp_torch.utils.checkpoint``
+    (verified save, restore and resume, asynchronous writes, emergency
+    dumps), ``tpudp_torch.utils.watchdog``, the in-process supervisor
+    ``tpudp_torch.resilience`` and ``tpudp_torch.training_faults``.
 
 Every kernel is written in CUDA for ``sm_90a`` (``tpudp_torch/csrc``);
 the VGG ladder runs none (cuDNN, cuBLAS and NCCL do its work).

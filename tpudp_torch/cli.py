@@ -14,9 +14,18 @@ reference's port 6585, one rank a process.  ``--data-backend`` picks
 the loader's augment backend (``auto``: the native C++/OpenMP one when
 it builds, as in JAX), ``--sync-bn`` builds the model with cross-rank
 BatchNorm (the shard_map rungs of Parts 2a, 2b and 3), and
-``--spmd-mode gspmd`` runs Part 3 with global-batch BatchNorm.  Flags of
-later slices (checkpoints, resilience, the watchdog, remat, profiler and
-metrics endpoints) are refused with their ROADMAP.md item.
+``--spmd-mode gspmd`` runs Part 3 with global-batch BatchNorm.
+
+``--checkpoint-dir`` resumes from the newest verified ``step_N`` there
+(an emergency dump preferred, and consumed unless ``--eval-only``) and
+saves ``step_<epoch+1>`` after every epoch, in the background with
+``--checkpoint-async``, pruned to ``--keep-checkpoints``;
+``--eval-only`` restores and evaluates; ``--step-timeout`` arms the
+heartbeat watchdog (a hang dumps the state and exits, or under
+``--resilience`` is recovered in-process by the supervisor with
+``--max-rollbacks`` and ``--spike-factor``).  Flags of later slices
+(replica verification, remat, flight recorder, profiler and metrics
+endpoints) are refused with their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -25,6 +34,8 @@ import argparse
 import multiprocessing
 import os
 import sys
+import threading
+import time
 
 import torch
 import torch.distributed as dist
@@ -35,25 +46,24 @@ from tpudp_torch.mesh import (PORT, free_port, initialize_distributed,
                               make_mesh)
 from tpudp_torch.models import vgg
 from tpudp_torch.models.norm import DATA_AXIS
+from tpudp_torch.resilience import (auto_resume, make_emergency_dump,
+                                    restore_newest)
 from tpudp_torch.trainer import Trainer
+from tpudp_torch.utils.checkpoint import (AsyncCheckpointWriter,
+                                          prune_step_dirs, rank,
+                                          read_emergency_sentinel,
+                                          save_checkpoint)
+from tpudp_torch.utils.watchdog import Watchdog
 
 GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
 
 #: Flags of later slices: dest -> (the value that means "off", the
 #: ROADMAP.md item that brings it).
 _UNPORTED_FLAGS = {
-    "checkpoint_dir": (None, "slice 7c (Trainer checkpoints)"),
-    "checkpoint_async": (False, "slice 7c (Trainer checkpoints)"),
-    "keep_checkpoints": (None, "slice 7c (Trainer checkpoints)"),
-    "eval_only": (False, "slice 7c (Trainer checkpoints)"),
     "remat": (False, "slice 6b (remat)"),
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
     "profile_dir": (None, "slice 8 (obs: profiler traces)"),
-    "step_timeout": (None, "slice 8 (robustness: watchdog)"),
-    "resilience": (False, "slice 8 (resilience)"),
-    "max_rollbacks": (None, "slice 8 (resilience)"),
-    "spike_factor": (None, "slice 8 (resilience)"),
     "flight_dir": (None, "slice 8 (obs: flight recorder)"),
     "metrics_port": (None, "slice 8 (obs: metrics endpoint)"),
 }
@@ -136,6 +146,45 @@ def _refuse_unported(args) -> None:
                              f"{item}")
 
 
+def _check_checkpoint_flags(args) -> None:
+    """The JAX CLI's validation of the checkpoint and supervisor flags
+    (``tpudp/cli.py``), decided from the flags alone."""
+    if args.checkpoint_async and not args.checkpoint_dir:
+        raise SystemExit(
+            "error: --checkpoint-async requires --checkpoint-dir (nothing "
+            "would be checkpointed otherwise)")
+    if args.keep_checkpoints is not None and args.keep_checkpoints < 1:
+        raise SystemExit(f"error: --keep-checkpoints must be >= 1 "
+                         f"(got {args.keep_checkpoints})")
+    if args.keep_checkpoints and not args.checkpoint_dir:
+        raise SystemExit("error: --keep-checkpoints requires "
+                         "--checkpoint-dir")
+    if args.eval_only and not args.checkpoint_dir:
+        raise SystemExit(
+            "error: --eval-only requires --checkpoint-dir (there is no "
+            "model to evaluate otherwise)")
+    if args.resilience and not args.checkpoint_dir:
+        raise SystemExit(
+            "error: --resilience requires --checkpoint-dir (rollback and "
+            "step recovery restore from the step_N series under it)")
+    if (args.max_rollbacks is not None or args.spike_factor is not None) \
+            and not args.resilience:
+        raise SystemExit(
+            "error: --max-rollbacks/--spike-factor configure the "
+            "--resilience supervisor; pass --resilience too")
+    if args.max_rollbacks is not None and args.max_rollbacks < 0:
+        raise SystemExit(f"error: --max-rollbacks must be >= 0 "
+                         f"(got {args.max_rollbacks})")
+    if args.spike_factor is not None and args.spike_factor <= 1.0:
+        raise SystemExit(
+            f"error: --spike-factor must be > 1.0 (got {args.spike_factor}) "
+            "— a window loss always 'exceeds' a sub-unit multiple of the "
+            "median and every window would roll back")
+    if args.step_timeout is not None and args.step_timeout <= 0:
+        raise SystemExit(f"error: --step-timeout must be > 0 "
+                         f"(got {args.step_timeout})")
+
+
 def run_part(sync: str, description: str, *, single_device: bool = False,
              argv=None) -> Trainer | None:
     """Parse flags, join or spawn the ranks, build data, model and
@@ -143,6 +192,7 @@ def run_part(sync: str, description: str, *, single_device: bool = False,
     spawned local ranks (they print; the call returns when all exit)."""
     args = build_parser(description).parse_args(argv)
     _refuse_unported(args)
+    _check_checkpoint_flags(args)
     if args.spmd_mode is not None and sync != "auto":
         raise SystemExit(
             "error: --spmd-mode applies only to the Part 3 'auto' rung "
@@ -164,6 +214,13 @@ def run_part(sync: str, description: str, *, single_device: bool = False,
     if multi_node and local > 1:
         raise SystemExit("error: --num-devices spawns local ranks; with "
                          "--master/--num-nodes each process is one rank")
+    if (args.resilience and not args.step_timeout and not single_device
+            and (local > 1 or multi_node)):
+        raise SystemExit(
+            "error: --resilience at more than one rank needs --step-timeout "
+            "— a rank left inside a collective by a fault only its peer saw "
+            "never reaches the recovery vote, and only the watchdog's hard "
+            "exit ends it")
     if single_device:
         return _run_rank(args, sync, False, 0, 1, None)
     if multi_node:
@@ -279,20 +336,203 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
     model = vgg.build(vgg.CONFIGS[args.model.upper()], args.seed, device,
                       dtype=dtype,
                       bn_axis=DATA_AXIS if args.sync_bn else None)
+    watchdog = None
+    if args.step_timeout:
+        # Under --resilience the watchdog must not kill: the hang surfaces
+        # as StepHangError at the next beat and the supervisor recovers.
+        outcome = ("recovering in-process" if args.resilience
+                   else "exiting for scheduler restart")
+        watchdog = Watchdog(
+            timeout_s=args.step_timeout, kill=not args.resilience,
+            on_hang=[lambda: print(
+                f"[tpudp] FAILURE DETECTED: step exceeded "
+                f"{args.step_timeout}s (wedged collective or dead peer); "
+                f"{outcome}", flush=True)]).start()
     trainer = Trainer(model, mesh, sync, timing_mode=args.timing_mode,
                       spmd_mode=args.spmd_mode or "shard_map",
                       grad_accum=args.grad_accum,
-                      metrics_jsonl=args.metrics_jsonl, log_fn=log)
+                      metrics_jsonl=args.metrics_jsonl, log_fn=log,
+                      watchdog=watchdog)
     log(f"[tpudp] model={args.model} sync={sync} devices={world} "
         f"device={device.type} global_batch={args.batch_size} "
         f"dtype={args.dtype} "
         f"data={getattr(train_loader, 'loader', train_loader).banner()}"
         f"+prefetch{args.prefetch}")
+    async_writer = None
     try:
-        trainer.fit(train_loader, test_loader, epochs=args.epochs)
+        resume = _Resume(args, trainer, train_loader, watchdog, log)
+        async_writer = resume.async_writer
+        if args.eval_only:
+            if watchdog is not None:
+                watchdog.arm()
+            try:
+                trainer.evaluate(test_loader)
+            finally:
+                if watchdog is not None:
+                    watchdog.disarm()
+            return trainer
+        resilience = None
+        if args.resilience:
+            from tpudp_torch.resilience import ResiliencePolicy
+
+            resilience = ResiliencePolicy(
+                checkpoint_dir=args.checkpoint_dir,
+                spike_factor=args.spike_factor,
+                # the epoch-end hook already saves step_{epoch+1}
+                save_epoch_checkpoints=False,
+                checkpoint_writer=async_writer,
+                **({"max_rollbacks": args.max_rollbacks}
+                   if args.max_rollbacks is not None else {}))
+        trainer.fit(train_loader, test_loader, epochs=args.epochs,
+                    start_epoch=resume.start_epoch,
+                    epoch_end_fn=resume.epoch_end_fn,
+                    skip_batches_first_epoch=resume.skip_first,
+                    resilience=resilience)
+        if async_writer is not None:
+            async_writer = None
+            resume.finish()  # join the last epoch's write, then prune
+        if resilience is not None:
+            st = trainer.stats
+            log(f"[tpudp] resilience summary: {st.get('rollbacks', 0)} "
+                f"rollbacks, {st.get('step_retries', 0)} step retries, "
+                f"{st.get('ckpt_fallbacks', 0)} checkpoint fallbacks, "
+                f"{st.get('loader_restarts', 0)} loader restarts")
     finally:
+        if async_writer is not None:
+            async_writer.close()
+        if watchdog is not None:
+            watchdog.stop()
         for loader in (train_loader, test_loader):
             if isinstance(loader, Prefetcher):
                 loader.close()
-    sys.stdout.flush()
+        sys.stdout.flush()
     return trainer
+
+
+class _Resume:
+    """The resume block of ``tpudp/cli.py`` for one rank: after the
+    emergency dump's batch-grid check, :func:`auto_resume` restores the
+    newest verified ``step_N`` under ``--checkpoint-dir`` or, in
+    preference, the dump, consumed and mapped onto the batch grid by its
+    step counter (``--eval-only`` restores alike and leaves the dump in
+    place); then it builds the
+    epoch-end save (synchronous or ``--checkpoint-async``, pruned to
+    ``--keep-checkpoints``) and hook the emergency dump (or, under
+    ``--resilience``, a hard-exit backstop) onto the watchdog.  Leaves
+    ``start_epoch``, ``skip_first``, ``epoch_end_fn`` and
+    ``async_writer`` for the caller."""
+
+    def __init__(self, args, trainer: Trainer, train_loader, watchdog, log):
+        self.start_epoch = 0
+        self.skip_first = 0
+        self.epoch_end_fn = None
+        self.async_writer = None
+        root = args.checkpoint_dir
+        if not root:
+            return
+        per_epoch = len(train_loader)
+        if args.eval_only:
+            used, from_dump = restore_newest(trainer, root, log=log)
+            if used is None:
+                raise SystemExit(
+                    f"error: --eval-only found no checkpoint under "
+                    f"{root!r} — evaluating random weights would report "
+                    "meaningless metrics")
+            if from_dump:
+                log(f"[tpudp] evaluating emergency dump {used} (left in "
+                    "place for the next training resume)")
+            return
+        dumped = (read_emergency_sentinel(root) or {}).get(
+            "per_epoch_batches")
+        if (dumped is not None and dumped != per_epoch
+                and os.path.isdir(os.path.join(root, "emergency"))):
+            raise SystemExit(
+                f"error: emergency dump at {os.path.join(root, 'emergency')}"
+                f" was written with {dumped} batches/epoch but this "
+                f"relaunch has {per_epoch} (different --batch-size or "
+                "train-set size) — the dump's step counter cannot be "
+                "mapped to a resume position on this batch grid. "
+                "Relaunch with the original configuration, or remove "
+                "the dump directory to restart the epoch from the last "
+                "step_N checkpoint.")
+        self.start_epoch, self.skip_first = auto_resume(trainer, root,
+                                                        per_epoch, log=log)
+        if self.start_epoch or self.skip_first:
+            log(f"[tpudp] resuming at epoch {self.start_epoch}"
+                + (f": fast-forwarding {self.skip_first}/{per_epoch} "
+                   "already-trained batches" if self.skip_first else ""))
+        if args.checkpoint_async:
+            # Before the dump hook: the dump drains this writer first.
+            self.async_writer = AsyncCheckpointWriter()
+        if watchdog is not None and not args.resilience:
+            save = make_emergency_dump(
+                root, lambda: trainer.state, per_epoch,
+                async_writer=self.async_writer,
+                log=lambda line: print(line, flush=True))
+
+            def emergency_dump() -> None:
+                # Bounded: on a wedged device the copy itself can hang,
+                # and the dump must never stop the watchdog's exit.
+                th = threading.Thread(target=save, daemon=True)
+                th.start()
+                th.join(timeout=60.0)
+
+            watchdog.on_hang.append(emergency_dump)
+        if watchdog is not None and args.resilience:
+            watchdog.on_hang.append(_hard_exit_backstop(watchdog,
+                                                        args.step_timeout))
+        writer = self.async_writer
+
+        def epoch_end_fn(epoch: int) -> None:
+            path = os.path.join(root, f"step_{epoch + 1}")
+            if writer is not None:
+                writer.save(path, trainer.state)
+                log(f"[tpudp] checkpoint {path} writing in background")
+            else:
+                save_checkpoint(path, trainer.state)
+                log(f"[tpudp] saved checkpoint {path}")
+            self._prune()
+
+        self.epoch_end_fn = epoch_end_fn
+        self._root, self._keep, self._log = root, args.keep_checkpoints, log
+
+    def _prune(self) -> None:
+        """Rank 0 keeps the newest ``--keep-checkpoints``; the previous
+        step's write is durable by now (a sync save, or the writer's
+        one-in-flight rule)."""
+        if self._keep and rank() == 0:
+            for gone in prune_step_dirs(self._root, self._keep):
+                self._log(f"[tpudp] pruned old checkpoint {gone}")
+
+    def finish(self) -> None:
+        """Join the last background write, then prune once more: an
+        in-flight write is not yet part of the series it prunes."""
+        if self.async_writer is not None:
+            self.async_writer.close()
+            self._prune()
+
+
+def _hard_exit_backstop(watchdog, step_timeout: float):
+    """The ``on_hang`` callback of a ``--resilience`` run: ``kill=False``
+    recovery only works for stalls that return to a beat, so if the
+    supervisor has not re-armed the watchdog within a grace period (a
+    wedged collective never returns) the process exits for the
+    scheduler.  Each hang has its own generation, so a stale backstop
+    never fires during a later hang's recovery."""
+    generation = [0]
+
+    def backstop() -> None:
+        generation[0] += 1
+        mine = generation[0]
+
+        def wait_then_exit() -> None:
+            time.sleep(max(step_timeout, 60.0))
+            if watchdog._hang_seen.is_set() and generation[0] == mine:
+                print("[tpudp] hang NOT recovered in-process (wedged "
+                      "collective?); exiting for scheduler restart",
+                      flush=True)
+                os._exit(42)
+
+        threading.Thread(target=wait_then_exit, daemon=True).start()
+
+    return backstop

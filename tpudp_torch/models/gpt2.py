@@ -182,6 +182,45 @@ def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
     return state
 
 
+def params_to_jax(state: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: the flax GPT-2 tree of a
+    ``GPT2`` state dict, as contiguous tensors on the state's device
+    (``nn.Linear`` weights transposed back to ``(in, out)`` kernels).
+    Entries the state lacks are left out, so a dict of one tensor a
+    parameter maps to the parameters' flax layout."""
+    tree: dict = {}
+
+    def put(path, name, fn=lambda t: t):
+        if name not in state:
+            return
+        node = tree
+        for scope in path[:-1]:
+            node = node.setdefault(scope, {})
+        node[path[-1]] = fn(state[name]).contiguous()
+
+    def linear(path, prefix):
+        put(path + ("kernel",), f"{prefix}.weight", lambda t: t.T)
+        put(path + ("bias",), f"{prefix}.bias")
+
+    def norm(path, prefix):
+        put(path + ("scale",), f"{prefix}.weight")
+        put(path + ("bias",), f"{prefix}.bias")
+
+    put(("wte", "embedding"), "wte.weight")
+    put(("wpe", "embedding"), "wpe.weight")
+    norm(("ln_f",), "ln_f")
+    i = 0
+    while any(k.startswith(f"h.{i}.") for k in state):
+        norm((f"h_{i}", "ln_1"), f"h.{i}.ln_1")
+        norm((f"h_{i}", "ln_2"), f"h.{i}.ln_2")
+        linear((f"h_{i}", "attn", "qkv"), f"h.{i}.attn.qkv")
+        linear((f"h_{i}", "attn", "proj"), f"h.{i}.attn.proj")
+        linear((f"h_{i}", "mlp_fc"), f"h.{i}.mlp_fc")
+        linear((f"h_{i}", "mlp_proj"), f"h.{i}.mlp_proj")
+        i += 1
+    return tree
+
+
 def random_params(cfg: GPT2Config, seed: int) -> dict:
     """A flax-layout GPT-2 tree of float32 numpy weights drawn from
     ``seed``: normal(0, 0.02) matrices and embeddings, small normal

@@ -305,6 +305,38 @@ def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
     return state
 
 
+def params_to_jax(state: dict) -> dict:
+    """The inverse of :func:`params_from_jax`: the flax LLaMA tree of a
+    ``Llama`` state dict, as contiguous tensors on the state's device.
+    Entries the state lacks are left out (see ``gpt2.params_to_jax``)."""
+    tree: dict = {}
+
+    def put(path, name, fn=lambda t: t):
+        if name not in state:
+            return
+        node = tree
+        for scope in path[:-1]:
+            node = node.setdefault(scope, {})
+        node[path[-1]] = fn(state[name]).contiguous()
+
+    def linear(path, prefix):
+        put(path + ("kernel",), f"{prefix}.weight", lambda t: t.T)
+
+    put(("wte", "embedding"), "wte.weight")
+    put(("rms_f", "scale"), "rms_f.scale")
+    linear(("lm_head",), "lm_head")
+    i = 0
+    while any(k.startswith(f"h.{i}.") for k in state):
+        for norm in ("rms_attn", "rms_mlp"):
+            put((f"h_{i}", norm, "scale"), f"h.{i}.{norm}.scale")
+        for name in ("wq", "wk", "wv", "wo"):
+            linear((f"h_{i}", "attn", name), f"h.{i}.attn.{name}")
+        for name in ("gate", "up", "down"):
+            linear((f"h_{i}", name), f"h.{i}.{name}")
+        i += 1
+    return tree
+
+
 def random_params(cfg: LlamaConfig, seed: int) -> dict:
     """A flax-layout LLaMA tree of float32 numpy weights drawn from
     ``seed``: normal(0, 0.02) matrices and embeddings, RMSNorm scales

@@ -174,6 +174,46 @@ def params_from_jax(params: dict, batch_stats: dict) -> dict:
     return state
 
 
+def params_to_jax(state: dict) -> tuple[dict, dict]:
+    """The inverse of :func:`params_from_jax`: the flax ``(params,
+    batch_stats)`` trees of a :class:`ResNet` state dict, as contiguous
+    tensors on the state's device.  Entries the state lacks are left
+    out (see ``vgg.params_to_jax``)."""
+    params, stats = {}, {}
+
+    def put(tree, path, name, fn=lambda t: t):
+        if name not in state:
+            return
+        for scope in path[:-1]:
+            tree = tree.setdefault(scope, {})
+        tree[path[-1]] = fn(state[name]).contiguous()
+
+    def conv(path, prefix):
+        put(params, path + ("kernel",), f"{prefix}.weight",
+            lambda t: t.permute(2, 3, 1, 0))
+
+    def bn(path, prefix):
+        put(params, path + ("scale",), f"{prefix}.weight")
+        put(params, path + ("bias",), f"{prefix}.bias")
+        put(stats, path + ("mean",), f"{prefix}.running_mean")
+        put(stats, path + ("var",), f"{prefix}.running_var")
+
+    conv(("stem_conv",), "stem_conv")
+    bn(("stem_bn",), "stem_bn")
+    i = 0
+    while any(k.startswith(f"blocks.{i}.") for k in state):
+        name, prefix = f"BottleneckBlock_{i}", f"blocks.{i}"
+        for j in range(3):
+            conv((name, f"Conv_{j}"), f"{prefix}.convs.{j}")
+            bn((name, f"BatchNorm_{j}"), f"{prefix}.bns.{j}")
+        conv((name, "proj_conv"), f"{prefix}.proj_conv")
+        bn((name, "proj_bn"), f"{prefix}.proj_bn")
+        i += 1
+    put(params, ("Dense_0", "kernel"), "fc.weight", lambda t: t.T)
+    put(params, ("Dense_0", "bias"), "fc.bias")
+    return params, stats
+
+
 def random_params(stage_sizes: Sequence[int], seed: int,
                   num_classes: int = 1000, width: int = 64
                   ) -> tuple[dict, dict]:

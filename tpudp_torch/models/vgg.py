@@ -133,6 +133,34 @@ def params_from_jax(params: dict, batch_stats: dict) -> dict:
     return state
 
 
+def params_to_jax(state: dict) -> tuple[dict, dict]:
+    """The inverse of :func:`params_from_jax`: the flax ``(params,
+    batch_stats)`` trees of a :class:`VGG` state dict, as contiguous
+    tensors on the state's device (OIHW weights become HWIO kernels,
+    ``fc.weight`` the ``(in, out)`` ``Dense_0`` kernel).  Entries the
+    state lacks are left out, so a dict of one tensor a parameter (an
+    optimizer's momentum, say) maps to the parameters' flax layout."""
+    params, stats = {}, {}
+
+    def put(tree, scope, key, name, fn=lambda t: t):
+        if name in state:
+            tree.setdefault(scope, {})[key] = fn(state[name]).contiguous()
+
+    i = 0
+    while f"convs.{i}.weight" in state or f"bns.{i}.running_mean" in state:
+        put(params, f"Conv_{i}", "kernel", f"convs.{i}.weight",
+            lambda t: t.permute(2, 3, 1, 0))
+        put(params, f"Conv_{i}", "bias", f"convs.{i}.bias")
+        put(params, f"BatchNorm_{i}", "scale", f"bns.{i}.weight")
+        put(params, f"BatchNorm_{i}", "bias", f"bns.{i}.bias")
+        put(stats, f"BatchNorm_{i}", "mean", f"bns.{i}.running_mean")
+        put(stats, f"BatchNorm_{i}", "var", f"bns.{i}.running_var")
+        i += 1
+    put(params, "Dense_0", "kernel", "fc.weight", lambda t: t.T)
+    put(params, "Dense_0", "bias", "fc.bias")
+    return params, stats
+
+
 def lecun_normal(rng: np.random.Generator, shape, fan_in: int
                  ) -> np.ndarray:
     """flax's ``lecun_normal`` drawn from ``rng``: a standard normal

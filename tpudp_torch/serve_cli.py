@@ -25,9 +25,21 @@ the counterpart of ``examples/serve_gpt2.py``.
     python -m tpudp_torch.serve_cli --device cpu --layers 2 --d-model 64 \\
         --vocab 256 --paged 64 --decode-fuse 8 --fuse-stream
 
-Weights are random, drawn from ``--seed``: the output shows the serving
-path, not a trained model.  Request 0's tokens stream as they land while
-the others decode in the same batched steps.
+    # Serve the weights train_cli --save-checkpoint saved (the newest
+    # step_N under the directory), with the training run's widths:
+    python -m tpudp_torch.serve_cli --layers 12 --d-model 768 \
+        --vocab 50257 --seq-len 1024 --paged 512 --checkpoint-dir ckpt/gpt2
+
+Without ``--checkpoint-dir`` the weights are random, drawn from
+``--seed``: the output shows the serving path, not a trained model.
+With it the params come from the newest ``step_N`` there
+(``restore_params``, by JAX names, then ``params_from_jax``), after the
+checks of ``examples/generate_gpt2.py``: the family by the presence of
+``wpe``, the layer count and ``wte``'s shape, ``wk``'s width against
+``--kv-heads`` (LLaMA) and ``wpe``'s length against ``--seq-len``
+(GPT-2); a mismatch exits with an ``error:`` line naming the checkpoint.
+Request 0's tokens stream as they land while the others decode in the
+same batched steps.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ import torch
 from tpudp_torch.models import gpt2, llama
 from tpudp_torch.serve import Engine
 from tpudp_torch.serve.engine import resolve_device
+from tpudp_torch.utils.checkpoint import latest_step_dir, restore_params
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -87,6 +100,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for a rehearsal)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-dir", type=str, default=None,
+                   help="serve the params of the newest step_N checkpoint "
+                        "there (random weights from --seed without it)")
     args = p.parse_args(argv)
     if args.requests < 1:
         p.error("--requests must be >= 1")
@@ -107,9 +123,48 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
-def main(argv=None) -> dict:
-    args = parse_args(argv)
-    device = resolve_device(args.device)
+def _check_checkpoint(path: str, params: dict, args, cfg) -> None:
+    """``examples/generate_gpt2.py``'s checks of a target-free restore
+    against the flags; each mismatch exits naming the checkpoint."""
+    is_llama = "wpe" not in params
+    if (args.family == "llama") != is_llama:
+        raise SystemExit(
+            f"error: checkpoint {path} is a "
+            f"{'llama' if is_llama else 'gpt2'}-family checkpoint (position "
+            f"table {'absent' if is_llama else 'present'}), but --family "
+            f"{args.family} was passed — pass the training run's --family")
+    n_layers = sum(1 for k in params if k.startswith("h_"))
+    wte = tuple(params["wte"]["embedding"].shape)
+    if n_layers != cfg.num_layers or wte != (cfg.vocab_size, cfg.d_model):
+        raise SystemExit(
+            f"error: checkpoint {path} holds {n_layers} layers and wte "
+            f"{wte}, but the flags describe {cfg.num_layers} layers / vocab "
+            f"{cfg.vocab_size} x d_model {cfg.d_model} — pass the training "
+            "run's --layers/--d-model/--vocab")
+    if args.family == "llama":
+        dh = cfg.d_model // cfg.num_heads
+        width = params["h_0"]["attn"]["wk"]["kernel"].shape[1]
+        if width != cfg.kv_heads * dh:
+            raise SystemExit(
+                f"error: checkpoint {path} holds wk width {width} (= "
+                f"{width // dh} KV heads at head dim {dh}), but the flags "
+                f"describe {cfg.kv_heads} KV heads — pass the training "
+                "run's --kv-heads/--heads")
+    else:
+        wpe = tuple(params["wpe"]["embedding"].shape)
+        if wpe[0] < cfg.max_seq_len or wpe[1] != cfg.d_model:
+            raise SystemExit(
+                f"error: checkpoint {path} holds wpe {wpe}, but the flags "
+                f"describe max_seq_len {cfg.max_seq_len} x d_model "
+                f"{cfg.d_model} — pass a --seq-len <= the training run's "
+                "(positions past the trained table have no embedding) with "
+                "its --d-model")
+
+
+def build_model(args, device):
+    """The model the flags describe, on ``device``: random weights from
+    ``--seed``, or the checked params of ``--checkpoint-dir``'s newest
+    ``step_N``.  Returns ``(model, the checkpoint path or None)``."""
     common = dict(vocab_size=args.vocab, max_seq_len=args.seq_len,
                   num_layers=args.layers, d_model=args.d_model,
                   num_heads=args.heads or max(args.d_model // 64,
@@ -121,9 +176,38 @@ def main(argv=None) -> dict:
     else:
         family = gpt2
         cfg = gpt2.GPT2Config(**common)
+    if not args.checkpoint_dir:
+        return family.build(cfg, args.seed, device), None
+    latest = latest_step_dir(args.checkpoint_dir)
+    if not latest:
+        raise SystemExit(
+            f"error: no step_N checkpoint under {args.checkpoint_dir!r} — "
+            "serving random weights would be misleading; drop "
+            "--checkpoint-dir for an explicit random-init demo")
+    params = restore_params(latest)
+    _check_checkpoint(latest, params, args, cfg)
+    model = (llama.Llama(cfg) if family is llama else gpt2.GPT2(cfg))
+    model.load_state_dict(family.params_from_jax(params))
+    return model.to(device), latest
+
+
+def request_prompts(args) -> list[np.ndarray]:
+    """The demo's ``--requests`` prompts of 4-16 tokens, from ``--seed``."""
+    rng = np.random.default_rng(args.seed)
+    base = rng.integers(0, args.vocab, size=4096)
+    return [base[i * 16:i * 16 + 4 + (3 * i) % 13].astype(np.int32)
+            for i in range(args.requests)]
+
+
+def main(argv=None) -> dict:
+    """Serve the demo's requests; returns the engine's ``metrics()`` with
+    each request's ``tokens`` and ``prompts`` added."""
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    model, restored = build_model(args, device)
     # A chunk dividing --seq-len, so the engine's round-down of max_len
     # strands no position the flags say exists.
-    engine = Engine(family.build(cfg, args.seed, device), device=device,
+    engine = Engine(model, device=device,
                     num_slots=args.num_slots,
                     prefill_chunk=math.gcd(args.prefill_chunk, args.seq_len),
                     kv_pages=args.paged, kv_dtype=args.kv_dtype,
@@ -131,20 +215,18 @@ def main(argv=None) -> dict:
                     speculate_tree=args.speculate_tree,
                     decode_fuse=args.decode_fuse,
                     fuse_stream=args.fuse_stream)
-    print(f"[serve] RANDOM-INIT family={args.family} weights from seed "
-          f"{args.seed} on {engine.device}; paged_attn="
+    weights = (f"restored params from {restored}" if restored else
+               f"RANDOM-INIT weights from seed {args.seed}")
+    print(f"[serve] family={args.family} {weights} on {engine.device}; "
+          f"paged_attn="
           f"{engine.paged_attn if args.paged else 'dense arena'}"
           f"{f', kv_dtype={args.kv_dtype}' if args.kv_dtype else ''}")
-    rng = np.random.default_rng(args.seed)
-    base = rng.integers(0, args.vocab, size=4096)
+    prompts = request_prompts(args)
     t0 = time.perf_counter()
-    handles = []
-    for i in range(args.requests):
-        plen = 4 + (3 * i) % 13
-        handles.append(engine.submit(
-            base[i * 16:i * 16 + plen].astype(np.int32),
-            args.max_new_tokens, temperature=args.temperature,
-            seed=args.seed + i))
+    handles = [engine.submit(p, args.max_new_tokens,
+                             temperature=args.temperature,
+                             seed=args.seed + i)
+               for i, p in enumerate(prompts)]
     streamed = list(handles[0])  # iterating drives the engine
     print(f"[serve] request 0 streamed tokens: {streamed}")
     engine.run_until_complete()
@@ -181,7 +263,7 @@ def main(argv=None) -> dict:
           f"({total / dt:.1f} tokens/s on {engine.device}) | decode steps="
           f"{engine.stats['decode_steps']} prefill chunks="
           f"{engine.stats['prefill_chunks']}{extra}{spec}{fused}")
-    return m
+    return {**m, "tokens": [h.tokens for h in handles], "prompts": prompts}
 
 
 if __name__ == "__main__":

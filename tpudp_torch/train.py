@@ -32,8 +32,14 @@
     parameters and the optimizer state in place where JAX returns new
     ones, so the returned state is the same object, advanced.
 
-``remat``, chunked losses and skipping non-finite steps are later
-slices: each raises ``NotImplementedError`` naming its ROADMAP item.
+``skip_nonfinite=N`` is optax's ``apply_if_finite``: a step whose
+gradients hold a NaN or Inf leaves the parameters and the optimizer state
+as they were, decided on the device (the step snapshots them and puts
+them back with ``torch.where``), until N consecutive bad steps let the
+update through.  :func:`state_to_jax` and :func:`load_state` carry a
+state to and from the JAX package's checkpoint layout
+(``tpudp_torch.utils.checkpoint``).  ``remat`` and chunked losses are a
+later slice: each raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ import contextlib
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -66,6 +73,7 @@ class OptimizerSpec:
     optimizer: str
     clip_norm: float | None
     compress: str | None = None
+    skip_nonfinite: int | None = None
 
     def lr_at(self, count: int) -> float:
         """The learning rate of update number ``count`` (0-based), by
@@ -93,9 +101,14 @@ class OptimizerSpec:
     def build(self, params) -> torch.optim.Optimizer:
         params = list(params)
         if self.optimizer == "adamw":
+            # skip_nonfinite puts AdamW's count back on the device, so on
+            # a card the count must live there (capturable).
+            capturable = (self.skip_nonfinite is not None
+                          and params[0].device.type == "cuda")
             return torch.optim.AdamW(params, lr=self.lr_at(0),
                                      betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=self.weight_decay)
+                                     weight_decay=self.weight_decay,
+                                     capturable=capturable)
         return torch.optim.SGD(params, lr=self.lr_at(0),
                                momentum=self.momentum,
                                weight_decay=self.weight_decay)
@@ -136,25 +149,41 @@ def make_optimizer(learning_rate: float = 0.1, momentum: float = 0.9,
     if compress not in (None, "int8_ef"):
         raise ValueError(f"unknown compress {compress!r}; choose 'int8_ef'")
     if skip_nonfinite is not None:
-        raise NotImplementedError(
-            "skip_nonfinite is not ported yet: ROADMAP.md slice 8 "
-            "(robustness: skipping non-finite steps)")
+        if skip_nonfinite < 1:
+            raise ValueError(
+                f"skip_nonfinite must be >= 1, got {skip_nonfinite}")
+        if compress is not None:
+            raise ValueError(
+                "skip_nonfinite cannot wrap compress='int8_ef': the "
+                "compressed ring collective would run inside a per-rank "
+                "decision whose predicate (local-gradient finiteness) can "
+                "differ across ranks")
+        if schedule is not None:
+            # optax's skipped steps hold the schedule's count back; the
+            # port's learning rate follows the step counter on the host.
+            raise NotImplementedError(
+                "skip_nonfinite with a learning-rate schedule is not "
+                "ported yet: ROADMAP.md slice 8 (robustness: skipping "
+                "non-finite steps)")
     return OptimizerSpec(learning_rate, momentum, weight_decay, schedule,
                          warmup_steps, total_steps, optimizer, clip_norm,
-                         compress)
+                         compress, skip_nonfinite)
 
 
 @dataclass
 class TrainState:
     """The model, its ``torch.optim`` optimizer, the number of updates
-    taken, the cumulative training loss kept on the device, and (with
-    ``compress``) this rank's error-feedback compressor."""
+    taken, the cumulative training loss kept on the device, (with
+    ``compress``) this rank's error-feedback compressor, and (with
+    ``skip_nonfinite``) optax's ``apply_if_finite`` counters as device
+    tensors: ``notfinite_count``, ``last_finite``, ``total_notfinite``."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int
     loss_sum: torch.Tensor
     compressor: Int8ErrorFeedback | None = None
+    skip: dict | None = None
 
 
 def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
@@ -170,12 +199,177 @@ def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
             raise ValueError(f"compress={optimizer.compress!r} needs a "
                              "mesh: it replaces the gradient collective")
         compressor = Int8ErrorFeedback(model.parameters())
+    skip = None
+    if optimizer.skip_nonfinite is not None:
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        skip = {"notfinite_count": zero.clone(),
+                "last_finite": torch.ones((), dtype=torch.bool,
+                                          device=device),
+                "total_notfinite": zero.clone()}
     return TrainState(model=model,
                       optimizer=optimizer.build(model.parameters()),
                       step=0,
                       loss_sum=torch.zeros((), dtype=torch.float32,
                                            device=device),
-                      compressor=compressor)
+                      compressor=compressor, skip=skip)
+
+
+def _codec(model: torch.nn.Module):
+    """``(to_jax, from_jax)`` for ``model``'s family: ``to_jax(state_dict)
+    -> (params, batch_stats)`` and ``from_jax(params, batch_stats) ->
+    state_dict``, the module's ``params_to_jax`` and ``params_from_jax``
+    (the families without BatchNorm take and give no statistics)."""
+    from tpudp_torch.models import gpt2, llama, resnet, vgg
+
+    for module, cls in ((vgg, vgg.VGG), (resnet, resnet.ResNet)):
+        if isinstance(model, cls):
+            return module.params_to_jax, module.params_from_jax
+    for module, cls in ((gpt2, gpt2.GPT2), (llama, llama.Llama)):
+        if isinstance(model, cls):
+            return ((lambda sd, m=module: (m.params_to_jax(sd), {})),
+                    (lambda params, stats, m=module:
+                     m.params_from_jax(params)))
+    raise TypeError(f"no JAX layout is known for {type(model).__name__}")
+
+
+def _adamw(opt: torch.optim.Optimizer) -> bool:
+    return isinstance(opt, torch.optim.AdamW)
+
+
+def _gather_residuals(comp: Int8ErrorFeedback) -> list[list[torch.Tensor]]:
+    """Every rank's residuals, rank by rank, on every rank (one
+    all-gather of their concatenation)."""
+    flat = torch.cat([e.reshape(-1) for e in comp.error])
+    rows = [torch.empty_like(flat)
+            for _ in range(dist.get_world_size(comp.group))]
+    dist.all_gather(rows, flat, group=comp.group)
+    sizes = [e.numel() for e in comp.error]
+    return [[piece.reshape(e.shape) for piece, e in
+             zip(row.split(sizes), comp.error)] for row in rows]
+
+
+def _stack_trees(trees: list[dict]) -> dict:
+    if isinstance(trees[0], dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def state_to_jax(state: TrainState) -> dict:
+    """The checkpoint tree of ``state``, in the JAX package's names and
+    layouts: ``step`` (int32, shape ``()``), ``params`` and
+    ``batch_stats`` (flax trees, ``params_to_jax`` of the model's
+    family), ``opt_state`` and ``loss_sum`` (float32, shape ``()``), as
+    tensors on the model's device.  ``opt_state`` is the port's own form,
+    keyed and laid out as the parameters: SGD's ``momentum`` (zeros where
+    torch has not made a buffer yet, as optax's trace starts), or
+    AdamW's ``mu``, ``nu`` and ``count``; with ``skip_nonfinite`` also
+    ``notfinite_count``, ``last_finite`` and ``total_notfinite``.  With
+    ``compress`` the tree gains ``compress.error``: every rank's
+    residuals stacked ``(N, *shape)`` as the JAX package stacks them —
+    gathered from the ranks, so every rank must call this."""
+    model, opt = state.model, state.optimizer
+    to_jax, _ = _codec(model)
+    sd = {k: v.detach() for k, v in model.state_dict().items()}
+    params, stats = to_jax(sd)
+    named = list(model.named_parameters())
+
+    def per_param(key, fill=torch.zeros_like):
+        return to_jax({n: opt.state.get(p, {}).get(key, None)
+                       if opt.state.get(p, {}).get(key, None) is not None
+                       else fill(p.detach()) for n, p in named})[0]
+
+    opt_state: dict = {}
+    if _adamw(opt):
+        opt_state["mu"] = per_param("exp_avg")
+        opt_state["nu"] = per_param("exp_avg_sq")
+        steps = [opt.state.get(p, {}).get("step") for _, p in named]
+        count = next((s for s in steps if s is not None), 0)
+        opt_state["count"] = torch.tensor(int(count), dtype=torch.int32)
+    elif opt.param_groups[0]["momentum"]:
+        opt_state["momentum"] = per_param("momentum_buffer")
+    if state.skip is not None:
+        opt_state.update(state.skip)
+    tree = {"step": torch.tensor(state.step, dtype=torch.int32),
+            "params": params, "batch_stats": stats, "opt_state": opt_state,
+            "loss_sum": state.loss_sum.detach()}
+    if state.compressor is not None:
+        names = [n for n, _ in named]
+        rows = [to_jax(dict(zip(names, row)))[0]
+                for row in _gather_residuals(state.compressor)]
+        tree["compress"] = {"error": _stack_trees(rows)}
+    return tree
+
+
+def load_state(state: TrainState, tree: dict) -> TrainState:
+    """Load a checkpoint tree (:func:`state_to_jax`'s form) into
+    ``state`` in place and return it: the model's parameters and
+    buffers, the step counter (which the learning-rate schedule reads),
+    ``loss_sum``, the optimizer's buffers — created where a fresh torch
+    optimizer has none yet, so the next update continues the saved
+    trajectory — the ``skip_nonfinite`` counters and, with ``compress``,
+    this rank's row of the stacked residuals."""
+    model, opt = state.model, state.optimizer
+    _, from_jax = _codec(model)
+    stats = tree.get("batch_stats", {})
+    model.load_state_dict(from_jax(tree["params"], stats))
+    state.step = int(tree["step"])
+    state.loss_sum.copy_(torch.as_tensor(np.array(tree["loss_sum"])))
+    named = list(model.named_parameters())
+    ost = tree.get("opt_state", {})
+
+    def per_param(sub):
+        sd = from_jax(sub, stats)
+        return [sd[n] for n, _ in named]
+
+    if state.step == 0:  # before the first update torch holds no state
+        for _, p in named:
+            opt.state.pop(p, None)
+    else:
+        if _adamw(opt):
+            group = opt.param_groups[0]
+            on_device = group.get("capturable") or group.get("fused")
+            for (_, p), mu, nu in zip(named, per_param(ost["mu"]),
+                                      per_param(ost["nu"])):
+                st = opt.state[p]
+                st["step"] = torch.tensor(
+                    float(ost["count"]), dtype=torch.float32,
+                    device=p.device if on_device else "cpu")
+                st["exp_avg"] = torch.empty_like(p).copy_(mu)
+                st["exp_avg_sq"] = torch.empty_like(p).copy_(nu)
+        elif "momentum" in ost:
+            for (_, p), buf in zip(named, per_param(ost["momentum"])):
+                opt.state[p]["momentum_buffer"] = \
+                    torch.empty_like(p).copy_(buf)
+    if state.skip is not None:
+        for key, t in state.skip.items():
+            t.copy_(torch.as_tensor(np.array(ost[key])))
+    if state.compressor is not None:
+        err = tree["compress"]["error"]
+        world = dist.get_world_size(state.compressor.group)
+        r = dist.get_rank(state.compressor.group)
+        n = next(iter(_leaves(err))).shape[0]
+        if n != world:
+            raise ValueError(f"the checkpoint holds residuals of {n} ranks; "
+                             f"this run has {world}")
+        row = _map_tree(err, lambda t: t[r])
+        device = state.compressor.error[0].device
+        state.compressor.error = [t.to(device).clone()
+                                  for t in per_param(row)]
+    return state
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
@@ -187,6 +381,65 @@ def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float) -> None:
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+def _init_optimizer_state(opt: torch.optim.Optimizer,
+                          params: list[torch.Tensor]) -> None:
+    """Create the state torch makes lazily at a parameter's first update,
+    with the values it would start from (zero momentum; AdamW's zero
+    moments and count), so that a guarded update can put it back."""
+    for group in opt.param_groups:
+        for p in group["params"]:
+            st = opt.state[p]
+            if st or not any(p is q for q in params):
+                continue
+            if isinstance(opt, torch.optim.AdamW):
+                on_device = group.get("capturable") or group.get("fused")
+                st["step"] = torch.zeros(
+                    (), dtype=torch.float32,
+                    device=p.device if on_device else "cpu")
+                st["exp_avg"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+            elif group["momentum"]:
+                st["momentum_buffer"] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
+class _FiniteGuard:
+    """optax ``apply_if_finite`` around one update, decided on the
+    device: built before the update (it reads the gradients and
+    snapshots the parameters and the optimizer state), :meth:`finish`
+    after it puts them back where the update was rejected and advances
+    the counters.  An update applies when the gradients are finite or
+    after ``max_errors`` consecutive non-finite ones."""
+
+    def __init__(self, state: TrainState, params: list[torch.Tensor],
+                 max_errors: int):
+        _init_optimizer_state(state.optimizer, params)
+        self.skip = state.skip
+        grads = [p.grad for p in params]
+        self.finite = torch.stack(
+            [torch.isfinite(g).all() for g in grads]).all()
+        self.count = torch.where(
+            self.finite, torch.zeros_like(self.skip["notfinite_count"]),
+            self.skip["notfinite_count"] + 1)
+        self.apply = self.finite | (self.count > max_errors)
+        self.tensors = [p.data for p in params] + [
+            v for p in params
+            for v in state.optimizer.state[p].values()
+            if isinstance(v, torch.Tensor)]
+        self.saved = [t.clone() for t in self.tensors]
+
+    def finish(self) -> None:
+        for t, old in zip(self.tensors, self.saved):
+            apply = self.apply.to(t.device)
+            t.copy_(torch.where(apply, t, old))
+        sk = self.skip
+        sk["notfinite_count"].copy_(self.count)
+        sk["last_finite"].copy_(self.finite)
+        sk["total_notfinite"].add_((~self.finite).to(torch.int32))
 
 
 def batch_stats(model: torch.nn.Module) -> list[torch.Tensor]:
@@ -304,11 +557,16 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             for p, g in zip(params, state.compressor([p.grad
                                                       for p in params])):
                 p.grad.copy_(g)
+        guard = None
+        if optimizer.skip_nonfinite is not None:
+            guard = _FiniteGuard(state, params, optimizer.skip_nonfinite)
         if optimizer.clip_norm is not None:
             clip_by_global_norm([p.grad for p in params], optimizer.clip_norm)
         for group in opt.param_groups:
             group["lr"] = optimizer.lr_at(state.step)
         opt.step()
+        if guard is not None:
+            guard.finish()
         state.step += 1
         state.loss_sum += loss
         return state, loss

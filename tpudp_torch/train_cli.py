@@ -9,15 +9,24 @@ data-parallel path of ``examples/train_gpt2.py``.
     python -m tpudp_torch.train_cli --device cpu --layers 2 --d-model 64 \\
         --vocab 256 --seq-len 128 --steps 3 --attn flash
 
+    # Train, then save the final state for serve_cli --checkpoint-dir:
+    python -m tpudp_torch.train_cli --attn flash --steps 20 \
+        --save-checkpoint ckpt/gpt2
+
 The corpus is the example's deterministic synthetic one (a 4096-token
 random base tiled 64 times) and the batches are drawn as the example
 draws them; weights are random, from ``--seed``.  SGD with momentum 0.9
-and no weight decay, as the example trains.
+and no weight decay, as the example trains.  ``--save-checkpoint DIR``
+checks that DIR is writable before any compute and saves the final state
+to ``DIR/step_<steps>`` (``tpudp_torch.utils.checkpoint``);
+``--skip-nonfinite N`` skips updates whose gradients are not finite
+(``make_optimizer(skip_nonfinite=N)``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -26,6 +35,7 @@ import torch
 from tpudp_torch.models.gpt2 import GPT2Config, build
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.train import init_state, make_optimizer, make_train_step
+from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -50,6 +60,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu for a rehearsal)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--skip-nonfinite", type=int, default=None, metavar="N",
+                   help="skip updates whose gradients hold NaN/Inf; after N "
+                        "consecutive bad steps the NaN propagates")
+    p.add_argument("--save-checkpoint", type=str, default=None,
+                   metavar="DIR",
+                   help="save the final state to DIR/step_<steps> "
+                        "(restorable by serve_cli --checkpoint-dir DIR)")
     args = p.parse_args(argv)
     for name in ("steps", "log_every", "batch_size", "seq_len"):
         if getattr(args, name) < 1:
@@ -60,7 +77,14 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> list[float]:
     """Train; print one ``step N: loss L (T tok/s)`` line per log window
     and return the logged window losses."""
-    args = parse_args(argv)
+    return train(parse_args(argv))["losses"]
+
+
+def train(args: argparse.Namespace) -> dict:
+    """The run of :func:`main` on parsed ``args``: ``{"losses", "model",
+    "state", "checkpoint"}`` (the saved path, or None)."""
+    if args.save_checkpoint:
+        ensure_writable(args.save_checkpoint)
     device = resolve_device(args.device)
     cfg = GPT2Config(vocab_size=args.vocab, max_seq_len=args.seq_len,
                      num_layers=args.layers,
@@ -69,7 +93,8 @@ def main(argv=None) -> list[float]:
                      attn_impl=args.attn)
     model = build(cfg, args.seed, device)
     spec = make_optimizer(learning_rate=args.lr, momentum=0.9,
-                          weight_decay=0.0, clip_norm=args.clip_norm)
+                          weight_decay=0.0, clip_norm=args.clip_norm,
+                          skip_nonfinite=args.skip_nonfinite)
     state = init_state(model, spec)
     step = make_train_step(model, spec)
     n_params = sum(p.numel() for p in model.parameters())
@@ -104,7 +129,13 @@ def main(argv=None) -> list[float]:
             print(f"step {it}: loss {losses[-1]:.4f} ({tok_s:,.0f} tok/s)",
                   flush=True)
             prev_cum, t0 = cum, time.perf_counter()
-    return losses
+    ckpt = None
+    if args.save_checkpoint:
+        ckpt = save_checkpoint(
+            os.path.join(args.save_checkpoint, f"step_{args.steps}"), state)
+        print(f"[gpt2] saved checkpoint {ckpt}", flush=True)
+    return {"losses": losses, "model": model, "state": state,
+            "checkpoint": ckpt}
 
 
 if __name__ == "__main__":

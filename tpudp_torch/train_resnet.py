@@ -16,8 +16,9 @@ JAX example draws them from its PRNG).  The step is ``make_train_step``
 with the ``--sync`` rung on a one-rank mesh, as the example runs on one
 chip; the host loads and copies batch i+1 (pinned memory, non-blocking)
 while the card runs step i.  Each ``step i: loss ... (... images/s)``
-line is timed to a device synchronize.  ``--save-checkpoint`` waits for
-the checkpoint slice (ROADMAP.md).
+line is timed to a device synchronize.  ``--save-checkpoint DIR`` checks
+that DIR is writable before any compute and saves the final state to
+``DIR/step_<steps>`` (``tpudp_torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from tpudp_torch.mesh import initialize_distributed, make_mesh
 from tpudp_torch.models import resnet
 from tpudp_torch.parallel.sync import EXAMPLE_SYNC_CHOICES
 from tpudp_torch.train import init_state, make_optimizer, make_train_step
+from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -112,11 +114,11 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> dict:
     """Parse flags, train, print the example's lines; returns the run's
     ``{"records": [{"step", "loss", "images_s", "seconds"}, ...],
-    "model", "state", "step"}`` for callers that measure it."""
+    "model", "state", "step", "checkpoint"}`` for callers that measure
+    it."""
     args = build_parser().parse_args(argv)
     if args.save_checkpoint:
-        raise SystemExit("error: --save-checkpoint is not ported yet: "
-                         "ROADMAP.md slice 7c (Trainer checkpoints)")
+        ensure_writable(args.save_checkpoint)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: no CUDA card is available; train_resnet "
                          "runs on the card by default — pass --device cpu "
@@ -184,9 +186,14 @@ def main(argv=None) -> dict:
                 prev_cum, t0 = cum, time.perf_counter()
     finally:
         loader.close()
+    ckpt = None
+    if args.save_checkpoint:
+        ckpt = save_checkpoint(
+            os.path.join(args.save_checkpoint, f"step_{args.steps}"), state)
+        print(f"[resnet{args.depth}] saved checkpoint {ckpt}")
     sys.stdout.flush()
     return {"records": records, "model": model, "state": state,
-            "step": step}
+            "step": step, "checkpoint": ckpt}
 
 
 if __name__ == "__main__":

@@ -14,8 +14,11 @@ rest as the backward, as the JAX Trainer does.
 The port's Trainer takes a model already built (the JAX one initializes
 its own from ``seed`` and ``input_shape``).  The data-parallel rung
 (``strategy='dp'``, ``spmd_mode='shard_map'`` or ``'gspmd'``) is
-ported; the options of later slices raise ``NotImplementedError``
-naming their ROADMAP item.
+ported, with checkpoint resume (``fit(start_epoch=, epoch_end_fn=,
+skip_batches_first_epoch=)``), the heartbeat ``watchdog``, the
+``step_fault_hook`` fault seam and the in-process supervisor
+(``fit(resilience=)``, ``tpudp_torch.resilience``); the options of later
+slices raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -39,12 +42,10 @@ from tpudp_torch.utils.finite import check_finite
 _UNPORTED = {
     "strategy": ("dp", "slice 7b (other parallel strategies)"),
     "strategy_options": (None, "slice 7b (other parallel strategies)"),
-    "watchdog": (None, "slice 8 (robustness: watchdog)"),
     "remat": (False, "slice 6b (remat)"),
     "loss_chunk": (None, "slice 6b (chunked loss)"),
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
-    "step_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
     "track_grad_norm": (False, "slice 8 (obs: device counters)"),
     "track_sdc_fingerprint": (False, "slice 8 (SDC defense)"),
     "sdc_fault_hook": (None, "slice 8 (SDC defense)"),
@@ -79,7 +80,9 @@ class Trainer:
                  log_every: int = 20,
                  log_fn: Callable[[str], None] = print, grad_accum: int = 1,
                  metrics_jsonl: str | None = None,
-                 compress: str | None = None, **unported):
+                 compress: str | None = None, watchdog=None,
+                 step_fault_hook: Callable[[str, int], None] | None = None,
+                 **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Trainer() got an unexpected keyword "
@@ -108,6 +111,18 @@ class Trainer:
         self.log_every = log_every
         self.log = log_fn
         self.records: list[dict] = []
+        # tpudp_torch.utils.watchdog.Watchdog or None: every train and
+        # eval iteration beats it.
+        self.watchdog = watchdog
+        # Fault seam (tpudp_torch.training_faults): hook(kind, index)
+        # right before each device step; a retried step gets a new index.
+        self.step_fault_hook = step_fault_hook
+        self._device_calls = 0
+        # Recovery counters and events, filled only under fit(resilience=).
+        self.stats: dict = {}
+        # The active fit's Supervisor, or None: it observes the window
+        # losses and guards the batch iterator.
+        self._resilience = None
         self.metrics_jsonl = (metrics_jsonl if mesh is None or mesh.rank == 0
                               else None)
         self._last_window_loss: float | None = None
@@ -155,61 +170,103 @@ class Trainer:
             out["last_window_loss"] = self._last_window_loss
         return out
 
-    def train_epoch(self, loader, epoch: int = 0) -> float:
+    def _beat(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.beat()
+
+    def _fault_hook(self, kind: str) -> None:
+        if self.step_fault_hook is not None:
+            self._device_calls += 1
+            self.step_fault_hook(kind, self._device_calls)
+
+    def _window_done(self, loss: float, epoch: int, it: int) -> None:
+        if self._resilience is not None:
+            self._resilience.observe_window_loss(loss, epoch=epoch, it=it)
+
+    def train_epoch(self, loader, epoch: int = 0, *,
+                    skip_batches: int = 0) -> float:
         """One epoch; returns its mean window loss and prints the
-        reference's lines."""
+        reference's lines.  ``skip_batches`` fast-forwards a mid-epoch
+        resume: the epoch's first K batches are drawn from the loader and
+        discarded, so every host RNG ends where an uninterrupted run's
+        would, and training goes on with the batches that run had not
+        consumed."""
         loader.set_epoch(epoch)
         self._install_place_hook(loader)
         fwd_t = bwd_t = 0.0
         losses = []
         prev_loss_sum = float(self.state.loss_sum)
         split = self.timing_mode == "split"
-        window_start = time.perf_counter()
-        window_samples = 0
-        it = 0
-        for it, batch in enumerate(loader, start=1):
-            images, labels, _ = self._device_batch(batch)
-            window_samples += images.shape[0]
-            if split:
-                t0 = time.perf_counter()
-                self.fwd_step(self.state, images)
-                fence(self.device)
-                t1 = time.perf_counter()
-                self.state, _ = self.train_step(self.state, images, labels)
-                fence(self.device)
-                t2 = time.perf_counter()
-                fwd_t += t1 - t0
-                # the step recomputes the forward; the rest is backward
-                bwd_t += max(t2 - t1 - (t1 - t0), 0.0)
-            else:
-                self.state, _ = self.train_step(self.state, images, labels)
-            if it % self.log_every == 0:
-                fence(self.device)
-                window_time = time.perf_counter() - window_start
-                cum = float(self.state.loss_sum)  # one read a window
-                losses.append(check_finite(
-                    (cum - prev_loss_sum) / self.log_every, step=it))
-                prev_loss_sum = cum
-                for line in reference_window_lines(
-                        it, losses[-1], window_time, self.log_every,
-                        fwd_t=fwd_t if split else None,
-                        bwd_t=bwd_t if split else None,
-                        first_window=it == self.log_every):
-                    self.log(line)
-                self._emit_metrics({
-                    "kind": "train_window", "epoch": epoch, "iter": it,
-                    "loss": losses[-1],
-                    "sec_per_iter": window_time / self.log_every,
-                    "samples_per_sec": window_samples / window_time,
-                    "warmup_window": it == self.log_every,
-                })
-                window_samples = 0
-                fwd_t = bwd_t = 0.0
-                window_start = time.perf_counter()
+        batches = iter(loader)
+        if self._resilience is not None:
+            batches = self._resilience.guard_batches(loader, epoch, batches)
+        try:
+            if skip_batches:
+                skipped = 0
+                for skipped, _ in enumerate(batches, start=1):
+                    self._beat()
+                    if skipped >= skip_batches:
+                        break
+                self.log(f"[tpudp] fast-forwarded {skipped} already-trained "
+                         f"batches of epoch {epoch} (mid-epoch resume)")
+            window_start = time.perf_counter()
+            window_samples = 0
+            it = 0
+            for it, batch in enumerate(batches, start=1):
+                images, labels, _ = self._device_batch(batch)
+                window_samples += images.shape[0]
+                self._fault_hook("train")
+                if split:
+                    t0 = time.perf_counter()
+                    self.fwd_step(self.state, images)
+                    fence(self.device)
+                    t1 = time.perf_counter()
+                    self.state, _ = self.train_step(self.state, images,
+                                                    labels)
+                    fence(self.device)
+                    t2 = time.perf_counter()
+                    fwd_t += t1 - t0
+                    # the step recomputes the forward; the rest is backward
+                    bwd_t += max(t2 - t1 - (t1 - t0), 0.0)
+                else:
+                    self.state, _ = self.train_step(self.state, images,
+                                                    labels)
+                if it % self.log_every == 0:
+                    fence(self.device)
+                    window_time = time.perf_counter() - window_start
+                    cum = float(self.state.loss_sum)  # one read a window
+                    losses.append(check_finite(
+                        (cum - prev_loss_sum) / self.log_every, step=it))
+                    self._window_done(losses[-1], epoch, it)
+                    prev_loss_sum = cum
+                    for line in reference_window_lines(
+                            it, losses[-1], window_time, self.log_every,
+                            fwd_t=fwd_t if split else None,
+                            bwd_t=bwd_t if split else None,
+                            first_window=it == self.log_every):
+                        self.log(line)
+                    self._emit_metrics({
+                        "kind": "train_window", "epoch": epoch, "iter": it,
+                        "loss": losses[-1],
+                        "sec_per_iter": window_time / self.log_every,
+                        "samples_per_sec": window_samples / window_time,
+                        "warmup_window": it == self.log_every,
+                        **({"batches_skipped": skip_batches}
+                           if skip_batches else {}),
+                    })
+                    window_samples = 0
+                    fwd_t = bwd_t = 0.0
+                    window_start = time.perf_counter()
+                self._beat()  # an iteration completed
+        finally:
+            if hasattr(batches, "close"):
+                batches.close()  # stops a Prefetcher's worker
         if it % self.log_every:  # the ragged final window
             cum = float(self.state.loss_sum)
             losses.append(check_finite(
                 (cum - prev_loss_sum) / (it % self.log_every), step=it))
+            self._window_done(losses[-1], epoch, it)
+            self._beat()
         return float(np.mean(losses)) if losses else 0.0
 
     def evaluate(self, loader, *, epoch: int | None = None
@@ -223,9 +280,11 @@ class Trainer:
         it = 0
         for batch in loader:
             images, labels, weights = self._device_batch(batch)
+            self._fault_hook("eval")
             sums += torch.stack(self.eval_step(self.state, images, labels,
                                                weights))
             it += 1
+            self._beat()
         loss_sum, correct, count = sums.tolist()
         count = max(count, 1.0)
         avg_loss = check_finite(
@@ -241,23 +300,49 @@ class Trainer:
         return avg_loss, accuracy
 
     def fit(self, train_loader, test_loader=None, epochs: int = 1, *,
-            resilience=None) -> None:
+            start_epoch: int = 0, epoch_end_fn=None,
+            skip_batches_first_epoch: int = 0, resilience=None) -> None:
         """The reference's epoch loop: train, print the epoch's wall
-        time, evaluate.  (Resuming from a checkpoint, and with it JAX's
-        ``start_epoch``, ``epoch_end_fn`` and mid-epoch fast-forward, is
-        ROADMAP.md slice 7c.)"""
+        time, evaluate.  ``start_epoch`` resumes a checkpointed run,
+        ``epoch_end_fn(epoch)`` runs after each epoch's eval (the
+        checkpoint hook), ``skip_batches_first_epoch`` fast-forwards
+        epoch ``start_epoch`` past batches an interrupted run already
+        trained (``train_epoch(skip_batches=)``).  With a watchdog the
+        loop runs armed: every train and eval iteration beats.
+        ``resilience`` (a :class:`tpudp_torch.resilience.ResiliencePolicy`)
+        runs the loop under the in-process supervisor, with its counters
+        and events in :attr:`stats`."""
         if resilience is not None:
-            raise NotImplementedError(
-                "Trainer.fit(resilience=...) is not ported yet: ROADMAP.md "
-                "slice 8 (resilience)")
-        for epoch in range(epochs):
+            from tpudp_torch.resilience import Supervisor
+
+            Supervisor(self, resilience).run(
+                train_loader, test_loader, epochs, start_epoch,
+                epoch_end_fn, skip_batches_first_epoch)
+            return
+        if self.watchdog is not None:
+            self.watchdog.arm()
+        try:
+            self._fit(train_loader, test_loader, epochs, start_epoch,
+                      epoch_end_fn, skip_batches_first_epoch)
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.disarm()
+
+    def _fit(self, train_loader, test_loader, epochs: int, start_epoch: int,
+             epoch_end_fn, skip_first: int = 0) -> None:
+        for epoch in range(start_epoch, epochs):
             start = time.perf_counter()
-            self.train_epoch(train_loader, epoch)
+            skip = skip_first if epoch == start_epoch else 0
+            self.train_epoch(train_loader, epoch, skip_batches=skip)
             fence(self.device)
             epoch_s = time.perf_counter() - start
             self.log("Training time after {} epoch is {}".format(
                 epoch + 1, epoch_s))
             self._emit_metrics({"kind": "epoch", "epoch": epoch,
-                                "seconds": epoch_s})
+                                "seconds": epoch_s,
+                                **({"batches_skipped": skip}
+                                   if skip else {})})
             if test_loader is not None:
                 self.evaluate(test_loader, epoch=epoch)
+            if epoch_end_fn is not None:
+                epoch_end_fn(epoch)
