@@ -115,6 +115,32 @@ which fails the run (nonzero exit, no result line) when it fails:
      iteration, and a window of each model under ``torch.profiler``.
      Phases 4 and 4c also print the p50 wall ms of their single decode
      steps (host ms per ``Engine.step``);
+  4f. fused speculation — phase 4b's eight prompts (8 slots, max_len
+     512, 32 new tokens each) through GPT-2 small over an fp32 pool with
+     a draft GPT-2 of its vocabulary (4 layers, d 192, 3 heads, 1028
+     positions: ``benchmarks/serve_bench.py``'s sizing), ``speculate_k=4``
+     and ``decode_fuse=8``: greedy against the plain engine (einsum, no
+     speculation) and the host-drafted kernel engine
+     (``DraftModelDrafter(bucket=max_len)``, ``decode_fuse=1``) under
+     phase 4's near-tie rule, sampled (temperature 0.9, top-k 12) equal to
+     the host-drafted engine's tokens and acceptance.  Each fused run must
+     capture one CUDA graph, launch the paged-window kernel 12 times per
+     prefill chunk, host verify step, warm-up and replayed iteration, and
+     sync the host once a window (its fetch; the first window's capture
+     aside).  A shorter LLaMA-GQA case over int8 pages (4 prompts, 16
+     tokens) holds K5-int8 inside the graph the same way.  Then, at
+     serve_bench's zero-weight geometry (acceptance 1; 8 one-chunk
+     prompts, 256 new tokens), fused speculation, host-drafted speculation
+     and plain fused decode in turns (A B C C B A): tokens/s, decoded
+     tokens a window, device ms per replayed iteration and the draft's
+     share of it (the draft alone captured in a graph of its own);
+  4g. the robustness layer on GPT-2 small's kernel engine — a step fault
+     at the second prefill call and at the second fused speculation
+     window: each request requeued once, tokens equal to the unfaulted
+     run's, the window not captured again; every call failing: ``ERROR``
+     after one requeue; a 1.5 s stall in a decode step caught by a
+     ``Watchdog(kill=False)`` of 0.5 s and contained; a deadline; a
+     ``BitFlipLogits`` canary quarantining the engine; ``drain()``;
   5. flash kernels vs plain — the forward (``o``, ``lse``), dq and dk/dv
      kernels against their plain PyTorch versions on q, k, v taken as
      strided views of a ``(b, t, 3 h dh)`` projection and a random ``do``:
@@ -247,6 +273,7 @@ last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import copy
 import contextlib
 import dataclasses
 import io
@@ -269,6 +296,11 @@ NEW_TOKENS = 32  # per request on the main path
 # Phase 4e: the window length and new tokens per request (decode-bound),
 # and benchmarks/serve_bench.py's slack on the fused dispatch bound 1/N.
 FUSE, FUSE_NEW_TOKENS, FUSED_DISPATCH_EPS = 8, 96, 0.25
+# Phase 4f: drafts a verify window, the engines' max_len (the draft's
+# history width), new tokens of the LLaMA int8 case and of the
+# zero-weight timing (one-chunk prompts, so the fused windows, which run
+# once no prompt prefills, take most of its tokens).
+SPEC_K, SPEC_MAX_LEN, SPEC_LLAMA_TOKENS, SPEC_TIMING_TOKENS = 4, 512, 16, 256
 REPLACES = {
     "paged_decode": "tpudp/ops/paged_attention.py:161",
     "paged_window": "tpudp/ops/paged_attention.py:319",
@@ -1312,6 +1344,456 @@ def fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
     del case_model
     torch.cuda.empty_cache()
     return launched
+
+
+# -- phase 4f: fused speculation (a CUDA graph over the draft and K5) -----
+
+
+def spec_draft(torch, gpt2, vocab: int, seed: int, zero: bool = False):
+    """The draft model of ``benchmarks/serve_bench.py``'s fused
+    speculation rows for GPT-2 small: a third of its layers, a quarter of
+    its width, 64-wide heads, its vocabulary and ``max_seq_len + k``
+    positions (random weights from ``seed``, or zeros)."""
+    cfg = gpt2.GPT2Config(vocab_size=vocab, max_seq_len=1024 + SPEC_K,
+                          num_layers=4, num_heads=3, d_model=192)
+    model = gpt2.build(cfg, seed, "cuda")
+    if zero:
+        zero_weights(torch, model)
+    return model
+
+
+def zero_weights(torch, model):
+    """serve_bench's zero-weight trees: every logit is 0, so every argmax
+    (draft or target) is token 0 and every draft is accepted."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.zero_()
+
+
+def spec_engine(Engine, DraftModelDrafter, model, draft, mode, **kw):
+    """A serving engine of phase 4f: ``fused`` (speculation inside the
+    window), ``host`` (host-drafted, the referee: one verify window a
+    step), ``decode`` (plain fused decode windows) or ``plain`` (the
+    plain attention, no speculation).  The drafter's bucket is pinned to
+    max_len, the window's history width, in both speculating engines:
+    the fused engine's own host-drafted steps (while a prompt prefills)
+    then draft on the referee's shapes."""
+    common = dict(device="cuda", num_slots=8, prefill_chunk=16,
+                  kv_pages=512, max_len=SPEC_MAX_LEN, **kw)
+    if mode == "plain":
+        return Engine(model, paged_attn="einsum", **common)
+    if mode == "decode":
+        return Engine(model, decode_fuse=FUSE, **common)
+    return Engine(model, speculate_k=SPEC_K,
+                  decode_fuse=FUSE if mode == "fused" else 1,
+                  drafter=DraftModelDrafter(draft, bucket=SPEC_MAX_LEN),
+                  **common)
+
+
+def count_window_syncs(torch, eng, counts: list) -> None:
+    """Count the host syncs inside each of ``eng``'s fused speculation
+    windows (``torch.cuda.set_sync_debug_mode``): the window's one fetch
+    must be the only one."""
+    import warnings
+
+    window = eng._spec_fused_window(eng._mstates[None])
+    run = window.run
+
+    def counted(values, steps):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = run(values, steps)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+        return out
+
+    window.run = counted
+
+
+def spec_run(torch, pa, eng, prompts, new, sampled=False, syncs=None):
+    """Serve ``prompts`` at once on ``eng`` (``new`` tokens each; sampled:
+    temperature 0.9, top-k 12, request ``i`` seeded ``i``) with the kernel
+    counts zeroed just before and read just after; returns the handles,
+    wall seconds and counts."""
+    sampling = dict(temperature=0.9, top_k=12) if sampled else {}
+    if syncs is not None:
+        count_window_syncs(torch, eng, syncs)
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, new, seed=i, **sampling)
+               for i, p in enumerate(prompts)]
+    eng.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
+    eng.check_paged()
+    if not all(h.ok and len(h.tokens) == new for h in handles):
+        raise SmokeFailure("a request did not complete")
+    return handles, wall, launches
+
+
+def check_spec_fused_run(eng, launches, syncs, kernel, label) -> None:
+    """Phase 4f's gates on a fused speculation run: one captured graph,
+    every window through it with one host sync (its fetch), the verify
+    kernel once a layer per prefill chunk, host verify step, warm-up
+    iteration and replayed iteration, and no fallback."""
+    st = eng.stats
+    m = eng.metrics()
+    w = m.get("fused_spec_window")
+    layers = eng.config.num_layers
+    if not (w and w["graph"] and w["captures"] == 1
+            and st["fused_spec_windows"]):
+        raise SmokeFailure(f"{label}: the windows did not replay one "
+                           f"captured graph: {w}, stats {dict(st)}")
+    want = layers * (st["prefill_chunks"] + st["verify_steps"]
+                     + w["replays"] + 2)
+    if launches[kernel] != want or not launches[kernel]:
+        raise SmokeFailure(f"{label}: {kernel} launched {launches[kernel]}, "
+                           f"{layers} a layer per prefill chunk, verify step, "
+                           f"warm-up and replayed iteration need {want}")
+    # The first window also captures the graph (torch.cuda.graph
+    # synchronizes around a capture).
+    if len(syncs) != st["fused_spec_windows"] or set(syncs[1:]) != {1}:
+        raise SmokeFailure(f"{label}: host syncs per window {syncs}, one "
+                           f"(the fetch) expected for each of "
+                           f"{st['fused_spec_windows']} windows after the "
+                           f"first")
+    fallbacks = m["paged_attn"]["fallbacks"]
+    if set(fallbacks) - {"tree_verify_paged"}:
+        raise SmokeFailure(f"{label}: falls back on {fallbacks}")
+    print(f"{label}: {st['fused_spec_windows']} windows (host syncs in "
+          f"each {syncs}: the fetch), {st['fused_spec_steps']} fused "
+          f"iterations, {w['replays']} replays of {w['captures']} captured "
+          f"graph, {st['verify_steps']} host verify steps, acceptance "
+          f"{eng.acceptance_rate:.3f}; {kernel} launches {launches[kernel]} "
+          f"= {layers} x (prefill chunks + verify steps + replays + 2 "
+          f"warm-up)", flush=True)
+
+
+def graph_device_ms(torch, fn, n=20, generators=()) -> float:
+    """Device ms of ``fn`` captured alone in a CUDA graph (with the
+    ``generators`` it draws from registered): events around ``n``
+    replays."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
+    with torch.cuda.graph(graph, stream=stream):
+        fn()
+    return replay_ms(torch, graph.replay, n)
+
+
+def replay_ms(torch, replay, n=20) -> float:
+    replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def spec_timing(torch, np, pa, gpt2, Engine, DraftModelDrafter, verify_rows,
+                model, seed: int) -> None:
+    """Phase 4f's timing at serve_bench's zero-weight geometry (acceptance
+    1): fused speculation, host-drafted speculation and plain fused
+    decode, in turns (A B C C B A); tokens/s, tokens a window, device ms
+    per replayed iteration and the shares of its draft, verify forward
+    and acceptance."""
+    zmodel = copy.deepcopy(model)
+    zero_weights(torch, zmodel)
+    zdraft = spec_draft(torch, gpt2, model.config.vocab_size, seed + 1,
+                        zero=True)
+    rng = np.random.default_rng(seed + 3)
+    prompts = [rng.integers(0, model.config.vocab_size, size=16)
+               .astype(np.int32) for _ in range(8)]
+    results = {mode: [] for mode in ("fused", "host", "decode")}
+    fused_eng = None
+    for mode in ("fused", "host", "decode", "decode", "host", "fused"):
+        eng = spec_engine(Engine, DraftModelDrafter, zmodel, zdraft, mode)
+        handles, wall, _ = spec_run(torch, pa, eng, prompts,
+                                    SPEC_TIMING_TOKENS)
+        st = eng.stats
+        decoded = st["tokens"] - len(handles)  # first tokens: the prefill
+        windows = st["fused_spec_windows"] or st["fused_windows"]
+        per_window = decoded / windows if windows else float("nan")
+        results[mode].append(st["tokens"] / wall)
+        print(f"spec-timing {mode} (run {len(results[mode])}): "
+              f"{serve_summary(handles, wall)}; acceptance "
+              f"{eng.acceptance_rate}; windows {windows}, decoded tokens a "
+              f"window {per_window:.2f}; host verify steps "
+              f"{st['verify_steps']}; stats {dict(st)}", flush=True)
+        if mode == "fused":
+            if eng.acceptance_rate != 1.0:
+                raise SmokeFailure(f"zero weights accepted "
+                                   f"{eng.acceptance_rate} of the drafts")
+            fused_eng = eng
+    window = fused_eng._spec_window
+    iter_ms = replay_ms(torch, window.graph.replay)
+    draft_ms = graph_device_ms(torch, window.draft)
+    # The iteration's other parts, each captured alone on its inputs.
+    b = window.inputs
+    drafts = window.draft()
+    tokens = torch.cat([b["last"][:, None], drafts], dim=1)
+
+    def verify():
+        return window.forward(tokens, b["lens"], b["running"], b["table"])
+
+    logits = verify()
+    verify_ms = graph_device_ms(torch, verify)
+    accept_ms = graph_device_ms(
+        torch, lambda: verify_rows(logits, drafts, b["temps"], b["top_k"],
+                                   b["top_p"], window.generators),
+        generators=window.generators)
+    print(f"spec-timing fused window device ms per replayed iteration "
+          f"{iter_ms:.4f}: its draft (prefill of {SPEC_MAX_LEN} tokens a "
+          f"slot in {window.chunk}-token chunks, {SPEC_K - 1} steps) alone "
+          f"{draft_ms:.4f} ({100 * draft_ms / iter_ms:.1f}% of the "
+          f"iteration), the target's verify forward alone {verify_ms:.4f} "
+          f"({100 * verify_ms / iter_ms:.1f}%), acceptance (verify_rows) "
+          f"alone {accept_ms:.4f} ({100 * accept_ms / iter_ms:.1f}%), the "
+          f"rest {iter_ms - draft_ms - verify_ms - accept_ms:.4f}",
+          flush=True)
+    print("spec-timing tokens/s (each engine's two runs): " + ", ".join(
+        f"{mode} {v[0]:.1f} / {v[1]:.1f}" for mode, v in results.items())
+          + f"; fused over host-drafted "
+          f"{sum(results['fused']) / sum(results['host']):.2f}x, over fused "
+          f"decode {sum(results['fused']) / sum(results['decode']):.2f}x "
+          f"(no gain is claimed: a smoke run)", flush=True)
+    del zmodel, zdraft, fused_eng, window, logits
+
+
+def spec_fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
+    """Phase 4f: fused speculation on GPT-2 small (K5 inside the graph)
+    against the host-drafted and plain engines, greedy and sampled; a
+    shorter LLaMA-GQA case over int8 pages (K5-int8); then the zero-weight
+    timing.  Returns the fused runs' K5 and K5-int8 launches."""
+    from tpudp_torch.models import gpt2, llama
+    from tpudp_torch.ops.sampling import verify_rows
+    from tpudp_torch.serve import DraftModelDrafter, Engine
+
+    t0 = time.perf_counter()
+    cfg = model.config
+    draft = spec_draft(torch, gpt2, cfg.vocab_size, seed + 1)
+    work = spec_prompts(np, seed, cfg.vocab_size, prompts)
+    launched = {}
+    runs = {}
+    for mode, sampled in (("fused", False), ("host", False),
+                          ("plain", False), ("fused", True),
+                          ("host", True)):
+        eng = spec_engine(Engine, DraftModelDrafter, model, draft, mode)
+        syncs = [] if mode == "fused" else None
+        handles, wall, launches = spec_run(torch, pa, eng, work, NEW_TOKENS,
+                                           sampled, syncs)
+        label = f"spec-fused-path {mode} {'sampled' if sampled else 'greedy'}"
+        print(f"{label}: {serve_summary(handles, wall)}, acceptance "
+              f"{eng.acceptance_rate}, launches {launches}, stats "
+              f"{dict(eng.stats)}", flush=True)
+        if mode == "fused":
+            check_spec_fused_run(eng, launches, syncs, "paged_window", label)
+            launched["paged_window"] = (launched.get("paged_window", 0)
+                                        + launches["paged_window"])
+        if mode == "plain" and any(launches.values()):
+            raise SmokeFailure("the plain engine launched a kernel")
+        runs[mode, sampled] = handles
+    agree_with_plain(torch, np, model, work, runs["fused", False],
+                     runs["plain", False], "spec-fused-path greedy")
+    agree_with_plain(torch, np, model, work, runs["fused", False],
+                     runs["host", False], "spec-fused-path greedy",
+                     against="the host-drafted engine")
+    fused, host = runs["fused", True], runs["host", True]
+    same = sum(h.tokens == r.tokens and h.draft_accepted == r.draft_accepted
+               for h, r in zip(fused, host))
+    if same != len(fused):
+        raise SmokeFailure(f"spec-fused-path sampled: {same}/{len(fused)} "
+                           f"requests equal the host-drafted engine's "
+                           f"tokens and acceptance")
+    print(f"spec-fused-path sampled tokens and acceptance equal the "
+          f"host-drafted engine's ({same}/{len(fused)} identical)",
+          flush=True)
+    del draft
+    # LLaMA-GQA over int8 pages: K5-int8 inside the graph.
+    lcfg = llama.LlamaConfig(**LLAMA_GQA)
+    lmodel = llama.build(lcfg, seed, "cuda")
+    ldraft = spec_draft(torch, gpt2, lcfg.vocab_size, seed + 2)
+    lprompts = make_prompts(np, seed, lcfg.vocab_size)[:4]
+    lruns = {}
+    for mode in ("fused", "host"):
+        eng = spec_engine(Engine, DraftModelDrafter, lmodel, ldraft, mode,
+                          kv_dtype="int8")
+        syncs = [] if mode == "fused" else None
+        handles, wall, launches = spec_run(torch, pa, eng, lprompts,
+                                           SPEC_LLAMA_TOKENS, syncs=syncs)
+        label = f"spec-fused-path llama int8 {mode}"
+        print(f"{label}: {serve_summary(handles, wall)}, acceptance "
+              f"{eng.acceptance_rate}, launches {launches}", flush=True)
+        if mode == "fused":
+            check_spec_fused_run(eng, launches, syncs, "paged_window_int8",
+                                 label)
+            launched["paged_window_int8"] = launches["paged_window_int8"]
+        lruns[mode] = handles
+    agree_with_plain(torch, np, lmodel, lprompts, lruns["fused"],
+                     lruns["host"], "spec-fused-path llama int8", "int8",
+                     against="the host-drafted engine")
+    del lmodel, ldraft, lruns
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    spec_timing(torch, np, pa, gpt2, Engine, DraftModelDrafter, verify_rows,
+                model, seed)
+    torch.cuda.empty_cache()
+    print(f"spec-fused-path: phase 4f {time.perf_counter() - t0:.1f}s "
+          f"(checks {t1 - t0:.1f}s, timing {time.perf_counter() - t1:.1f}s)",
+          flush=True)
+    return launched
+
+
+# -- phase 4g: the serving engine's robustness layer ----------------------
+
+
+def robust_engine(Engine, model, **kw):
+    return Engine(model, device="cuda", num_slots=4, prefill_chunk=16,
+                  kv_pages=256, max_len=SPEC_MAX_LEN, **kw)
+
+
+def robust_serve(eng, prompts, new, **kw):
+    handles = [eng.submit(p, new, **kw) for p in prompts]
+    eng.run_until_complete()
+    eng.check_paged()
+    return handles
+
+
+def robustness_path(torch, np, model, prompts, seed: int) -> None:
+    """Phase 4g, on GPT-2 small's kernel engine: step faults at a prefill
+    and at a fused speculation window (each request requeued once with
+    the unfaulted tokens; a second fault gives ERROR), a stalled step
+    caught by the watchdog and contained, a deadline, a canary
+    quarantine, and drain."""
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.serve import (DraftModelDrafter, Engine, EngineClosed,
+                                   FinishReason)
+    from tpudp_torch.serve.faults import (BitFlipLogits, FaultySteps,
+                                          SlowSteps)
+    from tpudp_torch.utils.watchdog import Watchdog
+
+    t0 = time.perf_counter()
+    work = [p[:40] for p in prompts[:4]]
+    draft = spec_draft(torch, gpt2, model.config.vocab_size, seed + 1)
+
+    def nth(kind, n, hook, at):
+        """Fire ``hook`` (at its set ``at``) at the ``n``-th device call of
+        ``kind``."""
+        seen = []
+
+        def fire(k, index):
+            if k == kind:
+                seen.append(index)
+                if len(seen) == n:
+                    at.add(index)
+            hook(k, index)
+        return fire
+
+    cases = {"prefill": dict(decode_fuse=FUSE),
+             "fused_spec": dict(decode_fuse=FUSE, speculate_k=SPEC_K,
+                                drafter=DraftModelDrafter(draft))}
+    for kind, kw in cases.items():
+        clean = robust_serve(robust_engine(Engine, model, **kw), work, 24)
+        hook = FaultySteps(fail_at=set(), kind=kind)
+        eng = robust_engine(Engine, model, step_fault_hook=nth(
+            kind, 2, hook, hook.fail_at), **kw)
+        handles = robust_serve(eng, work, 24)
+        st = eng.stats
+        requeued = st["requeued"]
+        if not (hook.fired and st["step_failures"] == 1 and requeued
+                and not st["errors"]):
+            raise SmokeFailure(f"robust {kind} fault: fired {hook.fired}, "
+                               f"stats {dict(st)}")
+        if [h.tokens for h in handles] != [h.tokens for h in clean]:
+            raise SmokeFailure(f"robust {kind} fault: the requeued requests' "
+                               f"tokens differ from the unfaulted run's")
+        # Every call of the kind fails: the requeue is spent, then ERROR.
+        always = FaultySteps(fail_at=range(10 ** 4), kind=kind)
+        eng2 = robust_engine(Engine, model, step_fault_hook=always, **kw)
+        failed = robust_serve(eng2, work[:2], 24)
+        if not all(h.finish_reason is FinishReason.ERROR for h in failed):
+            raise SmokeFailure(f"robust {kind} second fault: "
+                               f"{[h.finish_reason for h in failed]}")
+        print(f"robust {kind} fault: {st['step_failures']} contained, "
+              f"{requeued} requests requeued once, tokens equal the "
+              f"unfaulted run's ({len(handles)}/{len(handles)}); every "
+              f"call failing: {[h.finish_reason.value for h in failed]} "
+              f"after {eng2.stats['requeued']} requeues", flush=True)
+        if kind == "fused_spec" and (
+                eng.metrics()["fused_spec_window"]["captures"] != 1):
+            raise SmokeFailure("robust fused_spec fault: the window was "
+                               "captured again after containment")
+    wd = Watchdog(timeout_s=0.5, kill=False, poll_s=0.05).start()
+    try:
+        stall = SlowSteps(stall_at=set(), delay_s=1.5, kind="decode")
+        eng = robust_engine(Engine, model, watchdog=wd, step_timeout_s=0.5,
+                            step_fault_hook=nth("decode", 3, stall,
+                                                stall.stall_at))
+        handles = robust_serve(eng, work[:2], 12)
+        if not (stall.fired and eng.stats["step_failures"] >= 1
+                and wd.last_hang and all(h.ok for h in handles)):
+            raise SmokeFailure(f"robust watchdog: fired {stall.fired}, "
+                               f"stats {dict(eng.stats)}")
+        print(f"robust watchdog: a {stall.delay_s}s stall in a decode step "
+              f"seen in region {wd.last_hang['region']!r} and contained "
+              f"({eng.stats['step_failures']} step failures), "
+              f"{len(handles)} requests complete", flush=True)
+    finally:
+        wd.stop()
+    eng = robust_engine(Engine, model)
+    late = eng.submit(work[0], 200, deadline_s=1.0)
+    while len(late.tokens) < 2 and not late.done:
+        eng.step()
+    time.sleep(1.05)
+    eng.run_until_complete()
+    if late.finish_reason is not FinishReason.DEADLINE:
+        raise SmokeFailure(f"robust deadline: {late.finish_reason}")
+    print(f"robust deadline: retired after {len(late.tokens)} tokens",
+          flush=True)
+    flip = BitFlipLogits([(5, None, 3)], vocab=model.config.vocab_size,
+                         canary_only=True)
+    eng = robust_engine(Engine, model, canary_every_s=0.0,
+                        canary_new_tokens=4, token_fault_hook=flip)
+    eng.submit(work[1], 40)
+    for _ in range(400):
+        if eng.quarantined:
+            break
+        eng.step()
+    if not (eng.quarantined and flip.fired):
+        raise SmokeFailure(f"robust canary: not quarantined "
+                           f"({eng.metrics().get('canary')})")
+    print(f"robust canary: {eng.quarantine_reason}", flush=True)
+    eng = robust_engine(Engine, model, decode_fuse=FUSE)
+    handles = [eng.submit(p, 12) for p in work]
+    eng.step()
+    eng.drain()
+    try:
+        eng.submit(work[0], 2)
+        raise SmokeFailure("robust drain: submit after drain() was taken")
+    except EngineClosed:
+        pass
+    if not (eng.closed and all(h.ok for h in handles)):
+        raise SmokeFailure("robust drain: work in flight did not finish")
+    print(f"robust drain: {len(handles)} requests finished, submit refused; "
+          f"phase 4g {time.perf_counter() - t0:.1f}s", flush=True)
+    del draft
+    torch.cuda.empty_cache()
 
 
 # -- phase 5: flash kernels vs their plain versions -----------------------
@@ -3390,6 +3872,10 @@ def main(argv=None) -> int:
         for name, n in fused_path(torch, np, pa, model, prompts,
                                   args.seed).items():
             launches[name] += n
+        for name, n in spec_fused_path(torch, np, pa, model, prompts,
+                                       args.seed).items():
+            launches[name] += n
+        robustness_path(torch, np, model, prompts, args.seed)
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
         before = kernel_launches(pa, fa)

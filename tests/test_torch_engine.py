@@ -138,11 +138,18 @@ def test_kernel_backend_needs_the_card(setup):
         "requested": None, "resolved": "einsum",
         "dispatch": dict.fromkeys(("decode_paged", "verify_paged",
                                    "prefill_paged", "fused_decode_paged",
-                                   "tree_verify_paged"), "einsum"),
+                                   "fused_spec_paged", "tree_verify_paged"),
+                                  "einsum"),
         "fallbacks": []}
     assert set(m["kernel_launches"]) == {
         "paged_decode", "paged_window", "paged_decode_int8",
         "paged_window_int8", "paged_tree"}
+
+
+#: The robustness options, ported: each constructs and is kept.
+PORTED_OPTIONS = {"drafter_timeout_s": "drafter_timeout_s",
+                  "step_timeout_s": "_step_timeout_s",
+                  "canary_every_s": "canary_every_s"}
 
 
 @pytest.mark.parametrize("option,value", [
@@ -150,9 +157,15 @@ def test_kernel_backend_needs_the_card(setup):
     ("prefix_cache_blocks", 8), ("models", {"draft": None}),
     ("tenants", {}), ("canary_every_s", 1.0)])
 def test_unported_options_raise(setup, option, value):
+    """Options of later slices raise naming their ROADMAP item; the
+    robustness options construct (and their "off" values do too)."""
     _, _, model, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(model, device="cpu", **{option: value})
+    if option in PORTED_OPTIONS:
+        eng = Engine(model, device="cpu", max_len=48, **{option: value})
+        assert getattr(eng, PORTED_OPTIONS[option]) == value
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            Engine(model, device="cpu", **{option: value})
     Engine(model, device="cpu", max_len=48, **{option: {
         "drafter_timeout_s": None, "step_timeout_s": None,
         "prefix_cache_blocks": 0, "models": None, "tenants": None,

@@ -360,9 +360,11 @@ def test_validation(families):
         Engine(model, device="cpu", num_slots=1, decode_fuse=0)
     with pytest.raises(ValueError, match="fuse_stream"):
         Engine(model, device="cpu", num_slots=1, fuse_stream=True)
-    with pytest.raises(NotImplementedError, match="fused speculation"):
-        Engine(model, device="cpu", num_slots=1, max_len=48, speculate_k=2,
-               drafter=DraftModelDrafter(model), decode_fuse=4)
+    # A model drafter that covers max_len + k positions fuses speculation.
+    eng = Engine(model, device="cpu", num_slots=1, max_len=48, speculate_k=2,
+                 drafter=DraftModelDrafter(model), decode_fuse=4)
+    assert eng._spec_fusable
+    assert eng.paged_attn_dispatch == {}
 
 
 def test_fused_stats(families):

@@ -250,19 +250,27 @@ class _NoTree:
      ValueError, "propose_tree"),
     (dict(speculate_k=2, speculate_tree="nope"), ValueError,
      "unknown tree shape"),
-    (dict(speculate_k=2, decode_fuse=4, drafter="model"),
-     NotImplementedError, "slice 3"),
-    (dict(speculate_k=2, drafter_timeout_s=1.0), NotImplementedError,
-     "slice 8"),
+    (dict(speculate_k=2, decode_fuse=4, drafter="model"), None,
+     "_spec_fusable"),
+    (dict(speculate_k=2, drafter_timeout_s=1.0), None, "drafter_timeout_s"),
+    (dict(speculate_k=2, drafter_timeout_s=0.0), ValueError,
+     "drafter_timeout_s"),
 ])
 def test_speculation_validation(setup, kw, exc, match):
+    """Bad speculation options raise; where ``exc`` is None the options
+    construct and the attribute ``match`` names is set (fused
+    speculation, the drafter timeout)."""
     _, _, model, _, _ = setup
     if kw.get("drafter") == "vocab":
         other = gpt2.build(gpt2.GPT2Config(**{**TINY, "vocab_size": 64}), 0,
                            "cpu")
         kw = {**kw, "drafter": DraftModelDrafter(other)}
-    if kw.get("drafter") == "model":  # fused speculation is not ported
+    if kw.get("drafter") == "model":  # covers max_len + k: fuses
         kw = {**kw, "drafter": DraftModelDrafter(model)}
+    if exc is None:
+        eng = Engine(model, device="cpu", max_len=48, prefill_chunk=8, **kw)
+        assert getattr(eng, match)
+        return
     with pytest.raises(exc, match=match):
         Engine(model, device="cpu", max_len=48, prefill_chunk=8, **kw)
 

@@ -18,9 +18,10 @@ its write (:func:`write_token_pages`) and read (:class:`_PagedKV` over
 mode (einsum) and whole-pool mode (kernels), the speculative tree
 forwards (:func:`_forward_tree` over a dense view, :func:`gather_pages`
 to make one from the pool, and :func:`_forward_tree_paged` through the
-block table), and greedy or sampled :func:`generate`.  Caches and pools
-are ``kv_heads`` wide (LLaMA's GQA).  Beam search is a later slice
-(ROADMAP.md).
+block table), greedy or sampled :func:`generate`, and
+:func:`draft_greedy`, the fused speculation window's draft model on
+static shapes.  Caches and pools are ``kv_heads`` wide (LLaMA's GQA).
+Beam search is a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -273,6 +274,50 @@ def _forward_cached(model, tokens: torch.Tensor, cache: KVCache, pos):
     for i, blk in enumerate(model.h):
         x, _, _ = block(cfg, blk, x, cache.k[i], cache.v[i], pos)
     return _head(model, x), cache
+
+
+def draft_greedy(model, hist: torch.Tensor, cache: KVCache,
+                 lens: torch.Tensor, k: int, chunk: int) -> torch.Tensor:
+    """``k`` greedy draft tokens ``(S, k)`` int64 per row of a token
+    history ``hist`` ``(S, W)`` whose last real token sits at ``lens``
+    ``(S,)``, on static shapes with nothing read back to the host — the
+    draft half of ``tpudp/serve/engine.py``'s ``_fused_spec_math``.
+
+    The history is prefilled into ``cache`` (at least ``W + k`` wide,
+    written in place; nothing in it needs clearing) in causal q-chunks
+    of ``chunk`` tokens (``W % chunk == 0``): pad positions past
+    ``lens`` sit behind the causal mask, as in the host drafter's padded
+    bucket.  Only each row's hidden state at ``lens`` goes through the
+    head; then ``k - 1`` cached greedy steps at ``lens + 1 + j``.  The
+    drafts are those of ``DraftModelDrafter(bucket=W)`` on each row's
+    ``hist[:lens + 1]``."""
+    cfg = model.config
+    block = _decode_block(cfg)
+    s, width = hist.shape
+    dev = hist.device
+    rows = torch.arange(s, device=dev)
+    last = None
+    for c in range(width // chunk):
+        start = c * chunk
+        # Per-row starts made on the device: a host scalar would be
+        # copied in (and read back by the dense block), which a CUDA
+        # graph cannot hold.
+        pos = torch.full((s,), start, dtype=torch.long, device=dev)
+        x = _embed(model, hist[:, start:start + chunk],
+                   _positions(pos, chunk, dev))
+        for i, blk in enumerate(model.h):
+            x, _, _ = block(cfg, blk, x, cache.k[i], cache.v[i], pos)
+        rel = lens.long() - start
+        pick = x[rows, rel.clamp(0, chunk - 1)]
+        inside = ((rel >= 0) & (rel < chunk))[:, None]
+        last = pick if last is None else torch.where(inside, pick, last)
+    tok = torch.argmax(_head(model, last[:, None])[:, 0], dim=-1)
+    drafts = [tok]
+    for j in range(k - 1):
+        logits, _ = _forward_cached(model, drafts[-1][:, None], cache,
+                                    lens + 1 + j)
+        drafts.append(torch.argmax(logits[:, 0], dim=-1))
+    return torch.stack(drafts, dim=1)
 
 
 def _forward_paged(model, tokens: torch.Tensor, pool,

@@ -62,6 +62,12 @@ SOURCE_OF = {"paged_decode_int8": "paged_decode",
 _loaded: dict[str, ctypes.CDLL] = {}  # by source
 
 
+class BuildError(RuntimeError):
+    """A kernel library could not be built (no ``nvcc``, or ``nvcc``
+    failed).  The serving engine does not contain it: it is a fault of
+    the program, not of a step."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -70,7 +76,7 @@ def _nvcc() -> str:
     path = Path(home) / "bin" / "nvcc"
     if path.exists():
         return str(path)
-    raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; the "
+    raise BuildError("nvcc not found on PATH or under CUDA_HOME; the "
                        "port's CUDA kernels are built from source on first "
                        "use")
 
@@ -108,7 +114,7 @@ def _finish_build(src_name: str, job) -> None:
     out, _ = proc.communicate()
     if proc.returncode:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed building {src_name}.cu "
+        raise BuildError(f"nvcc failed building {src_name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)  # atomic: another process loads a whole file
 
@@ -127,7 +133,7 @@ def build(names=tuple(SIGNATURES)) -> None:
         except RuntimeError as exc:
             errors.append(str(exc))
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise BuildError("\n".join(errors))
 
 
 def launcher(name: str):

@@ -1,8 +1,9 @@
 """Per-row masked token sampling and speculative acceptance — the port
 of ``tpudp/ops/sampling.py``'s ``truncate_logits``, ``sample_tokens``,
 ``verify_tokens``, ``tree_depths`` and ``verify_tree_tokens``, with
-:func:`sample_rows`, the sync-free body of ``sample_tokens`` that a CUDA
-graph of the engine's fused decode window holds.
+:func:`sample_rows` and :func:`verify_rows`, the sync-free bodies of
+``sample_tokens`` and ``verify_tokens`` that the CUDA graphs of the
+engine's fused decode and fused speculation windows hold.
 
 Row-wise semantics, as in the JAX op:
 
@@ -198,6 +199,57 @@ def verify_tokens(logits: torch.Tensor, draft: torch.Tensor, n_draft,
     out = torch.where(torch.arange(w, device=dev)[None, :] < a[:, None],
                       torch.cat([draft, torch.zeros_like(draft[:, :1])],
                                 dim=1), final[:, None])
+    return out, a + 1
+
+
+def verify_rows(logits: torch.Tensor, draft: torch.Tensor,
+                temperature: torch.Tensor, top_k: torch.Tensor,
+                top_p: torch.Tensor, generators):
+    """:func:`verify_tokens` with every row fully drafted (``n_draft ==
+    k``), no host sync and no branch on device values, so a CUDA graph
+    can hold it.  ``temperature``/``top_k``/``top_p`` are ``(n,)``
+    tensors on the logits' device and every row has a generator.
+
+    Each row draws ``k`` acceptance uniforms, then one final token with
+    :func:`_draw` from the residual (the first rejected draft masked
+    out) or from the bonus row, whether it is greedy or not, so a
+    sampled row's generator moves as it does in :func:`verify_tokens`
+    and gets the same tokens from the same offset; greedy rows take the
+    argmax prefix.  Sampled rows are scaled and truncated with
+    :func:`verify_tokens`'s arithmetic (truncation that a row disables
+    leaves it unchanged).  Returns ``(tokens (n, W), n_emitted (n,))``
+    int64, as :func:`verify_tokens`."""
+    n, w, _ = logits.shape
+    k = w - 1
+    dev = logits.device
+    draft = draft.long()
+    cols = torch.arange(w, device=dev)
+    targets = torch.argmax(logits, dim=-1)  # (n, W)
+    a_greedy = torch.cumprod((draft == targets[:, :k]).long(), 1).sum(1)
+    scaled = logits / torch.where(temperature > 0, temperature,
+                                  1.0)[:, None, None]
+    masked = truncate_logits(scaled, top_k[:, None].expand(n, w),
+                             top_p[:, None].expand(n, w))
+    p = torch.gather(torch.softmax(masked[:, :k], dim=-1), 2,
+                     draft[..., None])[..., 0]  # (n, k)
+    u = torch.stack([torch.rand(k, generator=g, device=dev)
+                     for g in generators])
+    a_sampled = torch.cumprod((u < p).long(), 1).sum(1)
+    sampled = temperature > 0
+    a = torch.where(sampled, a_sampled, a_greedy)
+    row = torch.gather(masked, 1, a[:, None, None].expand(
+        n, 1, masked.shape[-1]))[:, 0]
+    rejected = torch.gather(draft, 1, a.clamp(max=k - 1)[:, None])
+    row = torch.where((a < k)[:, None], row.scatter(1, rejected, -torch.inf),
+                      row)
+    probs = torch.softmax(row, dim=-1)
+    drawn = torch.stack([_draw(probs[i], g)
+                         for i, g in enumerate(generators)])
+    final = torch.where(sampled, drawn,
+                        torch.gather(targets, 1, a[:, None])[:, 0])
+    out = torch.where(cols[None, :] < a[:, None],
+                      torch.cat([draft, torch.zeros_like(draft[:, :1])], 1),
+                      final[:, None])
     return out, a + 1
 
 

@@ -61,8 +61,9 @@ engine runs up to N decode iterations as one window
 decode iteration, replayed with no host sync in between — fetches its
 tokens once, and replays their commits through the single-step path's
 ``_commit``, so stats, retirements and later single steps continue
-exactly.  Any other iteration runs the single-step path; speculation
-wins over fusing.  ``decode_fuse=1``, the default, builds no window and
+exactly.  Any other iteration runs the single-step path; host-drafted
+speculation wins over fusing.  ``decode_fuse=1``, the default, builds no
+window and
 is the single-step engine.  ``fuse_stream=True`` adds
 :attr:`Engine.fused_stream`, a bounded ring of ``(slot, token)`` in the
 order the window's iterations committed them.  JAX's ring is filled by
@@ -70,17 +71,49 @@ a callback inside its loop, token by token; the port fills it per
 window, after the fetch.  It is observability only, never the commit
 path.
 
+Fused speculation (``speculate_k=k``, ``decode_fuse=N > 1`` and a
+``DraftModelDrafter`` whose model covers ``max_len + k`` positions,
+sequence mode): a pure-decode iteration runs up to N draft -> verify ->
+accept iterations as one window (``tpudp_torch.serve.fused.
+FusedSpecWindow``) — the draft model refills its own KV store from each
+slot's token history on the device, each iteration's ``k + 1`` verify
+window runs through the target's paged forward (K5, or K5-int8 over an
+int8 pool) — and fetches once.  Its tokens and acceptance counts are
+those of the host-drafted engine with ``DraftModelDrafter(bucket=
+max_len)`` and ``decode_fuse=1``, greedy and sampled.  Once the drafter
+is quarantined the engine runs plain fused decode windows.
+
+Robustness, as in JAX: ``queue_limit`` sheds with :class:`QueueFull`;
+``submit(deadline_s=, ttft_deadline_s=)`` retires an expired request
+with ``FinishReason.DEADLINE``; every device call goes through one seam
+(``_device``: ``step_fault_hook(kind, index)``, then the optional
+watchdog's scoped deadline, ``step_timeout_s``); an exception escaping
+a step is contained (``_contain_step_failure``): the KV store is reset
+in place and each in-flight request requeues once with its tokens and
+generator state, a second failure retires it with ``ERROR``.  A drafter
+that raises, returns garbage, exceeds ``drafter_timeout_s`` or blocks
+past the watchdog's deadline is quarantined.  ``canary_every_s`` runs a
+greedy probe request whose tokens are pinned by its first clean run; a
+later mismatch (``token_fault_hook`` is the silent-corruption seam)
+quarantines the engine.  ``drain()`` finishes accepted work and closes;
+``close()`` cancels it.  Containment covers exceptions raised on the
+host — hooks, ``StepHangError``, a kernel launch's error code — not a
+fault that poisons the CUDA context (an illegal address, a device-side
+assert), which no process survives; a failed kernel build
+(``_build.BuildError``) or graph capture (``fused.CaptureError``) is a
+fault of the program and raises.  JAX's obs spans, events and flight
+dumps are a later slice (ROADMAP.md slice 8, obs).
+
 The model is a ``tpudp_torch`` GPT-2 or LLaMA (grouped-query heads: the
-KV store is ``kv_heads`` wide).  The JAX engine's fused speculation (a
-model drafter inside the window), the dense copy cache, tenancy,
-co-resident models, canaries, the watchdog, the drafter timeout and
-fault hooks are later slices: each such option raises
+KV store is ``kv_heads`` wide).  The dense copy cache, tenancy and
+co-resident models are later slices: each such option raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import enum
 import time
 
@@ -93,11 +126,12 @@ from tpudp_torch.models.generate import (KVCache, _forward_cached,
                                          update_cache_rows,
                                          validate_decode_config,
                                          write_token_pages)
+from tpudp_torch.ops._build import BuildError
 from tpudp_torch.ops.paged_attention import (_KERNEL_HEAD_DIMS, KERNELS,
                                              TREE_KERNEL_MAX_NODES)
 from tpudp_torch.ops.sampling import (sample_tokens, verify_tokens,
                                       verify_tree_tokens)
-from tpudp_torch.serve.fused import FusedWindow
+from tpudp_torch.serve.fused import CaptureError, FusedSpecWindow, FusedWindow
 from tpudp_torch.serve.prefix_cache import PageIndex, PagePool
 from tpudp_torch.serve.speculate import NgramDrafter, tree_shape
 
@@ -107,12 +141,6 @@ _UNPORTED = {
     "prefix_cache_blocks": (0, "slice 8 (dense copy prefix cache)"),
     "tenants": (None, "slice 8 (tenancy)"),
     "models": (None, "slice 8 (co-resident models)"),
-    "canary_every_s": (None, "slice 8 (robustness: serving canary)"),
-    "watchdog": (None, "slice 8 (robustness: watchdog)"),
-    "drafter_timeout_s": (None, "slice 8 (robustness: drafter timeout)"),
-    "step_timeout_s": (None, "slice 8 (robustness: watchdog)"),
-    "step_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
-    "token_fault_hook": (None, "slice 8 (robustness: fault hooks)"),
 }
 
 
@@ -122,7 +150,8 @@ KERNEL_DEVICES = ("cuda",)
 #: The paged step families, as ``metrics()["paged_attn"]["dispatch"]``
 #: names them.
 PAGED_FAMILIES = ("decode_paged", "verify_paged", "prefill_paged",
-                  "fused_decode_paged", "tree_verify_paged")
+                  "fused_decode_paged", "fused_spec_paged",
+                  "tree_verify_paged")
 
 
 def paged_dispatch(paged_attn: str, kv_dtype: str | None,
@@ -150,11 +179,14 @@ def paged_dispatch(paged_attn: str, kv_dtype: str | None,
 
 
 class FinishReason(str, enum.Enum):
-    """Why a request stopped.  ``COMPLETE``/``EOS`` are success."""
+    """Why a request stopped.  ``COMPLETE``/``EOS`` are success; the rest
+    make :meth:`Request.result` raise :class:`RequestFailed`."""
 
     COMPLETE = "complete"    # max_new_tokens emitted
     EOS = "eos"              # sampled the request's eos_id
     CANCELLED = "cancelled"  # Engine.cancel()/Request.cancel()/close()
+    DEADLINE = "deadline"    # deadline_s / ttft_deadline_s expired
+    ERROR = "error"          # a step failure exhausted the requeue
     SHED = "shed"            # queued work discarded by Engine.close()
 
 
@@ -162,6 +194,8 @@ _FINISH_COUNTER = {
     FinishReason.COMPLETE: "completed",
     FinishReason.EOS: "completed",
     FinishReason.CANCELLED: "cancelled",
+    FinishReason.DEADLINE: "deadline_expired",
+    FinishReason.ERROR: "errors",
     FinishReason.SHED: "shed",
 }
 
@@ -171,7 +205,8 @@ class QueueFull(RuntimeError):
 
 
 class EngineClosed(RuntimeError):
-    """submit() called after :meth:`Engine.close`."""
+    """submit() called after :meth:`Engine.drain`/:meth:`Engine.close`,
+    or on an engine a canary quarantined."""
 
 
 class RequestFailed(RuntimeError):
@@ -229,11 +264,15 @@ class Request:
     :meth:`result` for the whole ``prompt + completion``.
     ``token_times`` holds a ``time.perf_counter()`` stamp per token;
     ``draft_proposed``/``draft_accepted`` count this request's drafted
-    and accepted tokens (``acceptance_rate`` is their ratio)."""
+    and accepted tokens (``acceptance_rate`` is their ratio).
+    ``finish_reason`` says why it stopped (None until ``done``) and
+    ``error`` holds the exception that retired it with ``ERROR``."""
 
     def __init__(self, engine: "Engine", rid: int, prompt: np.ndarray,
                  max_new_tokens: int, temperature: float, top_k: int,
-                 top_p: float, seed: int, eos_id: int | None):
+                 top_p: float, seed: int, eos_id: int | None,
+                 deadline_s: float | None = None,
+                 ttft_deadline_s: float | None = None):
         self._engine = engine
         self.id = rid
         self.prompt = prompt
@@ -243,12 +282,15 @@ class Request:
         self.top_p = top_p  # 1.0 = disabled
         self.seed = seed
         self.eos_id = eos_id
+        self.deadline_s = deadline_s
+        self.ttft_deadline_s = ttft_deadline_s
         self._ms = None
         self.tokens: list[int] = []
         self.token_times: list[float] = []
         self.submit_time = time.perf_counter()
         self.done = False
         self.finish_reason: FinishReason | None = None
+        self.error: BaseException | None = None
         self.draft_proposed = 0
         self.draft_accepted = 0
         self._slot: int | None = None
@@ -256,6 +298,8 @@ class Request:
         self._nfill = 0      # fill tokens already in the KV store
         self._order = 0      # admission order (prefill FIFO tiebreak)
         self._resume_key = None  # generator state saved across a vacate
+        self._requeued = False   # the one step-failure requeue is spent
+        self._canary = False     # the engine's own canary probe
 
     @property
     def acceptance_rate(self) -> float | None:
@@ -264,6 +308,10 @@ class Request:
         if not self.draft_proposed:
             return None
         return self.draft_accepted / self.draft_proposed
+
+    @property
+    def cancelled(self) -> bool:
+        return self.finish_reason is FinishReason.CANCELLED
 
     @property
     def ok(self) -> bool:
@@ -327,9 +375,20 @@ class Engine:
     parents tuple of depth ``<= speculate_k``), tree verify; every
     request then reserves ``speculate_k`` scratch positions of
     ``max_len``.  ``decode_fuse > 1`` runs pure-decode iterations as
-    fused windows of up to that many decode iterations, and
-    ``fuse_stream`` (which needs ``decode_fuse >= 2``) keeps their
-    commits in :attr:`fused_stream`."""
+    fused windows of up to that many decode iterations (of speculation
+    iterations with a model drafter that covers ``max_len +
+    speculate_k`` positions), and ``fuse_stream`` (which needs
+    ``decode_fuse >= 2``) keeps their commits in :attr:`fused_stream`.
+
+    Robustness: ``drafter_timeout_s`` bounds one ``propose``;
+    ``watchdog`` (a started ``tpudp_torch.utils.watchdog.Watchdog``)
+    arms a scoped deadline of ``step_timeout_s`` (default: the
+    watchdog's) around every device call and every propose;
+    ``step_fault_hook(kind, index)`` runs before each device call and
+    ``token_fault_hook(slot, token, request) -> token`` at each commit;
+    ``canary_every_s`` starts a canary request (``canary_prompt``,
+    default tokens 1-8; ``canary_new_tokens`` greedy tokens) that often,
+    one at a time."""
 
     def __init__(self, model, *, device="cuda", num_slots: int = 8,
                  max_len: int | None = None, prefill_chunk: int = 16,
@@ -337,7 +396,12 @@ class Engine:
                  kv_dtype: str | None = None,
                  queue_limit: int | None = None, speculate_k: int = 0,
                  drafter=None, speculate_tree=None, decode_fuse: int = 1,
-                 fuse_stream: bool = False, **unported):
+                 fuse_stream: bool = False,
+                 drafter_timeout_s: float | None = None, watchdog=None,
+                 step_timeout_s: float | None = None, step_fault_hook=None,
+                 token_fault_hook=None,
+                 canary_every_s: float | None = None, canary_prompt=None,
+                 canary_new_tokens: int = 8, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -419,15 +483,6 @@ class Engine:
                 f"max_len ({self.max_len}) must exceed speculate_k "
                 f"({speculate_k}) — every request reserves k scratch "
                 f"positions for the speculative window")
-        if (speculate_k and decode_fuse > 1 and speculate_tree is None
-                and dcfg is not None
-                and dcfg.max_seq_len >= self.max_len + speculate_k):
-            # Where JAX runs draft, verify and accept as one fused program
-            # (its _spec_fusable): the port has no such program yet.
-            raise NotImplementedError(
-                "Engine(decode_fuse=...) with a model drafter fuses "
-                "speculation, which is not ported yet: ROADMAP.md slice 3 "
-                "(DraftModelDrafter and fused speculation)")
         self.speculate_tree = None
         if speculate_tree is not None:
             if speculate_k == 0:
@@ -447,11 +502,35 @@ class Engine:
                     f"propose_tree() (e.g. NgramDrafter); "
                     f"{type(drafter).__name__} has none")
             self.speculate_tree = shape
+        # Fused speculation: a model drafter inside the fused window, where
+        # its model covers the max_len-wide history plus k drafts past it
+        # (the host DraftModelDrafter(bucket=max_len)'s geometry, the
+        # referee).  Anything else keeps the host-drafted path.
+        draft_model = getattr(drafter, "model", None)
+        self._spec_fusable = (
+            speculate_k > 0 and decode_fuse > 1 and speculate_tree is None
+            and dcfg is not None and draft_model is not None
+            and dcfg.max_seq_len >= self.max_len + speculate_k)
+        if drafter_timeout_s is not None and drafter_timeout_s <= 0:
+            raise ValueError(f"drafter_timeout_s must be > 0, got "
+                             f"{drafter_timeout_s}")
+        if step_timeout_s is not None and step_timeout_s <= 0:
+            raise ValueError(
+                f"step_timeout_s must be > 0, got {step_timeout_s}")
+        if canary_every_s is not None and canary_every_s < 0:
+            raise ValueError(
+                f"canary_every_s must be >= 0 (0 = a canary in flight "
+                f"whenever possible), got {canary_every_s}")
+        if canary_new_tokens < 1:
+            raise ValueError(
+                f"canary_new_tokens must be >= 1, got {canary_new_tokens}")
         self.speculate_k = speculate_k
         self.drafter = drafter
         self._drafter_quarantined = False
         self.drafter_quarantine_reason: str | None = None
         self.model = model.to(self.device)
+        if self._spec_fusable:
+            draft_model.to(self.device)  # the window drafts on the card
         self.config = cfg
         self.num_slots = num_slots
         self.prefill_chunk = prefill_chunk
@@ -484,6 +563,7 @@ class Engine:
         self.decode_fuse = decode_fuse
         # Built at the first fused window: decode_fuse=1 never builds one.
         self._window: FusedWindow | None = None
+        self._spec_window: FusedSpecWindow | None = None
         self.fused_stream: collections.deque | None = None
         if fuse_stream:
             # A few windows' worth of tokens: overflow drops the oldest.
@@ -493,8 +573,28 @@ class Engine:
         self._queue: collections.deque[Request] = collections.deque()
         self._next_id = 0
         self._admitted = 0
+        self._accepting = True
         self._closed = False
         self.stats = collections.Counter()
+        self.drafter_timeout_s = drafter_timeout_s
+        self._watchdog = watchdog
+        self._step_timeout_s = step_timeout_s
+        self.step_fault_hook = step_fault_hook
+        self.token_fault_hook = token_fault_hook
+        self._device_calls = 0
+        self.last_step_error: BaseException | None = None
+        # The serving canary: its reference is pinned by the first clean
+        # completion; a later mismatch quarantines the engine.
+        self.canary_every_s = canary_every_s
+        if canary_prompt is None:
+            canary_prompt = np.arange(1, 9, dtype=np.int32) % cfg.vocab_size
+        self._canary_prompt = np.asarray(canary_prompt, np.int32)
+        self._canary_new_tokens = canary_new_tokens
+        self._canary_ref: tuple | None = None
+        self._canary_active: Request | None = None
+        self._canary_last = -float("inf")  # the first canary starts at once
+        self._quarantined = False
+        self.quarantine_reason: str | None = None
 
     def _build_page_pools(self) -> None:
         """One page pool, radix index and block table for the model."""
@@ -523,16 +623,22 @@ class Engine:
     def submit(self, prompt, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: int | None = None,
                top_p: float | None = None, seed: int = 0,
-               eos_id: int | None = None) -> Request:
+               eos_id: int | None = None, deadline_s: float | None = None,
+               ttft_deadline_s: float | None = None) -> Request:
         """Queue one generation request; returns its streaming handle.
         ``temperature=0`` is greedy (``top_k``/``top_p`` rejected);
         otherwise softmax sampling truncated to top-k and/or the top-p
         nucleus from a generator seeded with ``seed``.  ``eos_id`` ends
         the request early when sampled (and is included in
-        ``tokens``)."""
-        if self._closed:
-            raise EngineClosed("Engine.close() was called; the engine no "
-                               "longer accepts work")
+        ``tokens``).  ``deadline_s`` bounds the request's wall time from
+        submit, ``ttft_deadline_s`` its wait for the first token; an
+        expired request retires with ``FinishReason.DEADLINE`` at the
+        next step, its tokens kept.  Raises :class:`EngineClosed` once
+        :meth:`drain`/:meth:`close` began and :class:`QueueFull` when
+        ``queue_limit`` requests are waiting."""
+        if not self._accepting:
+            raise EngineClosed("Engine.drain()/close() was called; the "
+                               "engine no longer accepts work")
         if (self.queue_limit is not None
                 and self.queue_depth >= self.queue_limit):
             self.stats["shed"] += 1
@@ -567,9 +673,15 @@ class Engine:
             raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if eos_id is not None and not 0 <= eos_id < vocab:
             raise ValueError(f"eos_id must be in [0, {vocab})")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if ttft_deadline_s is not None and ttft_deadline_s <= 0:
+            raise ValueError(
+                f"ttft_deadline_s must be > 0, got {ttft_deadline_s}")
         r = Request(self, self._next_id, prompt, max_new_tokens,
                     float(temperature), int(top_k or 0),
-                    float(1.0 if top_p is None else top_p), seed, eos_id)
+                    float(1.0 if top_p is None else top_p), seed, eos_id,
+                    deadline_s, ttft_deadline_s)
         r._ms = ms
         self._next_id += 1
         self._queue.append(r)
@@ -601,41 +713,61 @@ class Engine:
 
     @torch.no_grad()
     def step(self) -> list[tuple[Request, int]]:
-        """One scheduler iteration: admit queued requests into free
-        slots, run at most one prefill chunk, then one batched step for
-        every decoding slot — a tree verify window, a sequence verify
-        window, a fused decode window or a plain decode step, in that
-        order of preference.  Returns the ``(request, token)`` pairs
-        emitted."""
+        """One scheduler iteration: expire deadlines, admit queued
+        requests into free slots, run at most one prefill chunk, then one
+        batched step for every decoding slot — a tree verify window, a
+        fused speculation window, a sequence verify window, a fused
+        decode window or a plain decode step, in that order of
+        preference.  Returns the ``(request, token)`` pairs emitted (a
+        canary's never among them).
+
+        An exception escaping the iteration is contained
+        (:meth:`_contain_step_failure`); a closed or quarantined
+        engine's step does nothing."""
         emitted: list[tuple[Request, int]] = []
-        if self._closed:
+        if self._closed or self._quarantined:
             return emitted
-        self._admit()
-        slot = self._next_prefill_slot()
-        if slot is not None:
-            self._run_prefill_chunk(slot, emitted)
-        # Fuse only on pure-decode iterations: nothing queued (admission
-        # must not wait on a slot a window would free) and nothing
-        # prefilling (a chunk must not stall behind a window).
-        fuse = (self.decode_fuse > 1 and self.queue_depth == 0
-                and self._next_prefill_slot() is None)
-        ms = self._mstates[None]
-        active = self._decoding(ms)
-        if active.any() and self._paged:
-            # Back every table entry the step writes before dispatch;
-            # page pressure resolves here, on the host.
-            active = self._ensure_decode_pages(ms, active, fuse)
-        if active.any():
-            if self._speculating:
-                if self.speculate_tree is not None:
-                    self._run_verify_tree(ms, active, emitted)
+        self._maybe_canary()
+        if self._quarantined:
+            return emitted  # the canary just condemned this engine
+        try:
+            self._expire_deadlines()
+            self._admit()
+            slot = self._next_prefill_slot()
+            if slot is not None:
+                self._run_prefill_chunk(slot, emitted)
+            # Fuse only on pure-decode iterations: nothing queued
+            # (admission must not wait on a slot a window would free) and
+            # nothing prefilling (a chunk must not stall behind a window).
+            # Deadlines do not gate fusing: expiry is seen at the window's
+            # edge.
+            fuse = (self.decode_fuse > 1 and self.queue_depth == 0
+                    and self._next_prefill_slot() is None)
+            ms = self._mstates[None]
+            active = self._decoding(ms)
+            if active.any() and self._paged:
+                # Back every table entry the step writes before dispatch;
+                # page pressure resolves here, on the host.
+                active = self._ensure_decode_pages(ms, active, fuse)
+            if active.any():
+                if self._speculating:
+                    if self.speculate_tree is not None:
+                        self._run_verify_tree(ms, active, emitted)
+                    elif fuse and self._spec_fusable:
+                        self._run_spec_fused(ms, active, emitted)
+                    else:
+                        self._run_verify(ms, active, emitted)
+                elif fuse:
+                    self._run_decode_fused(ms, active, emitted)
                 else:
-                    self._run_verify(ms, active, emitted)
-            elif fuse:
-                self._run_decode_fused(ms, active, emitted)
-            else:
-                self._run_decode(ms, active, emitted)
+                    self._run_decode(ms, active, emitted)
+        except (BuildError, CaptureError):
+            raise  # a fault of the program, not of a step
+        except Exception as exc:  # noqa: BLE001 — containment by design
+            self._contain_step_failure(exc)
         self.stats["steps"] += 1
+        if self.canary_every_s is not None:
+            emitted = [(r, t) for r, t in emitted if not r._canary]
         return emitted
 
     def cancel(self, request: Request) -> bool:
@@ -651,19 +783,55 @@ class Engine:
         return True
 
     def run_until_complete(self) -> None:
-        """Drive the engine until every queue and every slot is empty."""
+        """Drive the engine until every queue and every slot is empty;
+        stops early once a canary quarantined the engine (its live
+        requests stay in place, unfinished)."""
         while self.queue_depth or any(r is not None for r in self._slots):
+            if self._quarantined:
+                return
             self.step()
 
-    def close(self) -> None:
-        """Stop admission, retire in-flight requests as ``CANCELLED`` (no
-        prefix is published) and queued ones as ``SHED``."""
+    def drain(self) -> None:
+        """Graceful shutdown: stop admission (``submit`` raises
+        :class:`EngineClosed`), finish every queued and in-flight
+        request, then close.  Idempotent."""
+        self._accepting = False
+        self.run_until_complete()
         self._closed = True
+
+    def close(self) -> None:
+        """Immediate shutdown: stop admission, retire in-flight requests
+        as ``CANCELLED`` (no prefix is published) and queued ones as
+        ``SHED``.  Idempotent."""
+        self._accepting = False
         while self._queue:
             self._finish(self._queue.popleft(), FinishReason.SHED)
         for s, r in enumerate(self._slots):
             if r is not None:
                 self._retire(s, FinishReason.CANCELLED)
+        self._closed = True
+
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    @property
+    def accepting(self) -> bool:
+        """False once :meth:`drain`/:meth:`close` has begun (or a canary
+        quarantined the engine)."""
+        return self._accepting
+
+    @property
+    def drafter_quarantined(self) -> bool:
+        """True once the drafter is quarantined for good
+        (``drafter_quarantine_reason`` says why)."""
+        return self._drafter_quarantined
+
+    @property
+    def quarantined(self) -> bool:
+        """True once a canary mismatch condemned this engine
+        (``quarantine_reason`` says why): it admits and steps no more."""
+        return self._quarantined
 
     @property
     def slots_in_use(self) -> int:
@@ -712,12 +880,21 @@ class Engine:
                     if self.paged_attn == "kernel" and impl != "kernel")}
         if self.stats.get("draft_tokens"):
             out["acceptance_rate"] = self.acceptance_rate
-        if self._window is not None:
-            w = self._window
-            out["fused_window"] = {"decode_fuse": self.decode_fuse,
-                                   "graph": w.graph is not None,
-                                   "captures": w.captures,
-                                   "replays": w.replays}
+        for key, w in (("fused_window", self._window),
+                       ("fused_spec_window", self._spec_window)):
+            if w is not None:
+                out[key] = {"decode_fuse": self.decode_fuse,
+                            "graph": w.graph is not None,
+                            "captures": w.captures, "replays": w.replays}
+        if self.canary_every_s is not None or self._quarantined:
+            out["canary"] = {
+                "runs": self.stats["canary_runs"],
+                "errors": self.stats["canary_errors"],
+                "skipped": self.stats["canary_skipped"],
+                "mismatch": self.stats["canary_mismatch"],
+                "ref_pinned": self._canary_ref is not None,
+                "quarantined": self._quarantined,
+                "quarantine_reason": self.quarantine_reason}
         return out
 
     # -- internals -----------------------------------------------------
@@ -833,16 +1010,18 @@ class Engine:
         prefix (the pages stay as evictable cache, so the resume mostly
         maps them back), vacate, and requeue at the front."""
         r = self._slots[s]
-        if not self._closed:
+        if self._accepting:
             self._publish_prefix_paged(r._ms, s, r)
         self._vacate_slot(s)
         self.stats["page_pressure_vacates"] += 1
         self._queue.appendleft(r)
 
-    def _ensure_pages(self, ms: _ModelState, s: int, upto: int) -> None:
+    def _ensure_pages(self, ms: _ModelState, s: int, upto: int) -> bool:
         """Allocate slot ``s``'s table entries covering positions
-        ``[0, upto)``; raises if the pool cannot back the slot even
-        alone, which the kv_pages validation rules out."""
+        ``[0, upto)``.  Returns False iff the pool cannot back the slot
+        even alone, which the kv_pages validation rules out: the slot
+        then retires with ``ERROR`` instead of writing to the scratch
+        page."""
         need = min((upto + self.prefill_chunk - 1) // self.prefill_chunk,
                    self._max_pages)
         for pidx in range(need):
@@ -850,26 +1029,35 @@ class Engine:
                 continue
             page = self._alloc_page(ms, protect=s)
             if page is None:
-                raise RuntimeError(f"page pool exhausted backing slot {s} "
-                                   f"to position {upto}")
+                self._retire(s, FinishReason.ERROR, error=RuntimeError(
+                    f"page pool exhausted backing slot {s} to position "
+                    f"{upto} — kv_pages too small for the admitted "
+                    f"workload"))
+                return False
             ms.table[s, pidx] = page
+        return True
 
     def _ensure_decode_pages(self, ms: _ModelState, active,
                              fuse: bool = False) -> np.ndarray:
         """Back the pages the step writes for each active slot — its
         next token, the whole ``k + 1`` verify window when speculating,
-        or the fused window's tokens up to the request's budget — before
-        dispatch; returns the active mask recomputed after any
-        page-pressure vacates.  As in the dispatch, a live drafter's
-        window wins over fusing: backing only the fused window's
-        positions would send the verify window's tail to the scratch
-        page."""
+        the fused speculation window's up to ``N (k + 1)`` commits plus
+        the last verify window's ``k`` positions past them, or the fused
+        window's tokens up to the request's budget — before dispatch;
+        returns the active mask recomputed after any page-pressure
+        vacates.  As in the dispatch, a live drafter's window wins over
+        fusing: backing only the fused window's positions would send the
+        verify window's tail to the scratch page."""
+        k = self.speculate_k
         for s in np.nonzero(active)[0]:
             r = self._slots[s]
             if r is None:
                 continue
-            if self._speculating:
-                ahead = self.speculate_k + 1
+            if self._speculating and fuse and self._spec_fusable:
+                ahead = min(r.max_new_tokens - len(r.tokens),
+                            self.decode_fuse * (k + 1)) + k
+            elif self._speculating:
+                ahead = k + 1
             elif fuse:
                 ahead = min(r.max_new_tokens - len(r.tokens),
                             self.decode_fuse)
@@ -901,10 +1089,104 @@ class Engine:
 
     # -- the step loop ---------------------------------------------------
 
-    def _finish(self, r: Request, reason: FinishReason) -> None:
+    def _finish(self, r: Request, reason: FinishReason,
+                error: BaseException | None = None) -> None:
+        # JAX's obs event and per-tenant counters of a finish are not
+        # ported (obs and tenancy: ROADMAP.md slice 8).
         r.done = True
         r.finish_reason = reason
+        r.error = error
         self.stats[_FINISH_COUNTER[reason]] += 1
+
+    def _deadline_passed(self, r: Request, now: float) -> bool:
+        waited = now - r.submit_time
+        if r.deadline_s is not None and waited > r.deadline_s:
+            return True
+        return (r.ttft_deadline_s is not None and not r.tokens
+                and waited > r.ttft_deadline_s)
+
+    def _expire_deadlines(self) -> None:
+        """Retire every queued or in-flight request whose wall-clock
+        budget has run out (``FinishReason.DEADLINE``), before
+        admission, so a request dead on arrival never takes a slot."""
+        now = time.perf_counter()
+        for r in [r for r in self._queue if self._deadline_passed(r, now)]:
+            self._queue.remove(r)
+            self._finish(r, FinishReason.DEADLINE)
+        for s, r in enumerate(self._slots):
+            if r is not None and self._deadline_passed(r, now):
+                self._retire(s, FinishReason.DEADLINE)
+
+    def _guard(self, timeout_s: float | None, name: str):
+        """The watchdog's scoped deadline (nothing without a watchdog);
+        ``name`` labels the region in a hang report."""
+        if self._watchdog is None:
+            return contextlib.nullcontext()
+        return self._watchdog.step(timeout_s, name=name)
+
+    def _device(self, kind: str, fn, *args, guard_timeout_s=None):
+        """Run one device call behind the robustness seams: the fault
+        hook (``step_fault_hook(kind, index)``, ``index`` counting every
+        device call, so a retried call gets a new one), then ``fn``
+        under the watchdog's scoped deadline — ``guard_timeout_s``, or
+        ``step_timeout_s`` — named ``kind`` (prefill, sample, decode,
+        verify, tree_verify, fused_decode, fused_spec).  A call on the
+        card is timed to its fetch, which every caller makes inside
+        ``fn``.  JAX wraps each call in an obs span too: not ported
+        (obs, ROADMAP.md slice 8)."""
+        idx = self._device_calls
+        self._device_calls += 1
+        with self._guard(guard_timeout_s if guard_timeout_s is not None
+                         else self._step_timeout_s, kind):
+            if self.step_fault_hook is not None:
+                self.step_fault_hook(kind, idx)
+            return fn(*args)
+
+    def _reset_store(self, ms: _ModelState) -> None:
+        """Containment's reset of the model's KV store, in place: the
+        captured windows hold the addresses of the pool (or arena), so
+        JAX's reallocation would leave their replays reading freed
+        memory.  Paged: every page zeroed (int8 scales back to 1), every
+        page freed, the index, tables and pins cleared; dense: the arena
+        zeroed.  The survivors re-prefill into it, as in JAX."""
+        if self._paged:
+            ms.pool.reset()
+            ms.index.reset()
+            ms.table[:] = -1
+            ms.slot_nodes = [dict() for _ in range(self.num_slots)]
+            self.stats["prefix_flushes"] += 1
+        else:
+            ms.cache.k.zero_()
+            ms.cache.v.zero_()
+
+    def _contain_step_failure(self, exc: BaseException) -> None:
+        """An exception escaped a step: reset the KV store (the failed
+        call may have left it half written) and requeue each in-flight
+        request once, at the front in admission order, with its tokens
+        and generator state: its re-prefill of ``prompt + tokens``
+        continues it exactly.  A request failing a second time retires
+        with ``ERROR``.  Queued requests are untouched.  JAX's obs event
+        and flight-recorder dump here are not ported (obs, ROADMAP.md
+        slice 8)."""
+        self.stats["step_failures"] += 1
+        self.last_step_error = exc
+        if self._watchdog is not None:
+            self._watchdog.acknowledge()  # handled; the next scope may run
+        self._reset_store(self._mstates[None])
+        survivors: list[Request] = []
+        for s in sorted((s for s, r in enumerate(self._slots)
+                         if r is not None),
+                        key=lambda s: self._slots[s]._order):
+            r = self._vacate_slot(s)
+            if r._requeued:
+                self._finish(r, FinishReason.ERROR, error=exc)
+            else:
+                r._requeued = True
+                survivors.append(r)
+                self.stats["requeued"] += 1
+        # Admitted work goes back to the front; queue_limit never applies
+        # to it (shedding it would turn a transient fault into lost work).
+        self._queue.extendleft(reversed(survivors))
 
     def _next_prefill_slot(self) -> int | None:
         pending = [(r._order, s) for s, r in enumerate(self._slots)
@@ -926,15 +1208,17 @@ class Engine:
         if self._paged:
             # Back the chunk's page first (page-pressure vacates only hit
             # OTHER slots), then prefill through the slot's table row.
-            self._ensure_pages(ms, s, end)
-            logits, _ = _forward_paged(
-                ms.model, tokens, ms.pool.pages,
+            if not self._ensure_pages(ms, s, end):
+                return  # the slot retired with ERROR
+            logits, _ = self._device(
+                "prefill", _forward_paged, ms.model, tokens, ms.pool.pages,
                 self._to_device(ms.table[s][None], torch.int32), start,
                 torch.ones(1, dtype=torch.bool, device=self.device),
-                impl=self.paged_attn_dispatch["prefill_paged"])
+                self.paged_attn_dispatch["prefill_paged"])
         else:
             row = KVCache(ms.cache.k[:, s:s + 1], ms.cache.v[:, s:s + 1])
-            logits, _ = _forward_cached(ms.model, tokens, row, start)
+            logits, _ = self._device("prefill", _forward_cached, ms.model,
+                                     tokens, row, start)
         r._nfill = end
         self._len[s] = end
         self.stats["prefill_chunks"] += 1
@@ -948,9 +1232,11 @@ class Engine:
                 return
             # The fill's last-token logits are the request's next
             # sampling event (for a fresh request, its first token).
-            tok = _sample_row(logits[:, end - start - 1], self._temps[s],
-                              self._topk[s], self._topp[s], self._gens[s])
-            self._commit(s, int(tok), emitted)
+            tok = self._device(
+                "sample", lambda: int(_sample_row(
+                    logits[:, end - start - 1], self._temps[s],
+                    self._topk[s], self._topp[s], self._gens[s])))
+            self._commit(s, tok, emitted)
 
     def _run_decode(self, ms: _ModelState, active, emitted) -> None:
         lengths = self._to_device(self._len, torch.int32)
@@ -968,48 +1254,58 @@ class Engine:
             def forward(cache, tokens, lens, act):
                 return _forward_cached(ms.model, tokens, cache, lens)
             state = ms.cache
-        _, toks = _decode_math(forward, state, self._to_device(self._last),
-                               lengths, act, self._temps, self._topk,
-                               self._topp, self._gens)
-        toks = toks.cpu().numpy()
+        toks = self._device("decode", lambda: _decode_math(
+            forward, state, self._to_device(self._last), lengths, act,
+            self._temps, self._topk, self._topp,
+            self._gens)[1].cpu().numpy())
         self.stats["decode_steps"] += 1
         self.stats["active_slot_steps"] += int(active.sum())
         for s in np.nonzero(active)[0]:
             self._len[s] += 1  # the fed token's KV landed this step
             self._commit(int(s), int(toks[s]), emitted)
 
-    def _fused_window(self, ms: _ModelState) -> FusedWindow:
-        """The engine's one fused window, built at its first use over the
-        model's KV store: the paged pool through the window's own block
-        table (``fused_decode_paged``'s impl), or the dense arena."""
-        if self._window is None:
-            if self._paged:
-                impl = self.paged_attn_dispatch["fused_decode_paged"]
+    def _window_forward(self, ms: _ModelState, family: str):
+        """A fused window's forward over the model's KV store: the paged
+        pool through the window's own block table (``family``'s impl), or
+        the dense arena."""
+        if self._paged:
+            impl = self.paged_attn_dispatch[family]
 
-                def forward(tokens, lens, running, table):
-                    return _forward_paged(ms.model, tokens, ms.pool.pages,
-                                          table, lens, running,
-                                          impl=impl)[0]
-            else:
-                def forward(tokens, lens, running, table):
-                    return _forward_cached(ms.model, tokens, ms.cache,
-                                           lens)[0]
+            def forward(tokens, lens, running, table):
+                return _forward_paged(ms.model, tokens, ms.pool.pages,
+                                      table, lens, running, impl=impl)[0]
+        else:
+            def forward(tokens, lens, running, table):
+                return _forward_cached(ms.model, tokens, ms.cache, lens)[0]
+        return forward
+
+    def _fused_window(self, ms: _ModelState) -> FusedWindow:
+        """The engine's one fused decode window, built at its first use."""
+        if self._window is None:
             self._window = FusedWindow(
-                forward, num_slots=self.num_slots, n_steps=self.decode_fuse,
+                self._window_forward(ms, "fused_decode_paged"),
+                num_slots=self.num_slots, n_steps=self.decode_fuse,
                 table_pages=self._max_pages if self._paged else None,
                 generators=self._gens, device=self.device)
         return self._window
 
-    def _run_decode_fused(self, ms: _ModelState, active, emitted) -> None:
-        """One fused window: up to ``decode_fuse`` decode iterations, one
-        fetch, then the window's commits replayed slot by slot through
-        the single-step path's ``_commit`` — retirements, timestamps,
-        prefix publishes and stats as N single steps would leave them;
-        ``_len`` and ``_last`` advance per commit, so a later single step
-        resumes exactly.  The window stops each row at its EOS or budget,
-        so the replay's own retirement checks agree with it.  The host
-        knows the budgets, so the window runs ``min(decode_fuse, largest
-        budget)`` iterations; EOS stops are known only after the fetch."""
+    def _spec_fused_window(self, ms: _ModelState) -> FusedSpecWindow:
+        """The engine's one fused speculation window, built at its first
+        use: its draft store is allocated once, its graph captured once."""
+        if self._spec_window is None:
+            self._spec_window = FusedSpecWindow(
+                self._window_forward(ms, "fused_spec_paged"),
+                self.drafter.model, num_slots=self.num_slots,
+                n_steps=self.decode_fuse, k=self.speculate_k,
+                hist_len=self.max_len,
+                table_pages=self._max_pages if self._paged else None,
+                generators=self._gens, device=self.device)
+        return self._spec_window
+
+    def _window_values(self, ms: _ModelState, active) -> dict:
+        """A window's inputs: the host's per-slot state, each active
+        request's remaining budget and EOS id (-1: none), and the block
+        table."""
         budgets = np.zeros(self.num_slots, np.int64)
         eos = np.full(self.num_slots, -1, np.int64)
         for s in np.nonzero(active)[0]:
@@ -1022,8 +1318,64 @@ class Engine:
                       budgets=budgets, eos=eos)
         if self._paged:
             values["table"] = ms.table
-        out, n_emit, iters = self._fused_window(ms).run(
-            values, min(self.decode_fuse, int(budgets.max())))
+        return values
+
+    def _run_window(self, kind: str, window, values: dict, steps: int,
+                    budget_s: float | None):
+        """Run one fused window behind the device seam and give the
+        generators back their pre-window states (also when the window
+        fails): :meth:`_replay_window` hands each slot its post-window
+        state just before that slot's commits.  Returns the window's
+        outputs and the post-window states."""
+        before = [g.get_state() for g in self._gens]
+        try:
+            out = self._device(kind, window.run, values, steps,
+                               guard_timeout_s=budget_s)
+            after = [g.get_state() for g in self._gens]
+        finally:  # a failed window leaves every slot where it was
+            for g, state in zip(self._gens, before):
+                g.set_state(state)
+        return out, after
+
+    def _replay_window(self, active, out, n_emit, after, emitted) -> None:
+        """Commit each active slot's window tokens in order through
+        ``_commit`` (retirements, timestamps, publishes and stats as
+        single steps would leave them; ``_len`` and ``_last`` advance per
+        commit).  Each slot takes its post-window generator state just
+        before its own commits, so if containment interrupts the replay,
+        every vacated slot's state matches its committed tokens: slots
+        already replayed carry the window's state, later ones their
+        pre-window state and none of the window's tokens."""
+        for s in np.nonzero(active)[0]:
+            r = self._slots[s]
+            self._gens[s].set_state(after[s])
+            for j in range(int(n_emit[s])):
+                if self._slots[s] is not r:
+                    break  # retired (EOS / budget / cancel) mid-replay
+                self._len[s] += 1  # the fed token's KV landed
+                self._commit(int(s), int(out[s, j]), emitted)
+
+    def _window_budget_s(self, scale: int) -> float | None:
+        """A fused window's watchdog budget: ``step_timeout_s`` times the
+        single steps it stands for."""
+        if self._step_timeout_s is None:
+            return None
+        return self._step_timeout_s * scale
+
+    def _run_decode_fused(self, ms: _ModelState, active, emitted) -> None:
+        """One fused window: up to ``decode_fuse`` decode iterations, one
+        fetch, then the window's commits replayed slot by slot through
+        the single-step path's ``_commit`` (:meth:`_replay_window`), so a
+        later single step resumes exactly.  The window stops each row at
+        its EOS or budget, so the replay's own retirement checks agree
+        with it.  The host knows the budgets, so the window runs
+        ``min(decode_fuse, largest budget)`` iterations; EOS stops are
+        known only after the fetch."""
+        values = self._window_values(ms, active)
+        (out, n_emit, iters), after = self._run_window(
+            "fused_decode", self._fused_window(ms), values,
+            min(self.decode_fuse, int(values["budgets"].max())),
+            self._window_budget_s(self.decode_fuse))
         self.stats["fused_windows"] += 1
         self.stats["fused_steps"] += iters
         # A row commits once per iteration it ran, so n_emit.sum() is the
@@ -1034,13 +1386,50 @@ class Engine:
                 self.fused_stream.extend(
                     (int(s), int(out[s, j]))
                     for s in np.nonzero(n_emit > j)[0])
+        self._replay_window(active, out, n_emit, after, emitted)
+
+    def _run_spec_fused(self, ms: _ModelState, active, emitted) -> None:
+        """One fused speculation window: up to ``decode_fuse`` draft ->
+        verify -> accept iterations (the draft model on the device, from
+        each slot's token history), one fetch, acceptance charged, then
+        the same replay as :meth:`_run_decode_fused`.  Each iteration
+        commits at least one token a running row, so the window runs
+        ``min(decode_fuse, largest budget)`` iterations."""
+        k = self.speculate_k
+        values = self._window_values(ms, active)
+        hist = np.zeros((self.num_slots, self.max_len), np.int64)
+        for s in np.nonzero(active)[0]:
+            ctx = self._context(self._slots[s])
+            hist[s, :ctx.size] = ctx  # fits: prompt + budget + k <= max_len
+        values["hist"] = hist
+        # An iteration runs a draft prefill, k - 1 draft steps and a
+        # verify window: its budget scales with both.
+        o, after = self._run_window(
+            "fused_spec", self._spec_fused_window(ms), values,
+            min(self.decode_fuse, int(values["budgets"].max())),
+            self._window_budget_s(self.decode_fuse * (k + 2)))
+        n_win, n_acc = o["n_win"], o["n_acc"]
+        self.stats["fused_spec_windows"] += 1
+        self.stats["fused_spec_steps"] += int(o["iters"])
+        # A row takes part in one verify window per iteration it ran.
+        self.stats["active_slot_steps"] += int(n_win.sum())
+        self.stats["draft_tokens"] += int(n_win.sum()) * k
+        self.stats["draft_accepted"] += int(n_acc.sum())
         for s in np.nonzero(active)[0]:
             r = self._slots[s]
-            for j in range(int(n_emit[s])):
-                if self._slots[s] is not r:
-                    break  # retired (EOS / budget) mid-replay
-                self._len[s] += 1  # the fed token's KV landed
-                self._commit(int(s), int(out[s, j]), emitted)
+            r.draft_proposed += int(n_win[s]) * k
+            r.draft_accepted += int(n_acc[s])
+        if self.fused_stream is not None:
+            # JAX's tap order: iteration by iteration, window position by
+            # position, slot by slot.
+            takes = o["takes"]
+            starts = np.cumsum(takes, axis=1) - takes
+            for i in range(int(n_win.max())):
+                for j in range(k + 1):
+                    self.fused_stream.extend(
+                        (int(s), int(o["out"][s, starts[s, i] + j]))
+                        for s in np.nonzero(takes[:, i] > j)[0])
+        self._replay_window(active, o["out"], o["n_emit"], after, emitted)
 
     # -- speculation -----------------------------------------------------
 
@@ -1056,6 +1445,62 @@ class Engine:
         if r is not None and proposed:
             r.draft_proposed += proposed
             self.stats["draft_tokens"] += proposed
+
+    # -- the serving canary (silent corruption) ---------------------------
+
+    def _maybe_canary(self) -> None:
+        """Drive the canary, once a scheduler iteration: harvest a
+        finished canary — its greedy tokens of a fixed prompt pin the
+        reference at the first clean completion, and any later
+        difference quarantines the engine — then start the next one once
+        ``canary_every_s`` has passed.  A canary that fails loudly
+        (deadline, ``ERROR``) counts in ``canary_errors``, not as
+        corruption."""
+        if self.canary_every_s is None or not self._accepting:
+            return
+        r = self._canary_active
+        if r is not None:
+            if r.finish_reason is None:
+                return  # still decoding: one canary in flight at a time
+            self._canary_active = None
+            if r.finish_reason is not FinishReason.COMPLETE:
+                self.stats["canary_errors"] += 1
+            else:
+                got = tuple(r.tokens)
+                self.stats["canary_runs"] += 1
+                if self._canary_ref is None:
+                    self._canary_ref = got
+                elif got != self._canary_ref:
+                    self._quarantine_canary(self._canary_ref, got)
+                    return
+        if time.monotonic() - self._canary_last < self.canary_every_s:
+            return
+        self._canary_last = time.monotonic()
+        try:
+            req = self.submit(self._canary_prompt, self._canary_new_tokens)
+        except (QueueFull, ValueError):
+            # Saturated (or the prompt does not fit): skip this tick
+            # rather than shed real traffic for a probe.
+            self.stats["canary_skipped"] += 1
+            return
+        req._canary = True
+        self._canary_active = req
+
+    def _quarantine_canary(self, expected: tuple, got: tuple) -> None:
+        """A canary mismatch is evidence of silent corruption under this
+        engine: it stops admitting and stepping, and its live requests
+        stay in place, unfinished (JAX's cluster migrates them out; the
+        port has no cluster yet).  JAX's obs event and flight dump here
+        are not ported (obs, ROADMAP.md slice 8)."""
+        self._quarantined = True
+        self._accepting = False
+        self.stats["canary_mismatch"] += 1
+        self.stats["quarantined"] = 1
+        diff = next((i for i, (a, b) in enumerate(zip(expected, got))
+                     if a != b), min(len(expected), len(got)))
+        self.quarantine_reason = (
+            f"canary token stream diverged from pinned reference at token "
+            f"{diff}: expected {list(expected)}, got {list(got)}")
 
     def _context(self, r: Request) -> np.ndarray:
         return np.concatenate([r.prompt, np.asarray(r.tokens, np.int32)])
@@ -1080,20 +1525,51 @@ class Engine:
             return None
         return draft.astype(np.int32)
 
+    def _timed_propose(self, what: str, r: Request, call):
+        """One drafter call behind the time wall: ``(raw, True)``, or
+        ``(None, False)`` after quarantining the drafter because the call
+        raised, the watchdog's deadline (armed around it under
+        ``drafter_timeout_s``, or ``step_timeout_s``) fired while it
+        blocked — the fault no timing of a returned call can see — or it
+        took longer than ``drafter_timeout_s``."""
+        budget = self.drafter_timeout_s
+        t0 = time.perf_counter()
+        try:
+            with self._guard(budget if budget is not None
+                             else self._step_timeout_s, f"draft_{what}"):
+                raw = call()
+        except Exception as exc:  # noqa: BLE001 — isolation by design
+            self._quarantine_drafter(
+                f"{what}() raised {type(exc).__name__}: {exc}")
+            return None, False
+        took = time.perf_counter() - t0
+        size = int(np.asarray(raw).size) if raw is not None else 0
+        if self._watchdog is not None and self._watchdog.acknowledge():
+            self._quarantine_drafter(
+                f"{what}() exceeded the armed watchdog deadline "
+                f"({took:.4f}s elapsed)", r, size)
+            return None, False
+        if budget is not None and took > budget:
+            self._quarantine_drafter(
+                f"{what}() took {took:.4f}s (drafter_timeout_s={budget})",
+                r, size)
+            return None, False
+        return raw, True
+
     def _gather_drafts(self, ms: _ModelState, active, k: int):
         """Host-side proposals ``[(slot, draft)]`` for every decoding
-        slot that drafted; None when the drafter raised or proposed a
-        malformed or out-of-vocab draft (it is quarantined, and the
-        caller runs the plain decode step)."""
+        slot that drafted; None when the drafter raised, blocked, ran
+        past ``drafter_timeout_s`` or proposed a malformed or
+        out-of-vocab draft (it is quarantined, and the caller runs the
+        plain decode step)."""
         proposed = []
         for s in np.nonzero(active)[0]:
             r = self._slots[s]
-            try:
-                raw = np.asarray(self.drafter.propose(self._context(r), k))
-                raw = raw.reshape(-1)[:k]
-            except Exception as exc:  # noqa: BLE001 — isolation by design
-                self._quarantine_drafter(
-                    f"propose() raised {type(exc).__name__}: {exc}")
+            context = self._context(r)
+            raw, ok = self._timed_propose(
+                "propose", r, lambda: np.asarray(
+                    self.drafter.propose(context, k)).reshape(-1)[:k])
+            if not ok:
                 return None
             draft = self._checked_draft(raw, r, ms.config.vocab_size,
                                         "propose()")
@@ -1105,18 +1581,18 @@ class Engine:
 
     def _gather_tree_drafts(self, ms: _ModelState, active, shape):
         """Tree proposals behind the same wall as :meth:`_gather_drafts`:
-        a ``propose_tree`` that raises or returns anything but ``T``
-        in-vocab integer tokens quarantines the drafter (None).  A slot
-        whose drafter has no proposal (None) runs the no-candidate path
-        in the window."""
+        a ``propose_tree`` that raises, blocks, runs late or returns
+        anything but ``T`` in-vocab integer tokens quarantines the
+        drafter (None).  A slot whose drafter has no proposal (None) runs
+        the no-candidate path in the window."""
         proposed = []
         for s in np.nonzero(active)[0]:
             r = self._slots[s]
-            try:
-                raw = self.drafter.propose_tree(self._context(r), shape)
-            except Exception as exc:  # noqa: BLE001 — isolation by design
-                self._quarantine_drafter(
-                    f"propose_tree() raised {type(exc).__name__}: {exc}")
+            context = self._context(r)
+            raw, ok = self._timed_propose(
+                "propose_tree", r,
+                lambda: self.drafter.propose_tree(context, shape))
+            if not ok:
                 return None
             if raw is None:
                 continue
@@ -1146,8 +1622,6 @@ class Engine:
         """Commit each active slot's emitted window tokens in order; EOS
         or the budget retires a slot mid-window and drops the rest —
         tokens plain decode would never have produced."""
-        out = out.cpu().numpy()
-        n_emit = n_emit.cpu().numpy()
         self.stats[counter] += 1
         self.stats["active_slot_steps"] += int(active.sum())
         self.stats["draft_tokens"] += int(n_draft.sum())
@@ -1180,19 +1654,26 @@ class Engine:
             self._run_decode(ms, active, emitted)
             return
         tokens, n_draft = self._window_tokens(proposed, k)
-        tokens = self._to_device(tokens)
-        lengths = self._to_device(self._len, torch.int32)
-        if self._paged:
-            logits, _ = _forward_paged(
-                ms.model, tokens, ms.pool.pages,
-                self._to_device(ms.table, torch.int32), lengths,
-                self._to_device(active, torch.bool),
-                impl=self.paged_attn_dispatch["verify_paged"])
-        else:
-            logits, _ = _forward_cached(ms.model, tokens, ms.cache, lengths)
-        out, n_emit = verify_tokens(
-            logits, tokens[:, 1:], self._to_device(n_draft), self._temps,
-            self._topk, self._topp, self._row_generators(active))
+
+        def verify():
+            window = self._to_device(tokens)
+            lengths = self._to_device(self._len, torch.int32)
+            if self._paged:
+                logits, _ = _forward_paged(
+                    ms.model, window, ms.pool.pages,
+                    self._to_device(ms.table, torch.int32), lengths,
+                    self._to_device(active, torch.bool),
+                    impl=self.paged_attn_dispatch["verify_paged"])
+            else:
+                logits, _ = _forward_cached(ms.model, window, ms.cache,
+                                            lengths)
+            out, n_emit = verify_tokens(
+                logits, window[:, 1:], self._to_device(n_draft),
+                self._temps, self._topk, self._topp,
+                self._row_generators(active))
+            return out.cpu().numpy(), n_emit.cpu().numpy()
+
+        out, n_emit = self._device("verify", verify)
         self._replay(active, out, n_emit, n_draft, "verify_steps", emitted)
 
     def _run_verify_tree(self, ms: _ModelState, active, emitted) -> None:
@@ -1212,6 +1693,15 @@ class Engine:
             return
         tokens, n_cand = self._window_tokens(proposed,
                                              shape.num_candidates)
+        out, n_emit = self._device("tree_verify", self._tree_verify, ms,
+                                   active, tokens, n_cand, shape)
+        self._replay(active, out, n_emit, n_cand, "tree_verify_steps",
+                     emitted)
+
+    def _tree_verify(self, ms: _ModelState, active, tokens, n_cand, shape):
+        """The tree verify window's device work: the tree-masked forward,
+        acceptance, and the commit of the accepted path's K/V; returns
+        ``(out, n_emit)`` as numpy."""
         tokens = self._to_device(tokens)
         lengths = self._to_device(self._len)
         tree = (shape.depths, shape.ancestors)
@@ -1250,11 +1740,15 @@ class Engine:
             else:
                 update_cache_rows(views[0], k_d, lengths + d)
                 update_cache_rows(views[1], v_d, lengths + d)
-        self._replay(active, out, n_emit, n_cand, "tree_verify_steps",
-                     emitted)
+        return out.cpu().numpy(), n_emit.cpu().numpy()
 
     def _commit(self, s: int, tok: int, emitted) -> None:
         r = self._slots[s]
+        if self.token_fault_hook is not None:
+            # The silent-corruption seam (tpudp_torch.serve.faults): a
+            # token changed here conditions every later step of the slot,
+            # as corrupted logits would.
+            tok = int(self.token_fault_hook(s, tok, r))
         r.tokens.append(tok)
         r.token_times.append(time.perf_counter())
         self._last[s] = tok
@@ -1282,9 +1776,11 @@ class Engine:
         r._fill = np.concatenate([r.prompt, np.asarray(r.tokens, np.int32)])
         return r
 
-    def _retire(self, s: int, reason: FinishReason) -> None:
+    def _retire(self, s: int, reason: FinishReason,
+                error: BaseException | None = None) -> None:
         r = self._slots[s]
-        if self._paged and not self._closed:
+        # No publish once drain()/close() began: no later request reads it.
+        if self._paged and self._accepting:
             self._publish_prefix_paged(r._ms, s, r)
         self._release_slot_pages(r._ms, s)
         r._slot = None
@@ -1293,4 +1789,4 @@ class Engine:
         self._temps[s] = 0.0
         self._topk[s] = 0
         self._topp[s] = 1.0
-        self._finish(r, reason)
+        self._finish(r, reason, error)

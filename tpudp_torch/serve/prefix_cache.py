@@ -95,6 +95,16 @@ class PagePool:
             del self._rc[page]
             self._free.append(page)
 
+    def reset(self) -> None:
+        """Every page freed and every buffer back to a fresh pool's values
+        (zeros, int8 scales 1), in place: the engine's step-failure
+        containment.  The buffers keep their addresses, which captured
+        CUDA graphs hold (JAX reallocates instead)."""
+        for name, buf in zip(self.pages._fields, self.pages):
+            buf.fill_(1 if name.endswith("_scale") else 0)
+        self._rc = {}
+        self._free = list(range(self.num_pages - 1, -1, -1))
+
     def check(self, expected_refs: dict[int, int] | None = None) -> None:
         """Pool consistency; with ``expected_refs`` (page -> holders from
         the live tables and trees) also the table<->pool cross-check."""
@@ -130,6 +140,11 @@ class PageIndex:
         self._root = _Node(None, -1, None)
         self._by_block: dict[int, _Node] = {}
         self._clock = 0
+
+    def reset(self) -> None:
+        """Forget every node, holding no page (the pool was reset)."""
+        self._root = _Node(None, -1, None)
+        self._by_block = {}
 
     @property
     def node_count(self) -> int:
