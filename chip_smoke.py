@@ -247,6 +247,25 @@ which fails the run (nonzero exit, no result line) when it fails:
      background ms, a restore's ms without and with verification; then a
      VGG-11 fit of 2 epochs of 50,000 images with no save, an epoch-end
      synchronous save and an asynchronous one, in turns;
+  11. (run after phase 10, before the timing phase) the parallel
+     strategies — ``tpudp_torch.strategy.build_strategy`` at GPT-2
+     small's full width (12 x 768, 12 heads, vocab 50,257, t 1024,
+     float32, TF32 off, global batch 4, 3 steps a rung, SGD lr 0.01
+     momentum 0.9) on two ranks of the one card over gloo with CUDA
+     tensors (NCCL takes one card a rank): tp ``1x2``, fsdp and zero1
+     ``2``, pp ``1x2`` under gpipe and 1f1b with 4 microbatches, ep
+     ``1x2`` with 4 experts at capacity factor 4.0 (no token drops, no
+     balance loss) and sp ``1x2`` with ring attention; flash attention
+     (K1-K3) everywhere but sp.  Each rung's losses must be within
+     ``STRATEGY_RTOL`` of the one-rank step's on the same weights and
+     batches (the dense MoE model for ep, the dense-attention model for
+     sp), its replicated parameters bit-equal across the ranks, K1-K3
+     must launch under every rung but sp, and fsdp's parameters and
+     momentum and zero1's momentum must take about half of one rank's;
+     ``strategy`` lines print each rung's ms a step, each rank's peak
+     memory, its parameter and optimizer bytes beside the one-rank
+     step's, the flash launches and the collectives' wall ms (gloo,
+     staged through the host: their count and how many were staged);
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -318,9 +337,10 @@ SOURCES = {name: f"tpudp_torch/csrc/{name.removesuffix('_int8')}.cu"
 LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
                  d_model=768, num_heads=12, num_kv_heads=3, mlp_hidden=2048)
 # Flash checks: name -> (batch, time, heads, head dim); t 1024 is phase
-# 10c's training shape.
+# 10c's training shape, and 6 heads a rank phase 11's tensor-parallel one.
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "gpt2-t1024": (4, 1024, 12, 64),
+               "gpt2-tp2-t1024": (4, 1024, 6, 64),
                "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
                "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64)}
 # The largest error a 64-token tile of a bf16 flash output may have
@@ -398,6 +418,26 @@ CKPT_TRAIN, CKPT_TEST, CKPT_EPOCHS = 2_560, 512, 2
 CKPT_STALL_CALL, CKPT_STEP_TIMEOUT = 3, 4.0
 GPT2_CKPT_BATCH, GPT2_CKPT_T, GPT2_CKPT_STEPS = 4, 1024, 20
 EPOCH_IMAGES = 50_000
+# Phase 11: GPT-2 small's global batch, tokens, steps a rung, the ranks'
+# limit, and the rtol of a rung's losses against the one-rank step's
+# (JAX's own, tests/test_tensor_parallel.py:77); the rungs: name ->
+# (strategy, mesh, options, model overrides).
+STRATEGY_BATCH, STRATEGY_T, STRATEGY_STEPS = 4, 1024, 3
+STRATEGY_TIMEOUT, STRATEGY_RTOL = 420, 2e-4
+STRATEGY_MOE = dict(mlp_impl="moe", num_experts=4, capacity_factor=4.0,
+                    expert_axis="expert")
+STRATEGY_RUNGS = {
+    "tp": ("tp", {"data": 1, "model": 2}, {}, {}),
+    "fsdp": ("fsdp", {"data": 2}, {}, {}),
+    "zero1": ("zero1", {"data": 2}, {}, {}),
+    "pp-gpipe": ("pp", {"data": 1, "pipe": 2}, {"n_microbatches": 4}, {}),
+    "pp-1f1b": ("pp", {"data": 1, "pipe": 2},
+                {"n_microbatches": 4, "schedule": "1f1b"}, {}),
+    "ep": ("ep", {"data": 1, "expert": 2}, {"aux_loss_coef": 0.0},
+           STRATEGY_MOE),
+    "sp": ("sp", {"data": 1, "seq": 2}, {},
+           {"attn_impl": "ring", "seq_axis": "seq"}),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -2649,10 +2689,10 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
             dist.destroy_process_group()
 
 
-def gloo_two_rank_path(torch, np) -> None:
-    """7c: two ranks on the one card over gloo, CUDA tensors: both end
-    each rung with bit-equal parameters and buffers, and the BatchNorm
-    cases' first loss is one rank's at the global batch."""
+def run_ranks(target, args: tuple, limit: float, label: str) -> list:
+    """Two spawned ranks of ``target(rank, 2, init_method, *args,
+    results)``; their reports by rank.  Fails when a rank dies, reports
+    an error or outlives ``limit`` seconds."""
     import multiprocessing
 
     from tpudp_torch.mesh import free_port
@@ -2660,11 +2700,11 @@ def gloo_two_rank_path(torch, np) -> None:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=gloo_rank, args=(r, 2, init, results))
+    procs = [ctx.Process(target=target, args=(r, 2, init, *args, results))
              for r in range(2)]
     for p in procs:
         p.start()
-    got, deadline = [], time.monotonic() + GLOO_TIMEOUT
+    got, deadline = [], time.monotonic() + limit
     try:
         while len(got) < len(procs):
             try:
@@ -2673,9 +2713,9 @@ def gloo_two_rank_path(torch, np) -> None:
                 dead = [p.exitcode for p in procs if p.exitcode]
                 if dead or time.monotonic() > deadline:
                     raise SmokeFailure(
-                        f"vgg-gloo: {len(got)} of {len(procs)} ranks "
-                        f"reported (exit codes {dead}, limit "
-                        f"{GLOO_TIMEOUT} s)") from None
+                        f"{label}: {len(got)} of {len(procs)} ranks "
+                        f"reported (exit codes {dead}, limit {limit} s)"
+                    ) from None
         got.sort(key=lambda r: r["rank"])
     finally:
         for p in procs:
@@ -2685,7 +2725,16 @@ def gloo_two_rank_path(torch, np) -> None:
                 p.join()
     for r in got:
         if "error" in r:
-            raise SmokeFailure(f"gloo rank {r['rank']} failed:\n{r['error']}")
+            raise SmokeFailure(f"{label} rank {r['rank']} failed:\n"
+                               f"{r['error']}")
+    return got
+
+
+def gloo_two_rank_path(torch, np) -> None:
+    """7c: two ranks on the one card over gloo, CUDA tensors: both end
+    each rung with bit-equal parameters and buffers, and the BatchNorm
+    cases' first loss is one rank's at the global batch."""
+    got = run_ranks(gloo_rank, (), GLOO_TIMEOUT, "vgg-gloo")
     what = {"allreduce": ("the all-reduce rung's sync call in the step, "
                           "one all-reduce a gradient", "sync call"),
             "auto": ("DDP's bucket all-reduces, first hook call to last "
@@ -3483,6 +3532,250 @@ def checkpoint_path(torch, np, pa, fa, seed: int) -> dict:
     return launches
 
 
+# -- phase 11: the parallel strategies at GPT-2 small's width -------------
+
+def strategy_config(gpt2, torch, overrides: dict):
+    """GPT-2 small, float32, flash attention unless ``overrides`` say
+    otherwise."""
+    cfg = dict(vocab_size=50_257, max_seq_len=STRATEGY_T, num_layers=12,
+               num_heads=12, d_model=768, dtype=torch.float32,
+               attn_impl="flash")
+    cfg.update(overrides)
+    return gpt2.GPT2Config(**cfg)
+
+
+def strategy_batches(np) -> list:
+    """Phase 11's global batches: numpy-seeded tokens, next-token
+    targets."""
+    rng = np.random.default_rng(11)
+    toks = rng.integers(0, 50_257, size=(STRATEGY_STEPS, STRATEGY_BATCH,
+                                         STRATEGY_T + 1))
+    return [(t[:, :-1], t[:, 1:]) for t in toks]
+
+
+def strategy_model(torch, gpt2, overrides: dict, seed: int):
+    """The rung's (or the reference's) GPT-2 built on the card, its
+    weights drawn there from ``seed`` in parameter order (normal(0, 0.02),
+    LayerNorm scales 1 + normal(0, 0.1)): the same on every process."""
+    cfg = strategy_config(gpt2, torch, overrides)
+    with torch.device("cuda"):
+        model = gpt2.GPT2(cfg)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            scale = name.endswith(("ln_1.weight", "ln_2.weight",
+                                   "ln_f.weight"))
+            p.normal_(1.0 if scale else 0.0, 0.1 if scale else 0.02,
+                      generator=gen)
+    return model
+
+
+def strategy_references(torch, np, seed: int) -> dict:
+    """The one-rank step's losses and state bytes on phase 11's batches:
+    ``flash`` (tp, fsdp, zero1, pp), ``moe`` (ep: the dense MoE model, no
+    balance loss) and ``dense`` (sp: dense attention)."""
+    from tpudp_torch import train
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.parallel.sharded import state_nbytes
+
+    out = {}
+    for name, overrides in (("flash", {}), ("moe", {
+            k: v for k, v in STRATEGY_MOE.items() if k != "expert_axis"}),
+                            ("dense", {"attn_impl": "dense"})):
+        model = strategy_model(torch, gpt2, overrides, seed)
+        spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
+                                    weight_decay=1e-4)
+        state = train.init_state(model, spec)
+        step = train.make_train_step(model, spec, aux_loss_coef=0.0)
+        losses, ms = [], []
+        for x, y in strategy_batches(np):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, torch.as_tensor(x, device="cuda"),
+                               torch.as_tensor(y, device="cuda"))
+            losses.append(float(loss))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        out[name] = {"losses": losses, "ms": ms,
+                     "bytes": state_nbytes(state)}
+        del model, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def replicated_hash(torch, name: str, state) -> str:
+    """sha256 of the rung's replicated parameters on this rank: every
+    leaf no group shards (and zero1's whole parameters)."""
+    import hashlib
+
+    if state.layout is None:
+        tensors = list(state.model.parameters())
+    else:
+        tensors = [lf.local for lf in state.layout.leaves
+                   if lf.group is None]
+        if name == "zero1":
+            tensors += list(state.model.parameters())
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def strategy_rank(rank: int, world: int, init_method: str, seed: int,
+                  results) -> None:
+    """Phase 11: one of two ranks on the one card over gloo.  Each rung
+    of STRATEGY_RUNGS: build it from a fresh one-rank state, run its
+    steps on this rank's block of each global batch, and report the
+    losses, ms a step, the peak memory, the state bytes, the flash
+    launches, the collectives' wall ms and the replicated parameters'
+    hash."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.parallel import collectives
+    from tpudp_torch.parallel.sharded import state_nbytes
+    from tpudp_torch.parallel.tensor import gpt2_tp_rules
+    from tpudp_torch.strategy import build_strategy
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    out = {"rank": rank}
+    try:
+        batches = strategy_batches(np)
+        for name, (strategy, shape, options, overrides) in \
+                STRATEGY_RUNGS.items():
+            t_build = time.perf_counter()
+            model = strategy_model(torch, gpt2, overrides, seed)
+            spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
+                                        weight_decay=1e-4)
+            options = dict(options)
+            if strategy == "tp":
+                options["rules"] = gpt2_tp_rules()
+            built = build_strategy(strategy, model, spec,
+                                   make_mesh_nd(shape),
+                                   train.init_state(model, spec), **options)
+            if built.state.model is not model:
+                del model  # the rung keeps its own module
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t_build
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for fn in fa.KERNELS.values():
+                fn.launches = 0
+            st, losses, ms, comm, calls = built.state, [], [], [], []
+            for x, y in batches:
+                xs, ys = (torch.as_tensor(built.shard_for(a), device="cuda")
+                          for a in (x, y))
+                collectives.reset_stats()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with collectives.timing():
+                    st, loss = built.train_step(st, xs, ys)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+                losses.append(float(loss))
+                comm.append(1e3 * collectives.STATS["seconds"])
+                calls.append((collectives.STATS["calls"],
+                              collectives.STATS["staged"]))
+            out[name] = {
+                "losses": losses, "ms": ms, "comm_ms": comm, "calls": calls,
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "bytes": state_nbytes(st), "build_s": build_s,
+                "launches": {k: fn.launches for k, fn in fa.KERNELS.items()},
+                "hash": replicated_hash(torch, name, st),
+                "peak_stash": getattr(built.train_step, "peak_stash",
+                                      None)}
+            del built, st
+            torch.cuda.empty_cache()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        results.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def strategy_path(torch, np, seed: int) -> dict:
+    """Phase 11 (see the module docstring): returns the flash launches
+    of each rung on rank 0."""
+    t0 = time.perf_counter()
+    refs = strategy_references(torch, np, seed)
+    ref_s = time.perf_counter() - t0
+    for name, r in refs.items():
+        print(f"strategy reference {name}: one rank, GPT-2 small, global "
+              f"batch {STRATEGY_BATCH} x {STRATEGY_T}, float32: losses "
+              f"{[repr(x) for x in r['losses']]}, ms a step "
+              f"{[round(x, 1) for x in r['ms']]}, state bytes params "
+              f"{r['bytes']['params']:,} optimizer "
+              f"{r['bytes']['opt_state']:,}", flush=True)
+    got = run_ranks(strategy_rank, (seed,), STRATEGY_TIMEOUT, "strategy")
+    failures, launches = [], {}
+    for name, (strategy, shape, _, overrides) in STRATEGY_RUNGS.items():
+        a, b = got[0][name], got[1][name]
+        ref = refs["moe" if strategy == "ep" else
+                   "dense" if strategy == "sp" else "flash"]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                      ref["losses"]))
+        same = a["hash"] == b["hash"] and a["losses"] == b["losses"]
+        one = ref["bytes"]
+        ratio = {k: a["bytes"][k] / one[k] for k in one}
+        flash = {k: (a["launches"][k], b["launches"][k])
+                 for k in a["launches"]}
+        launches[name] = a["launches"]
+        steady = sum(a["ms"][1:]) / len(a["ms"][1:])
+        share = sum(a["comm_ms"][1:]) / sum(a["ms"][1:])
+        print(f"strategy {name}: mesh {shape}, 2 gloo ranks on one card, "
+              f"GPT-2 small float32 {'ring' if strategy == 'sp' else 'flash'}"
+              f" attention{', 4 experts' if strategy == 'ep' else ''}, "
+              f"global batch {STRATEGY_BATCH} x {STRATEGY_T}: losses "
+              f"{[repr(x) for x in a['losses']]}, one rank "
+              f"{[repr(x) for x in ref['losses']]}: max relative difference "
+              f"{rel:.3e} (rtol {STRATEGY_RTOL}); replicated parameters "
+              f"bit-equal across ranks: {same}; ms a step "
+              f"{[round(x, 1) for x in a['ms']]} (rank 1 "
+              f"{[round(x, 1) for x in b['ms']]}; mean after the first "
+              f"{steady:.1f}); collectives wall ms a step "
+              f"{[round(x, 1) for x in a['comm_ms']]} (rank 1 "
+              f"{[round(x, 1) for x in b['comm_ms']]}; {100 * share:.0f}% "
+              f"of the steps after the first; gloo, staged through the "
+              f"host: (calls, staged) a step {a['calls'][-1]}); peak "
+              f"memory GiB {a['peak_gib']:.2f} / {b['peak_gib']:.2f}; state "
+              f"bytes params {a['bytes']['params']:,} optimizer "
+              f"{a['bytes']['opt_state']:,} (rank 1 "
+              f"{b['bytes']['params']:,} / {b['bytes']['opt_state']:,}; "
+              f"one rank {one['params']:,} / {one['opt_state']:,}: "
+              f"{ratio['params']:.3f} / {ratio['opt_state']:.3f}); flash "
+              f"launches (rank 0, rank 1) {flash}"
+              + (f"; 1f1b stash peak {a['peak_stash']} / {b['peak_stash']}"
+                 if name == "pp-1f1b" else "")
+              + f"; build {a['build_s']:.1f}s", flush=True)
+        if rel > STRATEGY_RTOL:
+            failures.append(f"{name} losses {rel:.3e} from one rank's")
+        if not same:
+            failures.append(f"{name} replicated parameters differ")
+        if strategy != "sp" and not all(min(v) > 0 for v in flash.values()):
+            failures.append(f"{name} launched no flash kernel: {flash}")
+        if strategy == "sp" and any(max(v) for v in flash.values()):
+            failures.append(f"{name} (ring attention) launched {flash}")
+        if strategy == "fsdp" and not all(0.45 < r < 0.55
+                                          for r in ratio.values()):
+            failures.append(f"fsdp state is {ratio} of one rank's")
+        if strategy == "zero1" and not 0.45 < ratio["opt_state"] < 0.55:
+            failures.append(f"zero1 momentum is {ratio['opt_state']:.3f} "
+                            "of one rank's")
+    print(f"strategy: phase 11 {time.perf_counter() - t0:.1f}s (one-rank "
+          f"references {ref_s:.1f}s)", flush=True)
+    if failures:
+        raise SmokeFailure(f"strategy: {failures}")
+    return launches
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -3893,6 +4186,9 @@ def main(argv=None) -> int:
         ckpt_launches = checkpoint_path(torch, np, pa, fa, args.seed)
         print(f"ckpt: port kernel launches in phase 10c {ckpt_launches}",
               flush=True)
+        strategy_launches = strategy_path(torch, np, args.seed)
+        print(f"strategy: flash launches in phase 11 (rank 0) "
+              f"{strategy_launches}", flush=True)
         records = timings(torch, pa, model, prompts, launches)
         records += flash_timings(torch, fa, train_launches)
     except Exception:  # every phase failure ends the run without a result

@@ -151,8 +151,8 @@ def test_dense_attention_matches_jax(causal):
 
 def test_flash_dispatch_follows_the_jax_rule(monkeypatch):
     """``'flash'`` takes the flash op when ``t % 128 == 0`` and the dense
-    math otherwise; ``'ring'`` names its ROADMAP item; unknown impls
-    raise."""
+    math otherwise; ``'ring'`` with no ``seq`` axis bound is the dense
+    math (JAX's fallback); unknown impls raise."""
     calls = []
     real = attention.flash_attention
 
@@ -169,8 +169,12 @@ def test_flash_dispatch_follows_the_jax_rule(monkeypatch):
                                          dtype=torch.float32)
         torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
     assert calls == [128]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        attention.multihead_attention(q, k, v, causal=True, impl="ring")
+    want = np.asarray(jax_mha(*(jnp.asarray(x.numpy()) for x in (q, k, v)),
+                              causal=True, impl="ring", seq_axis="seq"))
+    got = attention.multihead_attention(q, k, v, causal=True, impl="ring",
+                                        seq_axis="seq")
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
+    assert calls == [128]  # the ring impl reached no flash call
     with pytest.raises(ValueError, match="unknown"):
         attention.multihead_attention(q, k, v, causal=True, impl="nope")
 

@@ -231,11 +231,24 @@ def test_trainer_matches_the_jax_trainer(tmp_path, timing_mode):
 
 def test_trainer_refuses_unported_options():
     model = vgg.VGG(NARROW)
-    for kwargs in ({"strategy": "tp"}, {"verify_replicas": True},
+    for kwargs in ({"verify_replicas": True},
                    {"remat": True}, {"flight_dir": "x"},
                    {"track_sdc_fingerprint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **kwargs)
+    # strategies are ported: tp needs a mesh, and VGG's TP rules are
+    # the LLaMA/VGG item's
+    with pytest.raises(ValueError, match="needs a device mesh"):
+        Trainer(model, strategy="tp")
+    from tpudp_torch.mesh import MeshND
+    from tpudp_torch.parallel.tensor import vgg_tp_rules
+
+    mesh = MeshND(shape={"data": 1, "model": 2}, rank=0,
+                  coords={"data": 0, "model": 0},
+                  groups={"data": None, "model": None})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Trainer(model, mesh, strategy="tp",
+                strategy_options={"rules": vgg_tp_rules()})
     with pytest.raises(ValueError, match="spmd_mode"):
         Trainer(model, spmd_mode="auto")
     with pytest.raises(ValueError, match="shard_map DP rung"):

@@ -503,9 +503,339 @@ def job_lone_fault(rank, world):
     return {"stats": {k: v for k, v in t.stats.items() if k != "events"}}
 
 
+# -- the parallel strategies (tests/test_torch_{seq_parallel,moe,
+#    tensor_parallel,pipeline,strategies}.py): the JAX tests' tiny GPT-2s --
+
+TP_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=2, num_heads=4,
+              d_model=32)
+PP_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=4, num_heads=2,
+              d_model=32)
+MOE_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=2, num_heads=2,
+               d_model=32, mlp_impl="moe", num_experts=4,
+               capacity_factor=4.0)  # cf == E: no token drops
+SP_CFG = dict(vocab_size=96, max_seq_len=64, num_layers=2, num_heads=2,
+              d_model=32)
+STRATEGY_SEED = 21
+STRATEGY_LR = 0.01
+MIN_SIZE = 128  # fsdp/zero1's threshold at these widths (JAX's tests)
+
+
+def lm_batches(vocab: int, steps: int = 3, batch: int = 8, t: int = 16,
+               seed: int = 0):
+    """The JAX tests' batches: numpy-seeded tokens, targets rolled by one."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(steps, batch, t)).astype(np.int32)
+    return [(x, np.roll(x, -1, axis=1).astype(np.int32)) for x in toks]
+
+
+def strategy_tree(cfg: dict, seed: int = STRATEGY_SEED):
+    """The flax-layout weights both packages start a rung from."""
+    from tpudp_torch.models import gpt2
+
+    return gpt2.random_params(gpt2.GPT2Config(**cfg), seed)
+
+
+def ring_inputs(b=2, t=64, h=4, dh=16, seed=0):
+    """q, k, v and an output cotangent, float32 ``(b, t, h, dh)``."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(b, t, h, dh)).astype(np.float32)
+            for _ in range(4)]
+
+
+def cpu_tree(tree):
+    """A checkpoint tree as detached CPU tensors (what a rank saves)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: cpu_tree(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().clone()  # no alias of a live tensor
+    return tree
+
+
+def run_rung(name: str, cfg: dict, mesh_shape: dict, options: dict,
+             batches, **model_kw) -> dict:
+    """One rung through ``build_strategy``: its losses, this rank's
+    state bytes beside one device's, and (every rank) the checkpoint
+    tree's parameters in the JAX layout."""
+    import torch
+
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.parallel.sharded import state_nbytes
+    from tpudp_torch.strategy import build_strategy
+
+    c = gpt2.GPT2Config(**cfg, **model_kw)
+    model = gpt2.GPT2(c)
+    model.load_state_dict(gpt2.params_from_jax(strategy_tree(cfg)))
+    spec = train.make_optimizer(learning_rate=STRATEGY_LR)
+    state = train.init_state(model, spec)
+    one = state_nbytes(state)
+    built = build_strategy(name, model, spec, make_mesh_nd(mesh_shape),
+                           state, **options)
+    st, losses = built.state, []
+    for x, y in batches:
+        st, loss = built.train_step(
+            st, torch.as_tensor(built.shard_for(x)),
+            torch.as_tensor(built.shard_for(y)))
+        losses.append(float(loss))
+    tree = train.state_to_jax(st)
+    out = {"losses": losses, "params": cpu_tree(tree["params"]),
+           "momentum": cpu_tree(tree["opt_state"]["momentum"]),
+           "bytes": state_nbytes(st), "one_device_bytes": one,
+           "local_shapes": {k: tuple(v.shape)
+                            for k, v in st.model.state_dict().items()}}
+    if hasattr(built.train_step, "peak_stash"):
+        out["peak_stash"] = built.train_step.peak_stash
+    return out
+
+
+def job_ring(rank, world):
+    """Ring attention over the world's ring: this rank's output blocks
+    (causal and full) and the causal gradients of q, k and v for the
+    seeded output cotangent."""
+    import torch
+    import torch.distributed as dist
+
+    from tpudp_torch.parallel.ring_attention import ring_attention
+
+    group = dist.group.WORLD
+    q, k, v, do = (torch.as_tensor(shard(a.swapaxes(0, 1), rank, world)
+                                   .swapaxes(0, 1).copy())
+                   for a in ring_inputs())
+    out = {}
+    for causal in (True, False):
+        out[f"o-{causal}"] = ring_attention(q, k, v, group,
+                                            causal=causal)
+    q, k, v = (x.clone().requires_grad_(True) for x in (q, k, v))
+    (ring_attention(q, k, v, group, causal=True) * do).sum().backward()
+    out["grads"] = [x.grad for x in (q, k, v)]
+    return out
+
+
+def job_sp(rank, world):
+    """DP x SP on a (2, 2) mesh: the rung's 3 steps (SP_CFG, batch 4, t
+    64), and a fresh ring model's logits block and eval sums (global
+    positions) against the same weights."""
+    import torch
+
+    from tpudp_torch.mesh import bind_axes, make_mesh_nd
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.strategy import build_strategy
+
+    batches = lm_batches(96, steps=3, batch=4, t=64, seed=0)
+    out = {"rung": run_rung("sp", SP_CFG, {"data": 2, "seq": 2}, {},
+                            batches, attn_impl="ring", seq_axis="seq")}
+    mesh = make_mesh_nd({"data": 2, "seq": 2})
+    c = gpt2.GPT2Config(**SP_CFG, attn_impl="ring", seq_axis="seq")
+    model = gpt2.GPT2(c)
+    model.load_state_dict(gpt2.params_from_jax(strategy_tree(SP_CFG)))
+    from tpudp_torch import train
+
+    spec = train.make_optimizer(learning_rate=STRATEGY_LR)
+    built = build_strategy("sp", model, spec, mesh,
+                           train.init_state(model, spec))
+    tokens, targets = lm_batches(96, steps=1, batch=4, t=64, seed=3)[0]
+    x = torch.as_tensor(built.shard_for(tokens))
+    with torch.no_grad(), bind_axes({"seq": mesh.group("seq")}):
+        out["logits"] = model(x)
+    weights = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
+    out["eval"] = [float(v) for v in built.eval_step(
+        built.state, x, torch.as_tensor(built.shard_for(targets)),
+        torch.as_tensor(built.shard_for(weights)))]
+    return out
+
+
+def job_tp(rank, world):
+    """DP x TP on a (2, 2) mesh: 3 steps of TP_CFG."""
+    from tpudp_torch.parallel.tensor import gpt2_tp_rules
+
+    return run_rung("tp", TP_CFG, {"data": 2, "model": 2},
+                    {"rules": gpt2_tp_rules()}, lm_batches(64))
+
+
+def job_fsdp(rank, world):
+    """fsdp and zero1 over a 1-D mesh of the world, min_size 128."""
+    return {name: run_rung(name, TP_CFG, {"data": world},
+                           {"min_size": MIN_SIZE}, lm_batches(64))
+            for name in ("fsdp", "zero1")}
+
+
+def job_pp(rank, world):
+    """DP x PP on a (2, 2) mesh, 2 microbatches: gpipe and 1f1b."""
+    return {schedule: run_rung("pp", PP_CFG, {"data": 2, "pipe": 2},
+                               {"n_microbatches": 2, "schedule": schedule},
+                               lm_batches(64))
+            for schedule in ("gpipe", "1f1b")}
+
+
+def job_ep(rank, world):
+    """DP x EP on a (2, 2) mesh, no balance loss (JAX's oracle test)."""
+    return run_rung("ep", MOE_CFG, {"data": 2, "expert": 2},
+                    {"aux_loss_coef": 0.0}, lm_batches(64),
+                    expert_axis="expert")
+
+
+class TokenLoader:
+    """The JAX strategy suite's loader: 4 global batches of 8 x 16
+    tokens with unit weights, the same on every rank."""
+
+    def __init__(self, vocab: int = 64, steps: int = 4, seed: int = 0):
+        import torch
+
+        self.batches = [
+            (torch.as_tensor(x), torch.as_tensor(y),
+             torch.ones(8, dtype=torch.float32))
+            for x, y in lm_batches(vocab, steps=steps, batch=8, t=16,
+                                   seed=seed)]
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+# rung -> (mesh shape, model config, model options, strategy options)
+TRAINER_RUNGS = {
+    "tp": ({"data": 2, "model": 2}, TP_CFG, {}, "rules"),
+    "fsdp": ({"data": 4}, TP_CFG, {}, {"min_size": MIN_SIZE}),
+    "zero1": ({"data": 4}, TP_CFG, {}, {"min_size": MIN_SIZE}),
+    "pp": ({"data": 2, "pipe": 2}, PP_CFG, {}, {"n_microbatches": 2}),
+    "ep": ({"data": 2, "expert": 2}, MOE_CFG, {"expert_axis": "expert"}, {}),
+    "sp": ({"data": 2, "seq": 2}, TP_CFG,
+           {"attn_impl": "ring", "seq_axis": "seq"}, {}),
+}
+
+
+def trainer_rung(name: str, seed: int = STRATEGY_SEED, **kw):
+    """The port's Trainer on rung ``name`` (TRAINER_RUNGS), weights from
+    ``seed``."""
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.parallel.tensor import gpt2_tp_rules
+    from tpudp_torch.trainer import Trainer
+
+    shape, cfg, model_kw, options = TRAINER_RUNGS[name]
+    if options == "rules":
+        options = {"rules": gpt2_tp_rules()}
+    c = gpt2.GPT2Config(**cfg, **model_kw)
+    model = gpt2.GPT2(c)
+    model.load_state_dict(gpt2.params_from_jax(strategy_tree(cfg, seed)))
+    kw.setdefault("log_fn", lambda line: None)
+    return Trainer(model, make_mesh_nd(shape), strategy=name,
+                   strategy_options=dict(options), learning_rate=0.01,
+                   log_every=2, **kw)
+
+
+def job_trainer(rank, world):
+    """Every rung through the Trainer: fit one epoch with eval (the
+    reference's lines), a checkpoint round trip into a Trainer of other
+    weights, and a step of the restored state."""
+    from tpudp_torch.train import state_to_jax
+    from tpudp_torch.utils.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+
+    root = os.environ["TPUDP_TEST_OUT"]
+    out = {}
+    for name, (_, cfg, _, _) in TRAINER_RUNGS.items():
+        lines = []
+        trainer = trainer_rung(name, log_fn=lines.append)
+        loader = TokenLoader(cfg["vocab_size"])
+        trainer.fit(loader, test_loader=loader, epochs=1)
+        loss, acc = trainer.evaluate(loader)
+        path = save_checkpoint(os.path.join(root, f"ckpt-{name}"),
+                               trainer.state)
+        fresh = trainer_rung(name, seed=STRATEGY_SEED + 1)
+        restore_checkpoint(path, fresh.state)
+        saved, restored = (cpu_tree(state_to_jax(t.state))
+                           for t in (trainer, fresh))
+        x, y, _ = fresh._device_batch(next(iter(loader)))
+        _, loss2 = fresh.train_step(fresh.state, x, y)
+        out[name] = {"lines": lines, "eval": (loss, acc),
+                     "saved": saved, "restored": restored,
+                     "records": trainer.records, "loss2": float(loss2),
+                     "metrics": trainer.metrics()}
+    # tp's checkpoint (JAX's global layout) resharded into zero1
+    other = trainer_rung("zero1", seed=STRATEGY_SEED + 2)
+    restore_checkpoint(os.path.join(root, "ckpt-tp"), other.state)
+    out["tp->zero1"] = cpu_tree(state_to_jax(other.state))
+    return out
+
+
+# -- the strategies on the card (tests/test_torch_cuda_strategies.py):
+#    two gloo ranks on one card, GPT-2 at the flash kernels' shapes --------
+
+CUDA_CFG = dict(vocab_size=512, max_seq_len=256, num_layers=2, num_heads=4,
+                d_model=256)
+
+
+def job_cuda_strategies(rank, world):
+    """On the card (TF32 off): tp (1 x world) with flash attention and
+    with dense attention, 2 steps each, with the flash launches; fsdp
+    over the world with its state bytes beside one rank's."""
+    import torch
+
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.parallel.sharded import state_nbytes
+    from tpudp_torch.parallel.tensor import gpt2_tp_rules
+    from tpudp_torch.strategy import build_strategy
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batches = lm_batches(512, steps=2, batch=4, t=256, seed=6)
+    out = {}
+    for name, impl, strategy, shape, options in (
+            ("tp-flash", "flash", "tp", {"data": 1, "model": world},
+             {"rules": gpt2_tp_rules()}),
+            ("tp-dense", "dense", "tp", {"data": 1, "model": world},
+             {"rules": gpt2_tp_rules()}),
+            ("fsdp", "flash", "fsdp", {"data": world}, {})):
+        cfg = gpt2.GPT2Config(**CUDA_CFG, attn_impl=impl)
+        model = gpt2.GPT2(cfg)
+        model.load_state_dict(gpt2.params_from_jax(
+            gpt2.random_params(cfg, 7)))
+        model.cuda()
+        spec = train.make_optimizer(learning_rate=0.01)
+        state = train.init_state(model, spec)
+        built = build_strategy(strategy, model, spec, make_mesh_nd(shape),
+                               state, **options)
+        for fn in fa.KERNELS.values():
+            fn.launches = 0
+        st, losses = built.state, []
+        for x, y in batches:
+            st, loss = built.train_step(
+                st, *(torch.as_tensor(built.shard_for(a), device="cuda")
+                      for a in (x, y)))
+            losses.append(float(loss))
+        out[name] = {"losses": losses, "bytes": state_nbytes(st),
+                     "launches": {k: fn.launches
+                                  for k, fn in fa.KERNELS.items()}}
+    # one rank's state after its steps, for the bytes
+    cfg = gpt2.GPT2Config(**CUDA_CFG)
+    model = gpt2.GPT2(cfg).cuda()
+    spec = train.make_optimizer(learning_rate=0.01)
+    st = train.init_state(model, spec)
+    step = train.make_train_step(model, spec)
+    x, y = (torch.as_tensor(a, device="cuda") for a in batches[0])
+    st, _ = step(st, x, y)
+    out["one_rank_bytes"] = state_nbytes(st)
+    return out
+
+
 JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "gpt2": job_gpt2, "sync_bn": job_sync_bn, "ckpt": job_ckpt,
-        "resilience": job_resilience, "lone_fault": job_lone_fault}
+        "resilience": job_resilience, "lone_fault": job_lone_fault,
+        "ring": job_ring, "sp": job_sp, "tp": job_tp, "fsdp": job_fsdp,
+        "pp": job_pp, "ep": job_ep, "trainer": job_trainer,
+        "cuda_strategies": job_cuda_strategies}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -18,6 +18,11 @@ slice (ROADMAP.md).  Ported so far:
     (``make_optimizer``, ``init_state``, ``make_train_step``), with flash
     attention's forward, dq and dk/dv kernels behind
     ``tpudp_torch.ops.flash_attention`` (``train_cli``);
+  * the parallel strategies — ``tpudp_torch.strategy.build_strategy``
+    (tp, fsdp, zero1, pp with gpipe and 1f1b, ep with the MoE MLP of
+    ``tpudp_torch.models.moe``, sp with ``tpudp_torch.parallel.
+    ring_attention``) over ``tpudp_torch.mesh.make_mesh_nd`` meshes,
+    through the Trainer and ``train_cli --mesh --strategy``;
   * checkpoints and supervision — ``tpudp_torch.utils.checkpoint``
     (verified save, restore and resume, asynchronous writes, emergency
     dumps), ``tpudp_torch.utils.watchdog``, the in-process supervisor

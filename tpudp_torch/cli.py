@@ -244,12 +244,18 @@ def run_part(sync: str, description: str, *, single_device: bool = False,
 
 
 def _spawn(args, sync: str, world: int) -> None:
-    """Run ``world`` local ranks as processes; a rank that fails stops
+    """Run ``world`` local ranks of a Part as processes."""
+    spawn_ranks(_rank_entry, world, args, sync)
+
+
+def spawn_ranks(entry, world: int, *head) -> None:
+    """Run ``entry(*head, rank, world, init_method)`` in ``world`` local
+    processes meeting at a free localhost port; a rank that fails stops
     the others and fails the run."""
     init_method = f"tcp://127.0.0.1:{free_port()}"
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_rank_entry,
-                         args=(args, sync, rank, world, init_method),
+    procs = [ctx.Process(target=entry,
+                         args=(*head, rank, world, init_method),
                          name=f"tpudp-rank{rank}")
              for rank in range(world)]
     for p in procs:

@@ -5,11 +5,14 @@ and a tied input/output embedding, with the same parameter names as the
 flax model (``h_i/attn/qkv``, ``ln_1``, ``mlp_fc`` ...) so that
 :func:`params_from_jax` carries a flax tree across one leaf at a time.
 
-Dense and flash attention (``attn_impl``, dispatched by
+Dense, flash and ring attention (``attn_impl``, dispatched by
 ``tpudp_torch.ops.attention.multihead_attention`` as in the JAX model)
-with the dense MLP are ported.  Ring attention and the MoE MLP are a
-later slice (ROADMAP.md, Queue 1); asking for them raises
-:class:`NotImplementedError` instead of silently running dense math.
+and the dense or MoE MLP (``mlp_impl``, ``tpudp_torch.models.moe``).
+Ring attention runs over the ``seq_axis`` group bound by
+``tpudp_torch.mesh.bind_axes`` (the rung's sequence shard then takes its
+global positions, ``rank_on_seq * t`` on), and dense attention where the
+axis is unbound, as in JAX; the MoE MLP's experts shard over a bound
+``expert_axis``.
 
 LayerNorm runs in float32 and every matmul in ``config.dtype``, exactly
 the flax model's policy; the raw-module twins :func:`embed_tokens` and
@@ -26,12 +29,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudp_torch.mesh import axis_group
+from tpudp_torch.models.moe import PARAM_NAMES as MOE_PARAMS
+from tpudp_torch.models.moe import MoeMlp
+from tpudp_torch.models.moe import random_params as moe_random_params
 from tpudp_torch.ops.attention import multihead_attention
-
-_LATER = {
-    "attn_impl": {"ring": "slice 6b (ring attention)"},
-    "mlp_impl": {"moe": "slice 6b (MoE MLP)"},
-}
 
 
 @dataclass(frozen=True)
@@ -45,7 +47,12 @@ class GPT2Config:
     ln_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
     attn_impl: str = "dense"
+    seq_axis: str | None = None  # mesh axis of ring attention
     mlp_impl: str = "dense"
+    num_experts: int = 8
+    capacity_factor: float = 1.25
+    moe_top_k: int = 1
+    expert_axis: str | None = None  # mesh axis of expert parallelism
 
     def __post_init__(self):
         for field, choices in (("attn_impl", ("dense", "flash", "ring")),
@@ -54,10 +61,6 @@ class GPT2Config:
             if value not in choices:
                 raise ValueError(f"unknown {field} {value!r}; choose from "
                                  f"{', '.join(map(repr, choices))}")
-            if value in _LATER[field]:
-                raise NotImplementedError(
-                    f"{field}={value!r} is not ported yet: ROADMAP.md "
-                    f"{_LATER[field][value]}")
         if self.d_model % self.num_heads:
             raise ValueError(f"d_model ({self.d_model}) must divide by "
                              f"num_heads ({self.num_heads})")
@@ -75,13 +78,20 @@ class CausalSelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: GPT2Config):
+    def __init__(self, cfg: GPT2Config, local_experts: int | None = None):
         super().__init__()
         self.ln_1 = nn.LayerNorm(cfg.d_model, eps=cfg.ln_eps)
         self.attn = CausalSelfAttention(cfg)
         self.ln_2 = nn.LayerNorm(cfg.d_model, eps=cfg.ln_eps)
-        self.mlp_fc = nn.Linear(cfg.d_model, cfg.mlp_ratio * cfg.d_model)
-        self.mlp_proj = nn.Linear(cfg.mlp_ratio * cfg.d_model, cfg.d_model)
+        if cfg.mlp_impl == "moe":
+            self.moe = MoeMlp(cfg.d_model, cfg.num_experts, cfg.mlp_ratio,
+                              cfg.capacity_factor, cfg.moe_top_k,
+                              cfg.expert_axis, cfg.dtype, local_experts)
+        else:
+            self.mlp_fc = nn.Linear(cfg.d_model,
+                                    cfg.mlp_ratio * cfg.d_model)
+            self.mlp_proj = nn.Linear(cfg.mlp_ratio * cfg.d_model,
+                                      cfg.d_model)
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -96,9 +106,41 @@ def dense(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def mlp(blk: Block, x: torch.Tensor, dtype) -> torch.Tensor:
+    """The block's MLP branch on the residual ``x`` (dense or MoE)."""
+    if hasattr(blk, "moe"):
+        return blk.moe(layer_norm(blk.ln_2, x))
     h = F.gelu(dense(blk.mlp_fc, layer_norm(blk.ln_2, x), dtype),
                approximate="tanh")
     return dense(blk.mlp_proj, h, dtype)
+
+
+def attention(blk: Block, x: torch.Tensor, cfg: GPT2Config) -> torch.Tensor:
+    """The block's attention branch on the residual ``x``."""
+    b, t, _ = x.shape
+    h, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
+    qkv = dense(blk.attn.qkv, layer_norm(blk.ln_1, x), cfg.dtype)
+    q, k, v = (z.reshape(b, t, h, dh) for z in qkv.chunk(3, dim=-1))
+    out = multihead_attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                              dtype=cfg.dtype, seq_axis=cfg.seq_axis)
+    return dense(blk.attn.proj, out.reshape(b, t, -1), cfg.dtype)
+
+
+def block_forward(blk: Block, x: torch.Tensor,
+                  cfg: GPT2Config) -> torch.Tensor:
+    """One pre-LN block: ``x + attn(ln_1(x))``, then ``+ mlp(ln_2(.))``."""
+    x = x + attention(blk, x, cfg)
+    return x + mlp(blk, x, cfg.dtype)
+
+
+def positions_of(cfg: GPT2Config, t: int, device) -> torch.Tensor:
+    """This rank's token positions: ``0..t-1``, offset by ``rank_on_seq *
+    t`` when ring attention's ``seq_axis`` is bound (the rank holds one
+    contiguous block of the sequence)."""
+    positions = torch.arange(t, device=device)
+    group = axis_group(cfg.seq_axis) if cfg.attn_impl == "ring" else None
+    if group is not None:
+        positions = positions + torch.distributed.get_rank(group) * t
+    return positions
 
 
 def embed_tokens(model: "GPT2", tokens: torch.Tensor,
@@ -124,12 +166,13 @@ class GPT2(nn.Module):
     accepted for the flax signature's sake: there is no dropout, so
     training and evaluation run the same math."""
 
-    def __init__(self, config: GPT2Config):
+    def __init__(self, config: GPT2Config,
+                 local_experts: int | None = None):
         super().__init__()
         self.config = config
         self.wte = nn.Embedding(config.vocab_size, config.d_model)
         self.wpe = nn.Embedding(config.max_seq_len, config.d_model)
-        self.h = nn.ModuleList(Block(config)
+        self.h = nn.ModuleList(Block(config, local_experts)
                                for _ in range(config.num_layers))
         self.ln_f = nn.LayerNorm(config.d_model, eps=config.ln_eps)
 
@@ -137,16 +180,10 @@ class GPT2(nn.Module):
                 train: bool = False) -> torch.Tensor:
         del train
         cfg = self.config
-        b, t = tokens.shape
-        h, dh = cfg.num_heads, cfg.d_model // cfg.num_heads
-        x = embed_tokens(self, tokens)
+        x = embed_tokens(self, tokens,
+                         positions_of(cfg, tokens.shape[-1], tokens.device))
         for blk in self.h:
-            qkv = dense(blk.attn.qkv, layer_norm(blk.ln_1, x), cfg.dtype)
-            q, k, v = (z.reshape(b, t, h, dh) for z in qkv.chunk(3, dim=-1))
-            out = multihead_attention(q, k, v, causal=True,
-                                      impl=cfg.attn_impl, dtype=cfg.dtype)
-            x = x + dense(blk.attn.proj, out.reshape(b, t, -1), cfg.dtype)
-            x = x + mlp(blk, x, cfg.dtype)
+            x = block_forward(blk, x, cfg)
         return lm_head(self, x)
 
 
@@ -176,8 +213,12 @@ def params_from_jax(np_params: dict) -> dict[str, torch.Tensor]:
         state.update(norm(f"h.{i}.ln_2", p["ln_2"]))
         state.update(linear(f"h.{i}.attn.qkv", p["attn"]["qkv"]))
         state.update(linear(f"h.{i}.attn.proj", p["attn"]["proj"]))
-        state.update(linear(f"h.{i}.mlp_fc", p["mlp_fc"]))
-        state.update(linear(f"h.{i}.mlp_proj", p["mlp_proj"]))
+        if "moe" in p:  # flax's own layout: raw params, not Dense kernels
+            state.update({f"h.{i}.moe.{n}": t(p["moe"][n])
+                          for n in MOE_PARAMS})
+        else:
+            state.update(linear(f"h.{i}.mlp_fc", p["mlp_fc"]))
+            state.update(linear(f"h.{i}.mlp_proj", p["mlp_proj"]))
         i += 1
     return state
 
@@ -217,6 +258,8 @@ def params_to_jax(state: dict) -> dict:
         linear((f"h_{i}", "attn", "proj"), f"h.{i}.attn.proj")
         linear((f"h_{i}", "mlp_fc"), f"h.{i}.mlp_fc")
         linear((f"h_{i}", "mlp_proj"), f"h.{i}.mlp_proj")
+        for n in MOE_PARAMS:
+            put((f"h_{i}", "moe", n), f"h.{i}.moe.{n}")
         i += 1
     return tree
 
@@ -246,8 +289,13 @@ def random_params(cfg: GPT2Config, seed: int) -> dict:
     for i in range(cfg.num_layers):
         tree[f"h_{i}"] = {"ln_1": norm(), "ln_2": norm(),
                           "attn": {"qkv": linear(d, 3 * d),
-                                   "proj": linear(d, d)},
-                          "mlp_fc": linear(d, f), "mlp_proj": linear(f, d)}
+                                   "proj": linear(d, d)}}
+        if cfg.mlp_impl == "moe":
+            tree[f"h_{i}"]["moe"] = moe_random_params(
+                d, cfg.num_experts, cfg.mlp_ratio, rng)
+        else:
+            tree[f"h_{i}"].update(mlp_fc=linear(d, f),
+                                  mlp_proj=linear(f, d))
     return tree
 
 

@@ -15,7 +15,10 @@ policy of the transformer models, as in the JAX package:
     implementation, decided from the shapes before any launch, and
     counts it in ``dense_routes`` (the plain versions on the CPU take
     every head dim and dtype, so the CPU follows the JAX rule alone);
-  * ``'ring'`` — sequence-parallel ring attention is not ported yet.
+  * ``'ring'`` — :func:`tpudp_torch.parallel.ring_attention.
+    ring_attention` over the process group bound to ``seq_axis``
+    (``tpudp_torch.mesh.bind_axes``), and the dense math where the axis
+    is unbound (model construction, one device), as in JAX.
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ def dense_attention(q, k, v, *, causal: bool, dtype) -> torch.Tensor:
 
 
 def multihead_attention(q, k, v, *, causal: bool, impl: str = "dense",
-                        dtype=torch.float32) -> torch.Tensor:
+                        dtype=torch.float32,
+                        seq_axis: str | None = None) -> torch.Tensor:
     """``(B, T, H, Dh)`` q/k/v -> ``(B, T, H, Dh)`` attention output,
     by the JAX package's dispatch rule (module docstring).  An
     ``impl='flash'`` call whose token count divides by 128 but whose head
@@ -71,9 +75,13 @@ def multihead_attention(q, k, v, *, causal: bool, impl: str = "dense",
         raise ValueError(f"unknown attention impl {impl!r}; choose from "
                          f"{', '.join(map(repr, _IMPLS))}")
     if impl == "ring":
-        raise NotImplementedError(
-            "ring attention is not ported yet: ROADMAP.md slice 6b "
-            "(ring attention)")
+        from tpudp_torch.mesh import axis_group
+
+        group = axis_group(seq_axis)
+        if group is not None:
+            from tpudp_torch.parallel.ring_attention import ring_attention
+
+            return ring_attention(q, k, v, group, causal=causal)
     if impl == "flash":
         if flash_route(q.shape, q.dtype, q.device.type) == "flash":
             return flash_attention(q, k, v, causal=causal)

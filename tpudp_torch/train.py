@@ -184,6 +184,9 @@ class TrainState:
     loss_sum: torch.Tensor
     compressor: Int8ErrorFeedback | None = None
     skip: dict | None = None
+    # A sharded rung's map between this rank's tensors and the JAX
+    # package's global layout (tpudp_torch.parallel.sharded.Layout).
+    layout: object | None = None
 
 
 def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
@@ -199,19 +202,24 @@ def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
             raise ValueError(f"compress={optimizer.compress!r} needs a "
                              "mesh: it replaces the gradient collective")
         compressor = Int8ErrorFeedback(model.parameters())
-    skip = None
-    if optimizer.skip_nonfinite is not None:
-        zero = torch.zeros((), dtype=torch.int32, device=device)
-        skip = {"notfinite_count": zero.clone(),
-                "last_finite": torch.ones((), dtype=torch.bool,
-                                          device=device),
-                "total_notfinite": zero.clone()}
     return TrainState(model=model,
                       optimizer=optimizer.build(model.parameters()),
                       step=0,
                       loss_sum=torch.zeros((), dtype=torch.float32,
                                            device=device),
-                      compressor=compressor, skip=skip)
+                      compressor=compressor,
+                      skip=skip_counters(optimizer, device))
+
+
+def skip_counters(optimizer: OptimizerSpec, device) -> dict | None:
+    """optax ``apply_if_finite``'s counters on ``device`` for a
+    ``skip_nonfinite`` optimizer (None otherwise)."""
+    if optimizer.skip_nonfinite is None:
+        return None
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return {"notfinite_count": zero.clone(),
+            "last_finite": torch.ones((), dtype=torch.bool, device=device),
+            "total_notfinite": zero.clone()}
 
 
 def _codec(model: torch.nn.Module):
@@ -266,7 +274,11 @@ def state_to_jax(state: TrainState) -> dict:
     ``notfinite_count``, ``last_finite`` and ``total_notfinite``.  With
     ``compress`` the tree gains ``compress.error``: every rank's
     residuals stacked ``(N, *shape)`` as the JAX package stacks them —
-    gathered from the ranks, so every rank must call this."""
+    gathered from the ranks, so every rank must call this.  A sharded
+    rung's state (``state.layout``) is gathered to the same global
+    layout by its ranks' collectives."""
+    if state.layout is not None:
+        return state.layout.to_jax(state)
     model, opt = state.model, state.optimizer
     to_jax, _ = _codec(model)
     sd = {k: v.detach() for k, v in model.state_dict().items()}
@@ -307,7 +319,11 @@ def load_state(state: TrainState, tree: dict) -> TrainState:
     ``loss_sum``, the optimizer's buffers — created where a fresh torch
     optimizer has none yet, so the next update continues the saved
     trajectory — the ``skip_nonfinite`` counters and, with ``compress``,
-    this rank's row of the stacked residuals."""
+    this rank's row of the stacked residuals.  A sharded rung's state
+    takes its ranks' shards of the global tree (``state.layout``)."""
+    if state.layout is not None:
+        state.layout.load(state, tree)
+        return state
     model, opt = state.model, state.optimizer
     _, from_jax = _codec(model)
     stats = tree.get("batch_stats", {})
@@ -413,15 +429,21 @@ class _FiniteGuard:
     snapshots the parameters and the optimizer state), :meth:`finish`
     after it puts them back where the update was rejected and advances
     the counters.  An update applies when the gradients are finite or
-    after ``max_errors`` consecutive non-finite ones."""
+    after ``max_errors`` consecutive non-finite ones; with ``group`` (a
+    rung whose ranks update shards) the ranks decide together."""
 
     def __init__(self, state: TrainState, params: list[torch.Tensor],
-                 max_errors: int):
+                 max_errors: int, group=None):
         _init_optimizer_state(state.optimizer, params)
         self.skip = state.skip
         grads = [p.grad for p in params]
         self.finite = torch.stack(
             [torch.isfinite(g).all() for g in grads]).all()
+        if group is not None and dist.get_world_size(group) > 1:
+            # shards of one update: every rank takes the same decision
+            bad = (~self.finite).to(torch.int32)
+            dist.all_reduce(bad, group=group)
+            self.finite = bad == 0
         self.count = torch.where(
             self.finite, torch.zeros_like(self.skip["notfinite_count"]),
             self.skip["notfinite_count"] + 1)
@@ -464,10 +486,24 @@ def _check_mesh(mesh) -> None:
                         f"got {type(mesh).__name__}")
 
 
+def with_aux(model: torch.nn.Module, ce: torch.Tensor,
+             aux_loss_coef: float) -> torch.Tensor:
+    """The objective the gradients follow: ``ce`` plus ``aux_loss_coef``
+    times the model's MoE balance loss of its last forward (``ce`` alone
+    for a model without MoE layers, or a zero coefficient)."""
+    if not aux_loss_coef:
+        return ce
+    from tpudp_torch.models.moe import collect_moe_aux
+
+    aux = collect_moe_aux(model)
+    return ce if isinstance(aux, float) else ce + aux_loss_coef * aux
+
+
 def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
                     mesh: Mesh | None = None, sync: str = "allreduce", *,
                     spmd_mode: str = "shard_map", grad_accum: int = 1,
-                    remat: bool = False, loss_chunk: int | None = None):
+                    remat: bool = False, loss_chunk: int | None = None,
+                    aux_loss_coef: float = 0.01):
     """``step(state, inputs, targets) -> (state, loss)``: mean cross
     entropy of ``model(inputs, train=True)`` over every position (images
     with labels ``(B,)``, or ``(B, T)`` tokens with next-token targets).
@@ -485,7 +521,10 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
     ``SYNC_STRATEGIES`` or is a function of theirs, ``(grads, group) ->
     grads`` (a rung wrapped to time it, say).  ``step.ddp`` is the
     ``DistributedDataParallel`` wrapper of ``sync='auto'`` (else
-    ``None``), for its communication hooks."""
+    ``None``), for its communication hooks.  ``aux_loss_coef`` weighs the
+    MoE layers' balance loss (``tpudp_torch.models.moe.collect_moe_aux``)
+    into the gradients, as JAX's step does; the returned loss is the
+    cross entropy alone, and a dense model has no such term."""
     _check_mesh(mesh)
     sync_fn = sync if callable(sync) else get_sync(sync)
     if remat:
@@ -537,7 +576,7 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
                 logits = forward(x, train=True)
                 ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                      y.reshape(-1).long())
-                ce.backward()
+                with_aux(model, ce, aux_loss_coef).backward()
             loss = loss + ce.detach()
         params = [p for p in model.parameters() if p.grad is not None]
         if grad_accum > 1:
@@ -629,3 +668,18 @@ def make_forward_step(model: torch.nn.Module, mesh: Mesh | None = None):
         return logits
 
     return forward
+
+
+# The sharded rungs' step builders (JAX: tpudp/train.py) live in
+# tpudp_torch.parallel.sharded, which imports this module.
+_SHARDED = ("make_tp_train_step", "make_fsdp_train_step",
+            "make_zero1_train_step", "make_seq_parallel_train_step",
+            "make_sp_eval_step", "resolve_state_shardings")
+
+
+def __getattr__(name: str):
+    if name in _SHARDED:
+        from tpudp_torch.parallel import sharded
+
+        return getattr(sharded, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -13,12 +13,20 @@ rest as the backward, as the JAX Trainer does.
 
 The port's Trainer takes a model already built (the JAX one initializes
 its own from ``seed`` and ``input_shape``).  The data-parallel rung
-(``strategy='dp'``, ``spmd_mode='shard_map'`` or ``'gspmd'``) is
-ported, with checkpoint resume (``fit(start_epoch=, epoch_end_fn=,
+(``strategy='dp'``, ``spmd_mode='shard_map'`` or ``'gspmd'``) and the
+sharded rungs (``strategy='tp'``, ``'fsdp'``, ``'zero1'``, ``'pp'``,
+``'ep'``, ``'sp'`` with ``strategy_options``, built by
+``tpudp_torch.strategy.build_strategy`` over a
+``tpudp_torch.mesh.make_mesh_nd`` mesh) are ported, with checkpoint
+resume (``fit(start_epoch=, epoch_end_fn=,
 skip_batches_first_epoch=)``), the heartbeat ``watchdog``, the
 ``step_fault_hook`` fault seam and the in-process supervisor
 (``fit(resilience=)``, ``tpudp_torch.resilience``); the options of later
 slices raise ``NotImplementedError`` naming their ROADMAP item.
+
+Under a sharded rung every rank's loaders yield the *global* batches,
+as JAX's single program reads them, and the rung's ``shard_for`` takes
+this rank's block of each.
 """
 
 from __future__ import annotations
@@ -40,8 +48,6 @@ from tpudp_torch.utils.finite import check_finite
 #: Options of the JAX Trainer this port does not have yet: name -> (the
 #: value that means "off", the ROADMAP.md item that brings it).
 _UNPORTED = {
-    "strategy": ("dp", "slice 7b (other parallel strategies)"),
-    "strategy_options": (None, "slice 7b (other parallel strategies)"),
     "remat": (False, "slice 6b (remat)"),
     "loss_chunk": (None, "slice 6b (chunked loss)"),
     "verify_replicas": (False, "slice 8 (robustness: replica "
@@ -51,6 +57,34 @@ _UNPORTED = {
     "sdc_fault_hook": (None, "slice 8 (SDC defense)"),
     "flight_dir": (None, "slice 8 (obs: flight recorder)"),
 }
+
+
+def _refuse_with_strategy(strategy: str, unported: dict, **options) -> None:
+    """JAX's refusals beside a sharded rung (``tpudp/train.py``'s
+    Trainer): the DP rung's options raise ``ValueError``."""
+    if options["compress"] is not None:
+        raise ValueError(
+            "compress needs the shard_map DP rung with a mesh "
+            f"(strategy={strategy!r}, spmd_mode={options['spmd_mode']!r})")
+    if options["timing_mode"] == "split":
+        raise ValueError(
+            "timing_mode='split' reproduces the reference's DP fwd/bwd "
+            "split; advanced strategies time fused steps")
+    if options["grad_accum"] != 1:
+        raise ValueError(
+            f"grad_accum is a DP-rung option (strategy={strategy!r})")
+    if unported.get("remat"):
+        raise ValueError(
+            f"remat is a DP-rung option (strategy={strategy!r}); for pp "
+            "pass strategy_options={'remat': True}")
+    if unported.get("loss_chunk"):
+        raise ValueError(
+            f"loss_chunk is a DP-rung option (strategy={strategy!r})")
+    if options["sync"] != "allreduce" or options["spmd_mode"] != "shard_map":
+        raise ValueError(
+            f"sync={options['sync']!r}/spmd_mode={options['spmd_mode']!r} "
+            f"are DP-rung options; strategy={strategy!r} defines its own "
+            "collectives")
 
 
 def fence(device: torch.device) -> None:
@@ -74,7 +108,9 @@ class Trainer:
     warm-up)."""
 
     def __init__(self, model: torch.nn.Module, mesh: Mesh | None = None,
-                 sync: str = "allreduce", *, learning_rate: float = 0.1,
+                 sync: str = "allreduce", *, strategy: str = "dp",
+                 strategy_options: dict | None = None,
+                 learning_rate: float = 0.1,
                  momentum: float = 0.9, weight_decay: float = 1e-4,
                  spmd_mode: str = "shard_map", timing_mode: str = "fused",
                  log_every: int = 20,
@@ -83,6 +119,11 @@ class Trainer:
                  compress: str | None = None, watchdog=None,
                  step_fault_hook: Callable[[str, int], None] | None = None,
                  **unported):
+        if strategy != "dp":
+            _refuse_with_strategy(strategy, unported, sync=sync,
+                                  spmd_mode=spmd_mode,
+                                  timing_mode=timing_mode,
+                                  grad_accum=grad_accum, compress=compress)
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Trainer() got an unexpected keyword "
@@ -126,24 +167,43 @@ class Trainer:
         self.metrics_jsonl = (metrics_jsonl if mesh is None or mesh.rank == 0
                               else None)
         self._last_window_loss: float | None = None
+        self.strategy = strategy
         self.optimizer = make_optimizer(learning_rate, momentum, weight_decay,
                                         compress=compress)
-        self.state = init_state(model, self.optimizer, mesh)
-        self.train_step = make_train_step(model, self.optimizer, mesh, sync,
-                                          spmd_mode=spmd_mode,
-                                          grad_accum=grad_accum)
-        self.fwd_step = (make_forward_step(model, mesh)
-                         if timing_mode == "split" else None)
-        self.eval_step = make_eval_step(model, mesh)
+        self._shard_for = None
+        if strategy == "dp":
+            self.state = init_state(model, self.optimizer, mesh)
+            self.train_step = make_train_step(model, self.optimizer, mesh,
+                                              sync, spmd_mode=spmd_mode,
+                                              grad_accum=grad_accum)
+            self.fwd_step = (make_forward_step(model, mesh)
+                             if timing_mode == "split" else None)
+            self.eval_step = make_eval_step(model, mesh)
+        else:
+            from tpudp_torch.strategy import build_strategy
+
+            built = build_strategy(strategy, model, self.optimizer, mesh,
+                                   init_state(model, self.optimizer),
+                                   **(strategy_options or {}))
+            self.state = built.state
+            self.train_step, self.eval_step = (built.train_step,
+                                               built.eval_step)
+            self.fwd_step = None
+            self._shard_for = built.shard_for
         self._place = device_place(self.device)
 
     def _device_batch(self, batch) -> tuple:
         """The batch's arrays as tensors on the trainer's device (batches
-        a Prefetcher already placed pass through)."""
+        a Prefetcher already placed pass through); under a sharded rung,
+        this rank's block of each."""
         if all(isinstance(a, torch.Tensor) and a.device == self.device
                for a in batch):
-            return tuple(batch)
-        return self._place(batch)
+            batch = tuple(batch)
+        else:
+            batch = self._place(batch)
+        if self._shard_for is not None:
+            batch = tuple(self._shard_for(a) for a in batch)
+        return batch
 
     def _install_place_hook(self, loader) -> None:
         """Have a loader that takes one (a Prefetcher) copy its batches
