@@ -266,6 +266,29 @@ which fails the run (nonzero exit, no result line) when it fails:
      memory, its parameter and optimizer bytes beside the one-rank
      step's, the flash launches and the collectives' wall ms (gloo,
      staged through the host: their count and how many were staged);
+  12. (run after phase 11, before the timing phase) the rest of the
+     training side: 12a, the MPMD pipeline (``schedule='1f1b_mpmd'``):
+     GPT-2 small as phase 11 at a global batch of 8 x 1024 in 4
+     microbatches, on four gloo ranks of the card (``data 2 x pipe 2``,
+     interleave 2: 4 chunks of 3 layers, the in-step sharded optimizer)
+     and on two (``pipe 2``, interleave 1); each rank's losses must be
+     within ``MPMD_RTOL`` of the one-rank step's and its stage's
+     parameters after the steps within ``MPMD_ATOL`` of the one-rank
+     step's same layers, the data replicas
+     of a stage must hold bit-equal parameters, K1-K3 must launch on
+     every rank, and a rank's momentum for the blocks must be 1/(PP*DP)
+     of one rank's; ``mpmd`` lines print ms a step, the bubble fraction,
+     the peak memory and the collectives' wall ms and share.  12c, the
+     chunked loss: the one-rank step's first step beside a
+     ``loss_chunk=1024`` step from the same weights — losses within
+     1e-5, the chunked peak below the plain one (``chunk-loss`` line).
+     12b, LLaMA-GQA training: one rank through ``train_cli --family
+     llama --kv-heads 3`` with flash attention (K1-K3 12 a step each)
+     and with dense attention, the losses within 2e-2 (``llama-cli``
+     lines); then tp ``1x2`` (``wk``/``wv`` whole: 3 KV heads on 2
+     ranks), fsdp and zero1 ``2`` and sp ``1x2`` on two gloo ranks, held
+     as phase 11's rungs are (``llama-strategy`` lines).  No phase-12
+     flash call may go to the dense math;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -299,6 +322,7 @@ import io
 import json
 import os
 import queue
+import re
 import shutil
 import subprocess
 import sys
@@ -337,10 +361,16 @@ SOURCES = {name: f"tpudp_torch/csrc/{name.removesuffix('_int8')}.cu"
 LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
                  d_model=768, num_heads=12, num_kv_heads=3, mlp_hidden=2048)
 # Flash checks: name -> (batch, time, heads, head dim); t 1024 is phase
-# 10c's training shape, and 6 heads a rank phase 11's tensor-parallel one.
+# 10c's training shape, and 6 heads a rank phase 11's tensor-parallel one
+# (and 12b's LLaMA-GQA tp rank's; its one rank is gpt2-t1024's shape);
+# phase 12a's microbatches are 1 and 2 rows (and 12b's fsdp/zero1 ranks
+# 2), 12c's batch 8.
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "gpt2-t1024": (4, 1024, 12, 64),
                "gpt2-tp2-t1024": (4, 1024, 6, 64),
+               "mpmd-mb1-t1024": (1, 1024, 12, 64),
+               "mpmd-mb2-t1024": (2, 1024, 12, 64),
+               "gpt2-b8-t1024": (8, 1024, 12, 64),
                "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
                "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64)}
 # The largest error a 64-token tile of a bf16 flash output may have
@@ -438,6 +468,30 @@ STRATEGY_RUNGS = {
     "sp": ("sp", {"data": 1, "seq": 2}, {},
            {"attn_impl": "ring", "seq_axis": "seq"}),
 }
+# Phase 12: 12a's global batch and microbatches, its runs (name -> (ranks,
+# mesh, interleave)) and their limit, and the limits of its losses
+# (relative) and its parameters after the steps (absolute) against the
+# one-rank step's, set from the largest differences read on an H100
+# (8.7e-8 and 7.5e-9, PERF.md): the losses' about ten times it, the
+# parameters' eight float32 steps at LayerNorm's weights of 1.0, so one
+# rounding there does not fail the run; 12b's train_cli steps and its
+# rungs on two ranks (LLaMA-GQA: 3 KV heads, so tp keeps wk/wv whole);
+# 12c's chunk.
+MPMD_BATCH, MPMD_MICRO, MPMD_TIMEOUT = 8, 4, 300
+MPMD_RTOL, MPMD_ATOL = 1e-6, 1e-6
+MPMD_RUNS = {"dp2-pp2-v2": (4, {"data": 2, "pipe": 2}, 2),
+             "pp2-v1": (2, {"data": 1, "pipe": 2}, 1)}
+LLAMA_CLI_STEPS = 6
+LLAMA_RUNGS = {
+    "llama-tp": ("tp", {"data": 1, "model": 2}, {}, {}),
+    "llama-fsdp": ("fsdp", {"data": 2}, {}, {}),
+    "llama-zero1": ("zero1", {"data": 2}, {}, {}),
+    "llama-sp": ("sp", {"data": 1, "seq": 2}, {},
+                 {"attn_impl": "ring", "seq_axis": "seq"}),
+}
+RUNG_TABLES = {"gpt2": STRATEGY_RUNGS, "llama": LLAMA_RUNGS}
+RUNG_VOCAB = {"gpt2": 50_257, "llama": 32_000}
+LOSS_CHUNK = 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -2689,10 +2743,11 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
             dist.destroy_process_group()
 
 
-def run_ranks(target, args: tuple, limit: float, label: str) -> list:
-    """Two spawned ranks of ``target(rank, 2, init_method, *args,
-    results)``; their reports by rank.  Fails when a rank dies, reports
-    an error or outlives ``limit`` seconds."""
+def run_ranks(target, args: tuple, limit: float, label: str,
+              world: int = 2) -> list:
+    """``world`` spawned ranks of ``target(rank, world, init_method,
+    *args, results)``; their reports by rank.  Fails when a rank dies,
+    reports an error or outlives ``limit`` seconds."""
     import multiprocessing
 
     from tpudp_torch.mesh import free_port
@@ -2700,8 +2755,9 @@ def run_ranks(target, args: tuple, limit: float, label: str) -> list:
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=target, args=(r, 2, init, *args, results))
-             for r in range(2)]
+    procs = [ctx.Process(target=target, args=(r, world, init, *args,
+                                              results))
+             for r in range(world)]
     for p in procs:
         p.start()
     got, deadline = [], time.monotonic() + limit
@@ -3533,10 +3589,18 @@ def checkpoint_path(torch, np, pa, fa, seed: int) -> dict:
 
 
 # -- phase 11: the parallel strategies at GPT-2 small's width -------------
+#    (and phase 12b's LLaMA-GQA rungs, by the same functions)
 
-def strategy_config(gpt2, torch, overrides: dict):
-    """GPT-2 small, float32, flash attention unless ``overrides`` say
-    otherwise."""
+def strategy_config(torch, overrides: dict, family: str = "gpt2"):
+    """GPT-2 small (or, ``family='llama'``, LLaMA-GQA), float32, flash
+    attention unless ``overrides`` say otherwise."""
+    from tpudp_torch.models import gpt2, llama
+
+    if family == "llama":
+        cfg = dict(LLAMA_GQA, max_seq_len=STRATEGY_T, dtype=torch.float32,
+                   attn_impl="flash")
+        cfg.update(overrides)
+        return llama.LlamaConfig(**cfg)
     cfg = dict(vocab_size=50_257, max_seq_len=STRATEGY_T, num_layers=12,
                num_heads=12, d_model=768, dtype=torch.float32,
                attn_impl="flash")
@@ -3544,65 +3608,90 @@ def strategy_config(gpt2, torch, overrides: dict):
     return gpt2.GPT2Config(**cfg)
 
 
-def strategy_batches(np) -> list:
-    """Phase 11's global batches: numpy-seeded tokens, next-token
-    targets."""
-    rng = np.random.default_rng(11)
-    toks = rng.integers(0, 50_257, size=(STRATEGY_STEPS, STRATEGY_BATCH,
-                                         STRATEGY_T + 1))
+def strategy_batches(np, vocab: int = 50_257, batch: int = STRATEGY_BATCH,
+                     seed: int = 11) -> list:
+    """Numpy-seeded global batches of ``batch`` x STRATEGY_T tokens and
+    their next-token targets, STRATEGY_STEPS of them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(STRATEGY_STEPS, batch,
+                                        STRATEGY_T + 1))
     return [(t[:, :-1], t[:, 1:]) for t in toks]
 
 
-def strategy_model(torch, gpt2, overrides: dict, seed: int):
-    """The rung's (or the reference's) GPT-2 built on the card, its
+def strategy_model(torch, overrides: dict, seed: int, family: str = "gpt2"):
+    """The rung's (or the reference's) model built on the card, its
     weights drawn there from ``seed`` in parameter order (normal(0, 0.02),
-    LayerNorm scales 1 + normal(0, 0.1)): the same on every process."""
-    cfg = strategy_config(gpt2, torch, overrides)
+    LayerNorm and RMSNorm scales 1 + normal(0, 0.1)): the same on every
+    process."""
+    from tpudp_torch.models import gpt2, llama
+
+    cfg = strategy_config(torch, overrides, family)
     with torch.device("cuda"):
-        model = gpt2.GPT2(cfg)
+        model = (llama.Llama(cfg) if family == "llama" else gpt2.GPT2(cfg))
     gen = torch.Generator("cuda").manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             scale = name.endswith(("ln_1.weight", "ln_2.weight",
-                                   "ln_f.weight"))
+                                   "ln_f.weight", ".scale"))
             p.normal_(1.0 if scale else 0.0, 0.1 if scale else 0.02,
                       generator=gen)
     return model
 
 
-def strategy_references(torch, np, seed: int) -> dict:
-    """The one-rank step's losses and state bytes on phase 11's batches:
-    ``flash`` (tp, fsdp, zero1, pp), ``moe`` (ep: the dense MoE model, no
-    balance loss) and ``dense`` (sp: dense attention)."""
-    from tpudp_torch import train
-    from tpudp_torch.models import gpt2
+def one_rank_run(torch, train, model, batches, save_to=None,
+                 **step_kw) -> dict:
+    """The one-rank step on ``batches`` (global batches on the card):
+    losses, ms a step, the state bytes after it and the peak memory of
+    its first step; ``save_to``: a file that then holds the parameters
+    after the steps, by name, on the host."""
     from tpudp_torch.parallel.sharded import state_nbytes
 
+    spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
+                                weight_decay=1e-4)
+    state = train.init_state(model, spec)
+    step = train.make_train_step(model, spec, aux_loss_coef=0.0, **step_kw)
+    losses, ms, peak = [], [], None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, torch.as_tensor(x, device="cuda"),
+                           torch.as_tensor(y, device="cuda"))
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if peak is None:
+            peak = torch.cuda.max_memory_allocated()
+    out = {"losses": losses, "ms": ms, "bytes": state_nbytes(state),
+           "peak": peak}
+    if save_to is not None:
+        torch.save({n: p.detach().cpu()
+                    for n, p in state.model.named_parameters()}, save_to)
+    del state, step
+    return out
+
+
+def strategy_references(torch, np, seed: int, family: str = "gpt2") -> dict:
+    """The one-rank step's losses and state bytes on the phase's batches:
+    ``flash`` (tp, fsdp, zero1, pp), ``moe`` (ep: the dense MoE model, no
+    balance loss; GPT-2 only) and ``dense`` (sp: dense attention)."""
+    from tpudp_torch import train
+
+    cases = {"flash": {}, "dense": {"attn_impl": "dense"}}
+    if family == "gpt2":
+        cases["moe"] = {k: v for k, v in STRATEGY_MOE.items()
+                        if k != "expert_axis"}
     out = {}
-    for name, overrides in (("flash", {}), ("moe", {
-            k: v for k, v in STRATEGY_MOE.items() if k != "expert_axis"}),
-                            ("dense", {"attn_impl": "dense"})):
-        model = strategy_model(torch, gpt2, overrides, seed)
-        spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
-                                    weight_decay=1e-4)
-        state = train.init_state(model, spec)
-        step = train.make_train_step(model, spec, aux_loss_coef=0.0)
-        losses, ms = [], []
-        for x, y in strategy_batches(np):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss = step(state, torch.as_tensor(x, device="cuda"),
-                               torch.as_tensor(y, device="cuda"))
-            losses.append(float(loss))
-            ms.append(1e3 * (time.perf_counter() - t0))
-        out[name] = {"losses": losses, "ms": ms,
-                     "bytes": state_nbytes(state)}
-        del model, state, step
+    for name, overrides in cases.items():
+        model = strategy_model(torch, overrides, seed, family)
+        out[name] = one_rank_run(torch, train, model,
+                                 strategy_batches(np, RUNG_VOCAB[family]))
+        del model
         torch.cuda.empty_cache()
     return out
 
 
-def replicated_hash(torch, name: str, state) -> str:
+def replicated_hash(torch, strategy: str, state) -> str:
     """sha256 of the rung's replicated parameters on this rank: every
     leaf no group shards (and zero1's whole parameters)."""
     import hashlib
@@ -3612,20 +3701,57 @@ def replicated_hash(torch, name: str, state) -> str:
     else:
         tensors = [lf.local for lf in state.layout.leaves
                    if lf.group is None]
-        if name == "zero1":
+        if strategy == "zero1":
             tensors += list(state.model.parameters())
     flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
     return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
 
 
+def timed_steps(torch, built, batches) -> dict:
+    """``built``'s steps on this rank's block of each global batch, with
+    the flash launches and ``attention.dense_routes`` set to 0 just
+    before and read just after: losses, ms, the collectives' wall ms and
+    ``(calls, staged)`` a step, the peak memory, the state bytes."""
+    from tpudp_torch.ops import attention
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.parallel import collectives
+    from tpudp_torch.parallel.sharded import state_nbytes
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fa.KERNELS.values():
+        fn.launches = 0
+    routes = attention.dense_routes
+    st, losses, ms, comm, calls = built.state, [], [], [], []
+    for x, y in batches:
+        xs, ys = (torch.as_tensor(built.shard_for(a), device="cuda")
+                  for a in (x, y))
+        collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collectives.timing():
+            st, loss = built.train_step(st, xs, ys)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+        comm.append(1e3 * collectives.STATS["seconds"])
+        calls.append((collectives.STATS["calls"],
+                      collectives.STATS["staged"]))
+    return {"losses": losses, "ms": ms, "comm_ms": comm, "calls": calls,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "bytes": state_nbytes(st),
+            "launches": {k: fn.launches for k, fn in fa.KERNELS.items()},
+            "dense_routes": attention.dense_routes - routes}
+
+
 def strategy_rank(rank: int, world: int, init_method: str, seed: int,
-                  results) -> None:
-    """Phase 11: one of two ranks on the one card over gloo.  Each rung
-    of STRATEGY_RUNGS: build it from a fresh one-rank state, run its
-    steps on this rank's block of each global batch, and report the
-    losses, ms a step, the peak memory, the state bytes, the flash
-    launches, the collectives' wall ms and the replicated parameters'
-    hash."""
+                  family: str, results) -> None:
+    """Phase 11 (``family='gpt2'``, STRATEGY_RUNGS) or 12b ('llama',
+    LLAMA_RUNGS): one of two ranks on the one card over gloo.  Each rung:
+    build it from a fresh one-rank state, run its steps on this rank's
+    block of each global batch (:func:`timed_steps`), and report beside
+    the build time and the replicated parameters' hash."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3633,11 +3759,7 @@ def strategy_rank(rank: int, world: int, init_method: str, seed: int,
     sys.path.insert(0, ROOT)
     from tpudp_torch import train
     from tpudp_torch.mesh import make_mesh_nd
-    from tpudp_torch.models import gpt2
-    from tpudp_torch.ops import flash_attention as fa
-    from tpudp_torch.parallel import collectives
-    from tpudp_torch.parallel.sharded import state_nbytes
-    from tpudp_torch.parallel.tensor import gpt2_tp_rules
+    from tpudp_torch.parallel.tensor import gpt2_tp_rules, llama_tp_rules
     from tpudp_torch.strategy import build_strategy
 
     torch.cuda.set_device(0)
@@ -3647,16 +3769,17 @@ def strategy_rank(rank: int, world: int, init_method: str, seed: int,
                             world_size=world, rank=rank)
     out = {"rank": rank}
     try:
-        batches = strategy_batches(np)
+        batches = strategy_batches(np, RUNG_VOCAB[family])
+        rules = llama_tp_rules() if family == "llama" else gpt2_tp_rules()
         for name, (strategy, shape, options, overrides) in \
-                STRATEGY_RUNGS.items():
+                RUNG_TABLES[family].items():
             t_build = time.perf_counter()
-            model = strategy_model(torch, gpt2, overrides, seed)
+            model = strategy_model(torch, overrides, seed, family)
             spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
                                         weight_decay=1e-4)
             options = dict(options)
             if strategy == "tp":
-                options["rules"] = gpt2_tp_rules()
+                options["rules"] = rules
             built = build_strategy(strategy, model, spec,
                                    make_mesh_nd(shape),
                                    train.init_state(model, spec), **options)
@@ -3664,34 +3787,12 @@ def strategy_rank(rank: int, world: int, init_method: str, seed: int,
                 del model  # the rung keeps its own module
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t_build
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for fn in fa.KERNELS.values():
-                fn.launches = 0
-            st, losses, ms, comm, calls = built.state, [], [], [], []
-            for x, y in batches:
-                xs, ys = (torch.as_tensor(built.shard_for(a), device="cuda")
-                          for a in (x, y))
-                collectives.reset_stats()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with collectives.timing():
-                    st, loss = built.train_step(st, xs, ys)
-                torch.cuda.synchronize()
-                ms.append(1e3 * (time.perf_counter() - t0))
-                losses.append(float(loss))
-                comm.append(1e3 * collectives.STATS["seconds"])
-                calls.append((collectives.STATS["calls"],
-                              collectives.STATS["staged"]))
-            out[name] = {
-                "losses": losses, "ms": ms, "comm_ms": comm, "calls": calls,
-                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                "bytes": state_nbytes(st), "build_s": build_s,
-                "launches": {k: fn.launches for k, fn in fa.KERNELS.items()},
-                "hash": replicated_hash(torch, name, st),
-                "peak_stash": getattr(built.train_step, "peak_stash",
-                                      None)}
-            del built, st
+            out[name] = timed_steps(torch, built, batches)
+            out[name].update(
+                build_s=build_s,
+                hash=replicated_hash(torch, strategy, built.state),
+                peak_stash=getattr(built.train_step, "peak_stash", None))
+            del built
             torch.cuda.empty_cache()
     except Exception:
         out["error"] = traceback.format_exc()
@@ -3701,22 +3802,25 @@ def strategy_rank(rank: int, world: int, init_method: str, seed: int,
             dist.destroy_process_group()
 
 
-def strategy_path(torch, np, seed: int) -> dict:
-    """Phase 11 (see the module docstring): returns the flash launches
-    of each rung on rank 0."""
+def strategy_path(torch, np, seed: int, family: str = "gpt2") -> dict:
+    """Phase 11 (see the module docstring), or 12b's rungs with
+    ``family='llama'``: returns the flash launches of each rung on rank
+    0."""
+    label = "strategy" if family == "gpt2" else "llama-strategy"
+    what = "GPT-2 small" if family == "gpt2" else "LLaMA-GQA"
     t0 = time.perf_counter()
-    refs = strategy_references(torch, np, seed)
+    refs = strategy_references(torch, np, seed, family)
     ref_s = time.perf_counter() - t0
     for name, r in refs.items():
-        print(f"strategy reference {name}: one rank, GPT-2 small, global "
-              f"batch {STRATEGY_BATCH} x {STRATEGY_T}, float32: losses "
+        print(f"{label} reference {name}: one rank, {what}, global batch "
+              f"{STRATEGY_BATCH} x {STRATEGY_T}, float32: losses "
               f"{[repr(x) for x in r['losses']]}, ms a step "
               f"{[round(x, 1) for x in r['ms']]}, state bytes params "
               f"{r['bytes']['params']:,} optimizer "
               f"{r['bytes']['opt_state']:,}", flush=True)
-    got = run_ranks(strategy_rank, (seed,), STRATEGY_TIMEOUT, "strategy")
+    got = run_ranks(strategy_rank, (seed, family), STRATEGY_TIMEOUT, label)
     failures, launches = [], {}
-    for name, (strategy, shape, _, overrides) in STRATEGY_RUNGS.items():
+    for name, (strategy, shape, _, overrides) in RUNG_TABLES[family].items():
         a, b = got[0][name], got[1][name]
         ref = refs["moe" if strategy == "ep" else
                    "dense" if strategy == "sp" else "flash"]
@@ -3730,8 +3834,8 @@ def strategy_path(torch, np, seed: int) -> dict:
         launches[name] = a["launches"]
         steady = sum(a["ms"][1:]) / len(a["ms"][1:])
         share = sum(a["comm_ms"][1:]) / sum(a["ms"][1:])
-        print(f"strategy {name}: mesh {shape}, 2 gloo ranks on one card, "
-              f"GPT-2 small float32 {'ring' if strategy == 'sp' else 'flash'}"
+        print(f"{label} {name}: mesh {shape}, 2 gloo ranks on one card, "
+              f"{what} float32 {'ring' if strategy == 'sp' else 'flash'}"
               f" attention{', 4 experts' if strategy == 'ep' else ''}, "
               f"global batch {STRATEGY_BATCH} x {STRATEGY_T}: losses "
               f"{[repr(x) for x in a['losses']]}, one rank "
@@ -3763,16 +3867,287 @@ def strategy_path(torch, np, seed: int) -> dict:
             failures.append(f"{name} launched no flash kernel: {flash}")
         if strategy == "sp" and any(max(v) for v in flash.values()):
             failures.append(f"{name} (ring attention) launched {flash}")
+        if a["dense_routes"] or b["dense_routes"]:
+            failures.append(f"{name} sent flash calls to the dense math")
         if strategy == "fsdp" and not all(0.45 < r < 0.55
                                           for r in ratio.values()):
             failures.append(f"fsdp state is {ratio} of one rank's")
         if strategy == "zero1" and not 0.45 < ratio["opt_state"] < 0.55:
             failures.append(f"zero1 momentum is {ratio['opt_state']:.3f} "
                             "of one rank's")
-    print(f"strategy: phase 11 {time.perf_counter() - t0:.1f}s (one-rank "
-          f"references {ref_s:.1f}s)", flush=True)
+    print(f"{label}: {time.perf_counter() - t0:.1f}s (one-rank references "
+          f"{ref_s:.1f}s)", flush=True)
     if failures:
-        raise SmokeFailure(f"strategy: {failures}")
+        raise SmokeFailure(f"{label}: {failures}")
+    return launches
+
+
+# -- phase 12: the MPMD pipeline, LLaMA-GQA training, the chunked loss ----
+
+def mpmd_rank(rank: int, world: int, init_method: str, seed: int,
+              name: str, ref_path: str, results) -> None:
+    """12a: one of ``world`` ranks on the one card over gloo, GPT-2 small
+    under ``schedule='1f1b_mpmd'`` on MPMD_RUNS[name]'s mesh: the steps
+    (:func:`timed_steps`), the stage's coordinates and parameter hash,
+    the largest difference of its parameters from the one-rank step's
+    (saved at ``ref_path``), the bubble fraction and the shared
+    parameters' bytes."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.strategy import build_strategy
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    out = {"rank": rank}
+    try:
+        _, shape, interleave = MPMD_RUNS[name]
+        mesh = make_mesh_nd(shape)
+        model = strategy_model(torch, {}, seed)
+        spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
+                                    weight_decay=1e-4)
+        built = build_strategy(
+            "pp", model, spec, mesh, train.init_state(model, spec),
+            n_microbatches=MPMD_MICRO, schedule="1f1b_mpmd",
+            interleave=interleave, shard_optimizer=True)
+        del model
+        out.update(timed_steps(torch, built, strategy_batches(
+            np, batch=MPMD_BATCH, seed=12)))
+        stage = built.state.model
+        flat = torch.cat([p.detach().reshape(-1)
+                          for p in stage.parameters()])
+        part = built.train_step.partition
+        ref = torch.load(ref_path, mmap=True, weights_only=True)
+        names = built.state.layout.stage.global_name
+        out["param_diff"] = max(
+            float((p.detach() - ref[names(n)].to(p.device)).abs().max())
+            for n, p in stage.named_parameters())
+        del ref
+        out.update(
+            coords=dict(mesh.coords), peak_stash=built.train_step.peak_stash,
+            hash=hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest(),
+            bubble=part.bubble_fraction(MPMD_MICRO),
+            layers=list(part.stage_layers(mesh.coords["pipe"])),
+            shared_bytes=sum(p.numel() * p.element_size()
+                             for n, p in stage.named_parameters()
+                             if not n.startswith("h.")))
+        del built
+        torch.cuda.empty_cache()
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        results.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mpmd_references(torch, np, seed: int, tmp: str) -> dict:
+    """The one-rank step on 12a's global batches (it is also 12c's plain
+    step, whose peak is its first step's; its parameters after the steps
+    saved under ``tmp``), then 12c's ``loss_chunk`` step from the same
+    weights on the first batch."""
+    from tpudp_torch import train
+
+    batches = strategy_batches(np, batch=MPMD_BATCH, seed=12)
+    path = os.path.join(tmp, "one-rank.pt")
+    out = {"plain": one_rank_run(torch, train, strategy_model(torch, {},
+                                                               seed),
+                                 batches, save_to=path)}
+    out["plain"]["params_path"] = path
+    torch.cuda.empty_cache()
+    out["chunk"] = one_rank_run(torch, train, strategy_model(torch, {}, seed),
+                                batches[:1], loss_chunk=LOSS_CHUNK)
+    torch.cuda.empty_cache()
+    return out
+
+
+def mpmd_path(torch, np, seed: int, refs: dict) -> dict:
+    """12a (see the module docstring): returns the flash launches of each
+    run's rank 0."""
+    ref = refs["plain"]
+    one_opt = ref["bytes"]["opt_state"]
+    failures, launches = [], {}
+    for name, (world, shape, interleave) in MPMD_RUNS.items():
+        t0 = time.perf_counter()
+        got = run_ranks(mpmd_rank, (seed, name, ref["params_path"]),
+                        MPMD_TIMEOUT, f"mpmd {name}", world=world)
+        wall = time.perf_counter() - t0
+        pp, dp = shape["pipe"], shape["data"]
+        launches[name] = got[0]["launches"]
+        for r in got:
+            rel = max(abs(x - y) / abs(y)
+                      for x, y in zip(r["losses"], ref["losses"]))
+            blocks = one_opt - r["shared_bytes"]
+            share = (r["bytes"]["opt_state"] - r["shared_bytes"] / dp) / blocks
+            steady = sum(r["ms"][1:]) / len(r["ms"][1:])
+            comm = sum(r["comm_ms"][1:]) / sum(r["ms"][1:])
+            twins = [o for o in got if o["coords"]["pipe"] ==
+                     r["coords"]["pipe"]]
+            same = all(o["hash"] == r["hash"] and o["losses"] == r["losses"]
+                       for o in twins)
+            print(f"mpmd {name} rank {r['rank']} {r['coords']}: GPT-2 small "
+                  f"float32 flash, {world} gloo ranks on one card, "
+                  f"interleave {interleave} (layers {r['layers']}), "
+                  f"{MPMD_MICRO} microbatches of "
+                  f"{MPMD_BATCH // dp // MPMD_MICRO} x {STRATEGY_T}, "
+                  f"shard_optimizer: losses "
+                  f"{[repr(x) for x in r['losses']]}, one rank "
+                  f"{[repr(x) for x in ref['losses']]}: max relative "
+                  f"difference {rel:.3e} (rtol {MPMD_RTOL}); parameters "
+                  f"after the steps within {r['param_diff']:.3e} of one "
+                  f"rank's (atol {MPMD_ATOL}), "
+                  f"bit-equal across the {dp} data replicas: {same}; ms a "
+                  f"step {[round(x, 1) for x in r['ms']]} (mean after the "
+                  f"first {steady:.1f}; one rank "
+                  f"{sum(ref['ms'][1:]) / len(ref['ms'][1:]):.1f}); bubble "
+                  f"fraction {r['bubble']:.4f}; collectives wall ms a step "
+                  f"{[round(x, 1) for x in r['comm_ms']]} ({100 * comm:.0f}% "
+                  f"of the steps after the first; (calls, staged) "
+                  f"{r['calls'][-1]}); peak memory {r['peak_gib']:.2f} GiB; "
+                  f"momentum bytes {r['bytes']['opt_state']:,} (one rank "
+                  f"{one_opt:,}; blocks' share {share:.4f}, 1/(PP*DP) "
+                  f"{1 / (pp * dp):.4f}); stash peak {r['peak_stash']}; "
+                  f"flash launches {r['launches']}", flush=True)
+            if rel > MPMD_RTOL:
+                failures.append(f"{name} rank {r['rank']} losses {rel:.3e} "
+                                "from one rank's")
+            if not r["param_diff"] <= MPMD_ATOL:
+                failures.append(f"{name} rank {r['rank']} parameters "
+                                f"{r['param_diff']:.3e} from one rank's")
+            if not same:
+                failures.append(f"{name} rank {r['rank']}: its data "
+                                "replicas hold other parameters")
+            if not all(r["launches"].values()):
+                failures.append(f"{name} rank {r['rank']} launched "
+                                f"{r['launches']}")
+            if r["dense_routes"]:
+                failures.append(f"{name} sent flash calls to the dense math")
+            if abs(share * pp * dp - 1) > 0.01:
+                failures.append(f"{name} rank {r['rank']} holds {share:.4f} "
+                                "of the blocks' momentum")
+        print(f"mpmd {name}: {wall:.1f}s", flush=True)
+    if failures:
+        raise SmokeFailure(f"mpmd: {failures}")
+    return launches
+
+
+def llama_cli_path(torch, np, fa) -> dict:
+    """12b's one rank: ``train_cli --family llama --kv-heads 3`` with
+    flash attention (K1-K3, launch counts set to 0 just before and read
+    just after) and with dense attention; returns the flash run's
+    launches."""
+    from tpudp_torch import train_cli
+    from tpudp_torch.ops import attention
+
+    argv = ["--family", "llama", "--kv-heads", "3", "--layers", "12",
+            "--d-model", "768", "--heads", "12", "--vocab", "32000",
+            "--seq-len", str(STRATEGY_T), "--batch-size", "4", "--steps",
+            str(LLAMA_CLI_STEPS), "--log-every", "2"]
+    runs = {}
+    for attn in ("flash", "dense"):
+        for fn in fa.KERNELS.values():
+            fn.launches = 0
+        routes = attention.dense_routes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses, text = run_quiet(lambda: train_cli.main(
+            argv + ["--attn", attn]))
+        runs[attn] = {"losses": losses, "wall": time.perf_counter() - t0,
+                      "peak": torch.cuda.max_memory_allocated() / 2**30,
+                      "launches": {k: fn.launches
+                                   for k, fn in fa.KERNELS.items()},
+                      "routes": attention.dense_routes - routes,
+                      "text": text}
+        torch.cuda.empty_cache()
+    flash, dense = runs["flash"], runs["dense"]
+    for attn, r in runs.items():
+        rates = [float(x.replace(",", "")) for x in
+                 re.findall(r"\(([\d,.]+) tok/s\)", r["text"])]
+        ms = [round(4e3 * STRATEGY_T / x, 1) for x in rates]
+        print(f"llama-cli {attn}: {r['text'].splitlines()[0]}; window "
+              f"losses {[round(x, 5) for x in r['losses']]}; tokens/s a "
+              f"window {rates} (ms a step {ms}; the first window holds "
+              f"the warm-up); {r['wall']:.1f}s for {LLAMA_CLI_STEPS} "
+              f"steps; peak {r['peak']:.2f} GiB; flash launches "
+              f"{r['launches']}", flush=True)
+    want = LLAMA_GQA["num_layers"] * LLAMA_CLI_STEPS
+    if any(n != want for n in flash["launches"].values()):
+        raise SmokeFailure(f"llama-cli: flash launches {flash['launches']}"
+                           f" (want {want} each)")
+    if any(dense["launches"].values()) or flash["routes"]:
+        raise SmokeFailure("llama-cli: a flash kernel in the dense run, or "
+                           "a flash call sent to the dense math")
+    if not np.isfinite(flash["losses"] + dense["losses"]).all():
+        raise SmokeFailure("llama-cli: a loss is not finite")
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(flash["losses"], dense["losses"]))
+    if rel > 2e-2:
+        raise SmokeFailure(f"llama-cli: flash and dense losses differ by "
+                           f"{rel:.3e} (rtol 2e-2)")
+    print(f"llama-cli: flash losses agree with dense attention (max "
+          f"relative difference {rel:.3e}, rtol 2e-2)", flush=True)
+    return flash["launches"]
+
+
+def chunk_path(refs: dict) -> None:
+    """12c: the plain step's first step against the ``loss_chunk`` step
+    on the same weights and batch."""
+    plain, chunk = refs["plain"], refs["chunk"]
+    a, b = plain["losses"][0], chunk["losses"][0]
+    rel = abs(a - b) / abs(a)
+    gib = 2**30
+    print(f"chunk-loss: GPT-2 small float32 flash, batch {MPMD_BATCH} x "
+          f"{STRATEGY_T}, one step: loss {a!r}, loss_chunk={LOSS_CHUNK} "
+          f"{b!r} (relative difference {rel:.3e}, rtol 1e-5); peak memory "
+          f"{plain['peak'] / gib:.3f} GiB, chunked {chunk['peak'] / gib:.3f} "
+          f"GiB ({(plain['peak'] - chunk['peak']) / gib:.3f} GiB less; the "
+          f"float32 logits alone are "
+          f"{MPMD_BATCH * STRATEGY_T * 50_257 * 4 / gib:.3f} GiB); ms "
+          f"{plain['ms'][0]:.1f} / {chunk['ms'][0]:.1f}", flush=True)
+    if rel > 1e-5:
+        raise SmokeFailure(f"chunk-loss: losses differ by {rel:.3e}")
+    if chunk["peak"] >= plain["peak"]:
+        raise SmokeFailure("chunk-loss: the chunked step's peak is not "
+                           "below the plain step's")
+
+
+def phase12_path(torch, np, fa, seed: int) -> dict:
+    """Phase 12 (see the module docstring): 12a, 12c's measurements
+    (taken with 12a's one-rank reference), 12b; returns the flash
+    launches of each path."""
+    from tpudp_torch.ops import attention
+
+    import tempfile
+
+    t0 = time.perf_counter()
+    routes = attention.dense_routes
+    tmp = tempfile.mkdtemp(prefix="tpudp-mpmd-")
+    try:
+        refs = mpmd_references(torch, np, seed, tmp)
+        launches = mpmd_path(torch, np, seed, refs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    chunk_path(refs)
+    t1 = time.perf_counter()
+    launches["llama-cli"] = llama_cli_path(torch, np, fa)
+    t2 = time.perf_counter()
+    launches.update(strategy_path(torch, np, seed, family="llama"))
+    if attention.dense_routes != routes:
+        raise SmokeFailure(f"phase 12 sent {attention.dense_routes - routes}"
+                           " flash calls to the dense math")
+    print(f"phase 12: {time.perf_counter() - t0:.1f}s (12a and 12c "
+          f"{t1 - t0:.1f}s, llama-cli {t2 - t1:.1f}s, llama rungs "
+          f"{time.perf_counter() - t2:.1f}s)", flush=True)
     return launches
 
 
@@ -4189,6 +4564,9 @@ def main(argv=None) -> int:
         strategy_launches = strategy_path(torch, np, args.seed)
         print(f"strategy: flash launches in phase 11 (rank 0) "
               f"{strategy_launches}", flush=True)
+        phase12_launches = phase12_path(torch, np, fa, args.seed)
+        print(f"phase 12: flash launches (rank 0) {phase12_launches}",
+              flush=True)
         records = timings(torch, pa, model, prompts, launches)
         records += flash_timings(torch, fa, train_launches)
     except Exception:  # every phase failure ends the run without a result

@@ -95,8 +95,10 @@ def test_config_validation():
     for kv in (0, 5):
         with pytest.raises(ValueError, match="num_kv_heads"):
             llama.LlamaConfig(num_heads=4, num_kv_heads=kv, d_model=32)
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        llama.LlamaConfig(attn_impl="ring")
+    with pytest.raises(ValueError, match="attn_impl"):
+        llama.LlamaConfig(attn_impl="paged")
+    assert llama.LlamaConfig(attn_impl="ring", seq_axis="seq").seq_axis \
+        == JaxLlamaConfig(attn_impl="ring", seq_axis="seq").seq_axis
     cfg = llama.LlamaConfig(d_model=768, num_heads=12, num_kv_heads=3,
                             mlp_hidden=2048)
     assert (cfg.kv_heads, cfg.hidden) == (3, 2048)

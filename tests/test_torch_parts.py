@@ -117,7 +117,6 @@ def test_parts_default_to_the_card():
 
 
 LATER_FLAGS = [
-    (["--remat"], "slice 6b"),
     (["--verify-replicas"], "slice 8"),
     (["--flight-dir", "fd"], "slice 8"),
     (["--metrics-port", "0"], "slice 8"),
@@ -231,8 +230,7 @@ def test_trainer_matches_the_jax_trainer(tmp_path, timing_mode):
 
 def test_trainer_refuses_unported_options():
     model = vgg.VGG(NARROW)
-    for kwargs in ({"verify_replicas": True},
-                   {"remat": True}, {"flight_dir": "x"},
+    for kwargs in ({"verify_replicas": True}, {"flight_dir": "x"},
                    {"track_sdc_fingerprint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **kwargs)

@@ -97,9 +97,9 @@ def test_pp_refusals():
     with pytest.raises(ValueError, match="unknown schedule"):
         pipeline.make_pp_train_step(model, spec, mesh, state,
                                     n_microbatches=2, schedule="interleaved")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_strategy("pp", model, spec, mesh, state, n_microbatches=2,
-                       schedule="1f1b_mpmd")
+    built = build_strategy("pp", model, spec, mesh, state, n_microbatches=2,
+                           schedule="1f1b_mpmd", interleave=2)
+    assert built.train_step.partition.layer_order() == (0, 2, 1, 3)
     for extra in ({"mlp_impl": "moe", "num_experts": 2},
                   {"attn_impl": "ring", "seq_axis": "seq"}):
         m, s, st = _state(dict(w.PP_CFG, **extra))

@@ -85,6 +85,31 @@ def test_tp_matches_jax_trajectory(world4):
     assert shapes["wpe.weight"] == (32, 32)
 
 
+def test_tp_with_indivisible_heads_matches_jax(world4):
+    """JAX's fallback rule: at one head the attention stays whole on
+    every rank (JAX shards its columns; the numbers agree), the MLP and
+    the vocabulary split."""
+    mesh = jax_make_mesh_nd({"data": 2, "model": 2},
+                            devices=jax.devices()[:4])
+    tx = jax_make_optimizer(learning_rate=w.STRATEGY_LR)
+    model = jax_gpt2_small(**w.TP_HEADS1_CFG)
+    state = jax_init_state(model, tx, input_shape=(1, 8))
+    params = jax.tree.map(jnp.asarray, w.strategy_tree(w.TP_HEADS1_CFG))
+    state = state.replace(params=params, opt_state=tx.init(params))
+    state, step = jax_tp_step(model, tx, mesh, state,
+                              jax_tensor.gpt2_tp_rules(), donate=False)
+    losses = []
+    for x, y in w.lm_batches(64):
+        state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+        losses.append(float(loss))
+    _check_rung([r["tp"] for r in world4], "heads1", losses,
+                jax.device_get(state.params))
+    shapes = world4[0]["tp"]["heads1"]["local_shapes"]
+    assert shapes["h.0.attn.qkv.weight"] == (96, 32)  # whole
+    assert shapes["h.0.mlp_fc.weight"] == (64, 32)    # split
+    assert shapes["wte.weight"] == (32, 32)
+
+
 @pytest.mark.parametrize("rung", ["fsdp", "zero1"])
 def test_data_sharded_matches_jax_trajectory(world4, mesh4, rung):
     make = jax_fsdp_step if rung == "fsdp" else jax_zero1_step
@@ -169,13 +194,14 @@ def test_tp_refusals():
     mesh = _fake_mesh({"data": 1, "model": 2})
     model = gpt2.GPT2(gpt2.GPT2Config(**w.TP_CFG))
     state = train.init_state(model, spec)
-    for rules in (tensor.llama_tp_rules(), tensor.vgg_tp_rules()):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_tp_train_step(model, spec, mesh, state, rules)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_tp_train_step(model, spec, mesh, state, tensor.vgg_tp_rules())
+    with pytest.raises(ValueError, match="gpt2_tp_rules"):
+        make_tp_train_step(model, spec, mesh, state, tensor.llama_tp_rules())
     lm = llama.Llama(llama.LlamaConfig(vocab_size=64, max_seq_len=32,
                                        num_layers=1, num_heads=4,
                                        d_model=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="llama_tp_rules"):
         make_tp_train_step(lm, spec, mesh, train.init_state(lm, spec),
                            tensor.gpt2_tp_rules())
     net = vgg.VGG(w.CFG)
@@ -185,10 +211,13 @@ def test_tp_refusals():
     with pytest.raises(ValueError, match="gpt2_tp_rules"):
         make_tp_train_step(model, spec, mesh, state,
                            ((r"wte", ("model", None)),))
+    # JAX's fallback: heads the axis does not divide stay whole
     odd = gpt2.GPT2(gpt2.GPT2Config(**dict(w.TP_CFG, num_heads=1)))
-    with pytest.raises(ValueError, match="divisible"):
-        make_tp_train_step(odd, spec, mesh, train.init_state(odd, spec),
-                           tensor.gpt2_tp_rules())
+    built, _ = make_tp_train_step(odd, spec, mesh,
+                                  train.init_state(odd, spec),
+                                  tensor.gpt2_tp_rules())
+    assert built.model.splits == {"attn": False, "mlp": True, "vocab": True}
+    assert tuple(built.model.h[0].attn.qkv.weight.shape) == (96, 32)
     with pytest.raises(ValueError, match="skip_nonfinite"):
         make_tp_train_step(model, train.make_optimizer(skip_nonfinite=2),
                            mesh, state, tensor.gpt2_tp_rules())

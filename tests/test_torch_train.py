@@ -24,7 +24,7 @@ from tpudp.train import (init_state as jax_init_state,
                          make_optimizer as jax_make_optimizer,
                          make_train_step as jax_make_train_step)
 from tpudp_torch import train, train_cli
-from tpudp_torch.models import gpt2
+from tpudp_torch.models import gpt2, llama
 from tpudp_torch.serve import Engine
 
 CFG = dict(vocab_size=61, max_seq_len=128, num_layers=2, num_heads=2,
@@ -171,9 +171,14 @@ def test_clip_matches_optax(scale):
 def test_unported_options_name_their_roadmap_item():
     model = _torch_model(_tree(), "dense")
     spec = train.make_optimizer()
-    for kwargs in ({"remat": True}, {"loss_chunk": 16}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            train.make_train_step(model, spec, **kwargs)
+    # remat and loss_chunk are ported (tests/test_torch_losses.py); the
+    # chunked loss needs GPT-2's tied head, as in JAX.
+    train.make_train_step(model, spec, remat=True, loss_chunk=16)
+    lm = llama.Llama(llama.LlamaConfig(vocab_size=64, max_seq_len=32,
+                                       num_layers=1, num_heads=2,
+                                       d_model=32))
+    with pytest.raises(ValueError, match="tied-embedding head"):
+        train.make_train_step(lm, spec, loss_chunk=16)
     # A mesh is ported (tpudp_torch.mesh.Mesh); anything else is refused.
     with pytest.raises(TypeError, match="Mesh"):
         train.make_train_step(model, spec, object())

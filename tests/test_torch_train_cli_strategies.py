@@ -30,8 +30,6 @@ TINY = ["--device", "cpu", "--layers", "2", "--d-model", "64", "--heads",
     (["--num-devices", "2", "--mesh", "1x2"], "1-D"),
     (["--num-devices", "2", "--mesh", "1x2", "--strategy", "pp",
       "--layers", "3"], "pipeline stages"),
-    (["--num-devices", "2", "--mesh", "1x2", "--strategy", "tp",
-      "--d-model", "64", "--heads", "1"], "divisible"),
     (["--num-devices", "4", "--mesh", "4x1", "--strategy", "fsdp",
       "--batch-size", "6"], "must split"),
     (["--master", "h"], "needs --master, --num-nodes and --rank"),
@@ -39,7 +37,7 @@ TINY = ["--device", "cpu", "--layers", "2", "--d-model", "64", "--heads",
       "0"], "spawns local ranks"),
     (["--num-devices", "0"], ">= 1"),
 ], ids=["sp-with-strategy", "skip-nonfinite", "mesh-size", "mesh-form",
-        "dp-2d", "pp-layers", "tp-heads", "batch-split", "master-alone",
+        "dp-2d", "pp-layers", "batch-split", "master-alone",
         "devices-and-master", "devices-0"])
 def test_flag_checks(argv, match):
     with pytest.raises(SystemExit, match=match):

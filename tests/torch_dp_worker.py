@@ -508,6 +508,7 @@ def job_lone_fault(rank, world):
 
 TP_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=2, num_heads=4,
               d_model=32)
+TP_HEADS1_CFG = dict(TP_CFG, num_heads=1)
 PP_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=4, num_heads=2,
               d_model=32)
 MOE_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=2, num_heads=2,
@@ -528,10 +529,13 @@ def lm_batches(vocab: int, steps: int = 3, batch: int = 8, t: int = 16,
     return [(x, np.roll(x, -1, axis=1).astype(np.int32)) for x in toks]
 
 
-def strategy_tree(cfg: dict, seed: int = STRATEGY_SEED):
+def strategy_tree(cfg: dict, seed: int = STRATEGY_SEED,
+                  family: str = "gpt2"):
     """The flax-layout weights both packages start a rung from."""
-    from tpudp_torch.models import gpt2
+    from tpudp_torch.models import gpt2, llama
 
+    if family == "llama":
+        return llama.random_params(llama.LlamaConfig(**cfg), seed)
     return gpt2.random_params(gpt2.GPT2Config(**cfg), seed)
 
 
@@ -554,22 +558,29 @@ def cpu_tree(tree):
 
 
 def run_rung(name: str, cfg: dict, mesh_shape: dict, options: dict,
-             batches, **model_kw) -> dict:
+             batches, keep: bool = False, family: str = "gpt2",
+             opt: dict | None = None, **model_kw) -> dict:
     """One rung through ``build_strategy``: its losses, this rank's
     state bytes beside one device's, and (every rank) the checkpoint
-    tree's parameters in the JAX layout."""
+    tree's parameters and optimizer state in the JAX layout (``keep``:
+    the built rung too, under ``built``).  ``family`` 'llama' trains a
+    LLaMA of ``cfg``; ``opt`` adds to ``make_optimizer``'s arguments."""
     import torch
 
     from tpudp_torch import train
     from tpudp_torch.mesh import make_mesh_nd
-    from tpudp_torch.models import gpt2
+    from tpudp_torch.models import gpt2, llama
     from tpudp_torch.parallel.sharded import state_nbytes
     from tpudp_torch.strategy import build_strategy
 
-    c = gpt2.GPT2Config(**cfg, **model_kw)
-    model = gpt2.GPT2(c)
-    model.load_state_dict(gpt2.params_from_jax(strategy_tree(cfg)))
-    spec = train.make_optimizer(learning_rate=STRATEGY_LR)
+    if family == "llama":
+        model = llama.Llama(llama.LlamaConfig(**cfg, **model_kw))
+        model.load_state_dict(llama.params_from_jax(
+            strategy_tree(dict(cfg, **model_kw), family="llama")))
+    else:
+        model = gpt2.GPT2(gpt2.GPT2Config(**cfg, **model_kw))
+        model.load_state_dict(gpt2.params_from_jax(strategy_tree(cfg)))
+    spec = train.make_optimizer(learning_rate=STRATEGY_LR, **(opt or {}))
     state = train.init_state(model, spec)
     one = state_nbytes(state)
     built = build_strategy(name, model, spec, make_mesh_nd(mesh_shape),
@@ -582,12 +593,15 @@ def run_rung(name: str, cfg: dict, mesh_shape: dict, options: dict,
         losses.append(float(loss))
     tree = train.state_to_jax(st)
     out = {"losses": losses, "params": cpu_tree(tree["params"]),
-           "momentum": cpu_tree(tree["opt_state"]["momentum"]),
+           "opt_state": cpu_tree(tree["opt_state"]),
+           "momentum": cpu_tree(tree["opt_state"].get("momentum")),
            "bytes": state_nbytes(st), "one_device_bytes": one,
            "local_shapes": {k: tuple(v.shape)
                             for k, v in st.model.state_dict().items()}}
     if hasattr(built.train_step, "peak_stash"):
         out["peak_stash"] = built.train_step.peak_stash
+    if keep:
+        out["built"] = built
     return out
 
 
@@ -648,11 +662,16 @@ def job_sp(rank, world):
 
 
 def job_tp(rank, world):
-    """DP x TP on a (2, 2) mesh: 3 steps of TP_CFG."""
+    """DP x TP on a (2, 2) mesh: 3 steps of TP_CFG, and under ``heads1``
+    the same at one head (the axis does not divide it: attention whole
+    on every rank)."""
     from tpudp_torch.parallel.tensor import gpt2_tp_rules
 
-    return run_rung("tp", TP_CFG, {"data": 2, "model": 2},
-                    {"rules": gpt2_tp_rules()}, lm_batches(64))
+    out = run_rung("tp", TP_CFG, {"data": 2, "model": 2},
+                   {"rules": gpt2_tp_rules()}, lm_batches(64))
+    out["heads1"] = run_rung("tp", TP_HEADS1_CFG, {"data": 2, "model": 2},
+                             {"rules": gpt2_tp_rules()}, lm_batches(64))
+    return out
 
 
 def job_fsdp(rank, world):
@@ -675,6 +694,129 @@ def job_ep(rank, world):
     return run_rung("ep", MOE_CFG, {"data": 2, "expert": 2},
                     {"aux_loss_coef": 0.0}, lm_batches(64),
                     expert_axis="expert")
+
+
+# The 1f1b_mpmd geometries of tests/test_torch_schedule.py in one world
+# of 4: name -> (mesh shape, interleave, shard_optimizer).  A leading
+# "rep" axis runs independent copies of a smaller pipeline.
+SCHEDULE_GEOMETRIES = {
+    "pp1-dp1": ({"rep": 4, "data": 1, "pipe": 1}, 1, True),
+    "pp2-dp1": ({"rep": 2, "data": 1, "pipe": 2}, 1, True),
+    "pp4-dp1": ({"data": 1, "pipe": 4}, 1, True),
+    "pp2v2-dp1": ({"rep": 2, "data": 1, "pipe": 2}, 2, True),
+    "pp1-dp2": ({"rep": 2, "data": 2, "pipe": 1}, 1, True),
+    "pp2-dp2": ({"data": 2, "pipe": 2}, 1, True),
+    "pp2v2-dp2": ({"data": 2, "pipe": 2}, 2, True),
+    "pp2-dp2-unsharded": ({"data": 2, "pipe": 2}, 1, False),
+}
+SCHEDULE_EVAL_SEED = 7
+# pp2-dp2 again, with remat and with AdamW: name -> (options, optimizer).
+SCHEDULE_VARIANTS = {"pp2-dp2-remat": ({"remat": True}, None),
+                     "pp2-dp2-adamw": ({}, {"optimizer": "adamw"})}
+
+
+def job_schedule(rank, world):
+    """Every SCHEDULE_GEOMETRIES run of PP_CFG (2 microbatches, 3 steps)
+    through ``build_strategy``, the pp2-dp2 state's eval sums on a fresh
+    batch, and the Trainer's supervisor on pp2-dp2: a clean 2-epoch fit
+    against one whose fifth device call raises."""
+    import torch
+
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.trainer import Trainer
+    from tpudp_torch.training_faults import RaisingStep
+
+    out = {}
+    for name, (shape, interleave, shard) in SCHEDULE_GEOMETRIES.items():
+        options = {"n_microbatches": 2, "schedule": "1f1b_mpmd",
+                   "interleave": interleave, "shard_optimizer": shard}
+        out[name] = run_rung("pp", PP_CFG, shape, options, lm_batches(64),
+                             keep=name == "pp2-dp2")
+    for name, (extra, opt) in SCHEDULE_VARIANTS.items():
+        shape, interleave, shard = SCHEDULE_GEOMETRIES["pp2-dp2"]
+        options = {"n_microbatches": 2, "schedule": "1f1b_mpmd",
+                   "interleave": interleave, "shard_optimizer": shard,
+                   **extra}
+        out[name] = run_rung("pp", PP_CFG, shape, options, lm_batches(64),
+                             opt=opt)
+    built = out["pp2-dp2"].pop("built")
+    x, y = lm_batches(64, steps=1, seed=SCHEDULE_EVAL_SEED)[0]
+    out["eval"] = [float(v) for v in built.eval_step(
+        built.state, *(torch.as_tensor(built.shard_for(a)) for a in (x, y)),
+        torch.as_tensor(built.shard_for(np.ones(8, np.float32))))]
+    root = os.environ["TPUDP_TEST_OUT"]
+    for case, hook in (("clean", None), ("fault", RaisingStep(fail_at={5}))):
+        model = gpt2_model(PP_CFG)
+        trainer = Trainer(model, make_mesh_nd({"data": 2, "pipe": 2}),
+                          strategy="pp",
+                          strategy_options={"n_microbatches": 2,
+                                            "schedule": "1f1b_mpmd"},
+                          learning_rate=0.01, log_every=2,
+                          log_fn=lambda line: None, step_fault_hook=hook)
+        trainer.fit(TokenLoader(), epochs=2, resilience=ResiliencePolicy(
+            checkpoint_dir=os.path.join(root, f"mpmd-{case}")))
+        from tpudp_torch.train import state_to_jax
+
+        out[f"fit-{case}"] = {
+            "params": cpu_tree(state_to_jax(trainer.state)["params"]),
+            "step_retries": trainer.stats.get("step_retries", 0),
+            "events": [e["kind"] for e in trainer.stats.get("events", [])]}
+    return out
+
+
+def gpt2_model(cfg: dict, seed: int = STRATEGY_SEED, **model_kw):
+    """The port's GPT-2 of ``cfg`` with the strategy tests' weights."""
+    from tpudp_torch.models import gpt2
+
+    model = gpt2.GPT2(gpt2.GPT2Config(**cfg, **model_kw))
+    model.load_state_dict(gpt2.params_from_jax(strategy_tree(cfg, seed)))
+    return model
+
+
+# LLaMA (tests/test_torch_llama_train.py): tests/test_llama.py's tiny
+# geometry; name -> (strategy, mesh shape, options, model options).
+LLAMA_CFG = dict(vocab_size=64, max_seq_len=64, num_layers=2, num_heads=4,
+                 d_model=32)
+LLAMA_RUNGS = {
+    "tp": ("tp", {"data": 2, "model": 2}, "rules", {}),
+    "tp-kv1": ("tp", {"data": 2, "model": 2}, "rules", {"num_kv_heads": 1}),
+    "fsdp": ("fsdp", {"data": 4}, {"min_size": MIN_SIZE},
+             {"num_kv_heads": 2}),
+    "zero1": ("zero1", {"data": 4}, {"min_size": MIN_SIZE},
+              {"num_kv_heads": 2}),
+    "sp": ("sp", {"data": 2, "seq": 2}, {},
+           {"num_kv_heads": 2, "attn_impl": "ring", "seq_axis": "seq"}),
+}
+LLAMA_SP_BATCH = dict(steps=3, batch=4, t=32, seed=0)
+
+
+def llama_batches(name: str):
+    return (lm_batches(64, **LLAMA_SP_BATCH) if name == "sp"
+            else lm_batches(64))
+
+
+def job_llama(rank, world):
+    """Every LLAMA_RUNGS rung of LLAMA_CFG for 3 steps, and the sp
+    rung's eval sums on its last batch (weights 1, 0, 1, 1)."""
+    import torch
+
+    from tpudp_torch.parallel.tensor import llama_tp_rules
+
+    out = {}
+    for name, (strategy, shape, options, model_kw) in LLAMA_RUNGS.items():
+        if options == "rules":
+            options = {"rules": llama_tp_rules()}
+        out[name] = run_rung(strategy, LLAMA_CFG, shape, options,
+                             llama_batches(name), keep=name == "sp",
+                             family="llama", **model_kw)
+    built = out["sp"].pop("built")
+    x, y = llama_batches("sp")[-1]
+    weights = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
+    out["sp-eval"] = [float(v) for v in built.eval_step(
+        built.state, *(torch.as_tensor(built.shard_for(a))
+                       for a in (x, y, weights)))]
+    return out
 
 
 class TokenLoader:
@@ -776,32 +918,48 @@ CUDA_CFG = dict(vocab_size=512, max_seq_len=256, num_layers=2, num_heads=4,
 
 def job_cuda_strategies(rank, world):
     """On the card (TF32 off): tp (1 x world) with flash attention and
-    with dense attention, 2 steps each, with the flash launches; fsdp
-    over the world with its state bytes beside one rank's."""
+    with dense attention, 2 steps each, with the flash launches; the same
+    for the MPMD pipeline (pipe = world, 2 microbatches) and for LLaMA
+    under tp at one KV head (whole on every rank); fsdp over the world
+    with its state bytes beside one rank's."""
     import torch
 
     from tpudp_torch import train
     from tpudp_torch.mesh import make_mesh_nd
-    from tpudp_torch.models import gpt2
+    from tpudp_torch.models import gpt2, llama
     from tpudp_torch.ops import flash_attention as fa
     from tpudp_torch.parallel.sharded import state_nbytes
-    from tpudp_torch.parallel.tensor import gpt2_tp_rules
+    from tpudp_torch.parallel.tensor import gpt2_tp_rules, llama_tp_rules
     from tpudp_torch.strategy import build_strategy
 
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     batches = lm_batches(512, steps=2, batch=4, t=256, seed=6)
+    mpmd = {"n_microbatches": 2, "schedule": "1f1b_mpmd"}
     out = {}
     for name, impl, strategy, shape, options in (
             ("tp-flash", "flash", "tp", {"data": 1, "model": world},
              {"rules": gpt2_tp_rules()}),
             ("tp-dense", "dense", "tp", {"data": 1, "model": world},
              {"rules": gpt2_tp_rules()}),
+            ("mpmd-flash", "flash", "pp", {"data": 1, "pipe": world}, mpmd),
+            ("mpmd-dense", "dense", "pp", {"data": 1, "pipe": world}, mpmd),
+            ("llama-tp-flash", "flash", "tp", {"data": 1, "model": world},
+             {"rules": llama_tp_rules()}),
+            ("llama-tp-dense", "dense", "tp", {"data": 1, "model": world},
+             {"rules": llama_tp_rules()}),
             ("fsdp", "flash", "fsdp", {"data": world}, {})):
-        cfg = gpt2.GPT2Config(**CUDA_CFG, attn_impl=impl)
-        model = gpt2.GPT2(cfg)
-        model.load_state_dict(gpt2.params_from_jax(
-            gpt2.random_params(cfg, 7)))
+        if name.startswith("llama"):
+            cfg = llama.LlamaConfig(**CUDA_CFG, num_kv_heads=1,
+                                    attn_impl=impl)
+            model = llama.Llama(cfg)
+            model.load_state_dict(llama.params_from_jax(
+                llama.random_params(cfg, 7)))
+        else:
+            cfg = gpt2.GPT2Config(**CUDA_CFG, attn_impl=impl)
+            model = gpt2.GPT2(cfg)
+            model.load_state_dict(gpt2.params_from_jax(
+                gpt2.random_params(cfg, 7)))
         model.cuda()
         spec = train.make_optimizer(learning_rate=0.01)
         state = train.init_state(model, spec)
@@ -835,6 +993,7 @@ JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "resilience": job_resilience, "lone_fault": job_lone_fault,
         "ring": job_ring, "sp": job_sp, "tp": job_tp, "fsdp": job_fsdp,
         "pp": job_pp, "ep": job_ep, "trainer": job_trainer,
+        "schedule": job_schedule, "llama": job_llama,
         "cuda_strategies": job_cuda_strategies}
 
 

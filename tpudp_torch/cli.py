@@ -23,8 +23,9 @@ saves ``step_<epoch+1>`` after every epoch, in the background with
 ``--eval-only`` restores and evaluates; ``--step-timeout`` arms the
 heartbeat watchdog (a hang dumps the state and exits, or under
 ``--resilience`` is recovered in-process by the supervisor with
-``--max-rollbacks`` and ``--spike-factor``).  Flags of later slices
-(replica verification, remat, flight recorder, profiler and metrics
+``--max-rollbacks`` and ``--spike-factor``); ``--remat`` recomputes
+the forward in the backward (``Trainer(remat=True)``).  Flags of later
+slices (replica verification, flight recorder, profiler and metrics
 endpoints) are refused with their ROADMAP.md item.
 """
 
@@ -60,7 +61,6 @@ GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
 #: Flags of later slices: dest -> (the value that means "off", the
 #: ROADMAP.md item that brings it).
 _UNPORTED_FLAGS = {
-    "remat": (False, "slice 6b (remat)"),
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
     "profile_dir": (None, "slice 8 (obs: profiler traces)"),
@@ -356,7 +356,7 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
                 f"{outcome}", flush=True)]).start()
     trainer = Trainer(model, mesh, sync, timing_mode=args.timing_mode,
                       spmd_mode=args.spmd_mode or "shard_map",
-                      grad_accum=args.grad_accum,
+                      grad_accum=args.grad_accum, remat=args.remat,
                       metrics_jsonl=args.metrics_jsonl, log_fn=log,
                       watchdog=watchdog)
     log(f"[tpudp] model={args.model} sync={sync} devices={world} "

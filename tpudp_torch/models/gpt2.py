@@ -176,14 +176,20 @@ class GPT2(nn.Module):
                                for _ in range(config.num_layers))
         self.ln_f = nn.LayerNorm(config.d_model, eps=config.ln_eps)
 
-    def forward(self, tokens: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, train: bool = False,
+                return_hidden: bool = False) -> torch.Tensor:
+        """``return_hidden=True`` returns the ``(B, T, d_model)`` hidden
+        states after the final LayerNorm, in ``config.dtype``, and skips
+        the head (the chunked loss of ``tpudp_torch.ops.losses`` applies
+        it chunk by chunk)."""
         del train
         cfg = self.config
         x = embed_tokens(self, tokens,
                          positions_of(cfg, tokens.shape[-1], tokens.device))
         for blk in self.h:
             x = block_forward(blk, x, cfg)
+        if return_hidden:
+            return layer_norm(self.ln_f, x).to(cfg.dtype)
         return lm_head(self, x)
 
 

@@ -14,10 +14,12 @@ flax tree across one leaf at a time.
 
 The training forward broadcasts the KV heads to the query heads and runs
 ``tpudp_torch.ops.attention.multihead_attention`` (dense, or flash
-through the K1-K3 kernels).  The decode twins :func:`block_decode` and
-:func:`block_tree` attend the KV-width cache or page pool directly,
-grouped, and are what ``tpudp_torch.models.generate`` drives for this
-family.  Ring attention is a later slice and raises.
+through the K1-K3 kernels, or ring attention over the ``seq_axis``
+group bound by ``tpudp_torch.mesh.bind_axes``, where RoPE turns by the
+rank's global positions, ``rank_on_seq * t`` on, as in JAX).  The
+decode twins :func:`block_decode` and :func:`block_tree` attend the
+KV-width cache or page pool directly, grouped, and are what
+``tpudp_torch.models.generate`` drives for this family.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpudp_torch.mesh import axis_group
 from tpudp_torch.ops.attention import multihead_attention
 from tpudp_torch.ops.paged_attention import tree_attention
 
@@ -46,15 +49,12 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.float32
     attn_impl: str = "dense"  # 'dense' | 'flash' | 'ring'
+    seq_axis: str | None = None  # mesh axis of ring attention
 
     def __post_init__(self):
         if self.attn_impl not in ("dense", "flash", "ring"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}; choose "
                              f"from 'dense', 'flash', 'ring'")
-        if self.attn_impl == "ring":
-            raise NotImplementedError(
-                "attn_impl='ring' is not ported yet: ROADMAP.md slice 6b "
-                "(ring attention)")
         if self.num_kv_heads is not None and not (
                 0 < self.num_kv_heads <= self.num_heads):
             raise ValueError(f"num_kv_heads {self.num_kv_heads} must be in "
@@ -172,6 +172,17 @@ def _finish_block(cfg: LlamaConfig, blk: LlamaBlock, x: torch.Tensor,
     return x + dense(blk.down, gate * dense(blk.up, hn, cfg.dtype), cfg.dtype)
 
 
+def positions_of(cfg: LlamaConfig, t: int, device) -> torch.Tensor:
+    """This rank's RoPE positions: ``0..t-1``, offset by ``rank_on_seq *
+    t`` when ring attention's ``seq_axis`` is bound (the rank holds one
+    contiguous block of the sequence)."""
+    positions = torch.arange(t, device=device)
+    group = axis_group(cfg.seq_axis) if cfg.attn_impl == "ring" else None
+    if group is not None:
+        positions = positions + torch.distributed.get_rank(group) * t
+    return positions
+
+
 def embed_tokens(model: "Llama", tokens: torch.Tensor) -> torch.Tensor:
     """``wte(tokens)`` in ``config.dtype`` (positions enter through RoPE
     inside the blocks)."""
@@ -264,7 +275,7 @@ class Llama(nn.Module):
         del train
         cfg = self.config
         groups = cfg.num_heads // cfg.kv_heads
-        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        positions = positions_of(cfg, tokens.shape[1], tokens.device)
         x = embed_tokens(self, tokens)
         for blk in self.h:
             q, k, v = _qkv(cfg, blk, x, positions)
@@ -273,7 +284,8 @@ class Llama(nn.Module):
             k = k.repeat_interleave(groups, dim=2)
             v = v.repeat_interleave(groups, dim=2)
             out = multihead_attention(q, k, v, causal=True,
-                                      impl=cfg.attn_impl, dtype=cfg.dtype)
+                                      impl=cfg.attn_impl, dtype=cfg.dtype,
+                                      seq_axis=cfg.seq_axis)
             x = _finish_block(cfg, blk, x, out)
         return lm_head(self, x)
 

@@ -5,7 +5,11 @@ channels of an NCHW tensor, optionally across the ranks.
 Training normalizes with the batch's biased variance and updates the
 running variance with that same biased variance (``nn.BatchNorm2d``
 would use the unbiased one): ``running = 0.9 * running + 0.1 * batch``.
-Evaluation normalizes with the running statistics.
+Evaluation normalizes with the running statistics.  A forward that
+``torch.utils.checkpoint`` recomputes in the backward (``remat``) runs
+inside :func:`recomputing` and leaves the running statistics alone, so
+they move once a step, as flax's do under ``jax.checkpoint``
+(:func:`remat_contexts` gives the checkpoint's contexts).
 
 ``bn_axis='data'`` (the mesh's ranks, as the JAX models name their data
 axis) is cross-rank SyncBN: in training the batch statistics are flax's
@@ -22,6 +26,8 @@ model (``train.make_train_step(spmd_mode='gspmd')``).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
@@ -29,6 +35,27 @@ from torch import nn
 
 MOMENTUM, EPSILON = 0.9, 1e-5  # flax's keep share, as the JAX models set
 DATA_AXIS = "data"
+
+
+@contextlib.contextmanager
+def recomputing(model: nn.Module):
+    """The running statistics of ``model``'s BatchNorms stay as they are
+    inside the block."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
+def remat_contexts(model: nn.Module):
+    """The ``context_fn`` result of ``torch.utils.checkpoint.checkpoint``
+    over ``model``: its forward as it is, the recomputation under
+    :func:`recomputing`."""
+    return contextlib.nullcontext(), recomputing(model)
 
 
 class _AllReduceMean(torch.autograd.Function):
@@ -68,12 +95,15 @@ class BatchNorm(nn.Module):
             raise ValueError(f"bn_axis must be None or {DATA_AXIS!r}, got "
                              f"{bn_axis!r}")
         self.bn_axis = bn_axis
+        self.recomputing = False  # see recomputing()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def _update_running(self, mean, var) -> None:
+        if self.recomputing:
+            return
         with torch.no_grad():
             self.running_mean.mul_(MOMENTUM).add_(mean, alpha=1 - MOMENTUM)
             self.running_var.mul_(MOMENTUM).add_(var, alpha=1 - MOMENTUM)

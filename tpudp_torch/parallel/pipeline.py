@@ -18,16 +18,21 @@ posted without waiting, so neither schedule can deadlock).
     forward at tick ``s + m`` (without a graph, keeping only its input)
     and its backward at tick ``2(S-1) - s + m``, recomputing the stage's
     forward from the kept input; a stage keeps at most ``2S - 1``
-    microbatch inputs, whatever M.
+    microbatch inputs, whatever M.  In eager PyTorch this is the MPMD
+    schedule of ``tpudp_torch.parallel.schedule`` at one chunk a stage
+    with the stage's own optimizer, and it runs there.
 
 ``remat=True`` checkpoints each block (``torch.utils.checkpoint``).  The
 rung's checkpoint tree is JAX's pipeline layout: the blocks' parameters
 (and optimizer buffers) stacked ``(L, ...)`` under ``blocks``
-(:func:`stack_block_params`); the schedule ``'1f1b_mpmd'`` is the next
-slice (``tpudp_torch.strategy`` raises naming it).
+(:func:`stack_block_params`).  The schedule ``'1f1b_mpmd'`` (interleaved
+virtual stages, the in-step sharded optimizer) is
+``tpudp_torch.parallel.schedule`` too.
 """
 
 from __future__ import annotations
+
+import collections
 
 import torch
 import torch.utils.checkpoint
@@ -139,26 +144,52 @@ class PipeLayout(Layout):
                if not lf.name.startswith("h.")}
         mine = sorted({int(lf.name.split(".")[1]) for lf in self.leaves
                        if lf.name.startswith("h.")})
-        for suffix in self.suffixes:
-            local = torch.stack([tensors[f"h.{i}.{suffix}"].detach()
-                                 for i in mine])
-            full = C.all_gather(local, 0, self.group)
-            for i in range(self.num_layers):
-                out[f"h.{i}.{suffix}"] = full[i]
+        out.update(gather_blocks(
+            {f"h.{j}.{sx}": tensors[f"h.{i}.{sx}"].detach()
+             for j, i in enumerate(mine) for sx in self.suffixes},
+            self.suffixes, len(mine), self.group, range(self.num_layers)))
         return out
 
 
-def _check(model, mesh, n_microbatches, pipe_axis, schedule):
-    cfg = getattr(model, "config", None)
+def gather_blocks(local: dict, suffixes, count: int, group, order) -> dict:
+    """Every stage's block tensors by global name, from this stage's
+    ``local`` ones (``h.{j}.{suffix}``, ``j < count``): one all-gather
+    over ``group`` a suffix, the stages' layers arriving in ``order``."""
+    out = {}
+    for suffix in suffixes:
+        mine = torch.stack([local[f"h.{j}.{suffix}"] for j in range(count)])
+        full = C.all_gather(mine, 0, group)
+        for pos, layer in enumerate(order):
+            out[f"h.{layer}.{suffix}"] = full[pos]
+    return out
+
+
+def check_model(model) -> None:
+    """Pipeline parallelism's model: a GPT-2 of dense or flash attention
+    and dense MLP blocks (a LLaMA model refuses, as JAX's example
+    refuses ``--family llama --strategy pp``)."""
+    from tpudp_torch.models import llama
+
+    if isinstance(model, llama.Llama):
+        raise ValueError(
+            "pipeline parallelism drives GPT-2's stage twins (embed_tokens "
+            "/ lm_head); a LLaMA model trains under dp, sp, tp, fsdp or "
+            "zero1")
     if not isinstance(model, gpt2.GPT2):
         raise TypeError("make_pp_train_step drives tpudp_torch.models.gpt2."
                         f"GPT2; got {type(model).__name__}")
+    cfg = model.config
     if cfg.attn_impl == "ring" or cfg.mlp_impl != "dense":
         raise ValueError(
             "pipeline parallelism supports dense/flash attention and dense "
             f"MLP blocks; got attn_impl={cfg.attn_impl!r} "
             f"mlp_impl={cfg.mlp_impl!r} (compose PP with SP/EP on separate "
             "mesh axes instead)")
+
+
+def _check(model, mesh, n_microbatches, pipe_axis, schedule):
+    check_model(model)
+    cfg = model.config
     _, s, _ = axis_of(mesh, pipe_axis)
     if cfg.num_layers % s:
         raise ValueError(f"{cfg.num_layers} layers not divisible by {s} "
@@ -192,9 +223,10 @@ def _stage(model, state, optimizer, mesh, pipe_axis):
     return stage, leaves, built
 
 
-def _apply_blocks(stage: PipelineStage, x, remat: bool):
-    cfg = stage.config
-    for blk in stage.h:
+def apply_blocks(blocks, cfg, x, remat: bool):
+    """``blocks`` one after another (``remat``: each under
+    ``torch.utils.checkpoint``, JAX's ``jax.checkpoint(block_fn)``)."""
+    for blk in blocks:
         if remat:
             x = torch.utils.checkpoint.checkpoint(
                 gpt2.block_forward, blk, x, cfg, use_reentrant=False)
@@ -204,28 +236,30 @@ def _apply_blocks(stage: PipelineStage, x, remat: bool):
 
 
 class _Ring:
-    """The stage's neighbours on ``pipe`` and its sends in flight."""
+    """A stage's links to the other stages of ``pipe``: sends are posted
+    without waiting (:meth:`drain` waits for them), receives block; a
+    stage's link to itself (one stage holding every chunk of the MPMD
+    schedule) is a queue a direction (``kind``: ``'fwd'``, ``'bwd'``)."""
 
     def __init__(self, group, s: int, count: int, shape, dtype, device):
         self.group, self.s, self.count = group, s, count
         self.shape, self.dtype, self.device = shape, dtype, device
+        self.queues = {"fwd": collections.deque(),
+                       "bwd": collections.deque()}
         self.pending = []
 
-    def send_next(self, y):
-        self.pending.append(C.send(y, self.s + 1, self.group))
+    def send(self, x, dst: int, kind: str) -> None:
+        if dst == self.s:
+            self.queues[kind].append(x.detach())
+        else:
+            self.pending.append(C.send(x, dst, self.group))
 
-    def send_prev(self, dx):
-        self.pending.append(C.send(dx, self.s - 1, self.group))
+    def recv(self, src: int, kind: str):
+        if src == self.s:
+            return self.queues[kind].popleft()
+        return C.recv(self.shape, self.dtype, self.device, src, self.group)
 
-    def recv_prev(self):
-        return C.recv(self.shape, self.dtype, self.device, self.s - 1,
-                      self.group)
-
-    def recv_next(self):
-        return C.recv(self.shape, self.dtype, self.device, self.s + 1,
-                      self.group)
-
-    def drain(self):
+    def drain(self) -> None:
         for w in self.pending:
             w.wait()
         self.pending.clear()
@@ -238,10 +272,10 @@ def _gpipe(stage, ring: _Ring, tok_mb, tgt_mb, denom, remat) -> torch.Tensor:
         if s == 0:
             x = gpt2.embed_tokens(stage, toks)
         else:
-            x = ring.recv_prev().requires_grad_(True)
-        y = _apply_blocks(stage, x, remat)
+            x = ring.recv(s - 1, "fwd").requires_grad_(True)
+        y = apply_blocks(stage.h, stage.config, x, remat)
         if s < last:
-            ring.send_next(y)
+            ring.send(y, s + 1, "fwd")
             kept.append((x, y))
         else:
             loss_m = cross_entropy(gpt2.lm_head(stage, y), tgts) * (
@@ -252,48 +286,9 @@ def _gpipe(stage, ring: _Ring, tok_mb, tgt_mb, denom, remat) -> torch.Tensor:
         if s == last:
             y.backward()
         else:
-            y.backward(ring.recv_next())
+            y.backward(ring.recv(s + 1, "bwd"))
         if s > 0:
-            ring.send_prev(x.grad)
-    ring.drain()
-    return loss
-
-
-def _onef1b(stage, ring: _Ring, tok_mb, tgt_mb, denom, remat,
-            peak: list) -> torch.Tensor:
-    s, last, m_count = ring.s, ring.count - 1, len(tok_mb)
-    stash, loss = {}, torch.zeros((), device=ring.device)
-    for tt in range(m_count + 2 * last):
-        m_f = tt - s
-        if 0 <= m_f < m_count and s < last:
-            with torch.no_grad():
-                x = (gpt2.embed_tokens(stage, tok_mb[m_f]) if s == 0
-                     else ring.recv_prev())
-                stash[m_f] = x
-                peak[0] = max(peak[0], len(stash))
-                ring.send_next(_apply_blocks(stage, x, remat))
-        m_b = tt - (2 * last - s)
-        if not 0 <= m_b < m_count:
-            continue
-        if s == last:  # forward and backward of one microbatch, one tick
-            x = (gpt2.embed_tokens(stage, tok_mb[m_b]) if s == 0
-                 else ring.recv_prev().requires_grad_(True))
-            peak[0] = max(peak[0], 1)
-        elif s == 0:  # recompute from the tokens, through the embedding
-            stash.pop(m_b)
-            x = gpt2.embed_tokens(stage, tok_mb[m_b])
-        else:
-            x = stash.pop(m_b).requires_grad_(True)
-        y = _apply_blocks(stage, x, remat)
-        if s == last:
-            loss_m = cross_entropy(gpt2.lm_head(stage, y), tgt_mb[m_b]) * (
-                tgt_mb[m_b].numel() / denom)
-            loss_m.backward()
-            loss = loss + loss_m.detach()
-        else:
-            y.backward(ring.recv_next())
-        if s > 0:
-            ring.send_prev(x.grad)
+            ring.send(x.grad, s - 1, "bwd")
     ring.drain()
     return loss
 
@@ -307,16 +302,24 @@ def make_pp_train_step(model: nn.Module, optimizer, mesh, state, *,
     :class:`PipelineStage`.  ``step(state, tokens, targets)`` takes this
     data shard's rows (every stage of a data row the same rows); the
     loss is the global batch's mean cross entropy on every rank.
-    ``step.peak_stash`` is the most microbatch inputs the last step's
-    ``'1f1b'`` schedule kept at once on this stage."""
+    ``'1f1b'`` runs the MPMD step (``schedule.make_pipeline_train_step``)
+    at ``interleave=1``, ``shard_optimizer=False``; its
+    ``step.peak_stash`` is the most microbatch inputs the last step kept
+    at once on this stage."""
     _check(model, mesh, n_microbatches, pipe_axis, schedule)
+    if schedule == "1f1b":
+        from tpudp_torch.parallel.schedule import make_pipeline_train_step
+
+        return make_pipeline_train_step(
+            model, optimizer, mesh, state, n_microbatches=n_microbatches,
+            data_axis=data_axis, pipe_axis=pipe_axis, remat=remat,
+            shard_optimizer=False)
     refuse_skip(optimizer, "pp")
     pipe, s_count, s = axis_of(mesh, pipe_axis)
     dgroup, dn, _ = axis_of(mesh, data_axis)
     stage, leaves, built = _stage(model, state, optimizer, mesh, pipe_axis)
     shared = [lf for lf in leaves if not lf.name.startswith("h.")]
     cfg = model.config
-    peak = [0]
 
     def step(st, tokens, targets):
         b, t = tokens.shape
@@ -327,13 +330,8 @@ def make_pp_train_step(model: nn.Module, optimizer, mesh, state, *,
         mb = b // n_microbatches
         ring = _Ring(pipe, s, s_count, (mb, t, cfg.d_model), cfg.dtype,
                      tokens.device)
-        tok_mb, tgt_mb = tokens.split(mb), targets.split(mb)
-        if schedule == "1f1b":
-            peak[0] = 0
-            loss = _onef1b(stage, ring, tok_mb, tgt_mb, b * t, remat, peak)
-        else:
-            loss = _gpipe(stage, ring, tok_mb, tgt_mb, b * t, remat)
-        step.peak_stash = peak[0]
+        loss = _gpipe(stage, ring, tokens.split(mb), targets.split(mb),
+                      b * t, remat)
         grads = grads_of(leaves)
         loss = loss.reshape(1)
         flat = torch.cat([lf.local.grad.reshape(-1) for lf in shared]
@@ -352,7 +350,6 @@ def make_pp_train_step(model: nn.Module, optimizer, mesh, state, *,
         st.loss_sum += loss
         return st, loss
 
-    step.peak_stash = 0
     return built, step
 
 
@@ -380,10 +377,10 @@ def make_pp_eval_step(model: nn.Module, mesh, state, *, n_microbatches: int,
             for m in range(n_microbatches):
                 rows_ = slice(m * mb, (m + 1) * mb)
                 x = (gpt2.embed_tokens(stage, tokens[rows_]) if s == 0
-                     else ring.recv_prev())
-                y = _apply_blocks(stage, x, False)
+                     else ring.recv(s - 1, "fwd"))
+                y = apply_blocks(stage.h, stage.config, x, False)
                 if s < s_count - 1:
-                    ring.send_next(y)
+                    ring.send(y, s + 1, "fwd")
                     continue
                 sums += eval_metrics(_Head(stage, y), None, targets[rows_],
                                      weights[rows_])

@@ -5,19 +5,26 @@ ZeRO-1 and sequence parallelism — written out by hand over
 JAX annotates shardings and lets XLA partition the single-device
 program; here each rung states its collectives:
 
-  * **tp** (:func:`make_tp_train_step`, mesh ``data x model``): Megatron.
-    ``qkv`` and ``mlp_fc`` are column-parallel, ``proj`` and ``mlp_proj``
+  * **tp** (:func:`make_tp_train_step`, mesh ``data x model``): Megatron,
+    for GPT-2 (``gpt2_tp_rules``) and LLaMA (``llama_tp_rules``).
+    ``qkv`` / ``wq``, ``mlp_fc`` / ``gate`` and ``up`` are
+    column-parallel, ``proj`` / ``wo`` and ``mlp_proj`` / ``down``
     row-parallel with their outputs summed over ``model``
     (:func:`~tpudp_torch.parallel.collectives.copy_to_group` /
     :func:`~tpudp_torch.parallel.collectives.reduce_from_group` around
     them); each rank holds ``H/n`` heads and runs attention on them (with
-    ``attn_impl='flash'``, through the K1-K3 kernels).  ``qkv`` splits by
-    heads — q, k and v each — where JAX's ``P(None, 'model')`` splits the
-    fused ``(d, 3d)`` kernel into contiguous column blocks; the
-    checkpoint tree gathers back to JAX's global layout.  ``wte`` splits
-    over vocab when the axis divides it (JAX's fallback rule): the lookup
-    is masked and summed, the tied head's logits gathered before the
-    loss.
+    ``attn_impl='flash'``, through the K1-K3 kernels).  GPT-2's ``qkv``
+    splits by heads — q, k and v each — where JAX's ``P(None, 'model')``
+    splits the fused ``(d, 3d)`` kernel into contiguous column blocks;
+    the checkpoint tree gathers back to JAX's global layout.  The
+    vocabulary (``wte``, LLaMA's ``lm_head``) splits over the axis: the
+    lookup is masked and summed, the logits gathered before the loss.
+    JAX's fallback rule replicates a leaf whose dim the axis does not
+    divide; the port applies it a head at a time: a section whose heads
+    (MLP width, vocabulary) the axis does not divide is whole on every
+    rank, and LLaMA's ``wk``/``wv`` are whole beside split query heads
+    when the axis does not divide the KV heads (their partial gradients
+    summed over ``model``).
   * **fsdp** (:func:`make_fsdp_train_step`): each parameter of at least
     ``min_size`` elements is sharded on the dim
     :func:`~tpudp_torch.parallel.tensor.fsdp_dim` picks; a step gathers
@@ -64,8 +71,8 @@ from tpudp_torch.train import (OptimizerSpec, TrainState, _FiniteGuard,
                                skip_counters, state_to_jax, with_aux)
 from tpudp_torch.utils.checkpoint import _to_cpu
 
-#: The ROADMAP item of the strategies still to port.
-LLAMA_ITEM = "Queue 1 item 5 (slice 6b: LLaMA training)"
+#: The ROADMAP item of the TP rules still to port.
+VGG_TP_ITEM = "Queue 1 item 5 (vgg_tp_rules: channel-split VGG)"
 
 
 # -- mesh axes --------------------------------------------------------------
@@ -353,12 +360,14 @@ def _zero_grads(*tensors) -> None:
 
 
 def require_gpt2(model, rung: str) -> None:
+    """A GPT-2-family rung's model (a LLaMA model refuses, as JAX's
+    example refuses ``--family llama`` there)."""
     from tpudp_torch.models import gpt2, llama
 
     if isinstance(model, llama.Llama):
-        raise NotImplementedError(
-            f"strategy {rung!r} on a LLaMA model is not ported yet: "
-            f"ROADMAP.md {LLAMA_ITEM}")
+        raise ValueError(
+            f"strategy {rung!r} is a GPT-2-family path; a LLaMA model "
+            "trains under dp, sp, tp, fsdp or zero1")
     if not isinstance(model, gpt2.GPT2):
         raise TypeError(f"strategy {rung!r} drives tpudp_torch.models.gpt2."
                         f"GPT2; got {type(model).__name__}")
@@ -533,6 +542,16 @@ def data_sharded_eval(mesh, state: TrainState, data_axis: str = DATA_AXIS):
 
 
 # -- tp ---------------------------------------------------------------------
+#
+# A section of a block (attention, MLP) or the vocabulary splits over the
+# model axis when the axis divides its heads (its width, the vocabulary),
+# and is whole on every rank otherwise: JAX's fallback rule at the
+# granularity of a head.  A whole section runs the single-device math with
+# no collective (its group is None).
+
+def _split(size: int, n: int) -> bool:
+    return size % n == 0
+
 
 class _TPAttention(nn.Module):
     def __init__(self, d: int, n: int):
@@ -542,58 +561,79 @@ class _TPAttention(nn.Module):
 
 
 class _TPBlock(nn.Module):
-    def __init__(self, cfg, n: int):
+    def __init__(self, cfg, na: int, nm: int):
         super().__init__()
         from tpudp_torch.models.moe import MoeMlp
 
         d, f = cfg.d_model, cfg.mlp_ratio * cfg.d_model
         self.ln_1 = nn.LayerNorm(d, eps=cfg.ln_eps)
-        self.attn = _TPAttention(d, n)
+        self.attn = _TPAttention(d, na)
         self.ln_2 = nn.LayerNorm(d, eps=cfg.ln_eps)
         if cfg.mlp_impl == "moe":  # replicated: JAX's rules leave it whole
             self.moe = MoeMlp(d, cfg.num_experts, cfg.mlp_ratio,
                               cfg.capacity_factor, cfg.moe_top_k, None,
                               cfg.dtype)
         else:
-            self.mlp_fc = nn.Linear(d, f // n)
-            self.mlp_proj = nn.Linear(f // n, d)
+            self.mlp_fc = nn.Linear(d, f // nm)
+            self.mlp_proj = nn.Linear(f // nm, d)
 
 
 def _row(lin: nn.Linear, x, dtype, group):
     """A row-parallel layer: the partial products summed over the group,
-    then the (replicated) bias."""
-    y = F.linear(x.to(dtype), lin.weight.to(dtype))
-    return C.reduce_from_group(y, group) + lin.bias.to(dtype)
+    then the (replicated) bias, if any."""
+    y = C.reduce_from_group(F.linear(x.to(dtype), lin.weight.to(dtype)),
+                            group)
+    return y if lin.bias is None else y + lin.bias.to(dtype)
 
 
-class TPGPT2(nn.Module):
-    """This rank's GPT-2 under Megatron tensor parallelism over ``group``
-    (``n`` ranks, this one ``r``): the single-device model's parameter
-    names with local shapes — ``qkv`` ``(3d/n, d)`` (its heads' q, k and
-    v rows), ``proj`` ``(d, d/n)``, ``mlp_fc`` ``(f/n, d)``, ``mlp_proj``
-    ``(d, f/n)``, ``wte`` ``(V/n, d)`` when ``vocab_split``."""
+class _VocabSplit(nn.Module):
+    """The embedding lookup and the head of a vocabulary split over
+    ``group`` (None: whole on every rank)."""
 
-    def __init__(self, cfg, group, n: int, r: int, vocab_split: bool):
-        super().__init__()
-        self.config, self.group, self.n, self.r = cfg, group, n, r
-        self.vocab_split = vocab_split
-        v = cfg.vocab_size // n if vocab_split else cfg.vocab_size
-        self.wte = nn.Embedding(v, cfg.d_model)
-        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model)
-        self.h = nn.ModuleList(_TPBlock(cfg, n)
-                               for _ in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(cfg.d_model, eps=cfg.ln_eps)
+    #: Suffixes of whole leaves whose gradients are partial sums.
+    partial: tuple = ()
 
-    def _embed(self, tokens):
-        dtype = self.config.dtype
-        w = self.wte.weight.to(dtype)
-        if not self.vocab_split:
+    @staticmethod
+    def _lookup(w, tokens, group, r: int):
+        if group is None:
             return w[tokens]
         vl = w.shape[0]
-        ids = tokens - self.r * vl
+        ids = tokens - r * vl
         valid = (ids >= 0) & (ids < vl)
-        e = w[ids.clamp(0, vl - 1)] * valid[..., None].to(dtype)
-        return C.reduce_from_group(e, self.group)
+        e = w[ids.clamp(0, vl - 1)] * valid[..., None].to(w.dtype)
+        return C.reduce_from_group(e, group)
+
+    @staticmethod
+    def _logits(hidden, w, group):
+        """``hidden @ w.T`` as float32, the vocabulary gathered."""
+        local = (C.copy_to_group(hidden, group) @ w.T).float()
+        return C.gather_from_group(local, -1, group)
+
+
+class TPGPT2(_VocabSplit):
+    """This rank's GPT-2 under Megatron tensor parallelism over ``group``
+    (``n`` ranks, this one ``r``): the single-device model's parameter
+    names with local shapes.  Where the axis divides the heads, ``qkv``
+    is ``(3d/n, d)`` (its heads' q, k and v rows) and ``proj`` ``(d,
+    d/n)``; where it divides the MLP width ``f``, ``mlp_fc`` is ``(f/n,
+    d)`` and ``mlp_proj`` ``(d, f/n)``; where it divides the vocabulary,
+    ``wte`` is ``(V/n, d)``.  Every other section is whole."""
+
+    def __init__(self, cfg, group, n: int, r: int):
+        super().__init__()
+        self.config, self.group, self.n, self.r = cfg, group, n, r
+        f = cfg.mlp_ratio * cfg.d_model
+        na, nm, nv = (n if _split(size, n) else 1
+                      for size in (cfg.num_heads, f, cfg.vocab_size))
+        self.attn_group, self.mlp_group, self.vocab_group = (
+            group if k > 1 else None for k in (na, nm, nv))
+        self.splits = {"attn": na > 1, "mlp": nm > 1, "vocab": nv > 1}
+        v = cfg.vocab_size // nv
+        self.wte = nn.Embedding(v, cfg.d_model)
+        self.wpe = nn.Embedding(cfg.max_seq_len, cfg.d_model)
+        self.h = nn.ModuleList(_TPBlock(cfg, na, nm)
+                               for _ in range(cfg.num_layers))
+        self.ln_f = nn.LayerNorm(cfg.d_model, eps=cfg.ln_eps)
 
     def forward(self, tokens: torch.Tensor,
                 train: bool = False) -> torch.Tensor:
@@ -601,56 +641,178 @@ class TPGPT2(nn.Module):
         from tpudp_torch.models.gpt2 import dense, layer_norm
         from tpudp_torch.ops.attention import multihead_attention
 
-        cfg, g = self.config, self.group
+        cfg, ga, gm = self.config, self.attn_group, self.mlp_group
         dtype = cfg.dtype
         b, t = tokens.shape
-        hl, dh = cfg.num_heads // self.n, cfg.d_model // cfg.num_heads
+        dh = cfg.d_model // cfg.num_heads
+        hl = cfg.num_heads // (self.n if self.splits["attn"] else 1)
         impl = "dense" if cfg.attn_impl == "ring" else cfg.attn_impl
-        x = self._embed(tokens) + self.wpe.weight.to(dtype)[
+        x = self._lookup(self.wte.weight.to(dtype), tokens, self.vocab_group,
+                         self.r) + self.wpe.weight.to(dtype)[
             torch.arange(t, device=tokens.device)]
         for blk in self.h:
-            a = C.copy_to_group(layer_norm(blk.ln_1, x), g)
+            a = C.copy_to_group(layer_norm(blk.ln_1, x), ga)
             qkv = dense(blk.attn.qkv, a, dtype)
             q, k, v = (z.reshape(b, t, hl, dh) for z in qkv.chunk(3, -1))
             out = multihead_attention(q, k, v, causal=True, impl=impl,
                                       dtype=dtype)
-            x = x + _row(blk.attn.proj, out.reshape(b, t, -1), dtype, g)
+            x = x + _row(blk.attn.proj, out.reshape(b, t, -1), dtype, ga)
             if hasattr(blk, "moe"):
                 x = x + blk.moe(layer_norm(blk.ln_2, x))
                 continue
-            a = C.copy_to_group(layer_norm(blk.ln_2, x), g)
+            a = C.copy_to_group(layer_norm(blk.ln_2, x), gm)
             h = F.gelu(dense(blk.mlp_fc, a, dtype), approximate="tanh")
-            x = x + _row(blk.mlp_proj, h, dtype, g)
+            x = x + _row(blk.mlp_proj, h, dtype, gm)
         hidden = layer_norm(self.ln_f, x).to(dtype)
-        w = self.wte.weight.to(dtype)
-        if not self.vocab_split:
-            return (hidden @ w.T).float()
-        local = (C.copy_to_group(hidden, g) @ w.T).float()
-        return C.gather_from_group(local, -1, g)
+        return self._logits(hidden, self.wte.weight.to(dtype),
+                            self.vocab_group)
 
 
 def _tp_leaves(model: TPGPT2, group, n: int, r: int) -> list:
     """The TP module's parameters as leaves of the single-device
     model's names."""
+    split = model.splits
     leaves = []
     for name, p in model.named_parameters():
-        if name.endswith("attn.qkv.weight") or name.endswith("attn.qkv.bias"):
+        if split["attn"] and name.endswith(("attn.qkv.weight",
+                                            "attn.qkv.bias")):
             leaves.append(heads_leaf(name, p, group, n, r))
-        elif name.endswith("mlp_fc.weight") or name.endswith("mlp_fc.bias"):
-            leaves.append(dim_leaf(name, p, 0, group, n, r))
-        elif (name.endswith("attn.proj.weight")
-              or name.endswith("mlp_proj.weight")):
+        elif split["attn"] and name.endswith("attn.proj.weight"):
             leaves.append(dim_leaf(name, p, 1, group, n, r))
-        elif name == "wte.weight" and model.vocab_split:
+        elif split["mlp"] and name.endswith(("mlp_fc.weight",
+                                             "mlp_fc.bias")):
+            leaves.append(dim_leaf(name, p, 0, group, n, r))
+        elif split["mlp"] and name.endswith("mlp_proj.weight"):
+            leaves.append(dim_leaf(name, p, 1, group, n, r))
+        elif split["vocab"] and name == "wte.weight":
             leaves.append(dim_leaf(name, p, 0, group, n, r))
         else:
             leaves.append(Leaf(name, p))
     return leaves
 
 
+class _TPLlamaAttention(nn.Module):
+    def __init__(self, d: int, dh: int, hq: int, hkv: int):
+        super().__init__()
+        self.wq = nn.Linear(d, hq * dh, bias=False)
+        self.wk = nn.Linear(d, hkv * dh, bias=False)
+        self.wv = nn.Linear(d, hkv * dh, bias=False)
+        self.wo = nn.Linear(hq * dh, d, bias=False)
+
+
+class _TPLlamaBlock(nn.Module):
+    def __init__(self, cfg, hq: int, hkv: int, f: int):
+        super().__init__()
+        from tpudp_torch.models.llama import RMSNorm
+
+        d = cfg.d_model
+        self.rms_attn = RMSNorm(d, cfg.rms_eps)
+        self.attn = _TPLlamaAttention(d, d // cfg.num_heads, hq, hkv)
+        self.rms_mlp = RMSNorm(d, cfg.rms_eps)
+        self.gate = nn.Linear(d, f, bias=False)
+        self.up = nn.Linear(d, f, bias=False)
+        self.down = nn.Linear(f, d, bias=False)
+
+
+class TPLlama(_VocabSplit):
+    """This rank's LLaMA under Megatron tensor parallelism over ``group``
+    by ``llama_tp_rules`` (``n`` ranks, this one ``r``): ``wq``, ``gate``
+    and ``up`` column-parallel, ``wo`` and ``down`` row-parallel, ``wte``
+    split over the vocabulary and the untied ``lm_head`` column-parallel
+    over it, each where the axis divides its heads (MLP width,
+    vocabulary), whole otherwise.  ``wk`` and ``wv`` split by KV heads
+    where the axis divides those too; otherwise they are whole on every
+    rank beside split query heads, each rank using the KV heads its query
+    heads read (so their gradients are partial: :attr:`partial` names
+    them, to be summed over ``group``)."""
+
+    def __init__(self, cfg, group, n: int, r: int):
+        super().__init__()
+        self.config, self.group, self.n, self.r = cfg, group, n, r
+        na, nm, nv = (n if _split(size, n) else 1
+                      for size in (cfg.num_heads, cfg.hidden,
+                                   cfg.vocab_size))
+        nkv = n if na > 1 and _split(cfg.kv_heads, n) else 1
+        self.attn_group, self.mlp_group, self.vocab_group = (
+            group if k > 1 else None for k in (na, nm, nv))
+        self.splits = {"attn": na > 1, "kv": nkv > 1, "mlp": nm > 1,
+                       "vocab": nv > 1}
+        hkv, f, v = cfg.kv_heads // nkv, cfg.hidden // nm, \
+            cfg.vocab_size // nv
+        self.wte = nn.Embedding(v, cfg.d_model)
+        self.h = nn.ModuleList(_TPLlamaBlock(cfg, cfg.num_heads // na, hkv,
+                                             f)
+                               for _ in range(cfg.num_layers))
+        from tpudp_torch.models.llama import RMSNorm
+
+        self.rms_f = RMSNorm(cfg.d_model, cfg.rms_eps)
+        self.lm_head = nn.Linear(cfg.d_model, v, bias=False)
+        self.partial = ((".attn.wk.weight", ".attn.wv.weight")
+                        if na > 1 and nkv == 1 else ())
+
+    def forward(self, tokens: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        del train
+        from tpudp_torch.models.llama import apply_rope, dense, rms_norm
+        from tpudp_torch.ops.attention import multihead_attention
+
+        cfg, ga, gm = self.config, self.attn_group, self.mlp_group
+        dtype = cfg.dtype
+        b, t = tokens.shape
+        dh = cfg.d_model // cfg.num_heads
+        hl = cfg.num_heads // (self.n if self.splits["attn"] else 1)
+        groups = cfg.num_heads // cfg.kv_heads
+        impl = "dense" if cfg.attn_impl == "ring" else cfg.attn_impl
+        positions = torch.arange(t, device=tokens.device)
+        x = self._lookup(self.wte.weight.to(dtype), tokens, self.vocab_group,
+                         self.r)
+        for blk in self.h:
+            a = C.copy_to_group(rms_norm(blk.rms_attn, x), ga)
+            q = apply_rope(dense(blk.attn.wq, a, dtype).reshape(b, t, hl, dh),
+                           positions, cfg.rope_theta)
+            k = apply_rope(dense(blk.attn.wk, a, dtype).reshape(b, t, -1, dh),
+                           positions, cfg.rope_theta)
+            v = dense(blk.attn.wv, a, dtype).reshape(b, t, -1, dh)
+            k = k.repeat_interleave(groups, dim=2)
+            v = v.repeat_interleave(groups, dim=2)
+            if self.partial:  # whole KV heads: this rank's query heads
+                k = k[:, :, self.r * hl:(self.r + 1) * hl]
+                v = v[:, :, self.r * hl:(self.r + 1) * hl]
+            out = multihead_attention(q, k, v, causal=True, impl=impl,
+                                      dtype=dtype)
+            x = x + _row(blk.attn.wo, out.reshape(b, t, -1), dtype, ga)
+            a = C.copy_to_group(rms_norm(blk.rms_mlp, x), gm)
+            gate = F.silu(dense(blk.gate, a, dtype))
+            x = x + _row(blk.down, gate * dense(blk.up, a, dtype), dtype, gm)
+        hidden = rms_norm(self.rms_f, x).to(dtype)
+        return self._logits(hidden, self.lm_head.weight.to(dtype),
+                            self.vocab_group)
+
+
+def _tp_llama_leaves(model: TPLlama, group, n: int, r: int) -> list:
+    """:class:`TPLlama`'s parameters as leaves of the single-device
+    model's names."""
+    sp = model.splits
+    rows = [(sp["attn"], ".attn.wq.weight"), (sp["mlp"], ".gate.weight"),
+            (sp["mlp"], ".up.weight"), (sp["vocab"], "lm_head.weight"),
+            (sp["vocab"], "wte.weight"), (sp["kv"], ".attn.wk.weight"),
+            (sp["kv"], ".attn.wv.weight")]
+    cols = [(sp["attn"], ".attn.wo.weight"), (sp["mlp"], ".down.weight")]
+    leaves = []
+    for name, p in model.named_parameters():
+        dim = next((d for d, table in ((0, rows), (1, cols))
+                    for split, suffix in table
+                    if split and name.endswith(suffix)), None)
+        leaves.append(Leaf(name, p) if dim is None
+                      else dim_leaf(name, p, dim, group, n, r))
+    return leaves
+
+
 def _check_rules(model, rules) -> str:
-    """The model axis of Megatron's GPT-2 ``rules``; the other tables
-    raise."""
+    """The model axis of ``rules``: GPT-2's Megatron table for a GPT-2,
+    LLaMA's for a LLaMA; the VGG table raises naming its ROADMAP item."""
+    from tpudp_torch.models import gpt2, llama
+
     if callable(rules):
         raise ValueError("callable rules are the fsdp and zero1 rungs: use "
                          "make_fsdp_train_step / make_zero1_train_step")
@@ -658,15 +820,20 @@ def _check_rules(model, rules) -> str:
                   for p, s in rules)
     axes = {a for _, s in rules if s for a in s if a is not None}
     axis = next(iter(axes)) if len(axes) == 1 else MODEL_AXIS
-    if rules in (llama_tp_rules(axis), vgg_tp_rules(axis)):
-        family = "LLaMA" if rules == llama_tp_rules(axis) else "VGG"
+    if rules == vgg_tp_rules(axis):
         raise NotImplementedError(
-            f"tensor parallelism by the {family} rules is not ported yet: "
-            f"ROADMAP.md {LLAMA_ITEM}")
-    if rules != gpt2_tp_rules(axis):
-        raise ValueError("the port's TP step is Megatron's layout for GPT-2: "
-                         "rules must be gpt2_tp_rules(model_axis)")
-    require_gpt2(model, "tp")
+            "tensor parallelism by the VGG rules is not ported yet: "
+            f"ROADMAP.md {VGG_TP_ITEM}")
+    table = {gpt2.GPT2: (gpt2_tp_rules, "gpt2_tp_rules"),
+             llama.Llama: (llama_tp_rules, "llama_tp_rules")}
+    if type(model) not in table:
+        raise TypeError(f"strategy 'tp' drives tpudp_torch.models.gpt2.GPT2 "
+                        f"or llama.Llama; got {type(model).__name__}")
+    make, label = table[type(model)]
+    if rules != make(axis):
+        raise ValueError(f"the port's TP step is Megatron's layout for "
+                         f"{type(model).__name__}: rules must be "
+                         f"{label}(model_axis)")
     return axis
 
 
@@ -676,9 +843,12 @@ def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
                        aux_loss_coef: float = 0.01):
     """DP x TP (JAX's ``make_tp_train_step``) over ``mesh``'s
     ``data_axis`` and the rules' model axis: returns ``(tp_state,
-    step)``, ``tp_state.model`` this rank's :class:`TPGPT2`.  ``rules``
-    must be :func:`~tpudp_torch.parallel.tensor.gpt2_tp_rules`; the
-    LLaMA and VGG tables raise naming their ROADMAP item."""
+    step)``, ``tp_state.model`` this rank's :class:`TPGPT2` (rules
+    :func:`~tpudp_torch.parallel.tensor.gpt2_tp_rules`) or
+    :class:`TPLlama` (:func:`~tpudp_torch.parallel.tensor.
+    llama_tp_rules`); the VGG table raises naming its ROADMAP item."""
+    from tpudp_torch.models import llama
+
     axis = _check_rules(model, rules)
     refuse_skip(optimizer, "tp")
     if optimizer.compress is not None:
@@ -687,14 +857,15 @@ def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
     cfg = model.config
     group, n, r = axis_of(mesh, axis)
     dgroup, dn, _ = axis_of(mesh, data_axis)
-    f = cfg.mlp_ratio * cfg.d_model
-    if cfg.num_heads % n or f % n:
-        raise ValueError(f"tensor parallelism over {n} ranks needs heads "
-                         f"({cfg.num_heads}) and MLP width ({f}) divisible "
-                         f"by {n}")
     device = next(model.parameters()).device
-    local = TPGPT2(cfg, group, n, r, cfg.vocab_size % n == 0).to(device)
-    leaves = _tp_leaves(local, group, n, r)
+    if isinstance(model, llama.Llama):
+        local = TPLlama(cfg, group, n, r).to(device)
+        leaves = _tp_llama_leaves(local, group, n, r)
+    else:
+        local = TPGPT2(cfg, group, n, r).to(device)
+        leaves = _tp_leaves(local, group, n, r)
+    partial = [lf for lf in leaves
+               if local.partial and lf.name.endswith(local.partial)]
     layout = Layout(leaves, _codec(model))
     built = from_standard(state, new_state(local, optimizer, leaves, layout))
     local.requires_grad_(True).train()
@@ -703,8 +874,15 @@ def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
         _zero_grads(*local.parameters())
         ce = cross_entropy(local(inputs, train=True), targets)
         with_aux(local, ce, aux_loss_coef).backward()
+        grads = grads_of(leaves)
+        if partial:  # whole KV projections beside split query heads
+            flat = torch.cat([lf.local.grad.reshape(-1) for lf in partial])
+            C.all_reduce(flat, group)
+            for lf, piece in zip(partial, flat.split(
+                    [lf.local.numel() for lf in partial])):
+                lf.local.grad.copy_(piece.reshape(lf.local.shape))
         loss = ce.detach().reshape(1)
-        mean_over(grads_of(leaves) + [loss], dgroup, dn)
+        mean_over(grads + [loss], dgroup, dn)
         apply_update(st, optimizer, leaves)
         st.step += 1
         loss = loss.reshape(())
@@ -729,7 +907,11 @@ def tp_eval(mesh, state: TrainState, data_axis: str = DATA_AXIS):
 # -- sp ---------------------------------------------------------------------
 
 def _check_ring(model, seq_axis: str) -> None:
-    require_gpt2(model, "sp")
+    from tpudp_torch.models import gpt2, llama
+
+    if not isinstance(model, (gpt2.GPT2, llama.Llama)):
+        raise TypeError(f"strategy 'sp' drives tpudp_torch.models.gpt2."
+                        f"GPT2 or llama.Llama; got {type(model).__name__}")
     cfg = model.config
     if cfg.attn_impl != "ring" or cfg.seq_axis != seq_axis:
         raise ValueError(f"sequence parallelism needs a model built with "

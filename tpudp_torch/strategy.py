@@ -21,17 +21,21 @@ same global batches and steps on its own block.
   ``zero1``     ``data``                     ``min_size``
   ``pp``        [``data`` x] ``pipe``        ``n_microbatches``, ``remat``,
                                              ``schedule`` (``gpipe`` /
-                                             ``1f1b``)
+                                             ``1f1b`` / ``1f1b_mpmd``);
+                                             under ``1f1b_mpmd`` also
+                                             ``interleave``,
+                                             ``shard_optimizer``
   ``ep``        ``data`` x ``expert``        ``aux_loss_coef``
   ``sp``        ``data`` x ``seq``           —
   ============  ===========================  ==========================
 
 Build the mesh with :func:`tpudp_torch.mesh.make_mesh_nd` (fsdp and zero1
 also take the 1-D :func:`tpudp_torch.mesh.make_mesh`).  ``'dp'`` is the
-Trainer's own rung, as in JAX; pp's ``schedule='1f1b_mpmd'`` (JAX's
-unrolled MPMD schedule, ``tpudp/parallel/schedule.py``) raises naming
-its ROADMAP item.  ``donate`` is accepted for JAX's signature: PyTorch
-updates the state in place either way.
+Trainer's own rung, as in JAX.  pp's ``schedule='1f1b_mpmd'`` is
+``tpudp_torch.parallel.schedule`` (interleaved virtual stages,
+``interleave`` default 1; the in-step sharded optimizer,
+``shard_optimizer`` default True).  ``donate`` is accepted for JAX's
+signature: PyTorch updates the state in place either way.
 """
 
 from __future__ import annotations
@@ -42,7 +46,6 @@ from tpudp_torch.models.norm import DATA_AXIS
 from tpudp_torch.parallel.sharded import axis_of, rows
 
 STRATEGIES = ("dp", "tp", "fsdp", "zero1", "pp", "ep", "sp")
-MPMD_ITEM = "Queue 1 item 6 (slice 7b: the 1f1b_mpmd pipeline schedule)"
 
 
 class BuiltStrategy(NamedTuple):
@@ -139,18 +142,35 @@ def _build_pp(model, optimizer, mesh, state, options):
         else None)
     remat = options.pop("remat", False)
     schedule = options.pop("schedule", "gpipe")
-    if schedule == "1f1b_mpmd":
-        raise NotImplementedError(
-            "schedule='1f1b_mpmd' (interleaved virtual stages, the in-step "
-            f"sharded optimizer) is not ported yet: ROADMAP.md {MPMD_ITEM}")
-    _no_extra(options, "pp")
-    st, step = make_pp_train_step(model, optimizer, mesh, state,
-                                  n_microbatches=n_microbatches,
-                                  data_axis=data_axis, pipe_axis=pipe_axis,
-                                  remat=remat, schedule=schedule)
-    eval_step = make_pp_eval_step(model, mesh, st,
-                                  n_microbatches=n_microbatches,
-                                  data_axis=data_axis, pipe_axis=pipe_axis)
+    if schedule in ("1f1b", "1f1b_mpmd"):
+        # JAX's lockstep '1f1b' is the MPMD schedule at one chunk a stage
+        # with the stage's own optimizer.
+        from tpudp_torch.parallel.schedule import (make_pipeline_eval_step,
+                                                   make_pipeline_train_step)
+
+        mpmd = schedule == "1f1b_mpmd"
+        interleave = options.pop("interleave", 1) if mpmd else 1
+        shard_optimizer = (options.pop("shard_optimizer", True) if mpmd
+                           else False)
+        _no_extra(options, "pp")
+        st, step = make_pipeline_train_step(
+            model, optimizer, mesh, state, n_microbatches=n_microbatches,
+            interleave=interleave, data_axis=data_axis, pipe_axis=pipe_axis,
+            remat=remat, shard_optimizer=shard_optimizer)
+        eval_step = make_pipeline_eval_step(
+            model, mesh, st, n_microbatches=n_microbatches,
+            interleave=interleave, data_axis=data_axis, pipe_axis=pipe_axis)
+    else:
+        _no_extra(options, "pp")
+        st, step = make_pp_train_step(model, optimizer, mesh, state,
+                                      n_microbatches=n_microbatches,
+                                      data_axis=data_axis,
+                                      pipe_axis=pipe_axis, remat=remat,
+                                      schedule=schedule)
+        eval_step = make_pp_eval_step(model, mesh, st,
+                                      n_microbatches=n_microbatches,
+                                      data_axis=data_axis,
+                                      pipe_axis=pipe_axis)
     axes = (data_axis,) if data_axis is not None else ()
     return BuiltStrategy(st, step, eval_step, _rows_of(mesh, axes))
 

@@ -38,8 +38,18 @@ as they were, decided on the device (the step snapshots them and puts
 them back with ``torch.where``), until N consecutive bad steps let the
 update through.  :func:`state_to_jax` and :func:`load_state` carry a
 state to and from the JAX package's checkpoint layout
-(``tpudp_torch.utils.checkpoint``).  ``remat`` and chunked losses are a
-later slice: each raises ``NotImplementedError`` naming its ROADMAP item.
+(``tpudp_torch.utils.checkpoint``).
+
+``remat=True`` recomputes the model's forward in the backward
+(``torch.utils.checkpoint`` around the whole forward, JAX's
+``jax.checkpoint`` around ``apply_model``): the same gradients, bit for
+bit, with the activations recomputed instead of kept; BatchNorm's
+running statistics move once a step (``tpudp_torch.models.norm.
+recomputing``).  ``loss_chunk=N`` (a tied-head LM: GPT-2) takes the
+model's final hidden states (``return_hidden=True``) and computes the
+cross entropy over N-token chunks (``tpudp_torch.ops.losses``), so the
+whole ``(batch * time, vocab)`` logits are never made; the eval and
+forward steps take it too.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tpudp_torch.mesh import Mesh
 from tpudp_torch.models.norm import DATA_AXIS, BatchNorm
@@ -499,6 +510,45 @@ def with_aux(model: torch.nn.Module, ce: torch.Tensor,
     return ce if isinstance(aux, float) else ce + aux_loss_coef * aux
 
 
+class _Remat(torch.nn.Module):
+    """``model`` whose forward is recomputed in the backward (``remat``);
+    a module of its own so that DDP wraps it and the recomputation runs
+    the model alone."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, x, **kwargs):
+        from tpudp_torch.models.norm import remat_contexts
+
+        return torch.utils.checkpoint.checkpoint(
+            self.model, x, use_reentrant=False,
+            context_fn=lambda: remat_contexts(self.model), **kwargs)
+
+
+def _check_loss_chunk(model: torch.nn.Module, loss_chunk) -> None:
+    """JAX's condition on ``loss_chunk``: a tied-head LM whose forward
+    takes ``return_hidden`` (GPT-2; LLaMA's head is untied)."""
+    from tpudp_torch.models import gpt2
+
+    if loss_chunk is not None and loss_chunk < 1:
+        raise ValueError(f"loss_chunk must be >= 1 (None: the whole "
+                         f"logits), got {loss_chunk}")
+    if loss_chunk and not isinstance(model, gpt2.GPT2):
+        raise ValueError(f"loss_chunk needs the tied-embedding head of a "
+                         f"GPT-2 LM; got {type(model).__name__}")
+
+
+def _chunked_ce(model, hidden, targets, loss_chunk: int) -> torch.Tensor:
+    """The mean tied-head cross entropy of ``hidden`` by chunks."""
+    from tpudp_torch.ops.losses import chunked_softmax_xent
+
+    wte = model.wte.weight.to(hidden.dtype)
+    return chunked_softmax_xent(hidden, wte, targets,
+                                loss_chunk) / targets.numel()
+
+
 def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
                     mesh: Mesh | None = None, sync: str = "allreduce", *,
                     spmd_mode: str = "shard_map", grad_accum: int = 1,
@@ -524,16 +574,11 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
     ``None``), for its communication hooks.  ``aux_loss_coef`` weighs the
     MoE layers' balance loss (``tpudp_torch.models.moe.collect_moe_aux``)
     into the gradients, as JAX's step does; the returned loss is the
-    cross entropy alone, and a dense model has no such term."""
+    cross entropy alone, and a dense model has no such term.  ``remat``
+    and ``loss_chunk``: the module docstring."""
     _check_mesh(mesh)
+    _check_loss_chunk(model, loss_chunk)
     sync_fn = sync if callable(sync) else get_sync(sync)
-    if remat:
-        raise NotImplementedError(
-            "remat is not ported yet: ROADMAP.md slice 6b (remat)")
-    if loss_chunk is not None:
-        raise NotImplementedError(
-            "loss_chunk is not ported yet: ROADMAP.md slice 6b (chunked "
-            "loss)")
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if spmd_mode not in ("shard_map", "gspmd"):
@@ -550,13 +595,14 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             sync != "none":
         raise ValueError(f"compress={optimizer.compress!r} replaces the sync "
                          f"collective; pass sync='none' (got {sync!r})")
-    forward = model
+    forward = _Remat(model) if remat else model
     ddp = mesh is not None and sync == "auto"
     if ddp:
         from torch.nn.parallel import DistributedDataParallel
 
-        forward = DistributedDataParallel(model, broadcast_buffers=False)
+        forward = DistributedDataParallel(forward, broadcast_buffers=False)
     stats = batch_stats(model)
+    hidden = {"return_hidden": True} if loss_chunk else {}
 
     def step(state: TrainState, inputs: torch.Tensor,
              targets: torch.Tensor):
@@ -573,9 +619,12 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             # microbatch's backward.
             quiet = ddp and i < len(micro) - 1
             with forward.no_sync() if quiet else contextlib.nullcontext():
-                logits = forward(x, train=True)
-                ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                                     y.reshape(-1).long())
+                out = forward(x, train=True, **hidden)
+                if loss_chunk:
+                    ce = _chunked_ce(model, out, y, loss_chunk)
+                else:
+                    ce = F.cross_entropy(out.reshape(-1, out.shape[-1]),
+                                         y.reshape(-1).long())
                 with_aux(model, ce, aux_loss_coef).backward()
             loss = loss + ce.detach()
         params = [p for p in model.parameters() if p.grad is not None]
@@ -615,12 +664,22 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
 
 
 def eval_metrics(model: torch.nn.Module, inputs: torch.Tensor,
-                 labels: torch.Tensor, weights: torch.Tensor
-                 ) -> torch.Tensor:
+                 labels: torch.Tensor, weights: torch.Tensor,
+                 loss_chunk: int | None = None) -> torch.Tensor:
     """Weighted ``(loss_sum, correct, count)`` of one batch as a float32
     3-vector.  ``weights`` is per sample ``(batch,)``; over tokens each
     sample's weight covers its sequence, so ``count`` counts weighted
-    positions."""
+    positions.  ``loss_chunk`` (a tied-head LM) computes them over token
+    chunks without the whole logits
+    (``tpudp_torch.ops.losses.chunked_lm_metrics``)."""
+    if loss_chunk:
+        from tpudp_torch.ops.losses import chunked_lm_metrics
+
+        with torch.no_grad():
+            hidden = model(inputs, train=False, return_hidden=True)
+            return chunked_lm_metrics(hidden,
+                                      model.wte.weight.to(hidden.dtype),
+                                      labels, weights, loss_chunk)
     with torch.no_grad():
         logits = model(inputs, train=False).float()
         labels = labels.long()
@@ -634,15 +693,18 @@ def eval_metrics(model: torch.nn.Module, inputs: torch.Tensor,
         return torch.stack([(per * w).sum(), (correct * w).sum(), w.sum()])
 
 
-def make_eval_step(model: torch.nn.Module, mesh: Mesh | None = None):
+def make_eval_step(model: torch.nn.Module, mesh: Mesh | None = None,
+                   loss_chunk: int | None = None):
     """``eval_step(state, images, labels, weights) -> (loss_sum, correct,
     count)``: padded samples weigh 0; with ``mesh`` each rank evaluates
-    its shard and the sums are all-reduced over the ranks."""
+    its shard and the sums are all-reduced over the ranks.
+    ``loss_chunk``: chunked tied-head metrics (:func:`eval_metrics`)."""
     _check_mesh(mesh)
+    _check_loss_chunk(model, loss_chunk)
 
     def eval_step(state, images, labels, weights):
         del state  # the model is updated in place
-        sums = eval_metrics(model, images, labels, weights)
+        sums = eval_metrics(model, images, labels, weights, loss_chunk)
         if mesh is not None:
             dist.all_reduce(sums)
         return tuple(sums.unbind())
@@ -650,19 +712,24 @@ def make_eval_step(model: torch.nn.Module, mesh: Mesh | None = None):
     return eval_step
 
 
-def make_forward_step(model: torch.nn.Module, mesh: Mesh | None = None):
+def make_forward_step(model: torch.nn.Module, mesh: Mesh | None = None,
+                      loss_chunk: int | None = None):
     """The training-mode forward alone, ``forward(state, images) ->
     logits``, for the ``split`` timing mode: the running statistics it
     would update are put back, as JAX discards its mutated
-    ``batch_stats``.  Each rank runs its own shard; nothing is reduced."""
+    ``batch_stats``.  Each rank runs its own shard; nothing is reduced.
+    With ``loss_chunk`` (a tied-head LM) it is the forward a chunked
+    step runs: the final hidden states, no logits."""
     _check_mesh(mesh)
+    _check_loss_chunk(model, loss_chunk)
     stats = batch_stats(model)
+    hidden = {"return_hidden": True} if loss_chunk else {}
 
     def forward(state, images):
         del state
         with torch.no_grad():
             saved = [b.clone() for b in stats]
-            logits = model(images, train=True)
+            logits = model(images, train=True, **hidden)
             for b, s in zip(stats, saved):
                 b.copy_(s)
         return logits

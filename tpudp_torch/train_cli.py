@@ -1,4 +1,4 @@
-"""Train a GPT-2 LM with the port — the counterpart of
+"""Train a GPT-2 or LLaMA LM with the port — the counterpart of
 ``examples/train_gpt2.py``, every parallelism rung from one script.
 
     # On the card (the default device), GPT-2 small with flash attention:
@@ -23,6 +23,14 @@
     ... --mesh 2x2 --strategy ep            # MoE, max(2s, 2) experts
     ... --mesh 2x2 --seq-parallel           # ring attention over seq
 
+    # LLaMA (RoPE, RMSNorm, SwiGLU, untied head) with grouped-query
+    # attention; tp by llama_tp_rules, sp, fsdp and zero1 as above:
+    python -m tpudp_torch.train_cli --family llama --kv-heads 3 \\
+        --layers 12 --d-model 768 --heads 12 --vocab 32000 --attn flash
+
+    # The chunked vocabulary loss (the DP path, GPT-2's tied head):
+    python -m tpudp_torch.train_cli --attn flash --loss-chunk 1024
+
 The corpus is the example's deterministic synthetic one (a 4096-token
 random base tiled 64 times) and the batches are drawn as the example
 draws them; weights are random, from ``--seed``.  SGD with momentum 0.9
@@ -31,8 +39,12 @@ checks that DIR is writable before any compute and saves the final state
 to ``DIR/step_<steps>`` (``tpudp_torch.utils.checkpoint``);
 ``--skip-nonfinite N`` skips updates whose gradients are not finite
 (``make_optimizer(skip_nonfinite=N)``; dp, zero1 and sp only, as the
-example allows).  ``--num-devices N`` spawns N local ranks (gloo on the
-CPU; NCCL on the card, one card a rank), and ``--master``,
+example allows).  ``--family llama`` trains a LLaMA (``--kv-heads`` its
+KV heads; dp, sp, tp, fsdp and zero1, as the example allows);
+``--loss-chunk N`` computes the GPT-2 DP path's cross entropy over
+N-token chunks (``make_train_step(loss_chunk=)``).  ``--num-devices N``
+spawns N local ranks (gloo on the CPU; NCCL on the card, one card a
+rank), and ``--master``,
 ``--num-nodes`` and ``--rank`` join a multi-process run, as the Parts'
 CLI does; every rank draws the same global batches and trains on its
 block, and rank 0 prints.
@@ -47,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from tpudp_torch.models.gpt2 import GPT2Config, build
+from tpudp_torch.models import gpt2, llama
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.train import init_state, make_optimizer, make_train_step
 from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
@@ -68,6 +80,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "--mesh second axis is the strategy axis")
     p.add_argument("--microbatches", type=int, default=2,
                    help="pipeline microbatches (--strategy pp)")
+    p.add_argument("--family", default="gpt2", choices=["gpt2", "llama"],
+                   help="decoder family: gpt2 (learned positions, "
+                        "LayerNorm, GELU, tied head) or llama (RoPE, "
+                        "RMSNorm, SwiGLU, GQA via --kv-heads, untied "
+                        "head); llama supports dp/sp/tp/fsdp/zero1")
+    p.add_argument("--kv-heads", type=int, default=None,
+                   help="GQA KV-head count (llama; default --heads)")
+    p.add_argument("--loss-chunk", type=int, default=None, metavar="N",
+                   help="chunked vocabulary loss over N-token chunks "
+                        "(the gpt2 family's DP path)")
     p.add_argument("--layers", type=int, default=12)
     p.add_argument("--d-model", type=int, default=768)
     p.add_argument("--heads", type=int, default=None,
@@ -131,6 +153,21 @@ def check_args(args) -> None:
     if args.seq_parallel and args.strategy != "dp":
         raise SystemExit("error: --seq-parallel is its own rung; drop "
                          "--strategy (or use --strategy dp)")
+    if args.family == "llama":
+        if args.strategy in ("pp", "ep"):
+            raise SystemExit(f"error: --strategy {args.strategy} is a "
+                             "gpt2-family path (pipeline stage twins / MoE "
+                             "MLP); use --family gpt2")
+        if args.loss_chunk is not None:
+            raise SystemExit("error: --loss-chunk needs the tied-embedding "
+                             "head (gpt2 family)")
+    elif args.kv_heads is not None:
+        raise SystemExit("error: --kv-heads (GQA) is a llama-family option")
+    if args.loss_chunk is not None and (args.strategy != "dp"
+                                        or args.seq_parallel):
+        raise SystemExit("error: --loss-chunk is a DP-path option")
+    if args.loss_chunk is not None and args.loss_chunk < 1:
+        raise SystemExit("error: --loss-chunk must be >= 1")
     if args.skip_nonfinite is not None and args.strategy not in ("dp",
                                                                  "zero1"):
         raise SystemExit("error: --skip-nonfinite supports the dp/zero1 "
@@ -155,11 +192,6 @@ def check_args(args) -> None:
         raise SystemExit(f"error: the dp rung's mesh is 1-D (--mesh "
                          f"{world}x1); --mesh {d}x{s} names a second axis "
                          "for --strategy or --seq-parallel")
-    heads = args.heads or max(args.d_model // 64, 1)
-    if args.strategy == "tp" and (heads % s or 4 * args.d_model % s):
-        raise SystemExit(f"error: --strategy tp over {s} ranks needs "
-                         f"--heads ({heads}) and the MLP width "
-                         f"({4 * args.d_model}) divisible by {s}")
     if args.strategy == "pp" and args.layers % s:
         raise SystemExit(f"error: --layers {args.layers} must divide into "
                          f"{s} pipeline stages")
@@ -206,17 +238,20 @@ def _rank_entry(args, rank: int, world: int, init_method: str) -> None:
             dist.destroy_process_group()
 
 
-def _model_config(args, s: int) -> GPT2Config:
+def _model_config(args, s: int):
+    common = dict(vocab_size=args.vocab, max_seq_len=args.seq_len,
+                  num_layers=args.layers,
+                  num_heads=args.heads or max(args.d_model // 64, 1),
+                  d_model=args.d_model, dtype=getattr(torch, args.dtype),
+                  attn_impl="ring" if args.seq_parallel else args.attn,
+                  seq_axis="seq" if args.seq_parallel else None)
+    if args.family == "llama":
+        return llama.LlamaConfig(num_kv_heads=args.kv_heads, **common)
     moe = {}
     if args.strategy == "ep":
         moe = dict(mlp_impl="moe", num_experts=max(2 * s, 2),
                    capacity_factor=2.0, expert_axis="expert")
-    return GPT2Config(vocab_size=args.vocab, max_seq_len=args.seq_len,
-                      num_layers=args.layers,
-                      num_heads=args.heads or max(args.d_model // 64, 1),
-                      d_model=args.d_model, dtype=getattr(torch, args.dtype),
-                      attn_impl="ring" if args.seq_parallel else args.attn,
-                      seq_axis="seq" if args.seq_parallel else None, **moe)
+    return gpt2.GPT2Config(**common, **moe)
 
 
 def _rung(args, model, spec, state, world: int):
@@ -227,18 +262,21 @@ def _rung(args, model, spec, state, world: int):
 
     d, s = mesh_dims(args, world)
     if args.strategy == "dp" and not args.seq_parallel and world == 1:
-        return state, make_train_step(model, spec), (lambda a: a), "dp"
+        return (state, make_train_step(model, spec,
+                                       loss_chunk=args.loss_chunk),
+                (lambda a: a), "dp")
     if world == 1:  # the sharded rungs' mesh: a group of this process
         initialize_distributed(next(model.parameters()).device)
     if args.strategy != "dp":
-        from tpudp_torch.parallel.tensor import gpt2_tp_rules
+        from tpudp_torch.parallel.tensor import gpt2_tp_rules, llama_tp_rules
         from tpudp_torch.strategy import build_strategy
 
         shape = ({"data": d * s} if args.strategy in ("fsdp", "zero1")
                  else {"data": d, STRATEGY_AXIS[args.strategy]: s})
         options = {}
         if args.strategy == "tp":
-            options["rules"] = gpt2_tp_rules()
+            options["rules"] = (llama_tp_rules() if args.family == "llama"
+                                else gpt2_tp_rules())
         if args.strategy == "pp":
             options["n_microbatches"] = args.microbatches
         built = build_strategy(args.strategy, model, spec,
@@ -255,7 +293,8 @@ def _rung(args, model, spec, state, world: int):
                 f"sp mesh {{'data': {d}, 'seq': {s}}}")
     mesh = make_mesh()
     state = init_state(model, spec, mesh)
-    return (state, make_train_step(model, spec, mesh, "allreduce"),
+    return (state, make_train_step(model, spec, mesh, "allreduce",
+                                   loss_chunk=args.loss_chunk),
             lambda a: rows(a, mesh.rank, mesh.size), f"dp over {world} ranks")
 
 
@@ -276,7 +315,8 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
         initialize_distributed(device, world, rank, init_method=init_method)
     _, s = mesh_dims(args, world)
     cfg = _model_config(args, s)
-    model = build(cfg, args.seed, device)
+    family = llama if args.family == "llama" else gpt2
+    model = family.build(cfg, args.seed, device)
     spec = make_optimizer(learning_rate=args.lr, momentum=0.9,
                           weight_decay=0.0, clip_norm=args.clip_norm,
                           skip_nonfinite=args.skip_nonfinite)
@@ -284,7 +324,7 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
     state, step, shard_for, label = _rung(args, model, spec,
                                           init_state(model, spec), world)
     say = print if rank == 0 else (lambda *a, **k: None)
-    say(f"[gpt2] params={n_params / 1e6:.1f}M device={device} "
+    say(f"[{args.family}] params={n_params / 1e6:.1f}M device={device} "
         f"attn={cfg.attn_impl} seq_len={args.seq_len} "
         f"batch={args.batch_size} dtype={args.dtype} rung={label}",
         flush=True)
@@ -320,7 +360,7 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
     if args.save_checkpoint:
         ckpt = save_checkpoint(
             os.path.join(args.save_checkpoint, f"step_{args.steps}"), state)
-        say(f"[gpt2] saved checkpoint {ckpt}", flush=True)
+        say(f"[{args.family}] saved checkpoint {ckpt}", flush=True)
     return {"losses": losses, "model": state.model, "state": state,
             "checkpoint": ckpt}
 

@@ -20,9 +20,10 @@ sharded rungs (``strategy='tp'``, ``'fsdp'``, ``'zero1'``, ``'pp'``,
 ``tpudp_torch.mesh.make_mesh_nd`` mesh) are ported, with checkpoint
 resume (``fit(start_epoch=, epoch_end_fn=,
 skip_batches_first_epoch=)``), the heartbeat ``watchdog``, the
-``step_fault_hook`` fault seam and the in-process supervisor
-(``fit(resilience=)``, ``tpudp_torch.resilience``); the options of later
-slices raise ``NotImplementedError`` naming their ROADMAP item.
+``step_fault_hook`` fault seam, the in-process supervisor
+(``fit(resilience=)``, ``tpudp_torch.resilience``), ``remat`` and
+``loss_chunk`` (``tpudp_torch.train.make_train_step``); the options of
+later slices raise ``NotImplementedError`` naming their ROADMAP item.
 
 Under a sharded rung every rank's loaders yield the *global* batches,
 as JAX's single program reads them, and the rung's ``shard_for`` takes
@@ -48,8 +49,6 @@ from tpudp_torch.utils.finite import check_finite
 #: Options of the JAX Trainer this port does not have yet: name -> (the
 #: value that means "off", the ROADMAP.md item that brings it).
 _UNPORTED = {
-    "remat": (False, "slice 6b (remat)"),
-    "loss_chunk": (None, "slice 6b (chunked loss)"),
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
     "track_grad_norm": (False, "slice 8 (obs: device counters)"),
@@ -59,7 +58,7 @@ _UNPORTED = {
 }
 
 
-def _refuse_with_strategy(strategy: str, unported: dict, **options) -> None:
+def _refuse_with_strategy(strategy: str, **options) -> None:
     """JAX's refusals beside a sharded rung (``tpudp/train.py``'s
     Trainer): the DP rung's options raise ``ValueError``."""
     if options["compress"] is not None:
@@ -73,11 +72,11 @@ def _refuse_with_strategy(strategy: str, unported: dict, **options) -> None:
     if options["grad_accum"] != 1:
         raise ValueError(
             f"grad_accum is a DP-rung option (strategy={strategy!r})")
-    if unported.get("remat"):
+    if options["remat"]:
         raise ValueError(
             f"remat is a DP-rung option (strategy={strategy!r}); for pp "
             "pass strategy_options={'remat': True}")
-    if unported.get("loss_chunk"):
+    if options["loss_chunk"]:
         raise ValueError(
             f"loss_chunk is a DP-rung option (strategy={strategy!r})")
     if options["sync"] != "allreduce" or options["spmd_mode"] != "shard_map":
@@ -115,15 +114,16 @@ class Trainer:
                  spmd_mode: str = "shard_map", timing_mode: str = "fused",
                  log_every: int = 20,
                  log_fn: Callable[[str], None] = print, grad_accum: int = 1,
+                 remat: bool = False, loss_chunk: int | None = None,
                  metrics_jsonl: str | None = None,
                  compress: str | None = None, watchdog=None,
                  step_fault_hook: Callable[[str, int], None] | None = None,
                  **unported):
         if strategy != "dp":
-            _refuse_with_strategy(strategy, unported, sync=sync,
-                                  spmd_mode=spmd_mode,
+            _refuse_with_strategy(strategy, sync=sync, spmd_mode=spmd_mode,
                                   timing_mode=timing_mode,
-                                  grad_accum=grad_accum, compress=compress)
+                                  grad_accum=grad_accum, compress=compress,
+                                  remat=remat, loss_chunk=loss_chunk)
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Trainer() got an unexpected keyword "
@@ -135,6 +135,11 @@ class Trainer:
                     f"{item}")
         if timing_mode not in ("fused", "split"):
             raise ValueError(f"unknown timing_mode {timing_mode!r}")
+        if loss_chunk and timing_mode == "split":
+            # The split-mode forward is the dense one, logits and all.
+            raise ValueError(
+                "loss_chunk is incompatible with timing_mode='split' (the "
+                "separately-timed forward materializes the full logits)")
         if compress is not None:
             if mesh is None or spmd_mode != "shard_map":
                 raise ValueError(
@@ -175,10 +180,12 @@ class Trainer:
             self.state = init_state(model, self.optimizer, mesh)
             self.train_step = make_train_step(model, self.optimizer, mesh,
                                               sync, spmd_mode=spmd_mode,
-                                              grad_accum=grad_accum)
+                                              grad_accum=grad_accum,
+                                              remat=remat,
+                                              loss_chunk=loss_chunk)
             self.fwd_step = (make_forward_step(model, mesh)
                              if timing_mode == "split" else None)
-            self.eval_step = make_eval_step(model, mesh)
+            self.eval_step = make_eval_step(model, mesh, loss_chunk)
         else:
             from tpudp_torch.strategy import build_strategy
 
