@@ -289,6 +289,33 @@ which fails the run (nonzero exit, no result line) when it fails:
      ranks), fsdp and zero1 ``2`` and sp ``1x2`` on two gloo ranks, held
      as phase 11's rungs are (``llama-strategy`` lines).  No phase-12
      flash call may go to the dense math;
+  13. (run after phase 12, before the timing phase) 13a, ViT-B/14 at
+     224 (86 M parameters, 256 tokens, 12 heads of 64, 1,000 classes,
+     bfloat16, AdamW, random weights from --seed) trained through
+     ``tpudp_torch.train_vit``'s entry point at the example's ImageNet
+     line (batch 128), once with ``--attn flash`` (K1-K3, non-causal)
+     and once with ``--attn dense``, from the same weights and batches:
+     the flash run must launch K1, K2 and K3 12 times a step each (a
+     profiled step too, by the wrappers' counts, and its profile must
+     record each kernel), send no flash call to the dense math, and
+     its losses must be within VIT_LOSS_RTOL of the dense run's; the two
+     models' logits on one batch within VIT_LOGIT_REL (relative error
+     norm); ``vit`` lines print images/s, ms a step, peak memory and the
+     share of the profiled step's device time in K1-K3, beside the card.
+     13b, VGG-11 under ``vgg_tp_rules`` (each convolution's output
+     channels split over ``model``) at data 1 x model 2 on two gloo
+     ranks of the card, CIFAR geometry, batch 256, float32 with TF32 off
+     and deterministic cuDNN, 3 steps, against the one-rank step on the
+     same global batches: the first loss within VGG_TP_RTOL, the first
+     update of the parameters and running statistics within
+     VGG_TP_UPDATE_REL of its norm over all of them and
+     VGG_TP_TENSOR_REL tensor by tensor (the convolutions' biases, whose
+     gradient through BatchNorm is 0, within VGG_TP_BIAS_ATOL), beside
+     the same readings of the one-rank step on cuDNN's other algorithms,
+     the later losses within
+     VGG_TP_TRAJ_RTOL, no port
+     kernel launched; the ``vgg-tp`` line prints ms a step and the
+     staged collectives' share;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -306,7 +333,9 @@ which fails the run (nonzero exit, no result line) when it fails:
      and the one the kernel targets are held to), ``device_ms`` by
      events around each call queued behind a device spin (the device
      time alone), and ``host_ms`` by the host's clock around that queued
-     call (its submission).
+     call (its submission); the flash kernels then again at 13a's
+     ViT-B/14 shape, non-causal (``vit-b-t256`` lines, not in the JSON
+     line, which carries the GPT-2 shape's records).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -364,7 +393,8 @@ LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
 # 10c's training shape, and 6 heads a rank phase 11's tensor-parallel one
 # (and 12b's LLaMA-GQA tp rank's; its one rank is gpt2-t1024's shape);
 # phase 12a's microbatches are 1 and 2 rows (and 12b's fsdp/zero1 ranks
-# 2), 12c's batch 8.
+# 2), 12c's batch 8; 13a's ViT-B/14 at 224 (256 tokens, non-causal in
+# the model: the case runs both ways, as every case does).
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "gpt2-t1024": (4, 1024, 12, 64),
                "gpt2-tp2-t1024": (4, 1024, 6, 64),
@@ -372,7 +402,8 @@ FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "mpmd-mb2-t1024": (2, 1024, 12, 64),
                "gpt2-b8-t1024": (8, 1024, 12, 64),
                "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
-               "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64)}
+               "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64),
+               "vit-b-t256": (128, 256, 12, 64)}
 # The largest error a 64-token tile of a bf16 flash output may have
 # relative to the reference's norm there: 3x the largest that sound
 # kernels read.  On an H100 the tensor-core kernels read 0.0012-0.0033
@@ -492,6 +523,40 @@ LLAMA_RUNGS = {
 RUNG_TABLES = {"gpt2": STRATEGY_RUNGS, "llama": LLAMA_RUNGS}
 RUNG_VOCAB = {"gpt2": 50_257, "llama": 32_000}
 LOSS_CHUNK = 1024
+# Phase 13a: ViT-B/14 at 224 through train_vit (the example's ImageNet
+# line: batch 128, AdamW), its steps and log window (the first window
+# holds the warm-up), its synthetic set, the batch of the logits check,
+# and the bf16 limits of flash against dense: the logits' relative error
+# norm (bfloat16 roundings through 12 layers; ResNet-50's bf16 logits
+# read 0.005 against the 0.03 of phase 9) and the losses' (phase 6's).
+VIT_BATCH, VIT_STEPS, VIT_LOG_EVERY, VIT_TRAIN = 128, 9, 3, 512
+VIT_CHECK_BATCH, VIT_LOGIT_REL, VIT_LOSS_RTOL = 16, 3e-2, 2e-2
+# Phase 13b: VGG-11 under vgg_tp_rules at data 1 x model 2 (two gloo
+# ranks on the card), CIFAR geometry, float32, TF32 off, deterministic
+# cuDNN: global batch, steps, the ranks' limit, and the limits against
+# the one-rank step on the same batches.  The split convolutions change
+# the summation order only (cuDNN picks other algorithms at half the
+# output channels), so the first step is held tight: its loss
+# (relative) and its update of the parameters and running statistics,
+# as the norm of the difference from one rank's update over the norm of
+# that update, over all of them (VGG_TP_UPDATE_REL) and tensor by tensor
+# (VGG_TP_TENSOR_REL).  A gradient sums up to 262,144 products a
+# channel whose signs cancel (BatchNorm's scale: the normalized input
+# sums to zero over the batch), so its float32 rounding is large beside
+# it: a probe on an H100 read 1.2e-3 at BatchNorm scales, with every
+# convolution below that; a fault in a collective's gradient moves an
+# update by its own size.  A convolution's bias feeds a BatchNorm, which
+# takes the batch mean out: its gradient is 0 in exact arithmetic and
+# rounding noise in either run, so its update is held absolutely
+# (VGG_TP_BIAS_ATOL; the probe read 2.8e-9).  The one-rank step with
+# cuDNN's other algorithms (benchmark mode) is measured the same way,
+# as the rounding's own spread.  VGG-11 on random data then magnifies a
+# rounding about 30-fold a step (the probe: 7.5e-8, 2.5e-6, 7.9e-5 over
+# the three losses; phase 7a documents the same for Part 1), so the
+# later losses are held to VGG_TP_TRAJ_RTOL, ten times that reading.
+VGG_TP_BATCH, VGG_TP_STEPS, VGG_TP_TIMEOUT = 256, 3, 300
+VGG_TP_RTOL, VGG_TP_UPDATE_REL, VGG_TP_TENSOR_REL = 1e-6, 1e-3, 1e-2
+VGG_TP_TRAJ_RTOL, VGG_TP_BIAS_ATOL = 1e-3, 1e-7
 
 
 class SmokeFailure(RuntimeError):
@@ -2033,12 +2098,14 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def profile_call(torch, fn, categorize=kernel_category) -> dict | None:
+def profile_call(torch, fn, categorize=kernel_category,
+                 cpu_top: int = 0) -> dict | None:
     """Device time of one call of ``fn`` by kernel category (ms), the
     largest kernels outside the port's own and the matmuls, the number
     of device kernels and the device's busy share of the call's wall
     time, from ``torch.profiler``; None when the profiler saw no device
-    kernel."""
+    kernel.  ``cpu_top``: also the host operators of the most self CPU
+    time (ms), that many."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2056,12 +2123,14 @@ def profile_call(torch, fn, categorize=kernel_category) -> dict | None:
     if not kernels:
         return None
     by_cat: dict[str, float] = {}
+    counts: dict[str, int] = {}
     other: dict[str, float] = {}
     by_name: dict[str, float] = {}
     for e in kernels:
         cat = categorize(e.name)
         ms = e.time_range.elapsed_us() / 1e3
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
+        counts[cat] = counts.get(cat, 0) + 1
         by_name[e.name[:70]] = by_name.get(e.name[:70], 0.0) + ms
         if cat == "other":
             other[e.name[:70]] = other.get(e.name[:70], 0.0) + ms
@@ -2070,8 +2139,15 @@ def profile_call(torch, fn, categorize=kernel_category) -> dict | None:
                              for e in kernels):
         busy_us += max(0.0, end - max(start, edge))
         edge = max(edge, end)
+    top_cpu = {}
+    if cpu_top:
+        ops = sorted(prof.key_averages(),
+                     key=lambda e: -e.self_cpu_time_total)[:cpu_top]
+        top_cpu = {e.key[:50]: round(e.self_cpu_time_total / 1e3, 3)
+                   for e in ops}
     return {"wall_ms": wall_us / 1e3, "busy_share": busy_us / wall_us,
-            "kernels": len(kernels),
+            "kernels": len(kernels), "counts": counts,
+            "top_cpu_ms": top_cpu,
             "device_ms": {k: round(v, 3) for k, v in sorted(
                 by_cat.items(), key=lambda kv: -kv[1])},
             "top_other_ms": {k: round(v, 3) for k, v in sorted(
@@ -4151,6 +4227,375 @@ def phase12_path(torch, np, fa, seed: int) -> dict:
     return launches
 
 
+# -- phase 13: ViT-B/14 through the flash kernels, VGG-11 under tp -------
+
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def vit_argv(attn: str, seed: int) -> list[str]:
+    """``train_vit``'s flags for ViT-B/14 at 224, the example's ImageNet
+    line (AdamW, bfloat16), at phase 13a's steps."""
+    return ["--variant", "base", "--image-size", "224", "--patch-size",
+            "14", "--num-classes", "1000", "--attn", attn, "--batch-size",
+            str(VIT_BATCH), "--steps", str(VIT_STEPS), "--train-size",
+            str(VIT_TRAIN), "--log-every", str(VIT_LOG_EVERY), "--dtype",
+            "bfloat16", "--seed", str(seed)]
+
+
+def flash_counts(prof: dict | None) -> dict:
+    """The profiled launches of K1, K2 and K3 (their kernels' names:
+    ``tpudp::...flash_fwd...``, ``flash_dq``, ``flash_dkv``)."""
+    counts = {} if prof is None else prof["counts"]
+    return {k: sum(n for cat, n in counts.items() if k + "_" in cat)
+            for k in FLASH_KERNELS}
+
+
+def vit_run(torch, np, fa, attn: str, seed: int) -> dict:
+    """``train_vit.main`` on phase 13a's flags with its output captured,
+    the flash launches and ``attention.dense_routes`` set to 0 just
+    before and read just after; then one more step on a device batch
+    under ``torch.profiler``.  Every loss must be finite and printed."""
+    from tpudp_torch import train_vit
+    from tpudp_torch.ops import attention
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in fa.KERNELS.values():
+        fn.launches = 0
+    routes = attention.dense_routes
+    run, text = run_quiet(lambda: train_vit.main(vit_argv(attn, seed)))
+    run["launches"] = {k: fn.launches for k, fn in fa.KERNELS.items()}
+    run["dense_routes"] = attention.dense_routes - routes
+    run["peak"] = torch.cuda.max_memory_allocated()
+    losses = [r["loss"] for r in run["records"]]
+    lines = [line for line in text.splitlines()
+             if line.startswith("step ") and "images/s" in line]
+    if not losses or len(lines) != len(losses) or not all(
+            np.isfinite(losses)):
+        raise SmokeFailure(f"vit {attn}: losses {losses}, lines {lines}")
+    run["banner"] = text.splitlines()[0]
+    g = torch.Generator("cuda").manual_seed(seed)
+    x = torch.randn((VIT_BATCH, 224, 224, 3), generator=g, device="cuda")
+    y = torch.randint(0, 1000, (VIT_BATCH,), generator=g, device="cuda")
+    before = {k: fn.launches for k, fn in fa.KERNELS.items()}
+    run["profile"] = profile_call(torch, lambda: run["step"](run["state"],
+                                                             x, y),
+                                  cpu_top=8)
+    run["profiled_launches"] = {k: fn.launches - before[k]
+                                for k, fn in fa.KERNELS.items()}
+    for key in ("model", "state", "step"):
+        run.pop(key)
+    torch.cuda.empty_cache()
+    return run
+
+
+def vit_logits_check(torch, np, seed: int) -> float:
+    """ViT-B/14's logits, flash against dense, from the same
+    ``random_params(seed)`` on one batch: the relative error norm."""
+    from tpudp_torch.models import vit
+
+    g = torch.Generator("cuda").manual_seed(seed + 1)
+    x = torch.randn((VIT_CHECK_BATCH, 224, 224, 3), generator=g,
+                    device="cuda")
+    out = {}
+    for attn in ("flash", "dense"):
+        model = vit.build(vit.ViTConfig(
+            image_size=224, patch_size=14, num_classes=1000, num_layers=12,
+            num_heads=12, d_model=768, dtype=torch.bfloat16,
+            attn_impl=attn), seed, "cuda")
+        with torch.no_grad():
+            out[attn] = model(x).float()
+        del model
+    if not all(torch.isfinite(v).all() for v in out.values()):
+        raise SmokeFailure("vit logits are not finite")
+    return ((out["flash"] - out["dense"]).norm()
+            / out["dense"].norm()).item()
+
+
+def vit_path(torch, np, fa, seed: int, card: str) -> dict:
+    """13a: ViT-B/14 at 224, bf16, trained through ``train_vit`` with
+    flash attention (K1-K3, non-causal, 256 tokens) and with dense
+    attention from the same weights and batches; returns the flash run's
+    launches."""
+    t0 = time.perf_counter()
+    runs = {attn: vit_run(torch, np, fa, attn, seed)
+            for attn in ("flash", "dense")}
+    rel_logits = vit_logits_check(torch, np, seed)
+    flash, dense = runs["flash"], runs["dense"]
+    failures = []
+    for attn, run in runs.items():
+        steady = run["records"][1:]
+        ms = 1e3 * sum(r["seconds"] for r in steady) / (
+            VIT_LOG_EVERY * len(steady))
+        ips = sum(r["images_s"] for r in steady) / len(steady)
+        prof = run["profile"]
+        counts = flash_counts(prof)
+        if prof is None:
+            prof_text = ("profiler saw no device kernel: device time not "
+                         "measured")
+            share = None
+        else:
+            total = sum(prof["device_ms"].values())
+            flash_ms = sum(v for cat, v in prof["device_ms"].items()
+                           if any(k + "_" in cat for k in FLASH_KERNELS))
+            share = flash_ms / total
+            prof_text = (f"profiled step {prof['wall_ms']:.1f} ms wall, "
+                         f"device busy {100 * prof['busy_share']:.1f}%, "
+                         f"K1-K3 {flash_ms:.3f} of {total:.3f} device ms "
+                         f"({100 * share:.2f}%), K1-K3 launches in it "
+                         f"{run['profiled_launches']} (the profiler "
+                         f"recorded {counts}), device ms by kernel "
+                         f"{prof['device_ms']}, largest other kernels "
+                         f"{prof['top_other_ms']}, host operators by self "
+                         f"CPU ms {prof['top_cpu_ms']}")
+        print(f"vit {attn}: {run['banner']}; {card}; losses "
+              f"{[round(r['loss'], 4) for r in run['records']]} (windows "
+              f"of {VIT_LOG_EVERY} steps); {ips:,.1f} images/s and "
+              f"{ms:.1f} ms a step over the windows after the first; peak "
+              f"{run['peak'] / 2**30:.2f} GiB; flash launches "
+              f"{run['launches']}; {prof_text}", flush=True)
+        # The wrappers count each launch; the profiler shows the kernels
+        # on the device, but can drop some of a step's ~1,500 records
+        # (a full run on an H100 recorded 10 of the 12 K1 launches its
+        # wrapper counted): it must record each kernel, and never more.
+        launched = run["profiled_launches"]
+        if attn == "flash":
+            if any(n != 12 for n in launched.values()) or prof is None \
+                    or not all(1 <= n <= 12 for n in counts.values()):
+                failures.append(f"the profiled flash step launched "
+                                f"{launched} (12 each expected), the "
+                                f"profiler recorded {counts}")
+        elif any(launched.values()) or any(counts.values()):
+            failures.append(f"the dense profiled step launched {launched}, "
+                            f"the profiler recorded {counts}")
+    want = 12 * VIT_STEPS
+    if any(flash["launches"][k] != want for k in FLASH_KERNELS):
+        failures.append(f"flash run launched {flash['launches']} in "
+                        f"{VIT_STEPS} steps of 12 layers ({want} each)")
+    if any(dense["launches"].values()):
+        failures.append(f"dense run launched {dense['launches']}")
+    if flash["dense_routes"]:
+        failures.append(f"{flash['dense_routes']} flash calls went to the "
+                        "dense math")
+    rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(flash["records"], dense["records"]))
+    print(f"vit: flash and dense from the same weights: logits relative "
+          f"error norm {rel_logits:.3e} (limit {VIT_LOGIT_REL}), losses max "
+          f"relative difference {rel:.3e} (rtol {VIT_LOSS_RTOL}); phase "
+          f"13a {time.perf_counter() - t0:.1f}s", flush=True)
+    if rel_logits > VIT_LOGIT_REL:
+        failures.append(f"logits {rel_logits:.3e}")
+    if rel > VIT_LOSS_RTOL:
+        failures.append(f"losses {rel:.3e}")
+    if failures:
+        raise SmokeFailure(f"vit: {failures}")
+    return flash["launches"]
+
+
+def vgg_tp_batches(np, seed: int = 13) -> list:
+    """Numpy-seeded CIFAR-shaped global batches (NHWC float32) and
+    labels, VGG_TP_STEPS of them."""
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=(VGG_TP_BATCH, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, 10, size=VGG_TP_BATCH).astype(np.int64))
+            for _ in range(VGG_TP_STEPS)]
+
+
+def vgg_tp_model(torch, seed: int, deterministic: bool = True):
+    from tpudp_torch.models import vgg
+
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cudnn.benchmark = not deterministic
+    return vgg.build(vgg.CONFIGS["VGG11"], seed, "cuda")
+
+
+def vgg_tp_rank(rank: int, world: int, init_method: str, seed: int,
+                results) -> None:
+    """13b: one of two ranks on the card over gloo: VGG-11 under
+    ``vgg_tp_rules`` at data 1 x model 2, its steps timed as phase 11's
+    rungs (:func:`timed_steps`), and its state after the first step in
+    JAX's global layout (the checkpoint tree)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.parallel.tensor import vgg_tp_rules
+    from tpudp_torch.strategy import build_strategy
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    out = {"rank": rank}
+    try:
+        model = vgg_tp_model(torch, seed)
+        spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
+                                    weight_decay=1e-4)
+        built = build_strategy("tp", model, spec,
+                               make_mesh_nd({"data": 1, "model": world}),
+                               train.init_state(model, spec),
+                               rules=vgg_tp_rules())
+        del model
+        batches = vgg_tp_batches(np)
+        first = timed_steps(torch, built, batches[:1])
+        tree = train.state_to_jax(built.state)  # every rank gathers
+        rest = timed_steps(torch, built, batches[1:])
+        out.update(rest)
+        for key in ("losses", "ms", "comm_ms", "calls"):
+            out[key] = first[key] + rest[key]
+        out["peak_gib"] = max(first["peak_gib"], rest["peak_gib"])
+        out["launches"] = {k: first["launches"][k] + v
+                           for k, v in rest["launches"].items()}
+        out["local_shapes"] = {
+            k: tuple(v.shape) for k, v in
+            built.state.model.state_dict().items()
+            if k in ("convs.0.weight", "fc.weight")}
+        if rank == 0:
+            # numpy crosses the queue by value (a tensor would be shared
+            # by a descriptor this process closes when it exits)
+            out["tree"] = {k: {n: {f: t.cpu().numpy() for f, t in
+                                   leaf.items()}
+                               for n, leaf in tree[k].items()}
+                           for k in ("params", "batch_stats")}
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        results.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def vgg_tp_reference(torch, np, seed: int,
+                     deterministic: bool = True) -> dict:
+    """The one-rank step on 13b's global batches: losses, ms a step,
+    peak memory, and the state dict before and after the first step
+    (``deterministic=False``: cuDNN's benchmark-mode algorithms)."""
+    from tpudp_torch import train
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    try:
+        model = vgg_tp_model(torch, seed, deterministic)
+        spec = train.make_optimizer(learning_rate=0.01, momentum=0.9,
+                                    weight_decay=1e-4)
+        state = train.init_state(model, spec)
+        step = train.make_train_step(model, spec)
+        out = {"losses": [], "ms": [],
+               "init": {k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()}}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for x, y in vgg_tp_batches(np):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, torch.as_tensor(x, device="cuda"),
+                               torch.as_tensor(y, device="cuda"))
+            out["losses"].append(float(loss))
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            if "first" not in out:
+                out["first"] = {k: v.detach().cpu().clone()
+                                for k, v in model.state_dict().items()}
+        out["peak"] = torch.cuda.max_memory_allocated()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def vgg_tp_path(torch, np, seed: int, card: str) -> None:
+    """13b: VGG-11 under tp on two gloo ranks of the card against the
+    one-rank step on the same global batches."""
+    from tpudp_torch.models import vgg
+
+    t0 = time.perf_counter()
+    ref = vgg_tp_reference(torch, np, seed)
+    alt = vgg_tp_reference(torch, np, seed, deterministic=False)
+    got = run_ranks(vgg_tp_rank, (seed,), VGG_TP_TIMEOUT, "vgg-tp")
+    a, b = got
+    tp = vgg.params_from_jax(a["tree"]["params"], a["tree"]["batch_stats"])
+    names = [k for k, v in ref["first"].items() if v.is_floating_point()]
+    # a convolution's bias has no gradient through its BatchNorm
+    bias = [k for k in names if k.startswith("convs.")
+            and k.endswith(".bias")]
+    held = [k for k in names if k not in bias]
+
+    def update_errors(state):
+        """The first update's relative error against one rank's: over
+        every held tensor, tensor by tensor (the three largest), and the
+        convolutions' biases' largest absolute difference."""
+        diff = {k: state[k] - ref["first"][k] for k in names}
+        step = {k: ref["first"][k] - ref["init"][k] for k in held}
+        per = {k: (diff[k].norm() / step[k].norm().clamp_min(1e-30)).item()
+               for k in held}
+        total = (torch.cat([diff[k].reshape(-1) for k in held]).norm()
+                 / torch.cat([step[k].reshape(-1) for k in held]).norm())
+        top = dict(sorted(per.items(), key=lambda kv: -kv[1])[:3])
+        return (total.item(), top,
+                max(diff[k].abs().max().item() for k in bias))
+
+    total, top, bias_err = update_errors(tp)
+    a_total, a_top, a_bias = update_errors(alt["first"])
+    rels = [abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                ref["losses"])]
+    steady = sum(a["ms"][1:]) / len(a["ms"][1:])
+    share = sum(a["comm_ms"][1:]) / sum(a["ms"][1:])
+
+    def fmt(errors: dict) -> dict:
+        return {k: "%.3e" % v for k, v in errors.items()}
+
+    print(f"vgg-tp: VGG-11 under vgg_tp_rules, mesh data 1 x model 2, 2 "
+          f"gloo ranks on one card, float32, TF32 off, global batch "
+          f"{VGG_TP_BATCH}; {card}; local shapes {a['local_shapes']}; "
+          f"losses {[repr(x) for x in a['losses']]}, one rank "
+          f"{[repr(x) for x in ref['losses']]}: relative differences "
+          f"{['%.3e' % r for r in rels]} (rtol {VGG_TP_RTOL} at the first "
+          f"step, {VGG_TP_TRAJ_RTOL} after); the first update against one "
+          f"rank's: {total:.3e} over every parameter and running "
+          f"statistic (limit {VGG_TP_UPDATE_REL}), the largest tensors "
+          f"{fmt(top)} (limit {VGG_TP_TENSOR_REL}), the convolutions' "
+          f"biases {bias_err:.3e} (atol {VGG_TP_BIAS_ATOL}); one rank on "
+          f"cuDNN's benchmark-mode algorithms: {a_total:.3e}, "
+          f"{fmt(a_top)}, {a_bias:.3e}, losses "
+          f"{[repr(x) for x in alt['losses']]}; ms a step "
+          f"{[round(x, 1) for x in a['ms']]} (rank 1 "
+          f"{[round(x, 1) for x in b['ms']]}; mean after the first "
+          f"{steady:.1f}; one rank {[round(x, 1) for x in ref['ms']]}); "
+          f"collectives wall ms a step {[round(x, 1) for x in a['comm_ms']]}"
+          f" ({100 * share:.0f}% of the steps after the first; gloo, "
+          f"(calls, staged) a step {a['calls'][-1]}); peak memory GiB "
+          f"{a['peak_gib']:.2f} / {b['peak_gib']:.2f} (one rank "
+          f"{ref['peak'] / 2**30:.2f}); flash launches {a['launches']}; "
+          f"phase 13b {time.perf_counter() - t0:.1f}s", flush=True)
+    failures = []
+    if rels[0] > VGG_TP_RTOL:
+        failures.append(f"first loss {rels[0]:.3e} from one rank's")
+    if max(rels) > VGG_TP_TRAJ_RTOL:
+        failures.append(f"losses {max(rels):.3e} from one rank's")
+    if total > VGG_TP_UPDATE_REL:
+        failures.append(f"the first update {total:.3e} from one rank's")
+    if max(top.values()) > VGG_TP_TENSOR_REL:
+        failures.append(f"the first update of {fmt(top)} from one rank's")
+    if bias_err > VGG_TP_BIAS_ATOL:
+        failures.append(f"a convolution's bias {bias_err:.3e} from one "
+                        "rank's")
+    if a["losses"] != b["losses"]:
+        failures.append("the ranks' losses differ")
+    if any(a["launches"].values()) or any(b["launches"].values()):
+        failures.append(f"the VGG rung launched a port kernel: "
+                        f"{a['launches']}")
+    if a["local_shapes"]["convs.0.weight"][0] != 32:
+        failures.append(f"the first conv is not split: {a['local_shapes']}")
+    if failures:
+        raise SmokeFailure(f"vgg-tp: {failures}")
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -4421,33 +4866,38 @@ def flash_bound(kind, b, t, h, dh, itemsize, causal):
             "flash_dkv": (6 * elems + 2 * rows, 8 * dh * pairs)}[kind]
 
 
-def flash_timings(torch, fa, launches):
-    """K1, K2 and K3 at the training main path's shapes (b 4, t 2048, h
-    12, dh 64, bfloat16, causal), on projection views, beside their
-    plain versions and SDPA's causal forward / autograd backward."""
+def flash_timings(torch, fa, launches, shape=(TRAIN_BATCH, TRAIN_T, 12, 64),
+                  causal: bool = True, case: str | None = None):
+    """K1, K2 and K3 at a training path's shapes — by default the GPT-2
+    main path's (b 4, t 2048, h 12, dh 64, causal) — in bfloat16, on
+    projection views, beside their plain versions and SDPA's forward /
+    autograd backward; ``case`` tags the records (and their lines)."""
     import torch.nn.functional as F
 
-    b, t, h, dh = TRAIN_BATCH, TRAIN_T, 12, 64
+    b, t, h, dh = shape
     _, q, k, v, do = projection_views(torch, b, t, h, dh, torch.bfloat16, 7)
-    o, lse = fa.flash_fwd(q, k, v, causal=True)
+    o, lse = fa.flash_fwd(q, k, v, causal=causal)
     delta = fa._delta(o, do)
     qd, kd, vd = (x.transpose(1, 2).contiguous().requires_grad_(True)
                   for x in (q, k, v))
     dod = do.transpose(1, 2).contiguous()
-    sdpa_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=True)
+    sdpa_out = F.scaled_dot_product_attention(qd, kd, vd, is_causal=causal)
     sdpa_fwd_ms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-        qd, kd, vd, is_causal=True), n=20)
+        qd, kd, vd, is_causal=causal), n=20)
     sdpa_bwd_ms = time_ms(torch, lambda i: torch.autograd.grad(
         sdpa_out, (qd, kd, vd), dod, retain_graph=True), n=20)
     fns = {
-        "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, causal=True),
-                      lambda i: fa._flash_fwd_plain(q, k, v, True),
+        "flash_fwd": (lambda i: fa.flash_fwd(q, k, v, causal=causal),
+                      lambda i: fa._flash_fwd_plain(q, k, v, causal),
                       sdpa_fwd_ms),
-        "flash_dq": (lambda i: fa.flash_dq(q, k, v, do, lse, delta),
-                     lambda i: fa._dq_plain(q, k, v, do, lse, delta, True),
+        "flash_dq": (lambda i: fa.flash_dq(q, k, v, do, lse, delta,
+                                           causal=causal),
+                     lambda i: fa._dq_plain(q, k, v, do, lse, delta, causal),
                      sdpa_bwd_ms),
-        "flash_dkv": (lambda i: fa.flash_dkv(q, k, v, do, lse, delta),
-                      lambda i: fa._dkv_plain(q, k, v, do, lse, delta, True),
+        "flash_dkv": (lambda i: fa.flash_dkv(q, k, v, do, lse, delta,
+                                             causal=causal),
+                      lambda i: fa._dkv_plain(q, k, v, do, lse, delta,
+                                              causal),
                       sdpa_bwd_ms),
     }
     records = []
@@ -4460,7 +4910,7 @@ def flash_timings(torch, fa, launches):
             got, want = (got,), (want,)
         err = max((g.float() - w.float()).abs().max().item()
                   for g, w in zip(got, want))
-        bytes_, flops = flash_bound(name, b, t, h, dh, 2, True)
+        bytes_, flops = flash_bound(name, b, t, h, dh, 2, causal)
         t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
         records.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4468,11 +4918,15 @@ def flash_timings(torch, fa, launches):
             "max_abs_err": err, **timed("", ms), **timed("plain_", plain_ms),
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            **timed("library_", library_ms)})
+            **timed("library_", library_ms),
+            **({"case": case} if case else {})})
+    kind = "" if causal else " full"
     for r in records:
-        print(timing_line(r, "sdpa forward" if r["name"] == "flash_fwd"
-                          else "sdpa backward"), flush=True)
-    print(f"timing flash backward (dq + dk/dv kernels): "
+        print(timing_line(r, f"sdpa{kind} forward"
+                          if r["name"] == "flash_fwd"
+                          else f"sdpa{kind} backward"), flush=True)
+    print(f"timing flash backward{' ' + case if case else ''} (dq + dk/dv "
+          f"kernels): "
           f"{records[1]['ms'] + records[2]['ms']:.4f} ms (device "
           f"{records[1]['device_ms'] + records[2]['device_ms']:.4f}), sdpa "
           f"backward {sdpa_bwd_ms[0]:.4f} ms (device {sdpa_bwd_ms[1]:.4f})",
@@ -4567,8 +5021,15 @@ def main(argv=None) -> int:
         phase12_launches = phase12_path(torch, np, fa, args.seed)
         print(f"phase 12: flash launches (rank 0) {phase12_launches}",
               flush=True)
+        vit_launches = vit_path(torch, np, fa, args.seed, card)
+        vgg_tp_path(torch, np, args.seed, card)
         records = timings(torch, pa, model, prompts, launches)
-        records += flash_timings(torch, fa, train_launches)
+        # K1-K3's main-path launches: phase 6's GPT-2 steps and 13a's
+        # ViT-B/14 steps, each counted from 0 over its run.
+        records += flash_timings(torch, fa, {
+            k: train_launches[k] + vit_launches[k] for k in FLASH_KERNELS})
+        flash_timings(torch, fa, vit_launches, (VIT_BATCH, 256, 12, 64),
+                      causal=False, case="vit-b-t256")
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -358,6 +358,33 @@ def test_verify_catches_a_flipped_byte(tmp_path):
         ck.restore_checkpoint(path, _small_state(), verify=True)
 
 
+def test_force_and_manifest_are_jax_options(tmp_path):
+    """``save_checkpoint(path, state, force=True, manifest=True)`` is
+    JAX's signature (sync and async): ``force=False`` refuses an
+    existing path as orbax does, ``manifest=False`` writes none, and such
+    a checkpoint restores with ``verify=True`` vacuously, as JAX's."""
+    state = _small_state(step=1)
+    path = ck.save_checkpoint(tmp_path / "step_1", state, force=True,
+                              manifest=True)
+    assert os.path.exists(ck.manifest_path(path))
+    with pytest.raises(ValueError, match="already exists"):
+        ck.save_checkpoint(path, state, force=False)
+    path = ck.save_checkpoint(path, state, manifest=False)  # replaced
+    assert not os.path.exists(ck.manifest_path(path))
+    assert ck.verify_restored(path, ck.restore_checkpoint(path))[0]
+    ck.restore_checkpoint(path, _small_state(), verify=True)
+    fresh = ck.save_checkpoint(tmp_path / "new", state, force=False)
+    assert os.path.exists(ck.manifest_path(fresh))
+    with ck.AsyncCheckpointWriter() as writer:
+        a = writer.save(tmp_path / "async", state, manifest=False)
+        writer.wait()
+        assert not os.path.exists(ck.manifest_path(a))
+        with pytest.raises(ValueError, match="already exists"):
+            writer.save(a, state, force=False)
+        writer.save(a, state, force=True, manifest=True)
+    assert os.path.exists(ck.manifest_path(a))
+
+
 def test_ensure_writable_probe(tmp_path):
     root = ck.ensure_writable(tmp_path / "a" / "b")
     assert os.path.isdir(root) and os.listdir(root) == []

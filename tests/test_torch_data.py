@@ -88,6 +88,11 @@ SAMPLER_CASES = [
     dict(dataset_size=43, num_shards=2, shuffle=False),
     dict(dataset_size=48, num_shards=1, shuffle=True, seed=3),
     dict(dataset_size=10, num_shards=3, shuffle=False),
+    # the reference's order: the same shuffle every epoch
+    dict(dataset_size=103, num_shards=4, shuffle=True, seed=7,
+         reshuffle_each_epoch=False),
+    dict(dataset_size=10, num_shards=3, shuffle=False,
+         reshuffle_each_epoch=False),
 ]
 
 
@@ -106,6 +111,17 @@ def test_sampler_matches_jax(case):
                 np.testing.assert_array_equal(a, b)
     with pytest.raises(ValueError):
         ShardedSampler(n, shards, shards)
+
+
+def test_sampler_batch_contiguous_is_refused_by_name():
+    """JAX's default ``batch_contiguous=None`` constructs; a global batch
+    (elastic restore's layout) is refused, naming why."""
+    ShardedSampler(64, 2, 1, batch_contiguous=None)
+    JaxSampler(64, 2, 1, batch_contiguous=16)  # JAX takes it
+    with pytest.raises(NotImplementedError, match="elastic restore"):
+        ShardedSampler(64, 2, 1, batch_contiguous=16)
+    fixed = ShardedSampler(20, 1, 0, reshuffle_each_epoch=False)
+    np.testing.assert_array_equal(fixed.indices(0), fixed.indices(5))
 
 
 def _images(n, seed=0):

@@ -9,7 +9,9 @@ on ``make_mesh(2)`` and on ``mesh4`` (device r takes the rows rank r
 takes).  Parameters, BatchNorm running statistics and per-step losses
 agree at ``tests/test_sync.py``'s tolerances, the int8 rungs within
 their quantization grid; every rank ends with the same state.  The
-eval sums and a GPT-2 tiny step at world 2 are held to JAX likewise.
+eval sums and a GPT-2 tiny step at world 2 are held to JAX likewise, and
+so are the tiny ViT's steps under the all-reduce rung at world 2, through
+``make_train_step`` and through the Trainer.
 """
 
 import jax
@@ -38,7 +40,8 @@ BF16 = dict(rtol=2e-2, atol=2e-2)
 def port_worlds(tmp_path_factory):
     """Each world's per-rank results, from one spawn per world."""
     return {n: w.run_world(tmp_path_factory.mktemp(f"world{n}"), n,
-                           ["steps", "eval"] + (["gpt2"] if n == 2 else []))
+                           ["steps", "eval"]
+                           + (["gpt2", "vit"] if n == 2 else []))
             for n in (2, 4)}
 
 
@@ -170,3 +173,35 @@ def test_gpt2_step_matches_jax_at_world_2(port_worlds):
             np.testing.assert_allclose(got["state"][name].numpy(),
                                        value.numpy(), rtol=1e-5, atol=1e-5,
                                        err_msg=name)
+
+
+def test_vit_allreduce_matches_jax_at_world_2(port_worlds):
+    """The tiny ViT (16/4, 2 layers, d 32), 3 SGD steps with the
+    all-reduce rung at world 2, against JAX's make_train_step on a
+    2-device mesh (losses and parameters at 1e-5); the port's
+    ``Trainer(vit, mesh, sync='allreduce')`` trains the same steps."""
+    from tpudp.models.vit import ViT as JaxViT
+    from tpudp.models.vit import ViTConfig as JaxViTConfig
+
+    model = JaxViT(JaxViTConfig(**w.VIT_CFG))
+    tx = jax_make_optimizer(**w.SGD)
+    params = jax.tree.map(jnp.asarray, w.vit_tree())
+    state = jax_init_state(model, tx, input_shape=(1, 16, 16, 3)).replace(
+        params=params, opt_state=tx.init(params))
+    step = jax_make_train_step(model, tx, jax_make_mesh(2), "allreduce",
+                               donate=False)
+    losses = []
+    for x, y in w.vit_batches(2):
+        state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+        losses.append(float(loss))
+    want = jax.device_get(state.params)
+    for rank in port_worlds[2]:
+        got = rank["vit"]
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got["trainer_loss_sum"], sum(losses),
+                                   rtol=1e-5)
+        for key in ("params", "trainer_params"):
+            jax.tree.map(lambda a, b: np.testing.assert_allclose(
+                np.asarray(b), np.asarray(a), rtol=1e-5, atol=1e-5),
+                want, got[key])

@@ -155,10 +155,12 @@ PORTED_OPTIONS = {"drafter_timeout_s": "drafter_timeout_s",
 @pytest.mark.parametrize("option,value", [
     ("drafter_timeout_s", 0.5), ("step_timeout_s", 1.0),
     ("prefix_cache_blocks", 8), ("models", {"draft": None}),
-    ("tenants", {}), ("canary_every_s", 1.0)])
+    ("tenants", {}), ("canary_every_s", 1.0), ("obs", False),
+    ("flight_dir", "flight")])
 def test_unported_options_raise(setup, option, value):
     """Options of later slices raise naming their ROADMAP item; the
-    robustness options construct (and their "off" values do too)."""
+    robustness options construct (and their "off" values do too, as do
+    JAX's defaults ``obs=True`` and ``flight_dir=None``)."""
     _, _, model, _, _ = setup
     if option in PORTED_OPTIONS:
         eng = Engine(model, device="cpu", max_len=48, **{option: value})
@@ -169,7 +171,7 @@ def test_unported_options_raise(setup, option, value):
     Engine(model, device="cpu", max_len=48, **{option: {
         "drafter_timeout_s": None, "step_timeout_s": None,
         "prefix_cache_blocks": 0, "models": None, "tenants": None,
-        "canary_every_s": None}[option]})
+        "canary_every_s": None, "obs": True, "flight_dir": None}[option]})
     with pytest.raises(TypeError, match="unexpected"):
         Engine(model, device="cpu", no_such_option=1)
 

@@ -234,18 +234,22 @@ def test_trainer_refuses_unported_options():
                    {"track_sdc_fingerprint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **kwargs)
-    # strategies are ported: tp needs a mesh, and VGG's TP rules are
-    # the LLaMA/VGG item's
+    # strategies are ported: tp needs a mesh; the VGG trains under its
+    # TP rules, a ResNet under them is refused naming its ROADMAP item
     with pytest.raises(ValueError, match="needs a device mesh"):
         Trainer(model, strategy="tp")
     from tpudp_torch.mesh import MeshND
+    from tpudp_torch.models import resnet
     from tpudp_torch.parallel.tensor import vgg_tp_rules
 
     mesh = MeshND(shape={"data": 1, "model": 2}, rank=0,
                   coords={"data": 0, "model": 0},
                   groups={"data": None, "model": None})
+    tp = Trainer(model, mesh, strategy="tp",
+                 strategy_options={"rules": vgg_tp_rules()})
+    assert tuple(tp.state.model.convs[0].weight.shape) == (4, 3, 3, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, mesh, strategy="tp",
+        Trainer(resnet.ResNet((1, 1), 10, 16), mesh, strategy="tp",
                 strategy_options={"rules": vgg_tp_rules()})
     with pytest.raises(ValueError, match="spmd_mode"):
         Trainer(model, spmd_mode="auto")

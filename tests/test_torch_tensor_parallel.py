@@ -1,8 +1,9 @@
 """The port's tensor-parallel, FSDP and ZeRO-1 rungs against the JAX
 package's GSPMD rungs, on the CPU.
 
-One gloo world of 4 ranks (``tests/torch_dp_worker.py``, jobs ``tp`` and
-``fsdp``) trains the JAX tests' tiny GPT-2 (vocab 64, 4 heads, d 32) for
+One gloo world of 4 ranks (``tests/torch_dp_worker.py``, jobs ``tp``,
+``fsdp`` and ``vgg_tp``) trains the JAX tests' tiny GPT-2 (vocab 64, 4
+heads, d 32) for
 3 steps: TP on a (2, 2) mesh (Megatron by hand, ``qkv`` split by heads,
 ``wte`` vocab-split) against ``make_tp_train_step``, FSDP and ZeRO-1
 over 4 ranks (min_size 128) against ``make_fsdp_train_step`` /
@@ -11,6 +12,13 @@ over 4 ranks (min_size 128) against ``make_fsdp_train_step`` /
 2e-4).  Each rank's state bytes show the sharding: FSDP holds about 1/4
 of the parameters and of the momentum, ZeRO-1 about 1/4 of the momentum.
 The rule tables and FSDP's dim choice are held to JAX's.
+
+The same world trains the narrow VGG of ``tests/test_torch_dp_train.py``
+under ``vgg_tp_rules`` (each convolution's output channels split over
+``model``) on meshes (2, 2) and (1, 4) — at 4 the 10-class classifier
+stays whole — against JAX's ``make_tp_train_step`` with the same rules
+(the single-device step on the global batch), and the tiny ViT under
+fsdp and zero1 against JAX's rungs.
 """
 
 import jax
@@ -40,7 +48,8 @@ PARAM = dict(atol=2e-4, rtol=0)
 
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
-    return w.run_world(tmp_path_factory.mktemp("tp4"), 4, ["tp", "fsdp"])
+    return w.run_world(tmp_path_factory.mktemp("tp4"), 4,
+                       ["tp", "fsdp", "vgg_tp"])
 
 
 def _jax_state(tx):
@@ -194,7 +203,8 @@ def test_tp_refusals():
     mesh = _fake_mesh({"data": 1, "model": 2})
     model = gpt2.GPT2(gpt2.GPT2Config(**w.TP_CFG))
     state = train.init_state(model, spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # GPT-2 handed another family's table: refused by name, as LLaMA's
+    with pytest.raises(ValueError, match="gpt2_tp_rules"):
         make_tp_train_step(model, spec, mesh, state, tensor.vgg_tp_rules())
     with pytest.raises(ValueError, match="gpt2_tp_rules"):
         make_tp_train_step(model, spec, mesh, state, tensor.llama_tp_rules())
@@ -205,7 +215,7 @@ def test_tp_refusals():
         make_tp_train_step(lm, spec, mesh, train.init_state(lm, spec),
                            tensor.gpt2_tp_rules())
     net = vgg.VGG(w.CFG)
-    with pytest.raises(TypeError, match="GPT2"):
+    with pytest.raises(ValueError, match="vgg_tp_rules"):
         make_tp_train_step(net, spec, mesh, train.init_state(net, spec),
                            tensor.gpt2_tp_rules())
     with pytest.raises(ValueError, match="gpt2_tp_rules"):
@@ -246,3 +256,127 @@ def test_train_reexports_the_rungs_and_resolves_shardings():
         tensor.fsdp_shardings(tree, mesh.shape["data"], min_size=w.MIN_SIZE))
     assert fs["params/wte/embedding"] == (0, "data")
     assert fs["params/h_0/ln_1/scale"] is None  # under min_size
+
+
+# -- VGG under vgg_tp_rules, and the ViT under fsdp and zero1 ---------------
+#
+# The same 3 SGD steps of the narrow VGG as JAX's step on the global batch:
+# losses rtol 1e-5 and parameters / running statistics / momentum atol
+# 2e-5 (float32 in both; the split convolutions, the gathers and SyncBN's
+# all-reduce change the summation order only), as
+# tests/test_torch_dp_train.py holds the DP rungs of this model.
+
+VGG_TP_LOSS = dict(rtol=1e-5)
+VGG_TP_STATE = dict(atol=2e-5, rtol=1e-5)
+
+
+def _jax_vgg_tp(mesh_shape):
+    """JAX's ``strategy='tp'`` step (``make_tp_train_step`` with
+    ``vgg_tp_rules()``) on the port's global batches: losses, the final
+    state and its eval sums."""
+    from tpudp.models.vgg import VGG as JaxVGG
+    from tpudp.train import make_eval_step as jax_make_eval_step
+
+    mesh = jax_make_mesh_nd(mesh_shape, devices=jax.devices()[:4])
+    params, stats = w.vgg_init()
+    model = JaxVGG(cfg=w.CFG)
+    tx = jax_make_optimizer(**w.SGD)
+    state = jax_init_state(model, tx).replace(
+        params=jax.tree.map(jnp.asarray, params),
+        batch_stats=jax.tree.map(jnp.asarray, stats))
+    state = state.replace(opt_state=tx.init(state.params))
+    state, step = jax_tp_step(model, tx, mesh, state,
+                              jax_tensor.vgg_tp_rules(), donate=False)
+    losses = []
+    for x, y in w.vgg_batches(w.VGG_TP_WORLD):
+        state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+        losses.append(float(loss))
+    state = jax.device_get(state)
+    sums = jax_make_eval_step(model, None)(
+        state, *(jnp.asarray(a) for a in w.eval_batch(w.VGG_TP_WORLD)))
+    return losses, state, [float(v) for v in sums]
+
+
+def _assert_tree(got, want, **tol):
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(
+        np.asarray(b), np.asarray(a), **tol), want, got)
+
+
+@pytest.mark.parametrize("mesh_name", sorted(w.VGG_TP_MESHES))
+def test_vgg_tp_matches_jax_trajectory(world4, mesh_name):
+    """Losses, parameters, BatchNorm running statistics and SGD momentum
+    after 3 steps, in JAX's global layout, on every rank; the eval sums
+    of the trained rung."""
+    losses, state, sums = _jax_vgg_tp(w.VGG_TP_MESHES[mesh_name])
+    for r in world4:
+        got = r["vgg_tp"][mesh_name]
+        np.testing.assert_allclose(got["losses"], losses, **VGG_TP_LOSS)
+        _assert_tree(got["tree"]["params"], state.params, **VGG_TP_STATE)
+        _assert_tree(got["tree"]["batch_stats"], state.batch_stats,
+                     **VGG_TP_STATE)
+        _assert_tree(got["tree"]["opt_state"]["momentum"],
+                     state.opt_state[1][0].trace, **VGG_TP_STATE)
+        np.testing.assert_allclose(got["eval"], sums, rtol=1e-5, atol=1e-5)
+        assert int(got["tree"]["step"]) == 3
+
+
+def test_vgg_tp_local_shapes_and_fallback(world4):
+    """Each rank holds its share of the split channels; at model 4 the
+    10-class classifier is whole on every rank (10 % 4), at 2 split."""
+    two = world4[0]["vgg_tp"]["dp2-tp2"]["local_shapes"]
+    four = world4[3]["vgg_tp"]["tp4"]["local_shapes"]
+    assert two["convs.0.weight"] == (4, 3, 3, 3)  # 8 channels over 2
+    assert two["bns.1.running_var"] == (8,)       # 16 over 2
+    assert two["fc.weight"] == (5, 16)
+    assert four["convs.1.weight"] == (4, 8, 3, 3)  # whole input channels
+    assert four["bns.0.running_mean"] == (2,)
+    assert four["fc.weight"] == (10, 16) and four["fc.bias"] == (10,)
+
+
+@pytest.mark.parametrize("mesh_name", sorted(w.VGG_TP_MESHES))
+def test_vgg_tp_checkpoint_is_jax_layout(world4, mesh_name):
+    """The saved tree has the single-device model's global shapes (JAX's
+    layout) and restores into a rung of other weights exactly."""
+    got = world4[0]["vgg_tp"][mesh_name]
+    params, stats = w.vgg_init()
+    for tree, want in ((got["tree"]["params"], params),
+                       (got["tree"]["batch_stats"], stats)):
+        jax.tree.map(lambda a, b: np.testing.assert_equal(
+            tuple(b.shape), np.shape(a)), want, tree)
+    _assert_tree(got["restored"], got["tree"], atol=0, rtol=0)
+
+
+def test_vgg_tp_trainer_epoch(world4):
+    """``Trainer(strategy='tp', strategy_options={'rules':
+    vgg_tp_rules()})`` trains the same epoch as the rung it builds."""
+    losses, state, _ = _jax_vgg_tp(w.VGG_TP_MESHES["dp2-tp2"])
+    for r in world4:
+        got = r["vgg_tp"]["trainer"]
+        np.testing.assert_allclose(got["loss_sum"], sum(losses), rtol=1e-5)
+        _assert_tree(got["tree"]["params"], state.params, **VGG_TP_STATE)
+
+
+@pytest.mark.parametrize("rung", ["fsdp", "zero1"])
+def test_vit_data_sharded_matches_jax(world4, mesh4, rung):
+    """The tiny ViT under fsdp and zero1 over 4 ranks: 3 SGD steps'
+    losses and parameters against JAX's rungs (no BatchNorm, so the
+    rungs need nothing of the model: GSPMD's any-model contract)."""
+    from tpudp.models.vit import ViT as JaxViT
+    from tpudp.models.vit import ViTConfig as JaxViTConfig
+
+    model = JaxViT(JaxViTConfig(**w.VIT_CFG))
+    tx = jax_make_optimizer(**w.SGD)
+    state = jax_init_state(model, tx, input_shape=(1, 16, 16, 3))
+    params = jax.tree.map(jnp.asarray, w.vit_tree())
+    state = state.replace(params=params, opt_state=tx.init(params))
+    make = jax_fsdp_step if rung == "fsdp" else jax_zero1_step
+    state, step = make(model, tx, mesh4, state, min_size=w.MIN_SIZE,
+                       donate=False)
+    losses = []
+    for x, y in w.vit_batches(4):
+        state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+        losses.append(float(loss))
+    for r in world4:
+        got = r["vgg_tp"][f"vit-{rung}"]
+        np.testing.assert_allclose(got["losses"], losses, **LOSS)
+        _assert_tree(got["params"], jax.device_get(state.params), **PARAM)

@@ -988,13 +988,204 @@ def job_cuda_strategies(rank, world):
     return out
 
 
+# -- ViT (tests/test_torch_dp_train.py, tests/test_torch_tensor_parallel.py)
+#    and VGG under vgg_tp_rules (tests/test_torch_tensor_parallel.py) -----
+
+# The JAX parity tests' tiny ViT: 16x16 images in 4x4 patches (16
+# tokens), 2 layers, 2 heads, d 32.
+VIT_CFG = dict(image_size=16, patch_size=4, num_classes=10, num_layers=2,
+               num_heads=2, d_model=32)
+VIT_ROWS = 4  # per rank
+# vgg_tp_rules' meshes: (2, 2), and (1, 4), where the 10-class
+# classifier stays whole (4 does not divide it).
+VGG_TP_MESHES = {"dp2-tp2": {"data": 2, "model": 2},
+                 "tp4": {"data": 1, "model": 4}}
+VGG_TP_WORLD = 2  # global batch: VGG_TP_WORLD * ROWS rows (vgg_batches)
+
+
+def vit_tree(seed: int = 19):
+    """The tiny ViT's flax-layout weights, with biases, LayerNorm
+    parameters and ``pos_embed`` drawn away from their inits so that
+    every leaf reaches the logits."""
+    from tpudp_torch.models import vit
+
+    tree = vit.random_params(vit.ViTConfig(**VIT_CFG), seed)
+    rng = np.random.default_rng(seed + 1)
+
+    def perturb(t):
+        if isinstance(t, dict):
+            return {k: perturb(v) for k, v in t.items()}
+        return (t + rng.normal(size=t.shape) * 0.05).astype(np.float32)
+
+    return perturb(tree)
+
+
+def vit_batches(world: int, steps: int = STEPS, seed: int = 20):
+    """``steps`` global batches of ``world * VIT_ROWS`` images (NHWC,
+    float32) and labels."""
+    rng = np.random.default_rng(seed)
+    n, size = world * VIT_ROWS, VIT_CFG["image_size"]
+    return [(rng.normal(size=(n, size, size, 3)).astype(np.float32),
+             rng.integers(0, 10, size=n).astype(np.int32))
+            for _ in range(steps)]
+
+
+def vit_model(**kw):
+    from tpudp_torch.models import vit
+
+    model = vit.ViT(vit.ViTConfig(**VIT_CFG, **kw))
+    model.load_state_dict(vit.params_from_jax(vit_tree()))
+    return model
+
+
+class ImageLoader:
+    """Global batches of (images, labels, unit weights) as tensors, the
+    same on every rank (a strategy's Trainer takes its block), or this
+    rank's rows of them (``rank``, ``world``: the DP Trainer)."""
+
+    def __init__(self, batches, rank: int = 0, world: int = 1):
+        import torch
+
+        self.batches = [(torch.as_tensor(shard(x, rank, world)),
+                         torch.as_tensor(shard(y, rank, world)),
+                         torch.ones(len(x) // world, dtype=torch.float32))
+                        for x, y in batches]
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def __len__(self):
+        return len(self.batches)
+
+
+def job_vit(rank, world):
+    """The tiny ViT under the all-reduce rung (SGD): ``STEPS`` steps of
+    this rank's rows through ``make_train_step``, and the same batches
+    through ``Trainer(vit, mesh, sync='allreduce')``'s epoch."""
+    import torch
+
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.trainer import Trainer
+
+    mesh = make_mesh()
+    model = vit_model()
+    spec = train.make_optimizer(**SGD)
+    state = train.init_state(model, spec, mesh)
+    step = train.make_train_step(model, spec, mesh, "allreduce")
+    losses = []
+    for x, y in vit_batches(world):
+        x, y = (torch.as_tensor(shard(a, rank, world)) for a in (x, y))
+        state, loss = step(state, x, y)
+        losses.append(float(loss))
+    trainer = Trainer(vit_model(), mesh, "allreduce", log_fn=lambda s: None,
+                      log_every=1, **{k: v for k, v in SGD.items()})
+    trainer.train_epoch(ImageLoader(vit_batches(world), rank, world))
+    return {"losses": losses, "params": cpu_tree(state_to_jax_params(state)),
+            "trainer_params": cpu_tree(state_to_jax_params(trainer.state)),
+            "trainer_loss_sum": float(trainer.state.loss_sum)}
+
+
+def state_to_jax_params(state):
+    from tpudp_torch import train
+
+    return train.state_to_jax(state)["params"]
+
+
+def vgg_tp_rung(mesh_shape: dict, seed: int = 11):
+    """The narrow VGG (``vgg_init(seed)``) under ``vgg_tp_rules`` on
+    ``mesh_shape``, built through ``build_strategy`` with SGD."""
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.models import vgg
+    from tpudp_torch.parallel.tensor import vgg_tp_rules
+    from tpudp_torch.strategy import build_strategy
+
+    model = vgg.VGG(CFG)
+    model.load_state_dict(vgg.params_from_jax(*vgg_init(seed)))
+    spec = train.make_optimizer(**SGD)
+    return build_strategy("tp", model, spec, make_mesh_nd(mesh_shape),
+                          train.init_state(model, spec),
+                          rules=vgg_tp_rules())
+
+
+def job_vgg_tp(rank, world):
+    """Each VGG_TP_MESHES mesh: ``STEPS`` steps of the narrow VGG under
+    ``vgg_tp_rules`` on the global batches of ``vgg_batches(
+    VGG_TP_WORLD)``, the checkpoint tree (JAX's global layout), the eval
+    sums of ``eval_batch`` after the steps, this rank's local shapes,
+    and the tree after a checkpoint round trip into a rung of other
+    weights; then a Trainer's epoch on the (2, 2) mesh.  Also the tiny
+    ViT under fsdp and zero1 over the world (min_size 128)."""
+    import torch
+
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.models import vgg
+    from tpudp_torch.parallel.tensor import vgg_tp_rules
+    from tpudp_torch.strategy import build_strategy
+    from tpudp_torch.trainer import Trainer
+    from tpudp_torch.utils.checkpoint import (restore_checkpoint,
+                                              save_checkpoint)
+
+    root = os.environ["TPUDP_TEST_OUT"]
+    out = {}
+    for name, shape in VGG_TP_MESHES.items():
+        built = vgg_tp_rung(shape)
+        st, losses = built.state, []
+        for x, y in vgg_batches(VGG_TP_WORLD):
+            st, loss = built.train_step(
+                st, *(torch.as_tensor(built.shard_for(a)) for a in (x, y)))
+            losses.append(float(loss))
+        images, labels, weights = eval_batch(VGG_TP_WORLD)
+        sums = built.eval_step(st, *(torch.as_tensor(built.shard_for(a))
+                                     for a in (images, labels, weights)))
+        path = save_checkpoint(os.path.join(root, f"vgg-{name}"), st)
+        fresh = vgg_tp_rung(shape, seed=31)
+        restore_checkpoint(path, fresh.state)
+        out[name] = {"losses": losses,
+                     "tree": cpu_tree(train.state_to_jax(st)),
+                     "restored": cpu_tree(train.state_to_jax(fresh.state)),
+                     "eval": [float(v) for v in sums],
+                     "local_shapes": {k: tuple(v.shape) for k, v in
+                                      st.model.state_dict().items()}}
+    model = vgg.VGG(CFG)
+    model.load_state_dict(vgg.params_from_jax(*vgg_init()))
+    trainer = Trainer(model, make_mesh_nd(VGG_TP_MESHES["dp2-tp2"]),
+                      strategy="tp",
+                      strategy_options={"rules": vgg_tp_rules()},
+                      log_fn=lambda s: None, log_every=1,
+                      **{k: v for k, v in SGD.items()})
+    trainer.train_epoch(ImageLoader(vgg_batches(VGG_TP_WORLD)))
+    out["trainer"] = {"tree": cpu_tree(train.state_to_jax(trainer.state)),
+                      "loss_sum": float(trainer.state.loss_sum)}
+    for rung in ("fsdp", "zero1"):
+        model = vit_model()
+        spec = train.make_optimizer(**SGD)
+        built = build_strategy(rung, model, spec, make_mesh_nd(
+            {"data": world}), train.init_state(model, spec),
+            min_size=MIN_SIZE)
+        st, losses = built.state, []
+        for x, y in vit_batches(world):
+            st, loss = built.train_step(
+                st, *(torch.as_tensor(built.shard_for(a)) for a in (x, y)))
+            losses.append(float(loss))
+        out[f"vit-{rung}"] = {"losses": losses,
+                              "params": cpu_tree(state_to_jax_params(st))}
+    return out
+
+
 JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "gpt2": job_gpt2, "sync_bn": job_sync_bn, "ckpt": job_ckpt,
         "resilience": job_resilience, "lone_fault": job_lone_fault,
         "ring": job_ring, "sp": job_sp, "tp": job_tp, "fsdp": job_fsdp,
         "pp": job_pp, "ep": job_ep, "trainer": job_trainer,
         "schedule": job_schedule, "llama": job_llama,
-        "cuda_strategies": job_cuda_strategies}
+        "cuda_strategies": job_cuda_strategies, "vit": job_vit,
+        "vgg_tp": job_vgg_tp}
 
 
 def main(spec_path: str, rank: int) -> None:

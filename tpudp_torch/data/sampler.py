@@ -4,9 +4,12 @@
 Shuffle every index with a numpy generator seeded by ``seed + epoch``,
 pad to a multiple of the shard count by wrapping around, then take the
 strided slice ``indices[shard::num_shards]``: the same indices and
-validity masks as the JAX package's, per (epoch, shard).  (The JAX
-sampler's ``reshuffle_each_epoch`` and ``batch_contiguous`` serve its
-checkpoint resume, which is not ported.)
+validity masks as the JAX package's, per (epoch, shard).
+``reshuffle_each_epoch=False`` keeps the reference's order, the same
+shuffle every epoch (it never calls ``set_epoch``), as JAX's does.  The
+JAX sampler's ``batch_contiguous`` layout serves elastic restore (a run
+resumed at another host count), which the port's one-writer checkpoints
+do not take; any value but None is refused.
 """
 
 from __future__ import annotations
@@ -19,7 +22,14 @@ class ShardedSampler:
 
     def __init__(self, dataset_size: int, num_shards: int = 1,
                  shard_index: int = 0, *, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, reshuffle_each_epoch: bool = True,
+                 batch_contiguous: int | None = None):
+        if batch_contiguous is not None:
+            raise NotImplementedError(
+                "ShardedSampler(batch_contiguous=...) is not ported: it "
+                "serves elastic restore, which the port's one-writer "
+                "checkpoints do not take (ROADMAP.md, documented "
+                "divergences: checkpoints)")
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} out of range "
                              f"[0, {num_shards})")
@@ -28,6 +38,8 @@ class ShardedSampler:
         self.shard_index = shard_index
         self.shuffle = shuffle
         self.seed = seed
+        self.reshuffle_each_epoch = reshuffle_each_epoch
+        self.batch_contiguous = None
         # Every shard sees the same number of samples (wrap-around pad).
         self.num_samples = -(-dataset_size // num_shards)
         self.total_size = self.num_samples * num_shards
@@ -40,7 +52,8 @@ class ShardedSampler:
         """``(indices, valid)``: ``valid`` is False for the wrap-around
         padding, which training counts and evaluation weights 0."""
         if self.shuffle:
-            order = np.random.default_rng(self.seed + epoch).permutation(
+            seed = self.seed + (epoch if self.reshuffle_each_epoch else 0)
+            order = np.random.default_rng(seed).permutation(
                 self.dataset_size)
         else:
             order = np.arange(self.dataset_size)

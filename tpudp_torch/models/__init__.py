@@ -1,2 +1,2 @@
 """Models of the port: GPT-2 and LLaMA with their KV-cached decode path,
-VGG and ResNet."""
+VGG, ResNet and the Vision Transformer (ViT)."""

@@ -59,42 +59,47 @@ def remat_contexts(model: nn.Module):
 
 
 class _AllReduceMean(torch.autograd.Function):
-    """The mean of a tensor over the default group's ranks; its backward
-    is the mean over the ranks of the cotangent."""
+    """The mean of a tensor over a group's ranks; its backward is the
+    mean over the ranks of the cotangent."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
-        return out / dist.get_world_size()
+        dist.all_reduce(out, group=group)
+        return out / dist.get_world_size(group)
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+    def backward(ctx, grad: torch.Tensor):
         grad = grad.contiguous().clone()
-        dist.all_reduce(grad)
-        return grad / dist.get_world_size()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad / dist.get_world_size(ctx.group), None
 
 
-def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable mean of ``x`` over the default process group."""
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable mean of ``x`` over ``group`` (None: the default
+    process group)."""
     if not dist.is_initialized():
         raise RuntimeError("a cross-rank BatchNorm (bn_axis='data') needs a "
                            "process group: call "
                            "tpudp_torch.mesh.initialize_distributed first")
-    return _AllReduceMean.apply(x)
+    return _AllReduceMean.apply(x, group)
 
 
 class BatchNorm(nn.Module):
     """flax's BatchNorm over the channels of an NCHW tensor (see the
     module docstring); ``bn_axis`` is None (this rank's batch) or
-    ``'data'`` (every rank's)."""
+    ``'data'`` (every rank's of ``group``: None is the default group,
+    a sharded rung passes its ``data`` axis's group)."""
 
-    def __init__(self, channels: int, bn_axis: str | None = None):
+    def __init__(self, channels: int, bn_axis: str | None = None,
+                 group=None):
         super().__init__()
         if bn_axis not in (None, DATA_AXIS):
             raise ValueError(f"bn_axis must be None or {DATA_AXIS!r}, got "
                              f"{bn_axis!r}")
         self.bn_axis = bn_axis
+        self.group = group
         self.recomputing = False  # see recomputing()
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -121,7 +126,7 @@ class BatchNorm(nn.Module):
                                 0.0, EPSILON)
         moments = torch.stack([x.mean(dim=(0, 2, 3)),
                                (x * x).mean(dim=(0, 2, 3))])
-        mean, mean2 = all_reduce_mean(moments).unbind()
+        mean, mean2 = all_reduce_mean(moments, self.group).unbind()
         var = torch.clamp_min(mean2 - mean * mean, 0.0)
         self._update_running(mean.detach(), var.detach())
         # flax's _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias

@@ -11,7 +11,13 @@ transpose them, the port calls these on the axis's process group
   * :func:`reduce_from_group` — sum over the group forward, identity
     backward (the output of a row-parallel layer);
   * :func:`gather_from_group` — all-gather along a dim forward, this
-    rank's slice of the gradient backward;
+    rank's slice of the gradient backward (the gathered tensor feeds
+    layers every rank runs whole, so its gradient is the same on each);
+  * :func:`gather_to_split` — all-gather along a dim forward, a
+    reduce-scatter of the gradient backward: the gathered tensor feeds a
+    layer split over the group, so each rank's gradient of it is a
+    partial sum (``copy_to_group(gather_from_group(x))`` in one
+    collective a direction);
   * :func:`all_to_all_autograd` — ``lax.all_to_all`` over dim 0, its own
     transpose;
   * :func:`ring_shift` — ``lax.ppermute`` one step around the group's
@@ -232,6 +238,17 @@ class _GatherFromGroup(torch.autograd.Function):
         return g.narrow(ctx.dim, r * ctx.size, ctx.size), None, None
 
 
+class _GatherToSplit(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g, ctx.dim, ctx.group), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -270,6 +287,12 @@ def gather_from_group(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if group is None or dist.get_world_size(group) == 1:
         return x
     return _GatherFromGroup.apply(x, dim, group)
+
+
+def gather_to_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    return _GatherToSplit.apply(x, dim, group)
 
 
 def all_to_all_autograd(x: torch.Tensor, group) -> torch.Tensor:

@@ -6,7 +6,8 @@ JAX annotates shardings and lets XLA partition the single-device
 program; here each rung states its collectives:
 
   * **tp** (:func:`make_tp_train_step`, mesh ``data x model``): Megatron,
-    for GPT-2 (``gpt2_tp_rules``) and LLaMA (``llama_tp_rules``).
+    for GPT-2 (``gpt2_tp_rules``) and LLaMA (``llama_tp_rules``), and
+    the channel split of VGG (``vgg_tp_rules``, :class:`TPVGG`).
     ``qkv`` / ``wq``, ``mlp_fc`` / ``gate`` and ``up`` are
     column-parallel, ``proj`` / ``wo`` and ``mlp_proj`` / ``down``
     row-parallel with their outputs summed over ``model``
@@ -24,7 +25,13 @@ program; here each rung states its collectives:
     (MLP width, vocabulary) the axis does not divide is whole on every
     rank, and LLaMA's ``wk``/``wv`` are whole beside split query heads
     when the axis does not divide the KV heads (their partial gradients
-    summed over ``model``).
+    summed over ``model``).  Under ``vgg_tp_rules`` each rank computes
+    its slice of every convolution's output channels; BatchNorm (SyncBN
+    over ``data``: JAX's global batch), ReLU and max-pool run on it, and
+    the next layer's input is all-gathered over ``model`` with a
+    reduce-scatter of its gradient
+    (:func:`~tpudp_torch.parallel.collectives.gather_to_split`); the
+    classifier is column-parallel, its logits gathered before the loss.
   * **fsdp** (:func:`make_fsdp_train_step`): each parameter of at least
     ``min_size`` elements is sharded on the dim
     :func:`~tpudp_torch.parallel.tensor.fsdp_dim` picks; a step gathers
@@ -71,8 +78,9 @@ from tpudp_torch.train import (OptimizerSpec, TrainState, _FiniteGuard,
                                skip_counters, state_to_jax, with_aux)
 from tpudp_torch.utils.checkpoint import _to_cpu
 
-#: The ROADMAP item of the TP rules still to port.
-VGG_TP_ITEM = "Queue 1 item 5 (vgg_tp_rules: channel-split VGG)"
+#: The ROADMAP items of the models tensor parallelism does not take yet.
+RESNET_TP_ITEM = "Queue 1 item 6 (ResNet under vgg_tp_rules)"
+VIT_TP_ITEM = "Queue 1 item 7 (ViT under tp)"
 
 
 # -- mesh axes --------------------------------------------------------------
@@ -165,8 +173,9 @@ class Layout:
     pipeline's stacked ``blocks`` — where the JAX rung keeps another
     layout).  ``leaves`` are the optimizer's tensors, in the order every
     rank walks them; ``buffers`` the module's replicated buffers by
-    name; ``codec`` the model family's ``(to_jax, from_jax)``;
-    ``after_load(state)`` refreshes what derives from the leaves."""
+    name (or, where a rung shards them, as :class:`Leaf` objects); ``codec``
+    the model family's ``(to_jax, from_jax)``; ``after_load(state)``
+    refreshes what derives from the leaves."""
 
     def __init__(self, leaves: list, codec, *, buffers: dict | None = None,
                  post=None, pre=None, after_load=None):
@@ -182,7 +191,8 @@ class Layout:
         to_jax, _ = self.codec
         opt = state.optimizer
         sd = self._global({lf.name: lf.local for lf in self.leaves})
-        sd.update({k: b.detach() for k, b in self.buffers.items()})
+        sd.update({k: b.gather(b.local.detach()) if isinstance(b, Leaf)
+                   else b.detach() for k, b in self.buffers.items()})
         params, stats = to_jax(sd)
         opt_state: dict = {}
         for key in _opt_buffers(opt):
@@ -215,7 +225,10 @@ class Layout:
             for lf in self.leaves:
                 lf.local.copy_(lf.scatter(sd[lf.name]))
             for k, b in self.buffers.items():
-                b.copy_(sd[k])
+                if isinstance(b, Leaf):
+                    b.local.copy_(b.scatter(sd[k]))
+                else:
+                    b.copy_(sd[k])
         state.step = int(tree["step"])
         state.loss_sum.copy_(torch.as_tensor(np.array(tree["loss_sum"])))
         ost = tree.get("opt_state", {})
@@ -808,10 +821,103 @@ def _tp_llama_leaves(model: TPLlama, group, n: int, r: int) -> list:
     return leaves
 
 
+class TPVGG(nn.Module):
+    """This rank's VGG under ``vgg_tp_rules`` over ``group`` (``n`` ranks,
+    this one ``r``): the single-device model's parameter and buffer
+    names with local shapes.  A convolution whose output channels the
+    axis divides holds its ``cout/n`` of them (weight, bias, BatchNorm
+    scale, bias and running statistics); the classifier holds its
+    ``classes/n`` logits where the axis divides them; every other layer
+    is whole on every rank (JAX's fallback, leaf by leaf).  BatchNorm is
+    SyncBN over ``dgroup`` (``dn`` data ranks) when ``dn > 1``: JAX's
+    step normalizes with the global batch's statistics."""
+
+    #: Whole leaves whose gradients are partial sums: none (a whole
+    #: layer's gradient is the same on every rank).
+    partial: tuple = ()
+
+    def __init__(self, model, group, n: int, r: int, dgroup, dn: int):
+        super().__init__()
+        self.group, self.n, self.r = group, n, r
+        self.cfg, self.dtype = model.cfg, model.dtype
+        bn_axis = DATA_AXIS if dn > 1 else None
+        convs, bns, self.split = [], [], []
+        channels, size = 3, 32  # CIFAR-10's RGB 32x32 images
+        for v in self.cfg:
+            if v == "M":
+                size //= 2
+                continue
+            split = n > 1 and _split(int(v), n)
+            local = int(v) // n if split else int(v)
+            convs.append(nn.Conv2d(channels, local, 3, padding=1))
+            bns.append(BatchNorm(local, bn_axis, dgroup))
+            self.split.append(split)
+            channels = int(v)
+        self.convs = nn.ModuleList(convs)
+        self.bns = nn.ModuleList(bns)
+        classes = model.fc.out_features
+        self.fc_split = n > 1 and _split(classes, n)
+        self.fc = nn.Linear(channels * size * size,
+                            classes // n if self.fc_split else classes)
+
+    def _gather(self, x, sharded: bool, to_split: bool):
+        """The input of a layer: a sharded activation gathered over the
+        channels (its gradient reduce-scattered where the layer is split,
+        narrowed where it is whole); a whole one passed to a split layer
+        through ``copy_to_group`` (its partial gradients summed)."""
+        if sharded:
+            return (C.gather_to_split(x, 1, self.group) if to_split
+                    else C.gather_from_group(x, 1, self.group))
+        return C.copy_to_group(x, self.group) if to_split else x
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dt = self.dtype
+        x = x.permute(0, 3, 1, 2).to(dt)  # NHWC memory seen as NCHW
+        layer, sharded = 0, False
+        for v in self.cfg:
+            if v == "M":  # per channel: on the local shard
+                x = F.max_pool2d(x, 2, 2)
+                continue
+            split, conv = self.split[layer], self.convs[layer]
+            x = self._gather(x, sharded, split)
+            x = F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
+                         padding=1)
+            x = F.relu(self.bns[layer](x, train))
+            sharded = split
+            layer += 1
+        x = self._gather(x, sharded, self.fc_split)
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's order
+        logits = F.linear(x.to(dt), self.fc.weight.to(dt),
+                          self.fc.bias.to(dt)).float()
+        if self.fc_split:
+            logits = C.gather_from_group(logits, -1, self.group)
+        return logits
+
+
+def _tp_vgg_leaves(model: TPVGG, group, n: int, r: int) -> tuple:
+    """:class:`TPVGG`'s parameters as leaves of the single-device VGG's
+    names, and its BatchNorm running statistics by name (leaves where
+    their convolution is split): ``(leaves, buffers)``."""
+    def of(name, t, split):
+        return dim_leaf(name, t, 0, group, n, r) if split else Leaf(name, t)
+
+    leaves = []
+    for name, p in model.named_parameters():
+        if name.startswith(("convs.", "bns.")):
+            leaves.append(of(name, p, model.split[int(name.split(".")[1])]))
+        else:
+            leaves.append(of(name, p, model.fc_split))
+    buffers = {name: of(name, b, model.split[int(name.split(".")[1])])
+               for name, b in model.named_buffers()}
+    return leaves, buffers
+
+
 def _check_rules(model, rules) -> str:
-    """The model axis of ``rules``: GPT-2's Megatron table for a GPT-2,
-    LLaMA's for a LLaMA; the VGG table raises naming its ROADMAP item."""
-    from tpudp_torch.models import gpt2, llama
+    """The model axis of ``rules``: each ported family's table for its
+    model (``gpt2_tp_rules``, ``llama_tp_rules``, ``vgg_tp_rules``),
+    another table refused by name; a ResNet or a ViT raises naming its
+    ROADMAP item."""
+    from tpudp_torch.models import gpt2, llama, resnet, vgg, vit
 
     if callable(rules):
         raise ValueError("callable rules are the fsdp and zero1 rungs: use "
@@ -820,18 +926,26 @@ def _check_rules(model, rules) -> str:
                   for p, s in rules)
     axes = {a for _, s in rules if s for a in s if a is not None}
     axis = next(iter(axes)) if len(axes) == 1 else MODEL_AXIS
-    if rules == vgg_tp_rules(axis):
+    if isinstance(model, resnet.ResNet):
         raise NotImplementedError(
-            "tensor parallelism by the VGG rules is not ported yet: "
-            f"ROADMAP.md {VGG_TP_ITEM}")
+            "tensor parallelism of a ResNet is not ported yet: ROADMAP.md "
+            f"{RESNET_TP_ITEM}")
+    if isinstance(model, vit.ViT):
+        raise NotImplementedError(
+            "tensor parallelism of a ViT is not ported yet: ROADMAP.md "
+            f"{VIT_TP_ITEM}")
     table = {gpt2.GPT2: (gpt2_tp_rules, "gpt2_tp_rules"),
-             llama.Llama: (llama_tp_rules, "llama_tp_rules")}
+             llama.Llama: (llama_tp_rules, "llama_tp_rules"),
+             vgg.VGG: (vgg_tp_rules, "vgg_tp_rules")}
     if type(model) not in table:
-        raise TypeError(f"strategy 'tp' drives tpudp_torch.models.gpt2.GPT2 "
-                        f"or llama.Llama; got {type(model).__name__}")
+        raise TypeError(f"strategy 'tp' drives tpudp_torch.models.gpt2.GPT2, "
+                        f"llama.Llama or vgg.VGG; got "
+                        f"{type(model).__name__}")
     make, label = table[type(model)]
     if rules != make(axis):
-        raise ValueError(f"the port's TP step is Megatron's layout for "
+        layout = ("the channel split" if label == "vgg_tp_rules"
+                  else "Megatron's layout")
+        raise ValueError(f"the port's TP step is {layout} for "
                          f"{type(model).__name__}: rules must be "
                          f"{label}(model_axis)")
     return axis
@@ -844,29 +958,36 @@ def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
     """DP x TP (JAX's ``make_tp_train_step``) over ``mesh``'s
     ``data_axis`` and the rules' model axis: returns ``(tp_state,
     step)``, ``tp_state.model`` this rank's :class:`TPGPT2` (rules
-    :func:`~tpudp_torch.parallel.tensor.gpt2_tp_rules`) or
+    :func:`~tpudp_torch.parallel.tensor.gpt2_tp_rules`),
     :class:`TPLlama` (:func:`~tpudp_torch.parallel.tensor.
-    llama_tp_rules`); the VGG table raises naming its ROADMAP item."""
-    from tpudp_torch.models import llama
+    llama_tp_rules`) or :class:`TPVGG` (:func:`~tpudp_torch.parallel.
+    tensor.vgg_tp_rules`).  The step is JAX's single-device step on the
+    global batch: the loss and the gradients are the global batch's
+    means (averaged over ``data``)."""
+    from tpudp_torch.models import llama, vgg
 
     axis = _check_rules(model, rules)
     refuse_skip(optimizer, "tp")
     if optimizer.compress is not None:
         raise ValueError(f"compress={optimizer.compress!r} needs the "
                          "shard_map DP rung")
-    cfg = model.config
     group, n, r = axis_of(mesh, axis)
     dgroup, dn, _ = axis_of(mesh, data_axis)
     device = next(model.parameters()).device
-    if isinstance(model, llama.Llama):
-        local = TPLlama(cfg, group, n, r).to(device)
+    buffers = None
+    if isinstance(model, vgg.VGG):
+        local = TPVGG(model, group, n, r, dgroup, dn).to(
+            device, memory_format=torch.channels_last)
+        leaves, buffers = _tp_vgg_leaves(local, group, n, r)
+    elif isinstance(model, llama.Llama):
+        local = TPLlama(model.config, group, n, r).to(device)
         leaves = _tp_llama_leaves(local, group, n, r)
     else:
-        local = TPGPT2(cfg, group, n, r).to(device)
+        local = TPGPT2(model.config, group, n, r).to(device)
         leaves = _tp_leaves(local, group, n, r)
     partial = [lf for lf in leaves
                if local.partial and lf.name.endswith(local.partial)]
-    layout = Layout(leaves, _codec(model))
+    layout = Layout(leaves, _codec(model), buffers=buffers)
     built = from_standard(state, new_state(local, optimizer, leaves, layout))
     local.requires_grad_(True).train()
 

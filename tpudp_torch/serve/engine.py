@@ -141,6 +141,10 @@ _UNPORTED = {
     "prefix_cache_blocks": (0, "slice 8 (dense copy prefix cache)"),
     "tenants": (None, "slice 8 (tenancy)"),
     "models": (None, "slice 8 (co-resident models)"),
+    # The port has no obs layer: True is JAX's default, the engine as
+    # the port runs it (no spans or events recorded yet).
+    "obs": (True, "Queue 1 item 5 (the obs layer)"),
+    "flight_dir": (None, "Queue 1 item 5 (the obs layer)"),
 }
 
 

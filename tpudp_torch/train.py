@@ -238,12 +238,13 @@ def _codec(model: torch.nn.Module):
     -> (params, batch_stats)`` and ``from_jax(params, batch_stats) ->
     state_dict``, the module's ``params_to_jax`` and ``params_from_jax``
     (the families without BatchNorm take and give no statistics)."""
-    from tpudp_torch.models import gpt2, llama, resnet, vgg
+    from tpudp_torch.models import gpt2, llama, resnet, vgg, vit
 
     for module, cls in ((vgg, vgg.VGG), (resnet, resnet.ResNet)):
         if isinstance(model, cls):
             return module.params_to_jax, module.params_from_jax
-    for module, cls in ((gpt2, gpt2.GPT2), (llama, llama.Llama)):
+    for module, cls in ((gpt2, gpt2.GPT2), (llama, llama.Llama),
+                        (vit, vit.ViT)):
         if isinstance(model, cls):
             return ((lambda sd, m=module: (m.params_to_jax(sd), {})),
                     (lambda params, stats, m=module:

@@ -279,9 +279,10 @@ def _to_cpu(tree: Any) -> Any:
     return tree
 
 
-def _write_tree(path: str, tree: Any) -> None:
+def _write_tree(path: str, tree: Any, manifest: bool = True) -> None:
     """Rank 0's write: ``path/state.pt`` through a temporary name and
-    ``os.replace``, then the manifest beside the directory."""
+    ``os.replace``, then (``manifest``) the manifest beside the
+    directory."""
     os.makedirs(path, exist_ok=True)
     final = os.path.join(path, STATE_FILE)
     tmp = final + ".tmp"
@@ -291,20 +292,33 @@ def _write_tree(path: str, tree: Any) -> None:
         os.replace(tmp, final)
 
     _retry_fs(_save)
-    write_manifest(path, tree)
+    if manifest:
+        write_manifest(path, tree)
 
 
-def save_checkpoint(path: str | os.PathLike, state: Any) -> str:
+def _refuse_existing(path: str, force: bool) -> None:
+    """orbax's rule for ``force=False``: an existing ``path`` is refused,
+    on every rank alike (the ranks decide together before any write)."""
+    if not force and coordinated_any(os.path.exists(path)):
+        raise ValueError(f"Destination {path} already exists.")
+
+
+def save_checkpoint(path: str | os.PathLike, state: Any, *,
+                    force: bool = True, manifest: bool = True) -> str:
     """Write ``state`` (a :class:`tpudp_torch.train.TrainState`, or a
-    checkpoint tree) to the directory ``path``, with its checksum
-    manifest beside it.  Every rank calls it; rank 0 writes, and all
-    ranks meet at a barrier after the write.  A checkpoint already at
-    ``path`` is replaced."""
+    checkpoint tree) to the directory ``path``, with (``manifest``) its
+    checksum manifest beside it.  Every rank calls it; rank 0 writes,
+    and all ranks meet at a barrier after the write.  A checkpoint
+    already at ``path`` is replaced, or with ``force=False`` refused
+    (``ValueError``, as orbax refuses it).  Without a manifest the
+    checkpoint verifies vacuously (:func:`verify_restored`), as in the
+    JAX package."""
     path = os.path.abspath(os.fspath(path))
+    _refuse_existing(path, force)
     tree = _tree_of(state)
     if rank() == 0:
         invalidate_commit(path)
-        _write_tree(path, _to_cpu(tree))
+        _write_tree(path, _to_cpu(tree), manifest)
     barrier()
     return path
 
@@ -570,12 +584,12 @@ class AsyncCheckpointWriter:
         buf.copy_(t, non_blocking=True)
         return buf
 
-    def _write(self, path: str, tree: Any, ready) -> None:
+    def _write(self, path: str, tree: Any, ready, manifest: bool) -> None:
         start = time.perf_counter()
         try:
             if ready is not None:
                 ready.synchronize()
-            _write_tree(path, tree)
+            _write_tree(path, tree, manifest)
         except BaseException as e:  # raised by the next join
             self._error = e
         self.last_write_s = time.perf_counter() - start
@@ -591,10 +605,13 @@ class AsyncCheckpointWriter:
             err, self._error = self._error, None
             raise err
 
-    def save(self, path: str | os.PathLike, state: Any) -> str:
-        """Start writing ``state`` to ``path``; every rank calls it."""
+    def save(self, path: str | os.PathLike, state: Any, *,
+             force: bool = True, manifest: bool = True) -> str:
+        """Start writing ``state`` to ``path``; every rank calls it.
+        ``force`` and ``manifest``: :func:`save_checkpoint`'s."""
         path = os.path.abspath(os.fspath(path))
         self._join()
+        _refuse_existing(path, force)
         tree = _tree_of(state)
         if rank() == 0:
             invalidate_commit(path)
@@ -604,7 +621,7 @@ class AsyncCheckpointWriter:
                 ready = torch.cuda.Event()
                 ready.record()
             self._thread = threading.Thread(
-                target=self._write, args=(path, snap, ready),
+                target=self._write, args=(path, snap, ready, manifest),
                 daemon=True, name="tpudp-ckpt-writer")
             self._thread.start()
         self._pending = True
