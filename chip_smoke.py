@@ -316,6 +316,29 @@ which fails the run (nonzero exit, no result line) when it fails:
      VGG_TP_TRAJ_RTOL, no port
      kernel launched; the ``vgg-tp`` line prints ms a step and the
      staged collectives' share;
+  14. (run after phase 13, before the timing phase) 14a, ``train_cli`` at
+     GPT-2 small, ``--attn flash --dtype bfloat16``, P14_TRAIN_STEPS
+     steps and ``--sample`` P14_SAMPLE: K1-K3 launch 12 a step each
+     (counts zeroed just before, read just after) and the sample agrees
+     with ``generate()`` on the trained weights; 14b, ``generate_cli``
+     at GPT-2 medium (24 x 1,024, 16 heads), float32: ``--beam``
+     P14_BEAM, greedy and ``--concurrent`` P14_CONCURRENT, beam width 1
+     equal to greedy, the beam's score within P14_SCORE_ATOL of one full
+     forward's log-probabilities, every copy agreeing with greedy, ms a
+     new token printed; 14c, one paged kernel engine with
+     ``decode_fuse`` P14_FUSE: GPT-2 small as the default model, a
+     second GPT-2 small (another seed, the same pool) and the GPT-2
+     medium (its own pool), tenants ``high`` and three low-priority
+     classes routing to the three models, a ``PreemptionStorm`` into
+     ``high``: every request agrees with the same traffic on the einsum
+     engine, preemptions happen, K4 and K5 launch, ``check_paged`` and
+     every pool and index check clean, tokens/s and TTFT p50 a tenant
+     printed; 14d, the dense engine at GPT-2 small with
+     ``prefix_cache_blocks`` on shared-prefix traffic agrees with the
+     engine without it, hits, and prints the prefill ms saved; 14e,
+     ``paged_attn='gather'`` agrees with ``'einsum'`` on phase 4's
+     traffic and launches no kernel.  14a's K1-K3 and 14c's K4/K5
+     launches join the timing records' counts;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -557,6 +580,19 @@ VIT_CHECK_BATCH, VIT_LOGIT_REL, VIT_LOSS_RTOL = 16, 3e-2, 2e-2
 VGG_TP_BATCH, VGG_TP_STEPS, VGG_TP_TIMEOUT = 256, 3, 300
 VGG_TP_RTOL, VGG_TP_UPDATE_REL, VGG_TP_TENSOR_REL = 1e-6, 1e-3, 1e-2
 VGG_TP_TRAJ_RTOL, VGG_TP_BIAS_ATOL = 1e-3, 1e-7
+# Phase 14: 14a's train_cli run (GPT-2 small, t 1024, batch 4) and its
+# greedy sample; 14b's new tokens and beam width at GPT-2 medium, and its
+# concurrent copies; 14c's tenant engine (slots, pages over two KV
+# geometries, window length, the low tier's requests and new tokens, the
+# storm's bursts into the high tier at these steps and its new tokens);
+# 14d's shared prefix, its tails and the cache's blocks; the limit on a
+# beam score against one full forward's log-probabilities.
+P14_TRAIN_STEPS, P14_SAMPLE = 4, 32
+P14_NEW, P14_BEAM, P14_CONCURRENT = 32, 4, 8
+P14_SLOTS, P14_PAGES, P14_FUSE, P14_LOW, P14_LOW_NEW = 8, 1024, 8, 9, 32
+P14_STORM_AT, P14_STORM_NEW = (3, 6, 9, 12), 8
+P14_PREFIX, P14_TAILS, P14_BLOCKS = 256, 6, 256
+P14_SCORE_ATOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -4596,6 +4632,316 @@ def vgg_tp_path(torch, np, seed: int, card: str) -> None:
         raise SmokeFailure(f"vgg-tp: {failures}")
 
 
+# -- phase 14: the decode remainder, tenancy and the dense prefix cache ----
+
+
+def agree_by_model(torch, np, groups, label) -> None:
+    """:func:`agree_with_plain` for each ``(name, model, prompts,
+    handles, reference handles)`` group, the near-tie gaps read on the
+    group's own model."""
+    for name, model, prompts, handles, ref in groups:
+        agree_with_plain(torch, np, model, prompts, handles, ref,
+                         f"{label} {name}")
+
+
+def tokens_of(tokens) -> SimpleNamespace:
+    """A token list in the shape of a request handle."""
+    return SimpleNamespace(tokens=tokens)
+
+
+def train_sample_path(torch, np, fa, seed: int) -> dict:
+    """14a: ``train_cli`` at GPT-2 small, flash attention in bf16, a few
+    steps, then ``--sample``: K1-K3 launch (counts zeroed just before,
+    read just after the run), and the sample equals ``generate()`` on the
+    trained weights through a freshly built dense-attention model."""
+    from tpudp_torch import train_cli
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.models.generate import generate
+
+    argv = ["--layers", "12", "--d-model", "768", "--heads", "12",
+            "--vocab", "50257", "--seq-len", "1024", "--batch-size", "4",
+            "--steps", str(P14_TRAIN_STEPS), "--log-every", "2", "--attn",
+            "flash", "--dtype", "bfloat16", "--sample", str(P14_SAMPLE),
+            "--seed", str(seed)]
+    for fn in fa.KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    run, text = run_quiet(lambda: train_cli.train(train_cli.parse_args(
+        argv)))
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fa.KERNELS.items()}
+    want = 12 * P14_TRAIN_STEPS
+    if any(launches[k] != want for k in FLASH_KERNELS):
+        raise SmokeFailure(f"14a: flash launches {launches} (want {want} "
+                           f"each)")
+    if not np.isfinite(run["losses"]).all():
+        raise SmokeFailure(f"14a: losses {run['losses']}")
+    line = next((x for x in text.splitlines()
+                 if x.startswith("[gpt2] greedy sample (prompt 16 tokens): ")),
+                None)
+    if line is None or not line.endswith(f" {run['sample']}"):
+        raise SmokeFailure(f"14a: no sample line for {run['sample']}")
+    cfg = dataclasses.replace(run["model"].config, attn_impl="dense")
+    twin = gpt2.GPT2(cfg).to("cuda")
+    twin.load_state_dict(run["model"].state_dict())
+    corpus = train_cli.load_corpus(train_cli.parse_args(argv))
+    prompt = torch.as_tensor(corpus[:16][None], device="cuda")
+    with torch.no_grad():
+        ref = generate(twin, prompt, P14_SAMPLE)[0, 16:].tolist()
+    agree_by_model(torch, np, [("GPT-2 small", twin, [corpus[:16]],
+                                [tokens_of(run["sample"])],
+                                [tokens_of(ref)])], "14a sample")
+    print(f"14a train_cli: {P14_TRAIN_STEPS} steps in {wall:.1f}s, window "
+          f"losses {[round(x, 4) for x in run['losses']]}, flash launches "
+          f"{launches}; sample {run['sample'][:8]}...", flush=True)
+    return launches
+
+
+def generate_path(torch, np, seed: int):
+    """14b: ``generate_cli`` at GPT-2 medium, float32: ``--beam``, greedy
+    and ``--concurrent`` through the entry point.  Width 1 equals greedy
+    ``generate()``; the best beam's score equals the sum of its tokens'
+    log-probabilities under one full forward; every concurrent copy
+    equals the greedy tokens.  Returns the medium model."""
+    from tpudp_torch import generate_cli
+    from tpudp_torch.models.generate import beam_search
+
+    argv = ["--layers", "24", "--d-model", "1024", "--heads", "16",
+            "--vocab", "50257", "--seq-len", "1024", "--max-new-tokens",
+            str(P14_NEW), "--seed", str(seed)]
+    beam, text = run_quiet(lambda: generate_cli.main(
+        argv + ["--beam", str(P14_BEAM)]))
+    model = beam["model"]
+    ids = beam["prompt"]
+    n = len(ids)
+    greedy, _ = run_quiet(lambda: generate_cli.main(argv))
+    conc, conc_text = run_quiet(lambda: generate_cli.main(
+        argv + ["--concurrent", str(P14_CONCURRENT)]))
+    prompt = torch.as_tensor([ids], device="cuda")
+    with torch.no_grad():
+        seq1, _ = beam_search(model, prompt, P14_NEW, beam_width=1)
+        seq = torch.as_tensor([ids + beam["tokens"]], device="cuda")
+        logp = torch.log_softmax(model(seq).float(), dim=-1)
+    if seq1[0, n:].tolist() != greedy["tokens"]:
+        raise SmokeFailure(f"14b: beam width 1 {seq1[0, n:].tolist()} is "
+                           f"not greedy {greedy['tokens']}")
+    score = float(torch.gather(logp[0, n - 1:-1], 1,
+                               seq[0, n:, None]).sum())
+    err = abs(score - beam["score"])
+    if err > P14_SCORE_ATOL:
+        raise SmokeFailure(f"14b: beam score {beam['score']} against the "
+                           f"full forward's {score} (atol {P14_SCORE_ATOL})")
+    agree_by_model(torch, np, [("GPT-2 medium", model,
+                                [np.asarray(ids)] * P14_CONCURRENT,
+                                [tokens_of(t) for t in conc["tokens"]],
+                                [tokens_of(greedy["tokens"])]
+                                * P14_CONCURRENT)], "14b concurrent")
+    rate = re.search(r"aggregate ([\d.]+) tokens/s", conc_text).group(1)
+    print(f"14b generate_cli GPT-2 medium float32: beam {P14_BEAM} "
+          f"logprob {beam['score']:.4f} (one full forward {score:.4f}, "
+          f"|diff| {err:.2e}, atol {P14_SCORE_ATOL}), "
+          f"{beam['ms_per_token']:.3f} ms a new token; greedy "
+          f"{greedy['ms_per_token']:.3f} ms a new token; beam width 1 "
+          f"equals greedy; --concurrent {P14_CONCURRENT} {rate} tokens/s "
+          f"({conc['ms_per_token']:.3f} ms a new token of one copy)",
+          flush=True)
+    return model
+
+
+def tenancy_engine(torch, Engine, TenantClass, models, paged_attn, fuse):
+    """14c's engine: GPT-2 small as the default model, a second small
+    (``twin``, sharing its pool) and GPT-2 medium (``medium``, its own
+    pool) behind the ``high`` tier and three low-tier classes, one a
+    model."""
+    tenants = {"high": TenantClass(priority=1), "low": TenantClass(),
+               "low-twin": TenantClass(model="twin"),
+               "low-medium": TenantClass(model="medium")}
+    return Engine(models[None], device="cuda", num_slots=P14_SLOTS,
+                  prefill_chunk=16, kv_pages=P14_PAGES,
+                  paged_attn=paged_attn, decode_fuse=fuse, tenants=tenants,
+                  models={k: m for k, m in models.items() if k})
+
+
+def tenancy_run(torch, np, eng, pa, prompts, storm_prompts, seed: int):
+    """Low-tier traffic over the three models, then a ``PreemptionStorm``
+    into ``high``; ``check_paged`` after every step and the kernel counts
+    zeroed just before, read just after.  Returns the handles, storm
+    handles, wall seconds and counts."""
+    from tpudp_torch.serve.faults import PreemptionStorm
+
+    classes = ("low", "low-twin", "low-medium")
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    storm = PreemptionStorm("high", storm_prompts, at_steps=P14_STORM_AT,
+                            max_new=P14_STORM_NEW, seed=seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, P14_LOW_NEW, tenant=classes[i % 3])
+               for i, p in enumerate(prompts)]
+    steps = 0
+    while eng.queue_depth or eng.slots_in_use or not storm.done:
+        eng.step()
+        eng.check_paged()
+        storm.tick(eng, steps)
+        steps += 1
+        if steps > 5000:
+            raise SmokeFailure("14c: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in pa.KERNELS.items()}
+    return handles, storm.handles, wall, launches
+
+
+def tenancy_path(torch, np, pa, small, medium, seed: int) -> dict:
+    """14c: one paged kernel engine with ``decode_fuse`` over two KV
+    geometries and a preemption storm, against the same traffic on the
+    einsum path (single steps): every request's greedy tokens agree,
+    preemptions happen, K4 and K5 launch, the pools and indexes check
+    clean, and the two small models share one ``PagePool``.  Returns
+    the kernel run's counts."""
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.serve import Engine, TenantClass
+
+    models = {None: small, "twin": gpt2.build(small.config, seed + 1,
+                                              "cuda"),
+              "medium": medium}
+    vocab = small.config.vocab_size
+    rng = np.random.default_rng(seed + 14)
+    prompts = [rng.integers(0, vocab, size=n).astype(np.int32)
+               for n in rng.integers(17, 300, size=P14_LOW)]
+    storm_prompts = [rng.integers(0, vocab, size=n).astype(np.int32)
+                     for n in (20, 45, 9, 70)]
+    runs = {}
+    for impl, fuse in (("kernel", P14_FUSE), ("einsum", 1)):
+        eng = tenancy_engine(torch, Engine, TenantClass, models, impl, fuse)
+        runs[impl] = (eng, *tenancy_run(torch, np, eng, pa, prompts,
+                                        storm_prompts, seed))
+    eng, handles, storm, wall, launches = runs["kernel"]
+    _, ref, ref_storm, ref_wall, ref_launches = runs["einsum"]
+    ms = eng._mstates
+    if ms["twin"].pool is not ms[None].pool or ms["medium"].pool is \
+            ms[None].pool:
+        raise SmokeFailure("14c: the small models do not share one pool, "
+                           "or the medium model shares it")
+    for m in ms.values():
+        m.pool.check()
+        m.index.check()
+    eng.check_paged()
+    if not eng.stats["preempted"]:
+        raise SmokeFailure(f"14c: no preemption: {dict(eng.stats)}")
+    if not (launches["paged_decode"] and launches["paged_window"]):
+        raise SmokeFailure(f"14c: K4/K5 did not launch: {launches}")
+    if any(ref_launches.values()):
+        raise SmokeFailure(f"14c: the einsum engine launched {ref_launches}")
+    if None in storm or not all(h.ok for h in handles + storm):
+        raise SmokeFailure("14c: a request did not complete")
+    route = {"low": None, "low-twin": "twin", "low-medium": "medium",
+             "high": None}
+    allp, both = prompts + [h.prompt for h in storm], handles + storm
+    groups = []
+    for name in (None, "twin", "medium"):
+        pick = [i for i, h in enumerate(both) if route[h.tenant] == name]
+        groups.append((name or "default", models[name],
+                       [allp[i] for i in pick], [both[i] for i in pick],
+                       [(ref + ref_storm)[i] for i in pick]))
+    agree_by_model(torch, np, groups, "14c tenancy")
+    pools = eng.metrics()["page_pools"]
+    print(f"14c tenancy engine (kernel, decode_fuse {P14_FUSE}): "
+          f"{len(handles) + len(storm)} requests in {wall:.2f}s (einsum "
+          f"single steps {ref_wall:.2f}s); preempted "
+          f"{eng.stats['preempted']}, page-pressure vacates "
+          f"{eng.stats['page_pressure_vacates']}, fused windows "
+          f"{eng.stats['fused_windows']}; launches {launches}; pools "
+          f"{[(p['num_pages'], p['page_bytes']) for p in pools]} (pages, "
+          f"bytes a page; the small models share the first)", flush=True)
+    for name, st in eng.tenant_stats.items():
+        own = [h for h in handles + storm if h.tenant == name]
+        ttft = sorted(h.token_times[0] - h.submit_time for h in own)
+        print(f"14c tenant {name}: {st['tokens'] / wall:.1f} tokens/s, TTFT "
+              f"p50 {1e3 * ttft[len(ttft) // 2]:.1f} ms, preempted "
+              f"{st['preempted']}, readmitted {st['readmitted']}",
+              flush=True)
+    return launches
+
+
+def prefix_cache_path(torch, np, small, seed: int) -> None:
+    """14d: the dense engine with ``prefix_cache_blocks`` on
+    shared-prefix traffic, one request at a time, against the engine
+    without the cache: tokens agree, the cache hits, and the prefill ms
+    saved (the requests' summed TTFT, cold minus cached) is printed."""
+    from tpudp_torch.serve import Engine
+
+    vocab = small.config.vocab_size
+    rng = np.random.default_rng(seed + 15)
+    shared = rng.integers(0, vocab, size=P14_PREFIX).astype(np.int32)
+    prompts = [np.concatenate([shared, rng.integers(0, vocab, size=n)
+                               .astype(np.int32)])
+               for n in rng.integers(5, 60, size=P14_TAILS)]
+    runs = {}
+    for blocks in (P14_BLOCKS, 0):
+        eng = Engine(small, device="cuda", num_slots=1, prefill_chunk=16,
+                     prefix_cache_blocks=blocks)
+        handles = []
+        for p in prompts:
+            handles.append(eng.submit(p, P14_NEW))
+            eng.run_until_complete()
+        torch.cuda.synchronize()
+        ttft = [1e3 * (h.token_times[0] - h.submit_time) for h in handles]
+        runs[blocks] = (eng, handles, ttft)
+    eng, handles, ttft = runs[P14_BLOCKS]
+    _, ref, cold = runs[0]
+    if eng.stats["prefix_hit_tokens"] <= 0:
+        raise SmokeFailure(f"14d: no prefix hit: {dict(eng.stats)}")
+    eng.prefix_cache.check()
+    agree_by_model(torch, np, [("GPT-2 small", small, prompts, handles,
+                                ref)], "14d prefix cache")
+    saved = sum(cold[1:]) - sum(ttft[1:])
+    print(f"14d dense prefix cache: hit tokens "
+          f"{eng.stats['prefix_hit_tokens']}, published blocks "
+          f"{eng.stats['prefix_published_blocks']}, prefill chunks "
+          f"{eng.stats['prefill_chunks']} (no cache "
+          f"{runs[0][0].stats['prefill_chunks']}); TTFT of the "
+          f"{P14_TAILS - 1} warm requests {sum(ttft[1:]):.1f} ms against "
+          f"{sum(cold[1:]):.1f} ms: prefill ms saved {saved:.1f}",
+          flush=True)
+
+
+def gather_path(torch, np, pa, small, prompts) -> None:
+    """14e: ``paged_attn='gather'`` at GPT-2 small on phase 4's traffic
+    against ``'einsum'``: tokens agree and no kernel launches."""
+    from tpudp_torch.serve import Engine
+
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    eng, handles, wall, _ = serve(torch, Engine, small, prompts, "gather")
+    _, ref, ref_wall, _ = serve(torch, Engine, small, prompts, "einsum")
+    if any(fn.launches for fn in pa.KERNELS.values()):
+        raise SmokeFailure("14e: the gather engine launched a kernel")
+    if eng.metrics()["paged_attn"]["dispatch"]["decode_paged"] != "gather":
+        raise SmokeFailure(f"14e: {eng.metrics()['paged_attn']}")
+    agree_by_model(torch, np, [("GPT-2 small", small, prompts, handles,
+                                ref)], "14e gather")
+    print(f"14e gather engine: {serve_summary(handles, wall)} (einsum "
+          f"{serve_summary(ref, ref_wall)})", flush=True)
+
+
+def phase14_path(torch, np, pa, fa, small, prompts, seed: int):
+    """Phase 14, 14a-14e; returns (14a's flash counts, 14c's paged
+    counts)."""
+    t0 = time.perf_counter()
+    flash = train_sample_path(torch, np, fa, seed)
+    torch.cuda.empty_cache()
+    medium = generate_path(torch, np, seed)
+    paged = tenancy_path(torch, np, pa, small, medium, seed)
+    del medium
+    torch.cuda.empty_cache()
+    prefix_cache_path(torch, np, small, seed)
+    gather_path(torch, np, pa, small, prompts)
+    torch.cuda.empty_cache()
+    print(f"phase 14 {time.perf_counter() - t0:.1f}s", flush=True)
+    return flash, paged
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -5023,11 +5369,17 @@ def main(argv=None) -> int:
               flush=True)
         vit_launches = vit_path(torch, np, fa, args.seed, card)
         vgg_tp_path(torch, np, args.seed, card)
+        p14_flash, p14_paged = phase14_path(torch, np, pa, fa, model,
+                                            prompts, args.seed)
+        for name, n in p14_paged.items():
+            launches[name] += n
         records = timings(torch, pa, model, prompts, launches)
-        # K1-K3's main-path launches: phase 6's GPT-2 steps and 13a's
-        # ViT-B/14 steps, each counted from 0 over its run.
+        # K1-K3's main-path launches: phase 6's GPT-2 steps, 13a's
+        # ViT-B/14 steps and 14a's train_cli steps, each counted from 0
+        # over its run.
         records += flash_timings(torch, fa, {
-            k: train_launches[k] + vit_launches[k] for k in FLASH_KERNELS})
+            k: train_launches[k] + vit_launches[k] + p14_flash[k]
+            for k in FLASH_KERNELS})
         flash_timings(torch, fa, vit_launches, (VIT_BATCH, 256, 12, 64),
                       causal=False, case="vit-b-t256")
     except Exception:  # every phase failure ends the run without a result

@@ -26,6 +26,7 @@ from tpudp_torch import serve_cli
 from tpudp_torch.models import gpt2, llama
 from tpudp_torch.serve import Engine, EngineClosed, QueueFull
 from tpudp_torch.serve.engine import PAGED_FAMILIES, paged_dispatch
+from tpudp_torch.serve.tenancy import TenantClass
 
 TINY = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=2,
             d_model=32)
@@ -130,7 +131,9 @@ def test_kernel_backend_needs_the_card(setup):
         Engine(model, device="cpu", kv_pages=12, max_len=48,
                prefill_chunk=8, paged_attn="kernel")
     with pytest.raises(ValueError, match="paged_attn"):
-        Engine(model, device="cpu", kv_pages=12, paged_attn="gather")
+        Engine(model, device="cpu", kv_pages=12, paged_attn="pallas")
+    with pytest.raises(ValueError, match="paged_attn='gather' requires"):
+        Engine(model, device="cpu", paged_attn="gather")
     eng = Engine(model, device="cpu", max_len=48, prefill_chunk=8,
                  kv_pages=12)
     m = eng.metrics()
@@ -146,25 +149,40 @@ def test_kernel_backend_needs_the_card(setup):
         "paged_window_int8", "paged_tree"}
 
 
-#: The robustness options, ported: each constructs and is kept.
+#: The ported options: each constructs and is kept (option -> the
+#: engine attribute that holds it).  The robustness options came first;
+#: the dense prefix cache, tenancy and co-resident models followed.
 PORTED_OPTIONS = {"drafter_timeout_s": "drafter_timeout_s",
                   "step_timeout_s": "_step_timeout_s",
-                  "canary_every_s": "canary_every_s"}
+                  "canary_every_s": "canary_every_s",
+                  "prefix_cache_blocks": "_prefix_cache_blocks",
+                  "tenants": "tenants", "models": "_mstates"}
 
 
 @pytest.mark.parametrize("option,value", [
     ("drafter_timeout_s", 0.5), ("step_timeout_s", 1.0),
-    ("prefix_cache_blocks", 8), ("models", {"draft": None}),
-    ("tenants", {}), ("canary_every_s", 1.0), ("obs", False),
-    ("flight_dir", "flight")])
+    ("prefix_cache_blocks", 8), ("models", {"twin": "the setup's model"}),
+    ("tenants", {"default": TenantClass()}), ("canary_every_s", 1.0),
+    ("obs", False), ("flight_dir", "flight")])
 def test_unported_options_raise(setup, option, value):
     """Options of later slices raise naming their ROADMAP item; the
-    robustness options construct (and their "off" values do too, as do
-    JAX's defaults ``obs=True`` and ``flight_dir=None``)."""
+    ported options construct and are kept (a co-resident model needs
+    tenants routing to it), and so do their "off" values and JAX's
+    defaults ``obs=True`` and ``flight_dir=None``."""
     _, _, model, _, _ = setup
     if option in PORTED_OPTIONS:
-        eng = Engine(model, device="cpu", max_len=48, **{option: value})
-        assert getattr(eng, PORTED_OPTIONS[option]) == value
+        kw = {option: value}
+        if option == "models":
+            value = {"twin": model}
+            kw = {"models": value, "tenants": {
+                "default": TenantClass(), "t": TenantClass(model="twin")}}
+        eng = Engine(model, device="cpu", max_len=48, **kw)
+        kept = getattr(eng, PORTED_OPTIONS[option])
+        if option == "models":
+            assert list(kept) == [None, "twin"]
+            assert kept["twin"].model is model
+        else:
+            assert kept == value
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(model, device="cpu", **{option: value})

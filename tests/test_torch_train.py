@@ -25,6 +25,7 @@ from tpudp.train import (init_state as jax_init_state,
                          make_train_step as jax_make_train_step)
 from tpudp_torch import train, train_cli
 from tpudp_torch.models import gpt2, llama
+from tpudp_torch.models.generate import generate
 from tpudp_torch.serve import Engine
 
 CFG = dict(vocab_size=61, max_seq_len=128, num_layers=2, num_heads=2,
@@ -246,3 +247,50 @@ def test_cli_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_cli.main(["--layers", "1", "--d-model", "32", "--vocab", "16",
                         "--seq-len", "16", "--steps", "1"])
+
+
+TINY_CLI = ["--device", "cpu", "--layers", "2", "--d-model", "32",
+            "--heads", "2", "--vocab", "61", "--seq-len", "64",
+            "--batch-size", "2", "--log-every", "1"]
+
+
+@pytest.mark.parametrize("attn", ["dense", "flash"])
+def test_cli_sample_prints_generate_tokens(capsys, attn):
+    """``--sample N`` prints JAX's line with the port ``generate()``'s
+    greedy tokens from the corpus' first 16 tokens after training (a
+    flash-trained model decodes through its dense-attention twin)."""
+    args = train_cli.parse_args(TINY_CLI + ["--steps", "2", "--attn", attn,
+                                            "--seq-len", "128",
+                                            "--sample", "5"])
+    run = train_cli.train(args)
+    corpus = train_cli.load_corpus(args)
+    twin = train_cli.decode_twin(run["model"])
+    assert twin.config.attn_impl == "dense"
+    want = generate(twin, torch.as_tensor(corpus[:16][None]), 5)[0, 16:]
+    assert run["sample"] == want.tolist()
+    assert (f"[gpt2] greedy sample (prompt 16 tokens): {want.tolist()}"
+            in capsys.readouterr().out)
+
+
+def test_cli_tokens_file_builds_jax_corpus(tmp_path):
+    """``--tokens-file``: the example's corpus rule, uint16 tokens modulo
+    the vocabulary; the run trains on it."""
+    toks = np.random.default_rng(5).integers(0, 65535, size=600)
+    path = tmp_path / "tokens.bin"
+    toks.astype(np.uint16).tofile(path)
+    args = train_cli.parse_args(TINY_CLI + ["--steps", "1", "--tokens-file",
+                                            str(path)])
+    corpus = train_cli.load_corpus(args)
+    jax_corpus = np.fromfile(path, dtype=np.uint16).astype(np.int32) % 61
+    np.testing.assert_array_equal(corpus, jax_corpus)
+    assert len(train_cli.train(args)["losses"]) == 1
+
+
+@pytest.mark.parametrize("extra,match", [
+    (["--family", "llama", "--sample", "4"], "use --family gpt2"),
+    (["--seq-parallel", "--sample", "4"], "drop --seq-parallel"),
+    (["--sample", "49"], r"--sample 49 \+ prompt 16 exceeds --seq-len 64"),
+    (["--strategy", "tp", "--sample", "4"], "needs the DP path")])
+def test_cli_sample_refusals_match_the_example(extra, match):
+    with pytest.raises(SystemExit, match=match):
+        train_cli.parse_args(TINY_CLI + extra)

@@ -7,8 +7,11 @@ slice (ROADMAP.md).  Ported so far:
     over ``tpudp_torch.models.gpt2`` or ``tpudp_torch.models.llama``
     (grouped-query heads), with the paged-decode and paged-window
     attention kernels, their int8 variants over an int8 page pool
-    (``kv_dtype="int8"``), and speculative decoding through the
-    paged-window and paged-tree kernels (``serve_cli``);
+    (``kv_dtype="int8"``), speculative decoding through the
+    paged-window and paged-tree kernels, the dense prefix cache, and
+    tenancy with co-resident models (``serve_cli``); greedy, sampled and
+    beam-search decoding (``tpudp_torch.models.generate``,
+    ``generate_cli``);
   * the data-parallel VGG-11 ladder — the four Part trainers
     (``tpudp_torch.parts``) over the 11 gradient sync rungs
     (``tpudp_torch.parallel``) on ``torch.distributed`` process groups

@@ -18,10 +18,13 @@ its write (:func:`write_token_pages`) and read (:class:`_PagedKV` over
 mode (einsum) and whole-pool mode (kernels), the speculative tree
 forwards (:func:`_forward_tree` over a dense view, :func:`gather_pages`
 to make one from the pool, and :func:`_forward_tree_paged` through the
-block table), greedy or sampled :func:`generate`, and
-:func:`draft_greedy`, the fused speculation window's draft model on
-static shapes.  Caches and pools are ``kv_heads`` wide (LLaMA's GQA).
-Beam search is a later slice (ROADMAP.md).
+block table), greedy or sampled :func:`generate`, :func:`beam_search`
+(one prefill, the cache fanned out to the beams and reordered by parent
+beam each step), :func:`draft_greedy`, the fused speculation window's
+draft model on static shapes, and the ``impl='gather'`` baseline of
+:func:`_forward_paged` (:func:`gather_pages` -> the dense forward ->
+:func:`scatter_pages`).  Caches and pools are ``kv_heads`` wide
+(LLaMA's GQA).
 """
 
 from __future__ import annotations
@@ -331,8 +334,19 @@ def _forward_paged(model, tokens: torch.Tensor, pool,
     the stacked pool and passes its layer index to the kernels, so no
     per-layer slice is taken — and ``impl='einsum'`` gives each layer
     its own slice.  LLaMA reads through the grouped (GQA) attention
-    family, GPT-2 through the MHA one."""
+    family, GPT-2 through the MHA one.  ``impl='gather'`` is JAX's
+    baseline: gather the dense view (:func:`gather_pages`), run the dense
+    forward on it, and write the touched pages back
+    (:func:`scatter_pages`)."""
     cfg = model.config
+    if impl == "gather":
+        view = gather_pages(pool, table, cfg.dtype)
+        logits, view = _forward_cached(model, tokens, view, pos)
+        spos = torch.as_tensor(pos, device=tokens.device).long()
+        if not spos.dim():
+            spos = spos.expand(tokens.shape[0])
+        return logits, scatter_pages(pool, view, table, spos,
+                                     tokens.shape[1], active)
     block = _decode_block(cfg)
     x = _embed(model, tokens, _positions(pos, tokens.shape[1],
                                          tokens.device))
@@ -363,6 +377,45 @@ def gather_pages(pool, table: torch.Tensor, dtype) -> KVCache:
             (grab(pool.k).float() * grab(pool.k_scale)[..., None]).to(dtype),
             (grab(pool.v).float() * grab(pool.v_scale)[..., None]).to(dtype))
     return KVCache(grab(pool.k).to(dtype), grab(pool.v).to(dtype))
+
+
+def scatter_pages(pool, view: KVCache, table: torch.Tensor,
+                  pos: torch.Tensor, cur: int, active: torch.Tensor):
+    """Write back, in place, the pages of the dense ``view`` that a
+    ``cur``-token forward at per-slot positions ``pos`` ``(S,)`` touched
+    (JAX's ``scatter_pages``): for each of the at most ``(cur + T - 2)
+    // T + 1`` pages a window spans, the view's page-sized slice goes to
+    the slot's table entry, an int8 pool requantizing it.  Writes of
+    inactive slots, of a spare page the window did not reach and of
+    unmapped or out-of-table entries go to the scratch page, so no
+    shared page is ever written.  Returns the pool."""
+    page_tokens = pool.k.shape[2]
+    n_pages = table.shape[1]
+    scratch = pool.k.shape[1] - 1
+    dev = pool.k.device
+    table = torch.as_tensor(table, device=dev).long()
+    pos = torch.as_tensor(pos, device=dev).long()
+    active = torch.as_tensor(active, device=dev)
+    rows = torch.arange(table.shape[0], device=dev)[:, None]
+    offsets = torch.arange(page_tokens, device=dev)
+    first = pos // page_tokens
+    last = (pos + cur - 1) // page_tokens
+    for j in range((cur + page_tokens - 2) // page_tokens + 1):
+        pidx = first + j
+        safe = pidx.clamp(0, n_pages - 1)
+        page = torch.gather(table, 1, safe[:, None])[:, 0]
+        valid = active & (pidx <= last) & (pidx < n_pages) & (page >= 0)
+        page = torch.where(valid, page, scratch)
+        cols = safe[:, None] * page_tokens + offsets  # (S, T)
+        ck, cv = view.k[:, rows, cols], view.v[:, rows, cols]
+        if isinstance(pool, Int8Pages):
+            (qk, sk), (qv, sv) = _quantize_kv(ck), _quantize_kv(cv)
+            new = (qk, qv, sk, sv)
+        else:
+            new = (ck, cv)
+        for buf, val in zip(pool, new):
+            buf[:, page] = val.to(buf.dtype)
+    return pool
 
 
 def _block_tree(cfg: GPT2Config, blk, x: torch.Tensor, k_cache, v_cache,
@@ -477,6 +530,20 @@ def validate_decode_config(cfg, fn_name: str) -> None:
             f"attn_impl={cfg.attn_impl!r} mlp_impl={mlp_impl!r}")
 
 
+def _validate_decode(cfg, prompt, max_new_tokens: int,
+                     fn_name: str) -> int:
+    """The decode entry points' shared checks; returns the total
+    sequence length."""
+    validate_decode_config(cfg, fn_name)
+    prompt_len = prompt.shape[1]
+    total = prompt_len + max_new_tokens
+    if total > cfg.max_seq_len:
+        raise ValueError(f"prompt ({prompt_len}) + max_new_tokens "
+                         f"({max_new_tokens}) exceeds max_seq_len "
+                         f"({cfg.max_seq_len})")
+    return total
+
+
 @torch.no_grad()
 def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
              temperature: float = 0.0, top_k: int | None = None,
@@ -488,13 +555,8 @@ def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
     otherwise softmax sampling from ``generator`` (required), truncated
     to ``top_k`` and/or the ``top_p`` nucleus."""
     cfg = model.config
-    validate_decode_config(cfg, "generate()")
+    total = _validate_decode(cfg, prompt, max_new_tokens, "generate()")
     b, prompt_len = prompt.shape
-    total = prompt_len + max_new_tokens
-    if total > cfg.max_seq_len:
-        raise ValueError(f"prompt ({prompt_len}) + max_new_tokens "
-                         f"({max_new_tokens}) exceeds max_seq_len "
-                         f"({cfg.max_seq_len})")
     if temperature > 0 and generator is None:
         raise ValueError("temperature sampling needs a torch.Generator")
     if (top_k is not None or top_p is not None) and temperature == 0.0:
@@ -522,3 +584,57 @@ def generate(model, prompt: torch.Tensor, max_new_tokens: int, *,
                                         prompt_len + i)
         last = logits[:, -1]
     return torch.cat(out, dim=1)
+
+
+@torch.no_grad()
+def beam_search(model, prompt: torch.Tensor, max_new_tokens: int, *,
+                beam_width: int = 4) -> tuple[torch.Tensor, torch.Tensor]:
+    """Beam-search decoding over the KV-cached decode path: ``(sequences
+    (batch, prompt_len + max_new_tokens), scores (batch,))``, the
+    highest-scoring beam of each batch row and its total float32
+    log-probability.  One prefill at the prompt's batch ``b``; the cache
+    and the last logits are then repeated beam-major to ``b *
+    beam_width`` rows, only beam 0 starting live (scores ``[0, -inf,
+    ...]``) so the first step picks distinct continuations.  Each step
+    takes the top ``beam_width`` of ``score + log_softmax`` over
+    ``beam_width * vocab`` candidates, reorders the cache rows by parent
+    beam in place, and decodes the winners.  No EOS handling: every beam
+    runs ``max_new_tokens`` steps, as in JAX."""
+    cfg = model.config
+    total = _validate_decode(cfg, prompt, max_new_tokens, "beam_search()")
+    if beam_width < 1:
+        raise ValueError(f"beam_width must be >= 1, got {beam_width}")
+    b, prompt_len = prompt.shape
+    w = beam_width
+    dev = prompt.device
+    cache = KVCache.zeros(cfg, b, total, dev)
+    logits, cache = _forward_cached(model, prompt, cache, 0)
+    cache = KVCache(cache.k.repeat_interleave(w, dim=1),
+                    cache.v.repeat_interleave(w, dim=1))
+    last = logits[:, -1].repeat_interleave(w, dim=0)  # (b w, vocab)
+    scores = torch.full((b, w), -torch.inf, device=dev)
+    scores[:, 0] = 0.0
+    new_tokens = torch.zeros((b, w, max_new_tokens), dtype=prompt.dtype,
+                             device=dev)
+    batch_offset = (torch.arange(b, device=dev) * w)[:, None]
+    for i in range(max_new_tokens):
+        v = last.shape[-1]
+        logprobs = F.log_softmax(last.float(), dim=-1)
+        cand = scores[:, :, None] + logprobs.reshape(b, w, v)
+        scores, top_idx = torch.topk(cand.reshape(b, w * v), w)
+        parent = top_idx // v
+        tok = (top_idx % v).to(prompt.dtype)
+        gp = (batch_offset + parent).reshape(-1)  # global parent rows
+        cache.k.copy_(cache.k[:, gp])
+        cache.v.copy_(cache.v[:, gp])
+        new_tokens = torch.gather(
+            new_tokens, 1, parent[:, :, None].expand(-1, -1,
+                                                     max_new_tokens))
+        new_tokens[:, :, i] = tok
+        logits, cache = _forward_cached(model, tok.reshape(b * w, 1),
+                                        cache, prompt_len + i)
+        last = logits[:, -1]
+    best = torch.argmax(scores, dim=-1)
+    rows = torch.arange(b, device=dev)
+    return (torch.cat([prompt, new_tokens[rows, best]], dim=1),
+            scores[rows, best])

@@ -70,6 +70,12 @@ def gpt2_small(**overrides) -> "GPT2":
     return GPT2(GPT2Config(**overrides))
 
 
+def gpt2_medium(**overrides) -> "GPT2":
+    """GPT-2 medium: 24 layers of width 1024, 16 heads."""
+    return GPT2(GPT2Config(num_layers=24, num_heads=16, d_model=1024,
+                           **overrides))
+
+
 class CausalSelfAttention(nn.Module):
     def __init__(self, cfg: GPT2Config):
         super().__init__()

@@ -79,8 +79,8 @@ from tpudp_torch.train import (OptimizerSpec, TrainState, _FiniteGuard,
 from tpudp_torch.utils.checkpoint import _to_cpu
 
 #: The ROADMAP items of the models tensor parallelism does not take yet.
-RESNET_TP_ITEM = "Queue 1 item 6 (ResNet under vgg_tp_rules)"
-VIT_TP_ITEM = "Queue 1 item 7 (ViT under tp)"
+RESNET_TP_ITEM = "Queue 1 item 3 (ResNet under vgg_tp_rules)"
+VIT_TP_ITEM = "Queue 1 item 4 (ViT under tp)"
 
 
 # -- mesh axes --------------------------------------------------------------

@@ -25,7 +25,9 @@ Two KV stores, as in the JAX engine:
     default on a CUDA device — runs decode through the paged-decode
     kernel and prefill chunks through the paged-window kernel;
     ``'einsum'`` — the default on the CPU — runs their plain PyTorch
-    version.  Asking for ``'kernel'`` on the CPU raises.
+    version; ``'gather'`` is JAX's baseline (gather the dense view, the
+    dense forward, scatter the touched pages back).  Asking for
+    ``'kernel'`` on the CPU raises.
     ``kv_dtype='int8'`` stores the pool quantized (int8 payloads, one
     float32 scale per token and KV head, same page ids): the kernels are
     then their int8 variants.  Where the kernels cannot take the
@@ -34,6 +36,15 @@ Two KV stores, as in the JAX engine:
     ``metrics()['paged_attn']['fallbacks']``: every family at a head dim
     other than 32, 64 or 128, and tree verify over an int8 pool (as in
     JAX) or over a tree of more than 32 nodes.
+
+The dense prefix cache (``prefix_cache_blocks=N``, dense arena only): a
+block pool plus radix index (``tpudp_torch.serve.prefix_cache.
+PrefixCache``, blocks of ``prefill_chunk`` tokens).  Admission copies
+the longest cached block-aligned prefix of the fill into the slot's
+arena rows (one copy a block, in place) and prefills the rest, the final
+chunk always; retirement publishes the slot's chunk-prefilled blocks
+(new ones copied out of the arena).  A failed publish flushes the cache
+and the retirement goes on; containment flushes it too.
 
 Sampling is per slot: greedy rows take the argmax; sampled rows draw
 from the slot's own ``torch.Generator``, seeded from the request's
@@ -104,10 +115,29 @@ assert), which no process survives; a failed kernel build
 fault of the program and raises.  JAX's obs spans, events and flight
 dumps are a later slice (ROADMAP.md slice 8, obs).
 
+Tenancy (``tenants={name: TenantClass}``, ``tpudp_torch.serve.tenancy``;
+``tenants=None`` is the single-queue engine, stats keys included):
+per-class bounded queues (``QueueFull``), class-wide default deadlines,
+admission by strict priority across classes and stride shares within a
+priority, and priority preemption: when a higher-priority request waits
+and no slot is free, the lowest-priority in-flight slot (the most
+recently admitted among equals) is vacated through the requeue path —
+tokens and generator state carried, requeued at the front of its own
+class — and resumes exactly.  Preemption and admission happen between
+scheduler iterations, so never inside a fused window.
+
+Co-resident models (``models={name: model}``, which needs ``tenants``;
+a ``TenantClass(model=name)`` routes its class there): each model has
+its own KV store (dense arena, or block table, radix index and dense
+prefix cache) and its own fused windows behind the one scheduler, and
+each iteration runs one batched decode per model with decoding slots.
+Paged models of one KV geometry (layers, KV heads, head dim, dtype)
+share one ``PagePool``; distinct geometries split ``kv_pages`` evenly.
+JAX's ``models`` maps a name to ``(model, params)``; the port's models
+hold their weights, so it maps a name to the model.
+
 The model is a ``tpudp_torch`` GPT-2 or LLaMA (grouped-query heads: the
-KV store is ``kv_heads`` wide).  The dense copy cache, tenancy and
-co-resident models are later slices: each such option raises
-``NotImplementedError`` naming its ROADMAP item.
+KV store is ``kv_heads`` wide).
 """
 
 from __future__ import annotations
@@ -132,19 +162,19 @@ from tpudp_torch.ops.paged_attention import (_KERNEL_HEAD_DIMS, KERNELS,
 from tpudp_torch.ops.sampling import (sample_tokens, verify_tokens,
                                       verify_tree_tokens)
 from tpudp_torch.serve.fused import CaptureError, FusedSpecWindow, FusedWindow
-from tpudp_torch.serve.prefix_cache import PageIndex, PagePool
+from tpudp_torch.serve.prefix_cache import (PageIndex, PagePool, PrefixCache,
+                                            copy_block_in, copy_block_out)
 from tpudp_torch.serve.speculate import NgramDrafter, tree_shape
+from tpudp_torch.serve.tenancy import TenantScheduler
+from tpudp_torch.utils.watchdog import StepHangError
 
 #: Options of the JAX engine this port does not have yet: name ->
 #: (the value that means "off", the ROADMAP.md item that brings it).
 _UNPORTED = {
-    "prefix_cache_blocks": (0, "slice 8 (dense copy prefix cache)"),
-    "tenants": (None, "slice 8 (tenancy)"),
-    "models": (None, "slice 8 (co-resident models)"),
     # The port has no obs layer: True is JAX's default, the engine as
     # the port runs it (no spans or events recorded yet).
-    "obs": (True, "Queue 1 item 5 (the obs layer)"),
-    "flight_dir": (None, "Queue 1 item 5 (the obs layer)"),
+    "obs": (True, "Queue 1 item 2 (the obs layer)"),
+    "flight_dir": (None, "Queue 1 item 2 (the obs layer)"),
 }
 
 
@@ -244,22 +274,34 @@ def _sample_row(logits, temp, top_k, top_p, generator):
 
 
 class _ModelState:
-    """The model's serving state: its dense arena, or its page pool,
-    radix index and host-side block table (``(num_slots, max_pages)``
-    int32, ``-1`` unmapped); ``slot_nodes[s]`` maps each of slot ``s``'s
-    shared pages to the pinned index node behind it."""
+    """One registered model's serving state (``name`` None: the default
+    model): its dense arena and optional dense prefix cache, or its page
+    pool (shared with the models of its KV geometry), radix index and
+    host-side block table (``(num_slots, max_pages)`` int32, ``-1``
+    unmapped); ``slot_nodes[s]`` maps each of slot ``s``'s shared pages
+    to the pinned index node behind it.  ``dispatch`` is its paged
+    families' impl table; ``window`` and ``spec_window`` its fused
+    windows, built at first use.  Every model's arena has the engine's
+    slot geometry; only the rows of slots decoding with it hold its
+    KV."""
 
-    __slots__ = ("model", "config", "cache", "pool", "index", "table",
-                 "slot_nodes")
+    __slots__ = ("name", "model", "config", "cache", "prefix_cache", "pool",
+                 "index", "table", "slot_nodes", "dispatch", "window",
+                 "spec_window")
 
-    def __init__(self, model):
+    def __init__(self, name, model):
+        self.name = name
         self.model = model
         self.config = model.config
         self.cache = None
+        self.prefix_cache = None
         self.pool = None
         self.index = None
         self.table = None
         self.slot_nodes = None
+        self.dispatch = {}
+        self.window = None
+        self.spec_window = None
 
 
 class Request:
@@ -270,13 +312,17 @@ class Request:
     ``draft_proposed``/``draft_accepted`` count this request's drafted
     and accepted tokens (``acceptance_rate`` is their ratio).
     ``finish_reason`` says why it stopped (None until ``done``) and
-    ``error`` holds the exception that retired it with ``ERROR``."""
+    ``error`` holds the exception that retired it with ``ERROR``.
+    ``tenant`` is its class on a tenant-aware engine (else None) and
+    ``preemptions`` counts the times it lost its slot to
+    higher-priority work (each resume is exact)."""
 
     def __init__(self, engine: "Engine", rid: int, prompt: np.ndarray,
                  max_new_tokens: int, temperature: float, top_k: int,
                  top_p: float, seed: int, eos_id: int | None,
                  deadline_s: float | None = None,
-                 ttft_deadline_s: float | None = None):
+                 ttft_deadline_s: float | None = None,
+                 tenant: str | None = None):
         self._engine = engine
         self.id = rid
         self.prompt = prompt
@@ -288,7 +334,9 @@ class Request:
         self.eos_id = eos_id
         self.deadline_s = deadline_s
         self.ttft_deadline_s = ttft_deadline_s
-        self._ms = None
+        self.tenant = tenant
+        self.preemptions = 0
+        self._ms = None  # the _ModelState this request decodes with
         self.tokens: list[int] = []
         self.token_times: list[float] = []
         self.submit_time = time.perf_counter()
@@ -392,12 +440,23 @@ class Engine:
     ``token_fault_hook(slot, token, request) -> token`` at each commit;
     ``canary_every_s`` starts a canary request (``canary_prompt``,
     default tokens 1-8; ``canary_new_tokens`` greedy tokens) that often,
-    one at a time."""
+    one at a time.
+
+    ``prefix_cache_blocks > 0`` turns on the dense prefix cache (a pool
+    of that many blocks; exclusive with ``kv_pages``), handle
+    :attr:`prefix_cache`.  ``tenants={name: TenantClass}`` turns on
+    tenancy: ``submit(tenant=)``, per-class queues under the engine's
+    total ``queue_limit``, priority preemption, :attr:`tenant_stats`.
+    ``models={name: model}`` registers co-resident models (each moved to
+    ``device``; they need ``tenants``, and a ``max_seq_len`` of at least
+    ``max_len``); :attr:`page_pool`, :attr:`page_index` and
+    :attr:`prefix_cache` are the default model's."""
 
     def __init__(self, model, *, device="cuda", num_slots: int = 8,
                  max_len: int | None = None, prefill_chunk: int = 16,
                  kv_pages: int = 0, paged_attn: str | None = None,
                  kv_dtype: str | None = None,
+                 prefix_cache_blocks: int = 0,
                  queue_limit: int | None = None, speculate_k: int = 0,
                  drafter=None, speculate_tree=None, decode_fuse: int = 1,
                  fuse_stream: bool = False,
@@ -405,7 +464,8 @@ class Engine:
                  step_timeout_s: float | None = None, step_fault_hook=None,
                  token_fault_hook=None,
                  canary_every_s: float | None = None, canary_prompt=None,
-                 canary_new_tokens: int = 8, **unported):
+                 canary_new_tokens: int = 8, tenants: dict | None = None,
+                 models: dict | None = None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED:
                 raise TypeError(f"Engine() got an unexpected keyword "
@@ -433,14 +493,25 @@ class Engine:
             raise ValueError(
                 "fuse_stream requires decode_fuse >= 2 — the stream tap "
                 "rides the fused decode window")
+        if prefix_cache_blocks < 0:
+            raise ValueError(
+                f"prefix_cache_blocks must be >= 0 (0 disables prefix "
+                f"caching), got {prefix_cache_blocks}")
         if kv_pages < 0:
             raise ValueError(f"kv_pages must be >= 0 (0 keeps the dense "
                              f"slot arena), got {kv_pages}")
-        if paged_attn not in (None, "einsum", "kernel"):
+        if kv_pages and prefix_cache_blocks:
+            raise ValueError(
+                "kv_pages (paged attention: slots reference one shared "
+                "page pool in place, prefix reuse is a table write) and "
+                "prefix_cache_blocks (the dense COPY cache) are mutually "
+                "exclusive — paged mode subsumes the copy path")
+        if paged_attn not in (None, "einsum", "gather", "kernel"):
             raise ValueError(
                 f"paged_attn must be None (auto: 'kernel' on CUDA, "
                 f"'einsum' on the CPU), 'einsum' (the plain PyTorch "
-                f"version) or 'kernel' (the CUDA kernels); got "
+                f"version), 'gather' (the gather -> dense -> scatter "
+                f"baseline) or 'kernel' (the CUDA kernels); got "
                 f"{paged_attn!r}")
         if kv_dtype not in (None, "int8"):
             raise ValueError(
@@ -448,9 +519,11 @@ class Engine:
         if kv_dtype is not None and not kv_pages:
             raise ValueError("kv_dtype requires kv_pages > 0 — quantized KV "
                              "lives in the page pool")
-        if paged_attn == "kernel" and not kv_pages:
-            raise ValueError("paged_attn='kernel' requires kv_pages > 0 — "
-                             "the kernels read through the block table")
+        if paged_attn not in (None, "einsum") and not kv_pages:
+            raise ValueError(
+                f"paged_attn={paged_attn!r} requires kv_pages > 0 — the "
+                f"paged-attention backend choice only exists behind the "
+                f"block-table indirection")
         if paged_attn == "kernel" and self.device.type not in KERNEL_DEVICES:
             raise ValueError("paged_attn='kernel' runs the CUDA kernels; "
                              "it needs a CUDA device")
@@ -543,20 +616,39 @@ class Engine:
         self.kv_pages = kv_pages
         self.kv_dtype = kv_dtype
         self.paged_attn = paged_attn
-        self.paged_attn_dispatch = (
-            paged_dispatch(paged_attn, kv_dtype,
-                           cfg.d_model // cfg.num_heads,
-                           len(self.speculate_tree.parents)
-                           if self.speculate_tree is not None else None)
-            if self._paged else {})
+        self._prefix_cache_blocks = prefix_cache_blocks
         self._max_pages = self.max_len // prefill_chunk  # table width
-        self._mstates: dict[str | None, _ModelState] = {
-            None: _ModelState(self.model)}
+        self._mstates: dict[str | None, _ModelState] = {}
+        self._add_model(None, self.model)
+        self.paged_attn_dispatch = self._mstates[None].dispatch
+        self.tenants = tenants
+        self._sched = None if tenants is None else TenantScheduler(tenants)
+        if models:
+            if self._sched is None:
+                raise ValueError(
+                    "models= (co-resident models) requires tenants= — "
+                    "requests route to a model through their "
+                    "TenantClass(model=name)")
+            for mname, m in models.items():
+                if not isinstance(mname, str) or not mname:
+                    raise ValueError(f"model names must be non-empty "
+                                     f"strings, got {mname!r}")
+                if not hasattr(m, "config"):
+                    raise ValueError(
+                        f"models[{mname!r}] must be a tpudp_torch model "
+                        f"(the port's models hold their weights: JAX's "
+                        f"(model, params) pair is one object here)")
+                self._add_model(mname, m.to(self.device))
+        if self._sched is not None:
+            for tname in self._sched.names:
+                route = self._sched.cls(tname).model
+                if route is not None and route not in self._mstates:
+                    raise ValueError(
+                        f"tenants[{tname!r}] routes to unregistered "
+                        f"model {route!r} (registered: "
+                        f"{sorted(k for k in self._mstates if k)})")
         if self._paged:
             self._build_page_pools()
-        else:
-            self._mstates[None].cache = KVCache.zeros(
-                cfg, num_slots, self.max_len, self.device)
         self._gens = [torch.Generator(device=self.device)
                       for _ in range(num_slots)]
         self._len = np.zeros(num_slots, np.int64)
@@ -565,9 +657,6 @@ class Engine:
         self._topk = np.zeros(num_slots, np.int64)
         self._topp = np.ones(num_slots, np.float32)
         self.decode_fuse = decode_fuse
-        # Built at the first fused window: decode_fuse=1 never builds one.
-        self._window: FusedWindow | None = None
-        self._spec_window: FusedSpecWindow | None = None
         self.fused_stream: collections.deque | None = None
         if fuse_stream:
             # A few windows' worth of tokens: overflow drops the oldest.
@@ -600,27 +689,114 @@ class Engine:
         self._quarantined = False
         self.quarantine_reason: str | None = None
 
+    # -- model registry ------------------------------------------------
+
+    def _add_model(self, name: str | None, model) -> None:
+        """Register one model behind the scheduler: its paged dispatch
+        table, or its own dense arena (the engine's slot geometry) and
+        dense prefix cache (cached KV is a function of model and tokens,
+        so blocks never cross models).  Paged stores are carved once
+        every model is registered (:meth:`_build_page_pools`)."""
+        cfg = model.config
+        if name is not None:
+            validate_decode_config(cfg, f"Engine(models[{name!r}])")
+            if cfg.max_seq_len < self.max_len:
+                raise ValueError(
+                    f"models[{name!r}] max_seq_len ({cfg.max_seq_len}) "
+                    f"is below the engine arena max_len ({self.max_len}) "
+                    f"— co-resident models share the slot geometry")
+            dcfg = getattr(self.drafter, "config", None)
+            if dcfg is not None and dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f"drafter vocab_size ({dcfg.vocab_size}) must match "
+                    f"co-resident model {name!r}'s ({cfg.vocab_size}) — "
+                    f"speculation requires a shared tokenizer")
+        ms = _ModelState(name, model)
+        if self._paged:
+            ms.dispatch = paged_dispatch(
+                self.paged_attn, self.kv_dtype, cfg.d_model // cfg.num_heads,
+                len(self.speculate_tree.parents)
+                if self.speculate_tree is not None else None)
+        else:
+            ms.cache = KVCache.zeros(cfg, self.num_slots, self.max_len,
+                                     self.device)
+            if self._prefix_cache_blocks:
+                ms.prefix_cache = PrefixCache(cfg, self._prefix_cache_blocks,
+                                              self.prefill_chunk,
+                                              self.device)
+        self._mstates[name] = ms
+
     def _build_page_pools(self) -> None:
-        """One page pool, radix index and block table for the model."""
-        if self.kv_pages < self._max_pages:
+        """Carve ``kv_pages`` across the registered models' KV-geometry
+        groups: models of one (layers, kv_heads, head_dim, dtype) share
+        one ``PagePool``, distinct geometries split the pages evenly.
+        Each model gets its own radix index over its group's pool and its
+        own block table."""
+        groups: dict[tuple, list[_ModelState]] = {}
+        for ms in self._mstates.values():
+            cfg = ms.config
+            key = (cfg.num_layers, getattr(cfg, "kv_heads", cfg.num_heads),
+                   cfg.d_model // cfg.num_heads, str(cfg.dtype))
+            groups.setdefault(key, []).append(ms)
+        per_group = self.kv_pages // len(groups)
+        if per_group < self._max_pages:
             raise ValueError(
-                f"kv_pages ({self.kv_pages}) is below the "
-                f"{self._max_pages} pages one max_len ({self.max_len}) "
-                f"request needs; raise kv_pages")
-        ms = self._mstates[None]
-        ms.pool = PagePool(ms.config, self.kv_pages, self.prefill_chunk,
-                           self.device, self.kv_dtype)
-        ms.index = PageIndex(ms.pool)
-        ms.table = np.full((self.num_slots, self._max_pages), -1, np.int32)
-        ms.slot_nodes = [dict() for _ in range(self.num_slots)]
+                f"kv_pages ({self.kv_pages}) carves to {per_group} pages "
+                f"per KV-geometry group ({len(groups)} groups) — below "
+                f"the {self._max_pages} pages one max_len "
+                f"({self.max_len}) request needs; raise kv_pages")
+        for members in groups.values():
+            pool = PagePool(members[0].config, per_group,
+                            self.prefill_chunk, self.device, self.kv_dtype)
+            for ms in members:
+                ms.pool = pool
+                ms.index = PageIndex(pool)
+                ms.table = np.full((self.num_slots, self._max_pages), -1,
+                                   np.int32)
+                ms.slot_nodes = [dict() for _ in range(self.num_slots)]
+
+    def _pools(self) -> list:
+        """The distinct page pools, in model registration order."""
+        pools: list = []
+        for ms in self._mstates.values():
+            if ms.pool is not None and all(p is not ms.pool for p in pools):
+                pools.append(ms.pool)
+        return pools
 
     @property
     def page_pool(self):
+        """The default model's ``PagePool`` (None unpaged); co-resident
+        models of its KV geometry share this object."""
         return self._mstates[None].pool
 
     @property
     def page_index(self):
+        """The default model's radix ``PageIndex`` (None unpaged)."""
         return self._mstates[None].index
+
+    @property
+    def prefix_cache(self):
+        """The default model's dense ``PrefixCache`` (None when off)."""
+        return self._mstates[None].prefix_cache
+
+    @property
+    def _window(self) -> FusedWindow | None:
+        """The default model's fused decode window (None until built)."""
+        return self._mstates[None].window
+
+    @property
+    def _spec_window(self) -> FusedSpecWindow | None:
+        return self._mstates[None].spec_window
+
+    @property
+    def tenant_stats(self) -> dict:
+        """Per-tenant counters ``{name: Counter}``: submitted, admitted
+        (fresh grants), readmitted (resumes after preemption or a
+        requeue), shed, preempted, page_pressure_vacates, tokens, and one
+        count per finish reason.  Empty with tenancy off."""
+        if self._sched is None:
+            return {}
+        return {name: self._sched.stats(name) for name in self._sched.names}
 
     # -- submission ----------------------------------------------------
 
@@ -628,7 +804,8 @@ class Engine:
                temperature: float = 0.0, top_k: int | None = None,
                top_p: float | None = None, seed: int = 0,
                eos_id: int | None = None, deadline_s: float | None = None,
-               ttft_deadline_s: float | None = None) -> Request:
+               ttft_deadline_s: float | None = None,
+               tenant: str | None = None) -> Request:
         """Queue one generation request; returns its streaming handle.
         ``temperature=0`` is greedy (``top_k``/``top_p`` rejected);
         otherwise softmax sampling truncated to top-k and/or the top-p
@@ -637,18 +814,41 @@ class Engine:
         ``tokens``).  ``deadline_s`` bounds the request's wall time from
         submit, ``ttft_deadline_s`` its wait for the first token; an
         expired request retires with ``FinishReason.DEADLINE`` at the
-        next step, its tokens kept.  Raises :class:`EngineClosed` once
+        next step, its tokens kept.  ``tenant`` names the request's class
+        on a tenant-aware engine: the class's ``queue_limit`` bounds its
+        queue, its ``default_deadline_s`` fills a missing ``deadline_s``
+        and its ``model`` routes the request; None resolves to the class
+        named ``"default"``.  Raises :class:`EngineClosed` once
         :meth:`drain`/:meth:`close` began and :class:`QueueFull` when
-        ``queue_limit`` requests are waiting."""
+        ``queue_limit`` requests (engine-wide, or the class's) are
+        waiting."""
         if not self._accepting:
             raise EngineClosed("Engine.drain()/close() was called; the "
                                "engine no longer accepts work")
+        tname = tc = None
+        if self._sched is not None:
+            tname = self._sched.resolve(tenant)
+            tc = self._sched.cls(tname)
+        elif tenant is not None:
+            raise ValueError(
+                "submit(tenant=...) requires Engine(tenants=...) — this "
+                "engine has no tenant classes configured")
         if (self.queue_limit is not None
                 and self.queue_depth >= self.queue_limit):
             self.stats["shed"] += 1
+            if tname is not None:
+                self._sched.stats(tname)["shed"] += 1
             raise QueueFull(f"queue_limit ({self.queue_limit}) queued "
                             f"requests already waiting; request refused")
-        ms = self._mstates[None]
+        if tc is not None and self._sched.full(tname):
+            self.stats["shed"] += 1
+            self._sched.stats(tname)["shed"] += 1
+            raise QueueFull(
+                f"tenant {tname!r} queue_limit ({tc.queue_limit}) queued "
+                f"requests already waiting; request refused (shed)")
+        if tc is not None and deadline_s is None:
+            deadline_s = tc.default_deadline_s  # the class-wide SLO
+        ms = self._mstates[tc.model if tc is not None else None]
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("prompt must hold at least one token")
@@ -685,10 +885,14 @@ class Engine:
         r = Request(self, self._next_id, prompt, max_new_tokens,
                     float(temperature), int(top_k or 0),
                     float(1.0 if top_p is None else top_p), seed, eos_id,
-                    deadline_s, ttft_deadline_s)
+                    deadline_s, ttft_deadline_s, tname)
         r._ms = ms
         self._next_id += 1
-        self._queue.append(r)
+        if self._sched is not None:
+            self._sched.enqueue(r)
+            self._sched.stats(tname)["submitted"] += 1
+        else:
+            self._queue.append(r)
         self.stats["submitted"] += 1
         return r
 
@@ -717,13 +921,14 @@ class Engine:
 
     @torch.no_grad()
     def step(self) -> list[tuple[Request, int]]:
-        """One scheduler iteration: expire deadlines, admit queued
-        requests into free slots, run at most one prefill chunk, then one
-        batched step for every decoding slot — a tree verify window, a
-        fused speculation window, a sequence verify window, a fused
-        decode window or a plain decode step, in that order of
-        preference.  Returns the ``(request, token)`` pairs emitted (a
-        canary's never among them).
+        """One scheduler iteration: expire deadlines, preempt
+        lower-priority slots for waiting higher-priority work (tenancy),
+        admit queued requests into free slots, run at most one prefill
+        chunk, then for each model with decoding slots one batched step
+        — a tree verify window, a fused speculation window, a sequence
+        verify window, a fused decode window or a plain decode step, in
+        that order of preference.  Returns the ``(request, token)``
+        pairs emitted (a canary's never among them).
 
         An exception escaping the iteration is contained
         (:meth:`_contain_step_failure`); a closed or quarantined
@@ -736,24 +941,27 @@ class Engine:
             return emitted  # the canary just condemned this engine
         try:
             self._expire_deadlines()
+            if self._sched is not None:
+                self._preempt_for_priority()
             self._admit()
             slot = self._next_prefill_slot()
             if slot is not None:
                 self._run_prefill_chunk(slot, emitted)
             # Fuse only on pure-decode iterations: nothing queued
-            # (admission must not wait on a slot a window would free) and
-            # nothing prefilling (a chunk must not stall behind a window).
-            # Deadlines do not gate fusing: expiry is seen at the window's
-            # edge.
+            # (admission and preemption must not wait on a slot a window
+            # would free) and nothing prefilling (a chunk must not stall
+            # behind a window).  Deadlines do not gate fusing: expiry is
+            # seen at the window's edge.
             fuse = (self.decode_fuse > 1 and self.queue_depth == 0
                     and self._next_prefill_slot() is None)
-            ms = self._mstates[None]
-            active = self._decoding(ms)
-            if active.any() and self._paged:
-                # Back every table entry the step writes before dispatch;
-                # page pressure resolves here, on the host.
-                active = self._ensure_decode_pages(ms, active, fuse)
-            if active.any():
+            for ms in self._mstates.values():
+                active = self._decoding(ms)
+                if active.any() and self._paged:
+                    # Back every table entry the step writes before
+                    # dispatch; page pressure resolves here, on the host.
+                    active = self._ensure_decode_pages(ms, active, fuse)
+                if not active.any():
+                    continue
                 if self._speculating:
                     if self.speculate_tree is not None:
                         self._run_verify_tree(ms, active, emitted)
@@ -782,7 +990,10 @@ class Engine:
         if request._slot is not None:
             self._retire(request._slot, FinishReason.CANCELLED)
             return True
-        self._queue.remove(request)
+        if self._sched is not None:
+            self._sched.remove(request)
+        else:
+            self._queue.remove(request)
         self._finish(request, FinishReason.CANCELLED)
         return True
 
@@ -798,7 +1009,7 @@ class Engine:
     def drain(self) -> None:
         """Graceful shutdown: stop admission (``submit`` raises
         :class:`EngineClosed`), finish every queued and in-flight
-        request, then close.  Idempotent."""
+        request, of every tenant class, then close.  Idempotent."""
         self._accepting = False
         self.run_until_complete()
         self._closed = True
@@ -806,8 +1017,11 @@ class Engine:
     def close(self) -> None:
         """Immediate shutdown: stop admission, retire in-flight requests
         as ``CANCELLED`` (no prefix is published) and queued ones as
-        ``SHED``.  Idempotent."""
+        ``SHED``, walking every tenant queue.  Idempotent."""
         self._accepting = False
+        if self._sched is not None:
+            for r in self._sched.drain_all():
+                self._finish(r, FinishReason.SHED)
         while self._queue:
             self._finish(self._queue.popleft(), FinishReason.SHED)
         for s, r in enumerate(self._slots):
@@ -843,6 +1057,10 @@ class Engine:
 
     @property
     def queue_depth(self) -> int:
+        """Requests submitted and not yet admitted (over every tenant
+        class)."""
+        if self._sched is not None:
+            return self._sched.depth()
         return len(self._queue)
 
     @property
@@ -869,27 +1087,36 @@ class Engine:
             "kernel_launches": {name: fn.launches
                                 for name, fn in KERNELS.items()},
         }
+        if self._sched is not None:
+            out["tenants"] = {name: dict(c)
+                              for name, c in self.tenant_stats.items()}
         if self._paged:
-            p = self.page_pool
             out["page_pools"] = [
                 {"num_pages": p.num_pages, "used_pages": p.used_pages,
                  "free_pages": p.free_pages, "page_bytes": p.page_bytes(),
-                 "kv_dtype": p.kv_dtype}]
+                 "kv_dtype": p.kv_dtype} for p in self._pools()]
+            # The default model's table; a co-resident model's fallbacks
+            # (another head dim) are listed too.
             out["paged_attn"] = {
                 "requested": self.paged_attn_requested,
                 "resolved": self.paged_attn,
                 "dispatch": dict(self.paged_attn_dispatch),
                 "fallbacks": sorted(
-                    f for f, impl in self.paged_attn_dispatch.items()
-                    if self.paged_attn == "kernel" and impl != "kernel")}
+                    {f for ms in self._mstates.values()
+                     for f, impl in ms.dispatch.items()
+                     if self.paged_attn == "kernel" and impl != "kernel"})}
         if self.stats.get("draft_tokens"):
             out["acceptance_rate"] = self.acceptance_rate
-        for key, w in (("fused_window", self._window),
-                       ("fused_spec_window", self._spec_window)):
-            if w is not None:
+        for key, attr in (("fused_window", "window"),
+                          ("fused_spec_window", "spec_window")):
+            built = [getattr(ms, attr) for ms in self._mstates.values()
+                     if getattr(ms, attr) is not None]
+            if built:  # summed over the models' windows
                 out[key] = {"decode_fuse": self.decode_fuse,
-                            "graph": w.graph is not None,
-                            "captures": w.captures, "replays": w.replays}
+                            "graph": all(w.graph is not None
+                                         for w in built),
+                            "captures": sum(w.captures for w in built),
+                            "replays": sum(w.replays for w in built)}
         if self.canary_every_s is not None or self._quarantined:
             out["canary"] = {
                 "runs": self.stats["canary_runs"],
@@ -907,13 +1134,20 @@ class Engine:
         return np.array([r is not None and r._nfill == r._fill.size
                          and r._ms is ms for r in self._slots])
 
+    def _pop_next(self) -> Request | None:
+        """The next request to admit: FIFO without tenancy; highest
+        priority, then stride, with it."""
+        if self._sched is not None:
+            return self._sched.pop_next()
+        return self._queue.popleft() if self._queue else None
+
     def _admit(self) -> None:
         for s in range(self.num_slots):
             if self._slots[s] is not None:
                 continue
-            if not self._queue:
+            r = self._pop_next()
+            if r is None:
                 break
-            r = self._queue.popleft()
             r._slot = s
             r._order = self._admitted
             self._admitted += 1
@@ -929,8 +1163,73 @@ class Engine:
             else:
                 self._gens[s].manual_seed(r.seed)
             self.stats["admitted"] += 1
+            if r.tenant is not None:
+                # A resume is not a fresh grant: the class's admitted
+                # share stays the one its weight set.
+                self._sched.stats(r.tenant)[
+                    "readmitted" if r._resume_key is not None
+                    else "admitted"] += 1
             if self._paged:
                 self._admit_prefix_paged(r._ms, s, r)
+            elif r._ms.prefix_cache is not None:
+                self._admit_prefix(r._ms, s, r)
+
+    def _admit_prefix(self, ms: _ModelState, s: int, r: Request) -> None:
+        """Dense cache-hit admission: copy the longest cached
+        block-aligned prefix of the fill into the slot's arena rows and
+        skip that much prefill.  The hit stops one chunk short of the
+        fill, so the final chunk's logits feed the next sampling event,
+        as a cold run's do.  Hit blocks are pinned during the copies."""
+        cache = ms.prefix_cache
+        self.stats["prefix_lookups"] += 1
+        blocks = cache.lookup(r._fill)
+        n_copy = min(len(blocks), (r._fill.size - 1) // self.prefill_chunk)
+        hit = n_copy * self.prefill_chunk
+        self.stats["prefix_hit_tokens"] += hit
+        if not n_copy:
+            return
+        cache.pin(blocks[:n_copy])
+        try:
+            for i in range(n_copy):
+                self._device("prefix_in", copy_block_in, ms.cache,
+                             cache.pool, blocks[i], s,
+                             i * self.prefill_chunk)
+        finally:
+            cache.unpin(blocks[:n_copy])
+        r._nfill = hit
+        self._len[s] = hit
+
+    def _publish_prefix(self, ms: _ModelState, s: int, r: Request) -> None:
+        """Retirement-time publish of the slot's block-aligned
+        chunk-prefilled prefix (``r._nfill``; decode and verify KV never
+        qualifies): paged, an ownership transfer
+        (:meth:`_publish_prefix_paged`); dense, insert-or-ref in the
+        cache and a copy out of the arena for each new block.  A failed
+        dense publish flushes the cache and the retirement goes on; a
+        watchdog hang surfacing in it flushes and re-raises, for the
+        step's containment."""
+        if self._paged:
+            self._publish_prefix_paged(ms, s, r)
+            return
+        cache = ms.prefix_cache
+        n_blocks = min(r._nfill, r._fill.size) // self.prefill_chunk
+        if not n_blocks:
+            return
+        try:
+            new = cache.publish(r._fill, n_blocks)
+            for block, start in new:
+                self._device("prefix_out", copy_block_out, ms.cache,
+                             cache.pool, block, s, start)
+            self.stats["prefix_published_blocks"] += len(new)
+        except StepHangError:
+            cache.flush(reallocate=True)
+            self.stats["prefix_flushes"] += 1
+            raise
+        except Exception as exc:  # noqa: BLE001 — publish is best-effort
+            cache.flush(reallocate=True)
+            self.stats["prefix_flushes"] += 1
+            self.stats["prefix_publish_failures"] += 1
+            self.last_step_error = exc
 
     # -- paged attention internals (Engine(kv_pages=N)) ----------------
 
@@ -992,22 +1291,48 @@ class Engine:
             page = ms.pool.alloc()
             if page is not None:
                 return page
-            if ms.index.evict_one():
+            if self._evict_index_page(ms.pool):
                 continue
             victim = self._page_pressure_victim(ms.pool, protect)
             if victim is None:
                 return None
             self._vacate_for_pages(victim)
 
+    def _evict_index_page(self, pool) -> bool:
+        """Evict the least-recently-touched unreferenced leaf over every
+        index sharing ``pool`` (each index's own clock, ties to the
+        earlier registered model)."""
+        coldest = [(node, ms.index) for ms in self._mstates.values()
+                   if ms.pool is pool
+                   for node in (ms.index._coldest(),) if node is not None]
+        if not coldest:
+            return False
+        node, index = min(coldest, key=lambda c: c[0].stamp)
+        index.evict_node(node)
+        return True
+
     def _page_pressure_victim(self, pool, protect: int) -> int | None:
-        """The most recently admitted slot other than ``protect``: the
-        least sunk cost, so the oldest request always progresses."""
+        """Among slots drawing on ``pool`` other than ``protect``: the
+        lowest priority under tenancy, then the most recently admitted —
+        the least sunk cost, so the oldest request always progresses."""
         victims = [s for s, r in enumerate(self._slots)
                    if r is not None and s != protect
                    and r._ms.pool is pool]
         if not victims:
             return None
+        if self._sched is not None:
+            return max(victims,
+                       key=lambda s: (-self._priority_of(self._slots[s]),
+                                      self._slots[s]._order))
         return max(victims, key=lambda s: self._slots[s]._order)
+
+    def _requeue_front(self, r: Request) -> None:
+        """Previously admitted work back at the front of its queue (its
+        class's, under tenancy)."""
+        if self._sched is not None:
+            self._sched.requeue_front(r)
+        else:
+            self._queue.appendleft(r)
 
     def _vacate_for_pages(self, s: int) -> None:
         """Evict slot ``s`` to free its pages: publish its prefilled
@@ -1018,7 +1343,9 @@ class Engine:
             self._publish_prefix_paged(r._ms, s, r)
         self._vacate_slot(s)
         self.stats["page_pressure_vacates"] += 1
-        self._queue.appendleft(r)
+        if r.tenant is not None:
+            self._sched.stats(r.tenant)["page_pressure_vacates"] += 1
+        self._requeue_front(r)
 
     def _ensure_pages(self, ms: _ModelState, s: int, upto: int) -> bool:
         """Allocate slot ``s``'s table entries covering positions
@@ -1076,31 +1403,38 @@ class Engine:
         owning index node plus one per table entry mapping it)."""
         if not self._paged:
             return
-        ms = self._mstates[None]
-        ms.index.check()
-        for s in range(self.num_slots):
-            for page, node in ms.slot_nodes[s].items():
-                if ms.index._by_block.get(node.block) is not node:
-                    raise RuntimeError(f"slot {s} pins a node the index no "
-                                       f"longer holds (page {page})")
-                if page not in ms.table[s]:
-                    raise RuntimeError(f"slot {s} pins page {page} absent "
-                                       f"from its table row")
-        expected: dict[int, int] = dict(ms.index.tree_refs())
-        for page in ms.table[ms.table >= 0].tolist():
-            expected[page] = expected.get(page, 0) + 1
-        ms.pool.check(expected)
+        for ms in self._mstates.values():
+            ms.index.check()
+            for s in range(self.num_slots):
+                for page, node in ms.slot_nodes[s].items():
+                    if ms.index._by_block.get(node.block) is not node:
+                        raise RuntimeError(
+                            f"slot {s} pins a node the index no longer "
+                            f"holds (page {page})")
+                    if page not in ms.table[s]:
+                        raise RuntimeError(f"slot {s} pins page {page} "
+                                           f"absent from its table row")
+        for pool in self._pools():
+            expected: dict[int, int] = {}
+            for ms in self._mstates.values():
+                if ms.pool is not pool:
+                    continue
+                for page in list(ms.index.tree_refs()) + \
+                        ms.table[ms.table >= 0].tolist():
+                    expected[page] = expected.get(page, 0) + 1
+            pool.check(expected)
 
     # -- the step loop ---------------------------------------------------
 
     def _finish(self, r: Request, reason: FinishReason,
                 error: BaseException | None = None) -> None:
-        # JAX's obs event and per-tenant counters of a finish are not
-        # ported (obs and tenancy: ROADMAP.md slice 8).
+        # JAX's obs event of a finish is not ported (obs, ROADMAP.md).
         r.done = True
         r.finish_reason = reason
         r.error = error
         self.stats[_FINISH_COUNTER[reason]] += 1
+        if r.tenant is not None:
+            self._sched.stats(r.tenant)[_FINISH_COUNTER[reason]] += 1
 
     def _deadline_passed(self, r: Request, now: float) -> bool:
         waited = now - r.submit_time
@@ -1114,8 +1448,13 @@ class Engine:
         budget has run out (``FinishReason.DEADLINE``), before
         admission, so a request dead on arrival never takes a slot."""
         now = time.perf_counter()
-        for r in [r for r in self._queue if self._deadline_passed(r, now)]:
-            self._queue.remove(r)
+        queued = (self._sched.queued() if self._sched is not None
+                  else self._queue)
+        for r in [r for r in queued if self._deadline_passed(r, now)]:
+            if self._sched is not None:
+                self._sched.remove(r)
+            else:
+                self._queue.remove(r)
             self._finish(r, FinishReason.DEADLINE)
         for s, r in enumerate(self._slots):
             if r is not None and self._deadline_passed(r, now):
@@ -1146,22 +1485,28 @@ class Engine:
                 self.step_fault_hook(kind, idx)
             return fn(*args)
 
-    def _reset_store(self, ms: _ModelState) -> None:
-        """Containment's reset of the model's KV store, in place: the
-        captured windows hold the addresses of the pool (or arena), so
+    def _reset_stores(self) -> None:
+        """Containment's reset of every model's KV store, in place: the
+        captured windows hold the addresses of the pools (or arenas), so
         JAX's reallocation would leave their replays reading freed
-        memory.  Paged: every page zeroed (int8 scales back to 1), every
-        page freed, the index, tables and pins cleared; dense: the arena
-        zeroed.  The survivors re-prefill into it, as in JAX."""
-        if self._paged:
-            ms.pool.reset()
-            ms.index.reset()
-            ms.table[:] = -1
-            ms.slot_nodes = [dict() for _ in range(self.num_slots)]
-            self.stats["prefix_flushes"] += 1
-        else:
+        memory.  Paged: every page of each shared pool zeroed (int8
+        scales back to 1) and freed once, every model's index, table and
+        pins cleared; dense: each arena zeroed and its prefix cache
+        flushed.  The survivors re-prefill into them, as in JAX."""
+        for pool in self._pools():
+            pool.reset()
+        for ms in self._mstates.values():
+            if self._paged:
+                ms.index.reset()
+                ms.table[:] = -1
+                ms.slot_nodes = [dict() for _ in range(self.num_slots)]
+                self.stats["prefix_flushes"] += 1
+                continue
             ms.cache.k.zero_()
             ms.cache.v.zero_()
+            if ms.prefix_cache is not None:
+                ms.prefix_cache.flush(reallocate=True)
+                self.stats["prefix_flushes"] += 1
 
     def _contain_step_failure(self, exc: BaseException) -> None:
         """An exception escaped a step: reset the KV store (the failed
@@ -1176,7 +1521,7 @@ class Engine:
         self.last_step_error = exc
         if self._watchdog is not None:
             self._watchdog.acknowledge()  # handled; the next scope may run
-        self._reset_store(self._mstates[None])
+        self._reset_stores()
         survivors: list[Request] = []
         for s in sorted((s for s, r in enumerate(self._slots)
                          if r is not None),
@@ -1188,14 +1533,21 @@ class Engine:
                 r._requeued = True
                 survivors.append(r)
                 self.stats["requeued"] += 1
-        # Admitted work goes back to the front; queue_limit never applies
-        # to it (shedding it would turn a transient fault into lost work).
-        self._queue.extendleft(reversed(survivors))
+        # Admitted work goes back to the front (of its class) in
+        # admission order; queue_limit never applies to it (shedding it
+        # would turn a transient fault into lost work).
+        for r in reversed(survivors):
+            self._requeue_front(r)
 
     def _next_prefill_slot(self) -> int | None:
-        pending = [(r._order, s) for s, r in enumerate(self._slots)
+        """The slot whose next prefill chunk runs: the oldest admitted
+        request still prefilling, the highest priority first under
+        tenancy (a tier's TTFT must not wait behind a lower tier's
+        prompt)."""
+        pending = [(-self._priority_of(r) if self._sched else 0, r._order,
+                    s) for s, r in enumerate(self._slots)
                    if r is not None and r._nfill < r._fill.size]
-        return min(pending)[1] if pending else None
+        return min(pending)[2] if pending else None
 
     def _to_device(self, a, dtype=torch.int64) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, dtype)
@@ -1218,7 +1570,7 @@ class Engine:
                 "prefill", _forward_paged, ms.model, tokens, ms.pool.pages,
                 self._to_device(ms.table[s][None], torch.int32), start,
                 torch.ones(1, dtype=torch.bool, device=self.device),
-                self.paged_attn_dispatch["prefill_paged"])
+                ms.dispatch["prefill_paged"])
         else:
             row = KVCache(ms.cache.k[:, s:s + 1], ms.cache.v[:, s:s + 1])
             logits, _ = self._device("prefill", _forward_cached, ms.model,
@@ -1251,15 +1603,15 @@ class Engine:
             def forward(pool, tokens, lens, act):
                 return _forward_paged(ms.model, tokens, pool, table, lens,
                                       act,
-                                      impl=self.paged_attn_dispatch[
-                                          "decode_paged"])
+                                      impl=ms.dispatch["decode_paged"])
             state = ms.pool.pages
         else:
             def forward(cache, tokens, lens, act):
                 return _forward_cached(ms.model, tokens, cache, lens)
             state = ms.cache
         toks = self._device("decode", lambda: _decode_math(
-            forward, state, self._to_device(self._last), lengths, act,
+            forward, state, self._to_device(self._last_of(active)),
+            lengths, act,
             self._temps, self._topk, self._topp,
             self._gens)[1].cpu().numpy())
         self.stats["decode_steps"] += 1
@@ -1273,7 +1625,7 @@ class Engine:
         pool through the window's own block table (``family``'s impl), or
         the dense arena."""
         if self._paged:
-            impl = self.paged_attn_dispatch[family]
+            impl = ms.dispatch[family]
 
             def forward(tokens, lens, running, table):
                 return _forward_paged(ms.model, tokens, ms.pool.pages,
@@ -1284,27 +1636,27 @@ class Engine:
         return forward
 
     def _fused_window(self, ms: _ModelState) -> FusedWindow:
-        """The engine's one fused decode window, built at its first use."""
-        if self._window is None:
-            self._window = FusedWindow(
+        """The model's fused decode window, built at its first use."""
+        if ms.window is None:
+            ms.window = FusedWindow(
                 self._window_forward(ms, "fused_decode_paged"),
                 num_slots=self.num_slots, n_steps=self.decode_fuse,
                 table_pages=self._max_pages if self._paged else None,
                 generators=self._gens, device=self.device)
-        return self._window
+        return ms.window
 
     def _spec_fused_window(self, ms: _ModelState) -> FusedSpecWindow:
-        """The engine's one fused speculation window, built at its first
-        use: its draft store is allocated once, its graph captured once."""
-        if self._spec_window is None:
-            self._spec_window = FusedSpecWindow(
+        """The model's fused speculation window, built at its first use:
+        its draft store is allocated once, its graph captured once."""
+        if ms.spec_window is None:
+            ms.spec_window = FusedSpecWindow(
                 self._window_forward(ms, "fused_spec_paged"),
                 self.drafter.model, num_slots=self.num_slots,
                 n_steps=self.decode_fuse, k=self.speculate_k,
                 hist_len=self.max_len,
                 table_pages=self._max_pages if self._paged else None,
                 generators=self._gens, device=self.device)
-        return self._spec_window
+        return ms.spec_window
 
     def _window_values(self, ms: _ModelState, active) -> dict:
         """A window's inputs: the host's per-slot state, each active
@@ -1317,7 +1669,8 @@ class Engine:
             budgets[s] = r.max_new_tokens - len(r.tokens)
             if r.eos_id is not None:
                 eos[s] = r.eos_id
-        values = dict(last=self._last, lens=self._len, running=active,
+        values = dict(last=self._last_of(active), lens=self._len,
+                      running=active,
                       temps=self._temps, top_k=self._topk, top_p=self._topp,
                       budgets=budgets, eos=eos)
         if self._paged:
@@ -1608,12 +1961,18 @@ class Engine:
             proposed.append((int(s), draft))
         return proposed
 
-    def _window_tokens(self, proposed, width: int):
+    def _last_of(self, active) -> np.ndarray:
+        """Each active slot's last token, 0 elsewhere: a batched forward
+        feeds every row, and another model's slot may hold a token past
+        this model's vocabulary."""
+        return np.where(active, self._last, 0)
+
+    def _window_tokens(self, proposed, width: int, active):
         """``(num_slots, width + 1)`` window tokens — each slot's last
         token, then its draft — and the per-slot draft counts; charges
         the proposals to their requests."""
         tokens = np.zeros((self.num_slots, width + 1), np.int64)
-        tokens[:, 0] = self._last
+        tokens[:, 0] = self._last_of(active)
         n_draft = np.zeros(self.num_slots, np.int64)
         for s, draft in proposed:
             tokens[s, 1:1 + draft.size] = draft
@@ -1657,7 +2016,7 @@ class Engine:
         if not proposed:  # nothing drafted, or the drafter was just cut
             self._run_decode(ms, active, emitted)
             return
-        tokens, n_draft = self._window_tokens(proposed, k)
+        tokens, n_draft = self._window_tokens(proposed, k, active)
 
         def verify():
             window = self._to_device(tokens)
@@ -1667,7 +2026,7 @@ class Engine:
                     ms.model, window, ms.pool.pages,
                     self._to_device(ms.table, torch.int32), lengths,
                     self._to_device(active, torch.bool),
-                    impl=self.paged_attn_dispatch["verify_paged"])
+                    impl=ms.dispatch["verify_paged"])
             else:
                 logits, _ = _forward_cached(ms.model, window, ms.cache,
                                             lengths)
@@ -1696,7 +2055,7 @@ class Engine:
             self._run_decode(ms, active, emitted)
             return
         tokens, n_cand = self._window_tokens(proposed,
-                                             shape.num_candidates)
+                                             shape.num_candidates, active)
         out, n_emit = self._device("tree_verify", self._tree_verify, ms,
                                    active, tokens, n_cand, shape)
         self._replay(active, out, n_emit, n_cand, "tree_verify_steps",
@@ -1711,7 +2070,7 @@ class Engine:
         tree = (shape.depths, shape.ancestors)
         if self._paged:
             table = self._to_device(ms.table, torch.int32)
-            if self.paged_attn_dispatch["tree_verify_paged"] == "kernel":
+            if ms.dispatch["tree_verify_paged"] == "kernel":
                 logits, wk, wv = _forward_tree_paged(
                     ms.model, tokens, ms.pool.pages, table, lengths, *tree)
             else:
@@ -1758,10 +2117,59 @@ class Engine:
         self._last[s] = tok
         emitted.append((r, tok))
         self.stats["tokens"] += 1
+        if r.tenant is not None:
+            self._sched.stats(r.tenant)["tokens"] += 1
         if r.eos_id is not None and tok == r.eos_id:
             self._retire(s, FinishReason.EOS)
         elif len(r.tokens) >= r.max_new_tokens:
             self._retire(s, FinishReason.COMPLETE)
+
+    def _priority_of(self, r: Request) -> int:
+        return self._sched.cls(r.tenant).priority
+
+    def _preempt_for_priority(self) -> None:
+        """Evict lower-priority in-flight work that a waiting
+        higher-priority request would otherwise wait behind: for each
+        queued request in priority order (a snapshot: requests evicted
+        here do not count as waiters this pass) take a free slot if one
+        is left, else evict the lowest-priority slot strictly below the
+        waiter's priority (the most recently admitted among equals).
+        Equal priorities never preempt each other, and a pass evicts at
+        most ``num_slots`` slots."""
+        waiting = self._sched.waiting_by_priority()
+        if not waiting:
+            return
+        free = sum(r is None for r in self._slots)
+        for pri, count in waiting:
+            for _ in range(count):
+                if free:
+                    free -= 1
+                    continue
+                victims = [s for s, r in enumerate(self._slots)
+                           if r is not None and self._priority_of(r) < pri]
+                if not victims:
+                    return
+                self._preempt_slot(max(
+                    victims, key=lambda s: (-self._priority_of(
+                        self._slots[s]), self._slots[s]._order)))
+
+    def _preempt_slot(self, s: int) -> None:
+        """Evict slot ``s`` for higher-priority work through the requeue
+        path: its prefilled prefix is published first (paged or with the
+        dense cache, so the resume mostly maps or copies it back), the
+        request keeps its tokens and generator state and goes to the
+        front of its class, and its re-prefill of ``prompt + tokens``
+        continues it exactly.  Nothing failed: the store stays live and
+        the one step-failure requeue is not spent."""
+        r = self._slots[s]
+        if (self._paged or r._ms.prefix_cache is not None) \
+                and self._accepting:
+            self._publish_prefix(r._ms, s, r)
+        self._vacate_slot(s)
+        r.preemptions += 1
+        self.stats["preempted"] += 1
+        self._sched.stats(r.tenant)["preempted"] += 1
+        self._sched.requeue_front(r)
 
     def _vacate_slot(self, s: int) -> Request:
         """Clear slot ``s`` and prepare its request to resume exactly:
@@ -1783,9 +2191,12 @@ class Engine:
     def _retire(self, s: int, reason: FinishReason,
                 error: BaseException | None = None) -> None:
         r = self._slots[s]
-        # No publish once drain()/close() began: no later request reads it.
-        if self._paged and self._accepting:
-            self._publish_prefix_paged(r._ms, s, r)
+        # No publish once drain()/close() began: no later request reads
+        # it.  Every retirement reason qualifies: the prefilled prefix is
+        # valid KV whatever stopped the request.
+        if (self._paged or r._ms.prefix_cache is not None) \
+                and self._accepting:
+            self._publish_prefix(r._ms, s, r)
         self._release_slot_pages(r._ms, s)
         r._slot = None
         self._slots[s] = None

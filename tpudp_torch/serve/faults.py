@@ -25,8 +25,11 @@ exactly.  Three seams, all engine API:
     the fault only the serving canary (``Engine(canary_every_s=...)``)
     sees.
 
-JAX's ``PreemptionStorm`` (tenancy) and its cross-host transfer faults
-(disaggregated serving) belong to later slices (ROADMAP.md slice 8).
+A fourth injector drives the scheduler rather than a seam:
+:class:`PreemptionStorm` submits high-priority bursts into a
+tenant-aware engine on a fixed schedule, so lower-priority work is
+preempted over and over.  JAX's cross-host transfer faults
+(disaggregated serving) belong to a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ from __future__ import annotations
 import time
 
 import numpy as np
+
+from tpudp_torch.serve.engine import QueueFull
 
 
 class InjectedFault(RuntimeError):
@@ -149,6 +154,57 @@ class SlowSteps:
                                        or kind == self.kind):
             self.fired.append((kind, index))
             time.sleep(self.delay_s)
+
+
+class PreemptionStorm:
+    """Deterministic preemption pressure for a tenant-aware engine:
+    submits one short request into ``tenant`` (a high-priority class)
+    each time the caller's step counter reaches the next entry of
+    ``at_steps``, so the scheduler evicts lower-priority in-flight slots
+    through the preemption path.  Schedule, prompts and seeds are fixed
+    by the constructor, so a storm that exposes a leak or a parity break
+    replays exactly.
+
+    The caller runs :meth:`tick` once per scheduler iteration (the
+    storm does not hook the engine: submission timing is scheduler
+    behaviour, not a device fault).  ``handles`` holds each burst's
+    handle (None where the class's own ``queue_limit`` shed it);
+    ``submitted`` counts the accepted ones."""
+
+    def __init__(self, tenant: str, prompts, at_steps, max_new: int = 2,
+                 seed: int = 0):
+        if max_new < 1:
+            raise ValueError(f"max_new must be >= 1, got {max_new}")
+        self.tenant = tenant
+        self.prompts = [np.asarray(p, np.int32).reshape(-1)
+                        for p in prompts]
+        if not self.prompts:
+            raise ValueError("prompts must be non-empty")
+        self.at_steps = sorted(int(s) for s in at_steps)
+        self.max_new = max_new
+        self.seed = seed
+        self.handles: list = []
+        self.submitted = 0
+        self._next = 0
+
+    @property
+    def done(self) -> bool:
+        """Every scheduled burst has been submitted (or shed)."""
+        return self._next >= len(self.at_steps)
+
+    def tick(self, engine, step_index: int) -> None:
+        """Submit every burst whose scheduled step has arrived."""
+        while (self._next < len(self.at_steps)
+               and self.at_steps[self._next] <= step_index):
+            i = self._next
+            self._next += 1
+            try:
+                self.handles.append(engine.submit(
+                    self.prompts[i % len(self.prompts)], self.max_new,
+                    seed=self.seed + i, tenant=self.tenant))
+                self.submitted += 1
+            except QueueFull:
+                self.handles.append(None)
 
 
 class BitFlipLogits:

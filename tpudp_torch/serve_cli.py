@@ -25,6 +25,14 @@ the counterpart of ``examples/serve_gpt2.py``.
     python -m tpudp_torch.serve_cli --device cpu --layers 2 --d-model 64 \\
         --vocab 256 --paged 64 --decode-fuse 8 --fuse-stream
 
+    # Tenancy: two classes, the first listed the highest priority; the
+    # low tier submits first and is preempted by the high one:
+    python -m tpudp_torch.serve_cli --device cpu --paged 64 \
+        --tenants high:2,low:6
+
+    # The dense prefix cache (a pool of 32 blocks; not with --paged):
+    python -m tpudp_torch.serve_cli --device cpu --prefix-cache-blocks 32
+
     # Serve the weights train_cli --save-checkpoint saved (the newest
     # step_N under the directory), with the training run's widths:
     python -m tpudp_torch.serve_cli --layers 12 --d-model 768 \
@@ -52,7 +60,7 @@ import numpy as np
 import torch
 
 from tpudp_torch.models import gpt2, llama
-from tpudp_torch.serve import Engine
+from tpudp_torch.serve import Engine, TenantClass
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.utils.checkpoint import latest_step_dir, restore_params
 
@@ -81,6 +89,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--paged", type=int, default=0, metavar="KV_PAGES",
                    help="paged KV with this many pages of --prefill-chunk "
                         "tokens (0: the dense slot arena)")
+    p.add_argument("--prefix-cache-blocks", type=int, default=0,
+                   help="the dense prefix cache: a pool of this many KV "
+                        "blocks, so requests sharing a prompt prefix copy "
+                        "cached blocks instead of re-prefilling (0: off; "
+                        "not with --paged)")
+    p.add_argument("--tenants", type=str, default=None,
+                   help="comma-separated name:count pairs (e.g. "
+                        "high:2,low:6): each name a TenantClass, the first "
+                        "listed the highest priority, and that many "
+                        "requests submitted into it, lowest tier first "
+                        "(overrides --requests)")
     p.add_argument("--kv-dtype", choices=["int8"], default=None,
                    help="store the page pool in int8 with per-vector "
                         "scales (needs --paged)")
@@ -120,7 +139,27 @@ def parse_args(argv=None) -> argparse.Namespace:
         p.error("--decode-fuse must be >= 1")
     if args.fuse_stream and args.decode_fuse < 2:
         p.error("--fuse-stream requires --decode-fuse >= 2")
+    args.tenant_spec = tenant_spec(args.tenants)
     return args
+
+
+def tenant_spec(text: str | None) -> list[tuple[str, int]]:
+    """``--tenants``' ``[(name, count)]``, with the example's errors."""
+    spec: list[tuple[str, int]] = []
+    for part in text.split(",") if text else ():
+        try:
+            name, count = part.split(":")
+            count = int(count)
+        except ValueError:
+            raise SystemExit(
+                f"error: --tenants wants name:count pairs "
+                f"(e.g. high:2,low:6), got {part!r}") from None
+        if not name or count < 1:
+            raise SystemExit(f"error: bad --tenants entry {part!r}")
+        spec.append((name, count))
+    if len({n for n, _ in spec}) != len(spec):
+        raise SystemExit("error: duplicate tenant name in --tenants")
+    return spec
 
 
 def _check_checkpoint(path: str, params: dict, args, cfg) -> None:
@@ -161,28 +200,28 @@ def _check_checkpoint(path: str, params: dict, args, cfg) -> None:
                 "its --d-model")
 
 
-def build_model(args, device):
-    """The model the flags describe, on ``device``: random weights from
-    ``--seed``, or the checked params of ``--checkpoint-dir``'s newest
-    ``step_N``.  Returns ``(model, the checkpoint path or None)``."""
+def model_config(args, num_heads: int):
+    """The model configuration the flags describe."""
     common = dict(vocab_size=args.vocab, max_seq_len=args.seq_len,
                   num_layers=args.layers, d_model=args.d_model,
-                  num_heads=args.heads or max(args.d_model // 64,
-                                              args.kv_heads or 1),
-                  dtype=getattr(torch, args.dtype))
+                  num_heads=num_heads, dtype=getattr(torch, args.dtype))
     if args.family == "llama":
-        family = llama
-        cfg = llama.LlamaConfig(num_kv_heads=args.kv_heads, **common)
-    else:
-        family = gpt2
-        cfg = gpt2.GPT2Config(**common)
+        return llama.LlamaConfig(num_kv_heads=args.kv_heads, **common)
+    return gpt2.GPT2Config(**common)
+
+
+def load_model(args, cfg, device, what: str = "serving"):
+    """A model of ``cfg`` on ``device``: random weights from ``--seed``,
+    or the checked params of ``--checkpoint-dir``'s newest ``step_N``.
+    Returns ``(model, the checkpoint path or None)``."""
+    family = llama if args.family == "llama" else gpt2
     if not args.checkpoint_dir:
         return family.build(cfg, args.seed, device), None
     latest = latest_step_dir(args.checkpoint_dir)
     if not latest:
         raise SystemExit(
             f"error: no step_N checkpoint under {args.checkpoint_dir!r} — "
-            "serving random weights would be misleading; drop "
+            f"{what} random weights would be misleading; drop "
             "--checkpoint-dir for an explicit random-init demo")
     params = restore_params(latest)
     _check_checkpoint(latest, params, args, cfg)
@@ -191,12 +230,21 @@ def build_model(args, device):
     return model.to(device), latest
 
 
-def request_prompts(args) -> list[np.ndarray]:
-    """The demo's ``--requests`` prompts of 4-16 tokens, from ``--seed``."""
+def build_model(args, device):
+    """The model the flags describe, on ``device`` (:func:`load_model`);
+    ``--heads`` defaults to ``d_model // 64``, at least ``--kv-heads``."""
+    cfg = model_config(args, args.heads or max(args.d_model // 64,
+                                               args.kv_heads or 1))
+    return load_model(args, cfg, device)
+
+
+def request_prompts(args, n: int | None = None) -> list[np.ndarray]:
+    """The demo's ``n`` (default ``--requests``) prompts of 4-16 tokens,
+    from ``--seed``."""
     rng = np.random.default_rng(args.seed)
     base = rng.integers(0, args.vocab, size=4096)
     return [base[i * 16:i * 16 + 4 + (3 * i) % 13].astype(np.int32)
-            for i in range(args.requests)]
+            for i in range(args.requests if n is None else n)]
 
 
 def main(argv=None) -> dict:
@@ -207,26 +255,41 @@ def main(argv=None) -> dict:
     model, restored = build_model(args, device)
     # A chunk dividing --seq-len, so the engine's round-down of max_len
     # strands no position the flags say exists.
+    spec = args.tenant_spec
+    # The first listed class gets the highest priority.
+    tenants = ({name: TenantClass(priority=len(spec) - 1 - i)
+                for i, (name, _) in enumerate(spec)} if spec else None)
     engine = Engine(model, device=device,
                     num_slots=args.num_slots,
                     prefill_chunk=math.gcd(args.prefill_chunk, args.seq_len),
                     kv_pages=args.paged, kv_dtype=args.kv_dtype,
+                    prefix_cache_blocks=args.prefix_cache_blocks,
                     speculate_k=args.speculate_k,
                     speculate_tree=args.speculate_tree,
                     decode_fuse=args.decode_fuse,
-                    fuse_stream=args.fuse_stream)
+                    fuse_stream=args.fuse_stream, tenants=tenants)
     weights = (f"restored params from {restored}" if restored else
                f"RANDOM-INIT weights from seed {args.seed}")
     print(f"[serve] family={args.family} {weights} on {engine.device}; "
           f"paged_attn="
           f"{engine.paged_attn if args.paged else 'dense arena'}"
           f"{f', kv_dtype={args.kv_dtype}' if args.kv_dtype else ''}")
-    prompts = request_prompts(args)
+    # Without --tenants: --requests unclassed submits.  With it: the
+    # lowest tier submits first and takes the slots, then each higher
+    # tier arrives and preempts.
+    plan = list(reversed(spec)) if spec else [(None, args.requests)]
+    prompts = request_prompts(args, sum(n for _, n in plan))
     t0 = time.perf_counter()
-    handles = [engine.submit(p, args.max_new_tokens,
-                             temperature=args.temperature,
-                             seed=args.seed + i)
-               for i, p in enumerate(prompts)]
+    handles = []
+    for tname, count in plan:
+        for _ in range(count):
+            i = len(handles)
+            handles.append(engine.submit(
+                prompts[i], args.max_new_tokens,
+                temperature=args.temperature, seed=args.seed + i,
+                tenant=tname))
+        if tname is not None:
+            engine.step()  # this tier occupies slots before the next
     streamed = list(handles[0])  # iterating drives the engine
     print(f"[serve] request 0 streamed tokens: {streamed}")
     engine.run_until_complete()
@@ -234,8 +297,13 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize(engine.device)
     dt = time.perf_counter() - t0
     for i, h in enumerate(handles):
-        print(f"[serve] request {i} (prompt {h.prompt.size} toks): "
-              f"{h.tokens}")
+        tier = f", tenant={h.tenant}" if h.tenant is not None else ""
+        pre = f", preempted x{h.preemptions}" if h.preemptions else ""
+        print(f"[serve] request {i} (prompt {h.prompt.size} toks{tier}"
+              f"{pre}): {h.tokens}")
+    for name, st in engine.tenant_stats.items():
+        print(f"[serve] tenant {name}: submitted={st['submitted']} "
+              f"preempted={st['preempted']} tokens={st['tokens']}")
     total = sum(len(h.tokens) for h in handles)
     m = engine.metrics()
     extra = ""
@@ -252,6 +320,11 @@ def main(argv=None) -> dict:
                 f"verify steps={engine.stats['tree_verify_steps']} draft "
                 f"acceptance="
                 f"{'n/a' if rate is None else format(rate, '.2f')}")
+    if args.prefix_cache_blocks:
+        spec += (f" | prefix hit tokens="
+                 f"{engine.stats['prefix_hit_tokens']} (pool "
+                 f"{engine.prefix_cache.used_blocks}/"
+                 f"{args.prefix_cache_blocks} blocks)")
     fused = ""
     if args.decode_fuse > 1:
         fused = (f" | fused windows={engine.stats['fused_windows']} fused "

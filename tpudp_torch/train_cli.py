@@ -31,9 +31,18 @@
     # The chunked vocabulary loss (the DP path, GPT-2's tied head):
     python -m tpudp_torch.train_cli --attn flash --loss-chunk 1024
 
+    # Train on a local token file, then greedily sample 32 tokens:
+    python -m tpudp_torch.train_cli --attn flash --tokens-file tokens.bin \
+        --sample 32
+
 The corpus is the example's deterministic synthetic one (a 4096-token
-random base tiled 64 times) and the batches are drawn as the example
-draws them; weights are random, from ``--seed``.  SGD with momentum 0.9
+random base tiled 64 times), or with ``--tokens-file`` the file's uint16
+tokens modulo ``--vocab``, and the batches are drawn as the example
+draws them; weights are random, from ``--seed``.  ``--sample N`` (GPT-2,
+the DP path) greedily decodes N tokens after training from the corpus'
+first ``min(16, --seq-len)`` tokens with ``models.generate.generate``
+(a flash-trained model decodes through a dense-attention twin holding
+its weights: decode runs the dense math).  SGD with momentum 0.9
 and no weight decay, as the example trains.  ``--save-checkpoint DIR``
 checks that DIR is writable before any compute and saves the final state
 to ``DIR/step_<steps>`` (``tpudp_torch.utils.checkpoint``);
@@ -53,6 +62,7 @@ block, and rank 0 prints.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 
@@ -60,6 +70,7 @@ import numpy as np
 import torch
 
 from tpudp_torch.models import gpt2, llama
+from tpudp_torch.models.generate import generate
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.train import init_state, make_optimizer, make_train_step
 from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
@@ -113,6 +124,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--skip-nonfinite", type=int, default=None, metavar="N",
                    help="skip updates whose gradients hold NaN/Inf; after N "
                         "consecutive bad steps the NaN propagates")
+    p.add_argument("--sample", type=int, default=0, metavar="N",
+                   help="after training, greedily generate N tokens from a "
+                        "corpus prompt via the KV-cached decode path")
+    p.add_argument("--tokens-file", type=str, default=None,
+                   help="train on this file's uint16 tokens (modulo "
+                        "--vocab) instead of the synthetic corpus")
     p.add_argument("--save-checkpoint", type=str, default=None,
                    metavar="DIR",
                    help="save the final state to DIR/step_<steps> "
@@ -161,6 +178,9 @@ def check_args(args) -> None:
         if args.loss_chunk is not None:
             raise SystemExit("error: --loss-chunk needs the tied-embedding "
                              "head (gpt2 family)")
+        if args.sample:
+            raise SystemExit("error: --sample drives the GPT-2 KV-cached "
+                             "decode path; use --family gpt2")
     elif args.kv_heads is not None:
         raise SystemExit("error: --kv-heads (GQA) is a llama-family option")
     if args.loss_chunk is not None and (args.strategy != "dp"
@@ -168,6 +188,20 @@ def check_args(args) -> None:
         raise SystemExit("error: --loss-chunk is a DP-path option")
     if args.loss_chunk is not None and args.loss_chunk < 1:
         raise SystemExit("error: --loss-chunk must be >= 1")
+    if args.sample:
+        # Refused up front: failing after the training run wastes it.
+        if args.seq_parallel:
+            raise SystemExit(
+                "error: --sample needs the dense DP path (generate() does "
+                "not drive ring attention); drop --seq-parallel")
+        if args.sample + min(16, args.seq_len) > args.seq_len:
+            raise SystemExit(
+                f"error: --sample {args.sample} + prompt "
+                f"{min(16, args.seq_len)} exceeds --seq-len {args.seq_len} "
+                "(the model's position table)")
+        if args.strategy != "dp":
+            raise SystemExit("error: --sample needs the DP path (generate() "
+                             "drives replicated params)")
     if args.skip_nonfinite is not None and args.strategy not in ("dp",
                                                                  "zero1"):
         raise SystemExit("error: --skip-nonfinite supports the dp/zero1 "
@@ -329,8 +363,7 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
         f"batch={args.batch_size} dtype={args.dtype} rung={label}",
         flush=True)
 
-    rng = np.random.default_rng(0)  # the example's synthetic corpus
-    corpus = np.tile(rng.integers(0, args.vocab, size=4096), 64)
+    corpus = load_corpus(args)
     rng = np.random.default_rng(1)
 
     def sample_batch():
@@ -361,8 +394,39 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
         ckpt = save_checkpoint(
             os.path.join(args.save_checkpoint, f"step_{args.steps}"), state)
         say(f"[{args.family}] saved checkpoint {ckpt}", flush=True)
+    sample = None
+    if args.sample and rank == 0:
+        prompt_len = min(16, args.seq_len)
+        prompt = torch.as_tensor(corpus[:prompt_len][None], device=device)
+        out = generate(decode_twin(state.model), prompt.long(), args.sample)
+        sample = out[0, prompt_len:].tolist()
+        say(f"[gpt2] greedy sample (prompt {prompt_len} tokens): {sample}",
+            flush=True)
     return {"losses": losses, "model": state.model, "state": state,
-            "checkpoint": ckpt}
+            "checkpoint": ckpt, "sample": sample}
+
+
+def load_corpus(args) -> np.ndarray:
+    """The example's corpus: ``--tokens-file``'s uint16 tokens modulo
+    ``--vocab``, or the synthetic one (a 4096-token random base from
+    seed 0, tiled 64 times)."""
+    if args.tokens_file:
+        corpus = np.fromfile(args.tokens_file, dtype=np.uint16)
+        return corpus.astype(np.int64) % args.vocab
+    rng = np.random.default_rng(0)
+    return np.tile(rng.integers(0, args.vocab, size=4096), 64)
+
+
+def decode_twin(model):
+    """``model`` for ``generate()``: itself with dense attention, else a
+    dense-attention twin holding the same weights (decode runs the dense
+    math; ``validate_decode_config`` refuses a flash config)."""
+    cfg = model.config
+    if cfg.attn_impl == "dense":
+        return model
+    twin = type(model)(dataclasses.replace(cfg, attn_impl="dense"))
+    twin.load_state_dict(model.state_dict())
+    return twin.to(next(model.parameters()).device)
 
 
 if __name__ == "__main__":
