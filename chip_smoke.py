@@ -339,6 +339,47 @@ which fails the run (nonzero exit, no result line) when it fails:
      ``paged_attn='gather'`` agrees with ``'einsum'`` on phase 4's
      traffic and launches no kernel.  14a's K1-K3 and 14c's K4/K5
      launches join the timing records' counts;
+  15. (run after phase 14, before the timing phase) disaggregated
+     serving and the obs layer, at GPT-2 small's full width (float32,
+     phase 4's paged kernel engines, ``decode_fuse`` FUSE).  15a,
+     ``DisaggCluster`` of a prefill engine and two decode engines: 12
+     greedy requests of 17-300 prompt tokens (``p15_prompts``), P15_NEW
+     new tokens each, handed off after their first token; a dropped and
+     a corrupt transfer (one round each: the first two of the prefill
+     host's), a ``SlowLink`` on decode host 1's transfers, a
+     ``rebalance`` once P15_HANDOFFS requests were handed off, a
+     ``kill_host`` of decode host 2 while it decodes, then a
+     ``BitFlipLogits`` canary on host 1 that quarantines it and
+     evacuates its live requests from the journal: every request must
+     agree with one colocated kernel engine and with the einsum engine
+     on the same traffic under phase 4's near-tie rule, ``check()`` must
+     be clean, every fault must fire, both decode hosts must launch K4
+     and K5 (their requests all came in as tickets); ``15a cluster``
+     lines print tickets, pages and MB moved, the median export, pack
+     and admit ms a ticket, and tokens/s beside the colocated engine's.
+     15b, LLaMA-GQA over int8 pools at phase 4c's geometry: a request
+     exported mid-stream, through ``pack_batch``/``unpack_batch``,
+     admitted on a second engine must launch K4-int8 and K5-int8 (no fp
+     kernel) over its adopted pages (int8 payloads and float32 scales)
+     and agree with its unmigrated run.  15c, two gloo processes sharing
+     the card run ``DisaggHost.round`` on 15a's first P15_RANK_PROMPTS
+     prompts: rank 0's first transfer is bit-flipped, rank 1 must
+     quarantine it and leave a ``flightrec-*transfer_quarantined*.json``,
+     and its tokens must agree with 15a's colocated engine.  15d, phase
+     4e's greedy traffic in three arms in turns (A B C C B A):
+     ``obs=True``, ``obs=False`` (the device counters run in both, as in
+     JAX) and ``obs=False`` with the counters stubbed out
+     (``counters_off``): tokens identical, tokens/s and wall ms per
+     replayed window iteration printed for each arm, the device counters
+     equal to the host stats (graph replays included, phase 4e's launch
+     gates) and zero in the stubbed arm, the counters' own cost
+     (``counters_cost``: a window iteration's counter row in a graph, an
+     eager decode step's call), the Chrome trace and the Prometheus text
+     read back, and a fault injected into the first fused window
+     contained with a flight record whose last spans are
+     ``fused_decode`` and ``containment``.
+     15a's, 15b's and 15d's K4/K5 launches join the timing records'
+     counts;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -593,6 +634,27 @@ P14_SLOTS, P14_PAGES, P14_FUSE, P14_LOW, P14_LOW_NEW = 8, 1024, 8, 9, 32
 P14_STORM_AT, P14_STORM_NEW = (3, 6, 9, 12), 8
 P14_PREFIX, P14_TAILS, P14_BLOCKS = 256, 6, 256
 P14_SCORE_ATOL = 1e-3
+# Phase 15: 15a's requests (phase 4's eight prompts and four more of its
+# lengths, 17-300 tokens) and new tokens each (phase 4's); the delay
+# SlowLink adds to each of decode host 1's transfers (the rebalance's:
+# host 1 sends nothing else), a few ms beside a transfer's; the canary's
+# tokens a run (two: a run ends a tick after its prefill, so host 1 dies
+# within a few ticks of its arming, while the request it was just handed
+# still decodes) and the commit BitFlipLogits flips (canary call 3: the
+# second run's second token, so the first run pins the reference); the
+# handoffs before the rebalance, the kill and the canary (half the
+# requests reach the decode hosts while both live); the ticks or rounds after which a cluster counts as wedged (the prefill
+# host takes one 16-token chunk a tick: ~110 for 15a's prompts); 15b's
+# new tokens and the source engine's steps before the export (the
+# 100-token prompt's 7 chunks, then decode); 15c's prompts and its ranks'
+# limit (spawn, import, CUDA init and GPT-2 small's weights a rank).
+P15_REQUESTS, P15_NEW = 12, NEW_TOKENS
+P15_SLOW_S = 0.005
+P15_HANDOFFS = P15_REQUESTS // 2
+P15_CANARY_TOKENS, P15_FLIP = 2, (3, None, 3)
+P15_MAX_TICKS = 2000
+P15_INT8_NEW, P15_INT8_STEPS = 32, 12
+P15_RANK_PROMPTS, P15_RANK_LIMIT = 4, 240
 
 
 class SmokeFailure(RuntimeError):
@@ -1409,15 +1471,17 @@ def routes_path(torch, np, pa, fa, model, prompts, seed: int) -> None:
 
 
 def serve_fused(torch, Engine, model, prompts, pa, fuse, kv_dtype=None,
-                sampled=False):
+                sampled=False, **engine_kw):
     """Phase 4's eight prompts at once on a fresh ``decode_fuse=fuse``
     engine, FUSE_NEW_TOKENS each (sampled: temperature 0.8, top-k 40,
     top-p 0.95, request ``i`` seeded ``i``), the kernel counts zeroed
     just before and read just after.  Returns the engine, handles, wall
     seconds, counts, the wall ms of its single decode steps, and for
-    each window that ran no prefill chunk its wall ms and replays."""
+    each window that ran no prefill chunk its wall ms and replays.
+    ``engine_kw`` go to the engine (phase 15d's ``obs``)."""
     eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
-                 kv_pages=512, kv_dtype=kv_dtype, decode_fuse=fuse)
+                 kv_pages=512, kv_dtype=kv_dtype, decode_fuse=fuse,
+                 **engine_kw)
     sampling = (dict(temperature=0.8, top_k=40, top_p=0.95) if sampled
                 else {})
     for fn in pa.KERNELS.values():
@@ -4942,6 +5006,581 @@ def phase14_path(torch, np, pa, fa, small, prompts, seed: int):
     return flash, paged
 
 
+# -- phase 15: disaggregated serving and the obs layer --------------------
+
+
+class WireMeter:
+    """A transfer tap on the faults' ``on_send`` seam: every blob passes
+    unchanged and its bytes are counted."""
+
+    def __init__(self):
+        self.bytes = 0
+        self.blobs = 0
+
+    def on_send(self, rank, seq, blob):
+        self.bytes += len(blob)
+        self.blobs += bool(blob)
+        return blob
+
+
+class OneShot:
+    """A transfer fault armed for the first blob it changes, then inert:
+    one round of it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+
+    @property
+    def fired(self):
+        return self.inner.fired
+
+    def on_send(self, rank, seq, blob):
+        return blob if self.inner.fired else self.inner.on_send(rank, seq,
+                                                                 blob)
+
+
+def p15_engine(Engine, model, **kw):
+    """Phase 4's paged kernel engine with phase 4e's window length."""
+    return Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
+                  kv_pages=512, decode_fuse=FUSE, **kw)
+
+
+def p15_prompts(np, seed: int, vocab: int) -> list:
+    """Phase 4's eight prompts and four more of its lengths from the next
+    seed: 17-300 tokens."""
+    return (make_prompts(np, seed, vocab)
+            + make_prompts(np, seed + 1, vocab)[:P15_REQUESTS - 8])
+
+
+def p15_reference(torch, Engine, model, prompts, **kw):
+    """One engine serving every prompt (P15_NEW tokens): its handles and
+    tokens/s."""
+    eng = p15_engine(Engine, model, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, P15_NEW) for p in prompts]
+    eng.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng.check_paged()
+    if not all(h.ok and len(h.tokens) == P15_NEW for h in handles):
+        raise SmokeFailure("15a: a reference request did not complete")
+    return handles, sum(len(h.tokens) for h in handles) / wall
+
+
+def tally_steps(pa, eng, tally: dict) -> None:
+    """Count the paged kernels ``eng``'s own steps launch into ``tally``
+    (the launch counters are process-wide)."""
+    step = eng.step
+
+    def counted():
+        before = {n: fn.launches for n, fn in pa.KERNELS.items()}
+        try:
+            return step()
+        finally:
+            for n, fn in pa.KERNELS.items():
+                tally[n] = tally.get(n, 0) + fn.launches - before[n]
+
+    eng.step = counted
+
+
+def timed_calls(obj, name: str, record: list, per=lambda a: 1) -> None:
+    """Record ``(seconds, items)`` of every call of ``obj.name``."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        record.append((time.perf_counter() - t0, per(args)))
+        return out
+
+    setattr(obj, name, timed)
+
+
+def per_item_ms(record) -> float:
+    """The median ms a ticket over ``(seconds, tickets)`` records."""
+    return p50([1e3 * s / n for s, n in record if n]) if record else \
+        float("nan")
+
+
+def cluster_path(torch, np, pa, model, prompts) -> dict:
+    """15a: a prefill engine and two decode engines in a DisaggCluster,
+    through a dropped, a corrupt and a slow transfer, a rebalance, a kill
+    of decode host 2 and a canary quarantine of decode host 1 that
+    evacuates; every request against the colocated kernel engine and the
+    einsum engine.  Returns the colocated handles (15c's reference)."""
+    from tpudp_torch.serve import DisaggCluster, Engine
+    from tpudp_torch.serve import disagg as dg
+    from tpudp_torch.serve.faults import (BitFlipLogits, CorruptPagePayload,
+                                          DroppedTransfer, SlowLink)
+
+    colocated, colocated_tps = p15_reference(torch, Engine, model, prompts)
+    einsum, _ = p15_reference(torch, Engine, model, prompts,
+                              paged_attn="einsum")
+    meter = WireMeter()
+    drop = OneShot(DroppedTransfer(rank=0, at_seqs=range(10 ** 6)))
+    corrupt = OneShot(CorruptPagePayload(rank=0, at_seqs=range(10 ** 6)))
+    slow = SlowLink(delay_s=P15_SLOW_S, rank=1)
+    engines = [p15_engine(Engine, model,
+                          canary_new_tokens=P15_CANARY_TOKENS)
+               for _ in range(3)]
+    tallies = [{} for _ in engines]
+    exports, admits, packs = [], [], []
+    for eng, tally in zip(engines, tallies):
+        tally_steps(pa, eng, tally)
+        timed_calls(eng, "export_ticket", exports)
+        timed_calls(eng, "admit_ticket", admits)
+    # retries 3: the first ticket's first attempt is dropped and its
+    # second corrupted, so its third lands (JAX's default 2 would fall
+    # back locally).
+    cl = DisaggCluster(engines, prefill=0, retries=3,
+                       faults=(meter, drop, corrupt, slow))
+    real_pack = dg.pack_batch
+    timed_calls(dg, "pack_batch", packs, per=lambda a: len(a[0]))
+    inj = BitFlipLogits([P15_FLIP], vocab=model.config.vocab_size,
+                        canary_only=True)
+    stage, moves, killed_at = "handoff", [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        creqs = [cl.submit(p, P15_NEW) for p in prompts]
+        while any(not c.done for c in creqs):
+            if cl.ticks > P15_MAX_TICKS:
+                raise SmokeFailure(f"15a: the cluster wedged after "
+                                   f"{cl.ticks} ticks")
+            cl.tick()
+            handed = sum(e["kind"] == "handoff" for e in cl.events)
+            if stage == "handoff" and handed >= P15_HANDOFFS and any(
+                    c.host in (1, 2) and not c.done
+                    and c.handle._slot is not None for c in creqs):
+                moves = cl.rebalance(free_page_frac=1.1, max_moves=1)
+                stage, rebalanced_at = "rebalanced", cl.ticks
+            elif (stage == "rebalanced" and cl.ticks > rebalanced_at
+                  and any(c.host == 2 and c.tokens and not c.done
+                          for c in creqs)):
+                cl.kill_host(2)
+                stage, killed_at = "killed", cl.ticks
+            elif stage == "killed" and any(
+                    e["kind"] == "handoff" and e["to"] == 1
+                    and e["tick"] == cl.ticks for e in cl.events):
+                # A request just landed on host 1: arm its canary, whose
+                # second run is flipped, so host 1 condemns itself while
+                # it still holds that request.
+                engines[1].token_fault_hook = inj
+                engines[1].canary_every_s = 0.0
+                stage = "canary"
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        dg.pack_batch = real_pack
+    cl.check()
+    kinds = [e["kind"] for e in cl.events]
+    counts = {k: kinds.count(k) for k in ("handoff", "rebalance",
+                                          "failover", "evacuate")}
+    stats = [dict(e.stats) for e in engines]
+    quarantined = sum(s.get("quarantined_transfers", 0) for s in stats)
+    ok_moves = [m for m in moves if m["ok"]]
+    problems = []
+    if not (drop.fired and corrupt.fired and slow.fired):
+        problems.append(f"faults fired: dropped {drop.fired}, corrupt "
+                        f"{corrupt.fired}, slow {slow.fired}")
+    if not quarantined:
+        problems.append("no corrupt transfer was quarantined")
+    if not ok_moves:
+        problems.append(f"the rebalance moved nothing: {moves}")
+    if cl.dead != {2} or not counts["failover"]:
+        problems.append(f"the kill of host 2 failed over nothing "
+                        f"(dead {cl.dead}, {counts})")
+    if cl.quarantined != {1} or not counts["evacuate"]:
+        problems.append(f"the canary quarantine evacuated nothing "
+                        f"(quarantined {cl.quarantined}, {counts}, stage "
+                        f"{stage})")
+    if not all(c.ok and len(c.tokens) == P15_NEW for c in creqs):
+        problems.append("a request did not complete")
+    for k in (1, 2):
+        if not (tallies[k].get("paged_decode") and
+                tallies[k].get("paged_window")):
+            problems.append(f"decode host {k} launched {tallies[k]}")
+    if problems:
+        raise SmokeFailure("15a: " + "; ".join(problems))
+    handles = [tokens_of(c.tokens) for c in creqs]
+    agree_with_plain(torch, np, model, prompts, handles, colocated,
+                     "15a cluster", against="the colocated kernel engine")
+    agree_with_plain(torch, np, model, prompts, handles, einsum,
+                     "15a cluster", against="the einsum engine")
+    tickets = sum(s.get("migrated_out", 0) for s in stats)
+    pages = sum(s.get("migrated_in_pages", 0) for s in stats)
+    n_tok = sum(len(c.tokens) for c in creqs)
+    print(f"15a cluster: {len(creqs)} requests, {cl.ticks} ticks, events "
+          f"{counts} (rebalance moves {moves}), faults fired: dropped "
+          f"{drop.fired}, corrupt {corrupt.fired}, slow "
+          f"{len(slow.fired)} transfers; quarantined transfers "
+          f"{quarantined}, migration retries "
+          f"{sum(s.get('migration_retries', 0) for s in stats)}, failed "
+          f"{sum(s.get('migration_failed', 0) for s in stats)}; "
+          f"check() clean", flush=True)
+    print(f"15a cluster: {tickets} tickets, {pages} pages, "
+          f"{meter.bytes / 1e6:.3f} MB moved in {meter.blobs} transfers; "
+          f"ms a ticket (median): export {per_item_ms(exports):.3f}, pack "
+          f"{per_item_ms(packs):.3f}, admit {per_item_ms(admits):.3f}; "
+          f"{n_tok} tokens in {wall:.3f}s = {n_tok / wall:.1f} tokens/s "
+          f"(colocated kernel engine {colocated_tps:.1f})", flush=True)
+    print(f"15a cluster: paged kernel launches by host (0 prefill, 1 and 2 "
+          f"decode: every request there was adopted, host 1's canaries "
+          f"aside) {tallies}", flush=True)
+    return colocated
+
+
+def int8_migration_path(torch, np, pa, seed: int) -> None:
+    """15b: LLaMA-GQA over int8 pools at phase 4c's geometry: a request
+    exported mid-stream, over the wire format, admitted on a second
+    engine, against its unmigrated run."""
+    from tpudp_torch.models import llama
+    from tpudp_torch.serve import Engine
+    from tpudp_torch.serve.disagg import pack_batch, unpack_batch
+
+    cfg = llama.LlamaConfig(**LLAMA_GQA)
+    model = llama.build(cfg, seed, "cuda")
+    prompt = make_prompts(np, seed, cfg.vocab_size)[0]
+    kw = dict(device="cuda", num_slots=8, prefill_chunk=16, kv_pages=512,
+              kv_dtype="int8")
+    ref = Engine(model, **kw)
+    want = ref.submit(prompt, P15_INT8_NEW)
+    ref.run_until_complete()
+    src, dst = Engine(model, **kw), Engine(model, **kw)
+    h = src.submit(prompt, P15_INT8_NEW)
+    for _ in range(P15_INT8_STEPS):
+        src.step()
+    if not h.tokens or h.done:
+        raise SmokeFailure(f"15b: the request is not mid-stream after "
+                           f"{P15_INT8_STEPS} steps ({len(h.tokens)} tokens)")
+    t = src.export_ticket(h)
+    blob = pack_batch([(1, t)], seq=0, src=0)
+    (_, ticket), = unpack_batch(blob)[2]
+    before = {n: fn.launches for n, fn in pa.KERNELS.items()}
+    h2 = dst.admit_ticket(ticket)
+    dst.run_until_complete()
+    launches = {n: fn.launches - before[n] for n, fn in pa.KERNELS.items()}
+    src.run_until_complete()
+    src.check_paged()
+    dst.check_paged()
+    fields = {k: (str(v.dtype), v.shape) for k, v in t.pages[0].items()}
+    if not (h2.ok and launches["paged_decode_int8"]
+            and launches["paged_window_int8"] and not launches["paged_decode"]
+            and not launches["paged_window"]):
+        raise SmokeFailure(f"15b: the receiver launched {launches} "
+                           f"(ok {h2.ok})")
+    if dst.stats["prefix_hit_tokens"] < 16 * len(t.pages) or \
+            set(fields) != {"k", "v", "k_scale", "v_scale"}:
+        raise SmokeFailure(f"15b: pages {fields} were not adopted: "
+                           f"{dict(dst.stats)}")
+    print(f"15b int8: LLaMA-GQA request of {prompt.size} prompt tokens "
+          f"exported after {len(t.tokens)} tokens with {len(t.pages)} int8 "
+          f"pages {fields} ({len(blob)} bytes on the wire), admitted: "
+          f"prefix hit {dst.stats['prefix_hit_tokens']} tokens; receiver "
+          f"launches {launches}", flush=True)
+    agree_with_plain(torch, np, model, [prompt], [h2], [want], "15b int8",
+                     "int8", against="the unmigrated engine")
+    del model, ref, src, dst
+    torch.cuda.empty_cache()
+
+
+def disagg_rank(rank: int, world: int, init_method: str, seed: int,
+                flight: str, results) -> None:
+    """15c: one of two gloo ranks on the card, each a paged kernel engine
+    at GPT-2 small: rank 0 prefills 15a's first P15_RANK_PROMPTS prompts
+    and stages each request after its first token, rank 1 decodes; both
+    run ``DisaggHost.round`` until the joint done.  Rank 0's first
+    non-empty transfer is bit-flipped on the wire."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    out = {"rank": rank}
+    try:
+        from tpudp_torch.models import gpt2
+        from tpudp_torch.serve import Engine
+        from tpudp_torch.serve.disagg import DisaggHost
+        from tpudp_torch.serve.faults import CorruptPagePayload
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=init_method,
+                                world_size=world, rank=rank)
+        cfg = gpt2.GPT2Config()
+        model = gpt2.build(cfg, seed, "cuda")
+        eng = p15_engine(Engine, model,
+                         flight_dir=os.path.join(flight, f"rank{rank}"))
+        corrupt = OneShot(CorruptPagePayload(rank=0, at_seqs=range(10 ** 6)))
+        host = DisaggHost(eng, rank=rank, n_hosts=world,
+                          role="prefill" if rank == 0 else "decode",
+                          faults=(corrupt,) if rank == 0 else ())
+        admitted = []
+        host.on_admit = lambda src, t, r: admitted.append(r)
+        prompts = p15_prompts(np, seed, cfg.vocab_size)[:P15_RANK_PROMPTS]
+        handles = [eng.submit(p, P15_NEW) for p in prompts] if rank == 0 \
+            else []
+        staged = set()
+        t0 = time.perf_counter()
+        for rounds in range(1, P15_MAX_TICKS + 1):
+            eng.step()
+            for h in handles:
+                if (h.id not in staged and h.tokens and not h.done
+                        and h._nfill == h._fill.size and h._slot is not None):
+                    host.stage(1, h)
+                    staged.add(h.id)
+            done = (eng.slots_in_use == 0 and eng.queue_depth == 0
+                    and host.pending == 0
+                    and (rank != 0 or len(staged) == len(prompts)))
+            if host.round(done=done):
+                break
+        else:
+            raise RuntimeError("the rounds never reached a joint done")
+        eng.check_paged()
+        out.update(rounds=rounds, wall=time.perf_counter() - t0,
+                   stats=dict(eng.stats),
+                   spans=sorted(eng.metrics()["spans"]),
+                   flight_dumps=eng.flight.dumps,
+                   fired=list(corrupt.fired),
+                   tokens={int(r.id): (r.prompt.tolist(), list(r.tokens),
+                                       r.ok) for r in admitted})
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        results.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def two_process_path(torch, np, model, prompts, colocated, seed: int):
+    """15c: ``DisaggHost.round`` over two gloo processes sharing the card;
+    the corrupt transfer quarantined on the receiver with a flight
+    record; the migrated tokens against 15a's colocated engine."""
+    import tempfile
+
+    flight = tempfile.mkdtemp(prefix="tpudp-p15-flight-")
+    try:
+        t0 = time.perf_counter()
+        r0, r1 = run_ranks(disagg_rank, (seed, flight), P15_RANK_LIMIT,
+                           "15c two-process")
+        wall = time.perf_counter() - t0
+        dumps = sorted(os.listdir(os.path.join(flight, "rank1"))) \
+            if os.path.isdir(os.path.join(flight, "rank1")) else []
+    finally:
+        shutil.rmtree(flight, ignore_errors=True)
+    got = [r1["tokens"][k] for k in sorted(r1["tokens"])]
+    by_prompt = {tuple(p): (tokens, ok) for p, tokens, ok in got}
+    problems = []
+    if len(got) != P15_RANK_PROMPTS or not all(ok for _, _, ok in got):
+        problems.append(f"rank 1 admitted {len(got)} requests")
+    if not r0["fired"] or not r1["stats"].get("quarantined_transfers"):
+        problems.append(f"the corrupt transfer was not quarantined "
+                        f"(fired {r0['fired']}, rank 1 {r1['stats']})")
+    if not any("transfer_quarantined" in n for n in dumps):
+        problems.append(f"rank 1 left no transfer_quarantined flight "
+                        f"record: {dumps}")
+    if not {"migrate_offer_phase", "migrate_transfer",
+            "migrate_adopt"} <= set(r1["spans"]):
+        problems.append(f"rank 1's spans {r1['spans']}")
+    if problems:
+        raise SmokeFailure("15c: " + "; ".join(problems))
+    handles = [tokens_of(by_prompt[tuple(p.tolist())][0])
+               for p in prompts[:P15_RANK_PROMPTS]]
+    agree_with_plain(torch, np, model, prompts[:P15_RANK_PROMPTS], handles,
+                     colocated[:P15_RANK_PROMPTS], "15c two-process",
+                     against="15a's colocated kernel engine")
+    print(f"15c two-process: 2 gloo ranks on one card, {r0['rounds']} "
+          f"rounds in {r0['wall']:.2f}s (the call {wall:.1f}s); rank 0 "
+          f"migrated_out {r0['stats'].get('migrated_out')}, retries "
+          f"{r0['stats'].get('migration_retries')}; rank 1 migrated_in "
+          f"{r1['stats'].get('migrated_in')}, quarantined transfers "
+          f"{r1['stats'].get('quarantined_transfers')}, flight records "
+          f"{dumps}", flush=True)
+
+
+@contextlib.contextmanager
+def counters_off():
+    """The engine's device counters stubbed out: ``add_counts`` a no-op in
+    the step functions and in the windows an engine captures inside the
+    block (15d's arm without them, a timing arm only)."""
+    from tpudp_torch.serve import engine, fused
+
+    real = fused.add_counts
+    engine.add_counts = fused.add_counts = lambda *args, **kwargs: None
+    try:
+        yield
+    finally:
+        engine.add_counts = fused.add_counts = real
+
+
+def counters_cost(torch) -> tuple[float, float]:
+    """The device counters' own cost at 15d's eight slots: device ms of
+    one fused window iteration's ``add_counts`` captured alone in a CUDA
+    graph, and wall ms of the eager decode step's call (its launches
+    submitted, then one synchronize over ``n`` calls)."""
+    from tpudp_torch.serve.fused import add_counts
+    from tpudp_torch.serve.engine import OBS_DEVICE_COUNTERS
+
+    counts = torch.zeros(len(OBS_DEVICE_COUNTERS), dtype=torch.float32,
+                         device="cuda")
+    running = torch.ones(8, dtype=torch.bool, device="cuda")
+    toks = torch.arange(8, device="cuda")
+    eos = torch.full((8,), -1, device="cuda")
+
+    def window_row():
+        add_counts(counts, running.any(), running, running,
+                   eos_exits=running & (toks == eos))
+
+    graph_ms = graph_device_ms(torch, window_row)
+    n = 200
+    for _ in range(10):
+        add_counts(counts, running.any(), running, running)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        add_counts(counts, running.any(), running, running)
+    torch.cuda.synchronize()
+    return graph_ms, 1e3 * (time.perf_counter() - t0) / n
+
+
+def obs_path(torch, np, pa, model, prompts) -> dict:
+    """15d: phase 4e's greedy traffic in three arms, in turns (A B C C B
+    A): ``obs=True``, ``obs=False`` (the device counters run in both, as
+    in JAX) and ``obs=False`` with the counters stubbed out; the device
+    counters against the host stats; the counters' own device and host
+    cost; a contained fault's flight record; the Chrome trace and the
+    Prometheus text read back.  Returns the K4 launches of the runs."""
+    import tempfile
+
+    from tpudp_torch import obs
+    from tpudp_torch.serve import Engine
+    from tpudp_torch.serve.faults import InjectedFault
+
+    arms = ("on", "off", "bare")
+    runs, launched = {arm: [] for arm in arms}, {}
+    for arm in arms + arms[::-1]:
+        with (counters_off() if arm == "bare" else contextlib.nullcontext()):
+            run = serve_fused(torch, Engine, model, prompts, pa, FUSE,
+                              obs=arm == "on")
+        for name, n in run[3].items():
+            launched[name] = launched.get(name, 0) + n
+        runs[arm].append(run)
+    base = [h.tokens for h in runs["on"][0][1]]
+    for arm in arms:
+        for eng, handles, wall, launches, _, _ in runs[arm]:
+            if [h.tokens for h in handles] != base:
+                raise SmokeFailure(f"15d: the {arm} arm changed the tokens")
+    for eng, *_ in runs["bare"]:
+        if any(eng.metrics()["device_counters"].values()):
+            raise SmokeFailure("15d: the counters were not stubbed out")
+    eng, handles, _, launches, _, _ = runs["on"][0]
+    check_fused_run(eng, handles, launches, "paged_decode", "15d obs=True")
+    m, st = eng.metrics(), eng.stats
+    dev = m["device_counters"]
+    want = {"steps": st["decode_steps"] + st["fused_steps"],
+            "tokens": st["tokens"] - len(handles),
+            "slot_steps": st["active_slot_steps"], "draft_accepted": 0,
+            "eos_exits": 0}
+    if dev != {k: float(v) for k, v in want.items()}:
+        raise SmokeFailure(f"15d: device counters {dev}, host stats say "
+                           f"{want}")
+
+    def iter_ms(windows):
+        iters = sum(r for _, r in windows)
+        return sum(ms for ms, _ in windows) / iters if iters else float("nan")
+
+    tps = {arm: [round(sum(len(h.tokens) for h in r[1]) / r[2], 1)
+                 for r in rs] for arm, rs in runs.items()}
+    ims = {arm: [round(iter_ms(r[5]), 3) for r in rs]
+           for arm, rs in runs.items()}
+    graph_ms, eager_ms = counters_cost(torch)
+    print(f"15d obs: 8 requests x {FUSE_NEW_TOKENS} tokens, decode_fuse "
+          f"{FUSE}, arms in turns on, off, bare, bare, off, on (on: "
+          f"obs=True; off: obs=False, counters on; bare: obs=False, "
+          f"counters stubbed out); tokens/s {tps}; wall ms per replayed "
+          f"iteration {ims}; tokens identical; device counters {dev} = "
+          f"host stats (fused steps {st['fused_steps']} over "
+          f"{m['fused_window']['replays']} graph replays, single decode "
+          f"steps {st['decode_steps']}); spans {m['spans']}", flush=True)
+    print(f"15d counters: one window iteration's add_counts {graph_ms:.5f} "
+          f"device ms (captured alone); an eager decode step's "
+          f"{eager_ms:.5f} wall ms a call", flush=True)
+    trace = json.loads(json.dumps(obs.to_chrome_trace(eng.obs)))
+    back = obs.spans_from_chrome_trace(trace)
+    snap = eng.obs.snapshot()
+    if [(r["kind"], r["name"]) for r in back] != [
+            (r["kind"], r["name"]) for r in snap]:
+        raise SmokeFailure("15d: the Chrome trace does not read back")
+    text = obs.prometheus_text(m)
+    series = {}
+    for line in text.splitlines():
+        if not line.startswith("#"):
+            name, value = line.split(" ")
+            series[name] = float(value)
+    if any(series.get(f"tpudp_device_counters_{k}") != v
+           for k, v in dev.items()):
+        raise SmokeFailure("15d: the Prometheus text does not read back")
+    flight = tempfile.mkdtemp(prefix="tpudp-p15-obs-")
+    fired = []
+
+    def fault_once(kind, index):
+        if kind == "fused_decode" and not fired:
+            fired.append(index)
+            raise InjectedFault(f"injected step fault at {kind} call "
+                                f"{index}")
+
+    try:
+        f_eng = Engine(model, device="cuda", num_slots=8, prefill_chunk=16,
+                       kv_pages=512, decode_fuse=FUSE,
+                       step_fault_hook=fault_once, flight_dir=flight)
+        fh = [f_eng.submit(p, FUSE_NEW_TOKENS) for p in prompts]
+        f_eng.run_until_complete()
+        f_eng.check_paged()
+        names = os.listdir(flight)
+        doc = json.load(open(os.path.join(flight, names[0]))) \
+            if len(names) == 1 else {}
+    finally:
+        shutil.rmtree(flight, ignore_errors=True)
+    spans = [s["name"] for s in doc.get("spans", [])]
+    if not (fired and f_eng.stats["step_failures"] == 1
+            and doc.get("reason") == "step_failure"
+            and spans[-2:] == ["fused_decode", "containment"]):
+        raise SmokeFailure(f"15d: the contained fault's flight record is "
+                           f"{names}: {spans[-3:]}")
+    print(f"15d obs: {len(trace['traceEvents'])} Chrome trace events and "
+          f"{len(series)} Prometheus series read back; a fault at fused "
+          f"window call {fired[0]} contained: flight record {names[0]} "
+          f"(last spans {spans[-2:]}, {len(spans)} records)", flush=True)
+    # The survivors re-prefill their tokens into the reset pool: the
+    # near-tie rule, as for any prefill against decode.
+    agree_with_plain(torch, np, model, prompts, fh, runs["on"][0][1],
+                     "15d contained fault", against="the unfaulted run")
+    return launched
+
+
+def phase15_path(torch, np, pa, model, seed: int) -> dict:
+    """Phase 15, 15a-15d; returns the paged kernels' launches of the
+    phase in this process (15c's ranks count their own)."""
+    from tpudp_torch.models import gpt2
+
+    t0 = time.perf_counter()
+    before = {n: fn.launches for n, fn in pa.KERNELS.items()}
+    prompts = p15_prompts(np, seed, gpt2.GPT2Config().vocab_size)
+    colocated = cluster_path(torch, np, pa, model, prompts)
+    torch.cuda.empty_cache()
+    int8_migration_path(torch, np, pa, seed)
+    two_process_path(torch, np, model, prompts, colocated, seed)
+    launches = {n: fn.launches - before[n] for n, fn in pa.KERNELS.items()}
+    # 15d's runs zero the counters as phase 4e's do: their own counts.
+    for name, n in obs_path(torch, np, pa, model, prompts[:8]).items():
+        launches[name] += n
+    torch.cuda.empty_cache()
+    print(f"phase 15 paged kernel launches {launches}; phase 15 "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -5372,6 +6011,9 @@ def main(argv=None) -> int:
         p14_flash, p14_paged = phase14_path(torch, np, pa, fa, model,
                                             prompts, args.seed)
         for name, n in p14_paged.items():
+            launches[name] += n
+        for name, n in phase15_path(torch, np, pa, model,
+                                    args.seed).items():
             launches[name] += n
         records = timings(torch, pa, model, prompts, launches)
         # K1-K3's main-path launches: phase 6's GPT-2 steps, 13a's

@@ -35,6 +35,15 @@ LLAMA_GQA = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=4,
 NEW = 6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def setup():
     tree = gpt2.random_params(gpt2.GPT2Config(**TINY), seed=21)
@@ -151,12 +160,14 @@ def test_kernel_backend_needs_the_card(setup):
 
 #: The ported options: each constructs and is kept (option -> the
 #: engine attribute that holds it).  The robustness options came first;
-#: the dense prefix cache, tenancy and co-resident models followed.
+#: the dense prefix cache, tenancy and co-resident models followed, then
+#: the obs layer.
 PORTED_OPTIONS = {"drafter_timeout_s": "drafter_timeout_s",
                   "step_timeout_s": "_step_timeout_s",
                   "canary_every_s": "canary_every_s",
                   "prefix_cache_blocks": "_prefix_cache_blocks",
-                  "tenants": "tenants", "models": "_mstates"}
+                  "tenants": "tenants", "models": "_mstates",
+                  "obs": "obs.enabled", "flight_dir": "flight.directory"}
 
 
 @pytest.mark.parametrize("option,value", [
@@ -165,27 +176,25 @@ PORTED_OPTIONS = {"drafter_timeout_s": "drafter_timeout_s",
     ("tenants", {"default": TenantClass()}), ("canary_every_s", 1.0),
     ("obs", False), ("flight_dir", "flight")])
 def test_unported_options_raise(setup, option, value):
-    """Options of later slices raise naming their ROADMAP item; the
-    ported options construct and are kept (a co-resident model needs
-    tenants routing to it), and so do their "off" values and JAX's
-    defaults ``obs=True`` and ``flight_dir=None``."""
+    """Every option of JAX's engine is ported now: each constructs and is
+    kept (a co-resident model needs tenants routing to it), and so do
+    their "off" values and JAX's defaults ``obs=True`` and
+    ``flight_dir=None``."""
+    import operator
+
     _, _, model, _, _ = setup
-    if option in PORTED_OPTIONS:
-        kw = {option: value}
-        if option == "models":
-            value = {"twin": model}
-            kw = {"models": value, "tenants": {
-                "default": TenantClass(), "t": TenantClass(model="twin")}}
-        eng = Engine(model, device="cpu", max_len=48, **kw)
-        kept = getattr(eng, PORTED_OPTIONS[option])
-        if option == "models":
-            assert list(kept) == [None, "twin"]
-            assert kept["twin"].model is model
-        else:
-            assert kept == value
+    kw = {option: value}
+    if option == "models":
+        value = {"twin": model}
+        kw = {"models": value, "tenants": {
+            "default": TenantClass(), "t": TenantClass(model="twin")}}
+    eng = Engine(model, device="cpu", max_len=48, **kw)
+    kept = operator.attrgetter(PORTED_OPTIONS[option])(eng)
+    if option == "models":
+        assert list(kept) == [None, "twin"]
+        assert kept["twin"].model is model
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(model, device="cpu", **{option: value})
+        assert kept == value
     Engine(model, device="cpu", max_len=48, **{option: {
         "drafter_timeout_s": None, "step_timeout_s": None,
         "prefix_cache_blocks": 0, "models": None, "tenants": None,

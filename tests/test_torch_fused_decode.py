@@ -43,6 +43,15 @@ COUNTERS = ("fused_windows", "fused_steps", "decode_steps",
             "active_slot_steps", "prefill_chunks", "tokens")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def families():
     """Both families' JAX and port models on one weight tree each (the

@@ -50,7 +50,8 @@ def _run_part(module, args, timeout=240):
             f"runpy.run_module({module!r}, run_name='__main__')\n"
             "print('IMPORTED', sorted(m for m in sys.modules if "
             f"m.split('.')[0] in {FORBIDDEN!r}))\n")
-    env = dict(os.environ, OMP_NUM_THREADS="2")
+    # One thread a rank: the suite's workers share the host's cores.
+    env = dict(os.environ, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=timeout)
 
@@ -118,17 +119,41 @@ def test_parts_default_to_the_card():
 
 LATER_FLAGS = [
     (["--verify-replicas"], "slice 8"),
-    (["--flight-dir", "fd"], "slice 8"),
-    (["--metrics-port", "0"], "slice 8"),
-    (["--profile-dir", "pd"], "slice 8"),
+    (["--flight-dir", "fd"], None),
+    (["--metrics-port", "0"], None),
+    (["--profile-dir", "pd"], None),
 ]
 
 
 @pytest.mark.parametrize("flags,item", LATER_FLAGS,
                          ids=[f[0].lstrip("-") for f, _ in LATER_FLAGS])
-def test_later_slice_flags_name_their_roadmap_item(flags, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
-        part1.main(TINY + flags)
+def test_later_slice_flags_name_their_roadmap_item(flags, item, tmp_path,
+                                                   monkeypatch, capsys):
+    """A flag of a later slice exits naming its ROADMAP item; the obs
+    flags (item None) are ported and run: ``--profile-dir`` leaves a
+    Chrome trace, ``--metrics-port`` serves the trainer's metrics,
+    ``--flight-dir`` is the trainer's flight directory."""
+    if item is not None:
+        with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
+            part1.main(TINY + flags)
+        return
+    monkeypatch.chdir(tmp_path)
+    small = ["--device", "cpu", "--synthetic-train-size", "16",
+             "--synthetic-test-size", "8", "--batch-size", "8"]
+    trainer = part1.main(small + flags)
+    out = capsys.readouterr().out
+    assert "Test set:" in out
+    if flags[0] == "--profile-dir":
+        [trace] = os.listdir(tmp_path / "pd")
+        assert trace.startswith("trace-") and json.load(
+            open(tmp_path / "pd" / trace))["traceEvents"]
+    if flags[0] == "--metrics-port":
+        assert re.search(r"metrics endpoint: http://127\.0\.0\.1:\d+/metrics",
+                         out)
+    if flags[0] == "--flight-dir":
+        assert trainer.flight.directory == "fd"
+        assert trainer.flight.dump("probe") is not None
+        assert os.listdir(tmp_path / "fd")
 
 
 # The JAX CLI's validation of the checkpoint and supervisor flags
@@ -230,10 +255,14 @@ def test_trainer_matches_the_jax_trainer(tmp_path, timing_mode):
 
 def test_trainer_refuses_unported_options():
     model = vgg.VGG(NARROW)
-    for kwargs in ({"verify_replicas": True}, {"flight_dir": "x"},
+    for kwargs in ({"verify_replicas": True},
                    {"track_sdc_fingerprint": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(model, **kwargs)
+    # the obs layer is ported: a flight directory and the grad-norm
+    # accumulator construct and are kept
+    tr = Trainer(model, flight_dir="x", track_grad_norm=True)
+    assert tr.flight.directory == "x" and tr.state.obs_norms is not None
     # strategies are ported: tp needs a mesh; the VGG trains under its
     # TP rules, a ResNet under them is refused naming its ROADMAP item
     with pytest.raises(ValueError, match="needs a device mesh"):

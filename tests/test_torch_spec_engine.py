@@ -40,6 +40,15 @@ COUNTERS = ("verify_steps", "tree_verify_steps", "draft_tokens",
             "draft_accepted")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tree(seed):
     """Random weights with every matrix scaled five-fold."""
     tree = gpt2.random_params(gpt2.GPT2Config(**TINY), seed=seed)

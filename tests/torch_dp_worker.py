@@ -1178,6 +1178,89 @@ def job_vgg_tp(rank, world):
     return out
 
 
+# The two-host disaggregated round: the JAX tests' tiny GPT-2 and prompts.
+DISAGG_CFG = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=2,
+                  d_model=32)
+DISAGG_SEED = 41        # the prompts'
+DISAGG_MODEL_SEED = 21  # the weights' (tests/test_torch_disagg.py's)
+
+
+def disagg_jobs() -> list:
+    """The ``(prompt, max_new_tokens)`` pairs rank 0 prefills and stages."""
+    rng = np.random.default_rng(DISAGG_SEED)
+    return [(rng.integers(0, 61, size=9 + 2 * i).astype(np.int32), 6 + i)
+            for i in range(2)]
+
+
+def job_disagg(rank, world):
+    """``DisaggHost.round`` over the gloo world: rank 0 prefills and stages
+    each request after its first token, the other ranks decode; rank 0's
+    first non-empty transfer is bit-flipped on the wire, so rank 1
+    quarantines it (a flight dump under ``flight{rank}``) and the retry
+    delivers.  Also the host collectives on fixed inputs."""
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.serve import Engine
+    from tpudp_torch.serve.disagg import DisaggHost
+    from tpudp_torch.serve.faults import CorruptPagePayload
+    from tpudp_torch.utils import checkpoint as ck
+
+    out = {"blobs": [list(b) for b in
+                     ck.gather_host_blobs(bytes(range(rank * 3)))],
+           "values": ck.gather_host_values(10 + rank),
+           "ok": ck.all_hosts_ok(True, value=7),
+           "split": ck.all_hosts_ok(True, value=rank)}
+    model = gpt2.build(gpt2.GPT2Config(**DISAGG_CFG), DISAGG_MODEL_SEED,
+                       "cpu")
+    eng = Engine(model, device="cpu", num_slots=2, max_len=64,
+                 prefill_chunk=8, kv_pages=16,
+                 flight_dir=os.path.join(os.environ["TPUDP_TEST_OUT"],
+                                         f"flight{rank}"))
+
+    class FirstTransferCorrupt:
+        """One-shot: bit-flip the first non-empty outgoing transfer."""
+
+        def __init__(self):
+            self.inner = CorruptPagePayload(rank=0, at_seqs=range(999))
+            self.fired = []
+
+        def on_send(self, rank_, seq, blob):
+            if self.fired:
+                return blob
+            res = self.inner.on_send(rank_, seq, blob)
+            self.fired = list(self.inner.fired)
+            return res
+
+    host = DisaggHost(eng, rank=rank, n_hosts=world,
+                      role="prefill" if rank == 0 else "decode",
+                      faults=(FirstTransferCorrupt(),) if rank == 0 else (),
+                      retries=2)
+    admitted = []
+    host.on_admit = lambda src, t, r: admitted.append(r)
+    jobs = disagg_jobs()
+    staged = set()
+    handles = ([eng.submit(p, n) for p, n in jobs] if rank == 0 else [])
+    for _ in range(200):
+        eng.step()
+        for h in handles:
+            if (h.id not in staged and h.tokens and not h.done
+                    and h._nfill == h._fill.size and h._slot is not None):
+                host.stage(1, h)
+                staged.add(h.id)
+        my_done = (eng.slots_in_use == 0 and eng.queue_depth == 0
+                   and host.pending == 0
+                   and (rank != 0 or len(staged) == len(jobs)))
+        if host.round(done=my_done):
+            break
+    else:
+        raise RuntimeError("the round loop never reached a joint done")
+    eng.check_paged()
+    out.update(stats=dict(eng.stats), spans=sorted(eng.metrics()["spans"]),
+               flight_dumps=eng.flight.dumps,
+               admitted=[(r.prompt.tolist(), r.max_new_tokens, r.tokens,
+                          r.ok) for r in admitted])
+    return out
+
+
 JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "gpt2": job_gpt2, "sync_bn": job_sync_bn, "ckpt": job_ckpt,
         "resilience": job_resilience, "lone_fault": job_lone_fault,
@@ -1185,7 +1268,7 @@ JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "pp": job_pp, "ep": job_ep, "trainer": job_trainer,
         "schedule": job_schedule, "llama": job_llama,
         "cuda_strategies": job_cuda_strategies, "vit": job_vit,
-        "vgg_tp": job_vgg_tp}
+        "vgg_tp": job_vgg_tp, "disagg": job_disagg}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -24,9 +24,12 @@ saves ``step_<epoch+1>`` after every epoch, in the background with
 heartbeat watchdog (a hang dumps the state and exits, or under
 ``--resilience`` is recovered in-process by the supervisor with
 ``--max-rollbacks`` and ``--spike-factor``); ``--remat`` recomputes
-the forward in the backward (``Trainer(remat=True)``).  Flags of later
-slices (replica verification, flight recorder, profiler and metrics
-endpoints) are refused with their ROADMAP.md item.
+the forward in the backward (``Trainer(remat=True)``);
+``--flight-dir`` turns on the flight recorder, ``--metrics-port`` serves
+``Trainer.metrics()`` as Prometheus text, and ``--profile-dir`` writes a
+``torch.profiler`` Chrome trace of the run (JAX writes an XLA profile).
+``--verify-replicas``, of a later slice, is refused with its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from tpudp_torch.mesh import (PORT, free_port, initialize_distributed,
                               make_mesh)
 from tpudp_torch.models import vgg
 from tpudp_torch.models.norm import DATA_AXIS
+from tpudp_torch.obs import trace
 from tpudp_torch.resilience import (auto_resume, make_emergency_dump,
                                     restore_newest)
 from tpudp_torch.trainer import Trainer
@@ -63,9 +67,6 @@ GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
 _UNPORTED_FLAGS = {
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
-    "profile_dir": (None, "slice 8 (obs: profiler traces)"),
-    "flight_dir": (None, "slice 8 (obs: flight recorder)"),
-    "metrics_port": (None, "slice 8 (obs: metrics endpoint)"),
 }
 
 
@@ -97,7 +98,10 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--keep-checkpoints", type=int, default=None,
                    metavar="N")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the ranks run (default cuda: the card)")
+                   help="where the ranks run (default cuda: the card; "
+                        "on cpu, local ranks split the host's cores "
+                        "unless OMP_NUM_THREADS sets each rank's "
+                        "threads)")
     p.add_argument("--synthetic-train-size", type=int, default=50_000,
                    help="synthetic-fallback train set size (smoke runs)")
     p.add_argument("--synthetic-test-size", type=int, default=10_000)
@@ -128,13 +132,23 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                    metavar="PATH",
                    help="append one JSON line per train window / eval / "
                         "epoch to PATH (rank 0 only)")
-    p.add_argument("--profile-dir", type=str, default=None)
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the run "
+                        "into this directory (trace-<pid>.json)")
     p.add_argument("--step-timeout", type=float, default=None)
     p.add_argument("--resilience", action="store_true")
     p.add_argument("--max-rollbacks", type=int, default=None, metavar="N")
     p.add_argument("--spike-factor", type=float, default=None, metavar="X")
-    p.add_argument("--flight-dir", type=str, default=None, metavar="DIR")
-    p.add_argument("--metrics-port", type=int, default=None, metavar="N")
+    p.add_argument("--flight-dir", type=str, default=None, metavar="DIR",
+                   help="dump the flight recorder (the last train/eval "
+                        "spans and recovery events) into flightrec-*.json "
+                        "under DIR on watchdog timeouts and recoveries "
+                        "(default: the TPUDP_FLIGHT_DIR variable; unset = "
+                        "no dumps)")
+    p.add_argument("--metrics-port", type=int, default=None, metavar="N",
+                   help="serve the live Trainer.metrics() as Prometheus "
+                        "text on 127.0.0.1:N/metrics (rank 0; 0 picks a "
+                        "free port)")
     return p
 
 
@@ -330,7 +344,9 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
-    elif world > 1:
+    elif world > 1 and not os.environ.get("OMP_NUM_THREADS"):
+        # The host's cores split between the local ranks, unless the
+        # caller set the threads a process.
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
     mesh = None
     if data_parallel:
@@ -358,7 +374,14 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
                       spmd_mode=args.spmd_mode or "shard_map",
                       grad_accum=args.grad_accum, remat=args.remat,
                       metrics_jsonl=args.metrics_jsonl, log_fn=log,
-                      watchdog=watchdog)
+                      watchdog=watchdog, flight_dir=args.flight_dir)
+    metrics_server = None
+    if args.metrics_port is not None and rank == 0:
+        from tpudp_torch.obs import MetricsServer
+
+        metrics_server = MetricsServer(args.metrics_port, trainer.metrics)
+        log(f"[tpudp] metrics endpoint: "
+            f"http://127.0.0.1:{metrics_server.port}/metrics")
     log(f"[tpudp] model={args.model} sync={sync} devices={world} "
         f"device={device.type} global_batch={args.batch_size} "
         f"dtype={args.dtype} "
@@ -372,7 +395,8 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
             if watchdog is not None:
                 watchdog.arm()
             try:
-                trainer.evaluate(test_loader)
+                with trace(args.profile_dir):
+                    trainer.evaluate(test_loader)
             finally:
                 if watchdog is not None:
                     watchdog.disarm()
@@ -389,11 +413,14 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
                 checkpoint_writer=async_writer,
                 **({"max_rollbacks": args.max_rollbacks}
                    if args.max_rollbacks is not None else {}))
-        trainer.fit(train_loader, test_loader, epochs=args.epochs,
-                    start_epoch=resume.start_epoch,
-                    epoch_end_fn=resume.epoch_end_fn,
-                    skip_batches_first_epoch=resume.skip_first,
-                    resilience=resilience)
+        with trace(args.profile_dir):
+            trainer.fit(train_loader, test_loader, epochs=args.epochs,
+                        start_epoch=resume.start_epoch,
+                        epoch_end_fn=resume.epoch_end_fn,
+                        skip_batches_first_epoch=resume.skip_first,
+                        resilience=resilience)
+        if args.profile_dir:
+            log(f"[tpudp] profiler trace written to {args.profile_dir}")
         if async_writer is not None:
             async_writer = None
             resume.finish()  # join the last epoch's write, then prune
@@ -408,6 +435,8 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
             async_writer.close()
         if watchdog is not None:
             watchdog.stop()
+        if metrics_server is not None:
+            metrics_server.close()
         for loader in (train_loader, test_loader):
             if isinstance(loader, Prefetcher):
                 loader.close()

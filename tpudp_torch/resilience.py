@@ -236,6 +236,9 @@ class Supervisor:
     def record(self, kind: str, **fields) -> None:
         event = {"kind": kind, **fields}
         self.trainer.stats["events"].append(event)
+        # Mirrored into the trainer's span ring, so a flight record
+        # carries the recovery timeline beside the window spans.
+        self.trainer.obs.event("resilience." + kind, **fields)
         if self.policy.on_event is not None:
             self.policy.on_event(event)
 
@@ -364,6 +367,9 @@ class Supervisor:
         stats["rollbacks"] += 1
 
     def _rollback(self, e: BaseException) -> tuple[int, int]:
+        # The black box first: the ring's tail is the window timeline
+        # that led to the divergence (a no-op without a flight dir).
+        self.trainer.flight.dump("rollback", extra={"error": repr(e)[:500]})
         self._spend_rollback(e)
         self._fence()
         path = self._restore_verified()
@@ -383,6 +389,8 @@ class Supervisor:
                                                   restore_checkpoint)
 
         t = self.trainer
+        t.flight.dump("step_fault" if not isinstance(e, StepHangError)
+                      else "hang", extra={"error": repr(e)[:500]})
         self._fence()
         failed_step = self._count_step_failure(e)
         t.stats["step_retries"] += 1
@@ -470,6 +478,9 @@ class Supervisor:
         self.record(kind, **fields)
         self.trainer.log(f"[tpudp] resilience: {why}; hard-exiting for a "
                          f"relaunch (exit {VOTE_TIMEOUT_EXIT})")
+        # This process is about to exit because of a peer: its local
+        # dump is the only surviving timeline of what it saw.
+        self.trainer.flight.dump(kind, extra={"reason": why, **fields})
         sys.stdout.flush()
         os._exit(VOTE_TIMEOUT_EXIT)
 
@@ -483,6 +494,10 @@ class Supervisor:
         original = e if e is not None else RuntimeError(
             "a peer rank faulted; this rank joined the coordinated "
             "recovery")
+        # Every rank banks its own black box for the voted recovery.
+        t.flight.dump("coordinated_" + str(OUTCOME_NAMES.get(worst)),
+                      extra={"error": repr(original)[:500],
+                             "worst": OUTCOME_NAMES.get(worst)})
         self._fence()
         if worst == OUTCOME_DIVERGENCE:
             self._spend_rollback(original)
@@ -492,6 +507,12 @@ class Supervisor:
         path = self._restore_verified()
         self._window_losses.clear()
         self._rearm()
+        if t.flight.enabled:
+            # Every rank here is live (it just voted and restored): rank
+            # 0 folds the per-rank dumps into flightrec-merged.json.
+            from tpudp_torch.obs import coordinated_merge
+
+            coordinated_merge(t.flight.directory)
         epoch, skip = self._resume_position()
         kind = "rollback" if worst == OUTCOME_DIVERGENCE else "step_retry"
         self.record(kind, error=repr(original), restored=path,

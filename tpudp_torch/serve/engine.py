@@ -112,8 +112,26 @@ host — hooks, ``StepHangError``, a kernel launch's error code — not a
 fault that poisons the CUDA context (an illegal address, a device-side
 assert), which no process survives; a failed kernel build
 (``_build.BuildError``) or graph capture (``fused.CaptureError``) is a
-fault of the program and raises.  JAX's obs spans, events and flight
-dumps are a later slice (ROADMAP.md slice 8, obs).
+fault of the program and raises.
+
+Observability (``tpudp_torch.obs``), as in JAX: every device call runs
+inside an allocation-free span of the engine's recorder (``Engine.obs``,
+named by the call's kind), the scheduler records ``admit``, ``finish``,
+``preempt``, ``page_vacate``, ``containment``, the quarantine and
+migration events, and each model state keeps five device counters
+(:data:`OBS_DEVICE_COUNTERS`) that its step functions and fused windows
+accumulate on the card — inside the captured graphs too — and only
+:meth:`Engine.metrics` reads.  ``obs=False`` makes the recorder inert
+(the counters still count).  ``flight_dir`` (or ``TPUDP_FLIGHT_DIR``)
+turns on the flight recorder (``Engine.flight``): containment, a canary
+quarantine and the watchdog's timeouts dump the ring there.
+
+Migration (``tpudp_torch.serve.disagg``): :meth:`Engine.export_ticket`
+detaches a live request into a ``MigrationTicket`` — its tokens, its
+generator state and its chunk-prefilled prefix pages read off the pool —
+and :meth:`Engine.admit_ticket` admits one on another engine: the pages
+are written into fresh pages of its pool and adopted by its radix index,
+so the resume maps them and prefills only the final chunk.
 
 Tenancy (``tenants={name: TenantClass}``, ``tpudp_torch.serve.tenancy``;
 ``tenants=None`` is the single-queue engine, stats keys included):
@@ -150,6 +168,7 @@ import time
 import numpy as np
 import torch
 
+from tpudp_torch.obs import FlightRecorder, Recorder
 from tpudp_torch.models.generate import (KVCache, _forward_cached,
                                          _forward_paged, _forward_tree,
                                          _forward_tree_paged, gather_pages,
@@ -161,21 +180,21 @@ from tpudp_torch.ops.paged_attention import (_KERNEL_HEAD_DIMS, KERNELS,
                                              TREE_KERNEL_MAX_NODES)
 from tpudp_torch.ops.sampling import (sample_tokens, verify_tokens,
                                       verify_tree_tokens)
-from tpudp_torch.serve.fused import CaptureError, FusedSpecWindow, FusedWindow
+from tpudp_torch.serve.fused import (CaptureError, FusedSpecWindow,
+                                     FusedWindow, add_counts)
 from tpudp_torch.serve.prefix_cache import (PageIndex, PagePool, PrefixCache,
                                             copy_block_in, copy_block_out)
 from tpudp_torch.serve.speculate import NgramDrafter, tree_shape
 from tpudp_torch.serve.tenancy import TenantScheduler
 from tpudp_torch.utils.watchdog import StepHangError
 
-#: Options of the JAX engine this port does not have yet: name ->
-#: (the value that means "off", the ROADMAP.md item that brings it).
-_UNPORTED = {
-    # The port has no obs layer: True is JAX's default, the engine as
-    # the port runs it (no spans or events recorded yet).
-    "obs": (True, "Queue 1 item 2 (the obs layer)"),
-    "flight_dir": (None, "Queue 1 item 2 (the obs layer)"),
-}
+#: The zero-sync device counters, in this order, in one float32 tensor
+#: a model state: each step function and fused-window iteration adds its
+#: row on the device, and only :meth:`Engine.metrics` reads them.
+#: ``eos_exits`` is counted only where the device knows the EOS ids (the
+#: fused windows); the single steps account EOS on the host.
+OBS_DEVICE_COUNTERS = ("steps", "tokens", "slot_steps",
+                       "draft_accepted", "eos_exits")
 
 
 #: Device types the kernel backend runs on: the kernels are CUDA's.
@@ -267,6 +286,15 @@ def _decode_math(forward, state, last_tokens, lengths, active, temps,
     return state, toks
 
 
+def _count_verify(counts, active, n_emit, n_draft) -> None:
+    """A verify window's row (sequence or tree): tokens emitted by the
+    active rows, their draft tokens accepted."""
+    n_emit = n_emit.to(n_draft.device)
+    add_counts(counts, active.any(), torch.where(active, n_emit, 0),
+                active,
+                torch.where(active & (n_draft > 0), n_emit - 1, 0))
+
+
 def _sample_row(logits, temp, top_k, top_p, generator):
     """The first token after a finished prefill: one row through the
     decode step's sampling op."""
@@ -287,7 +315,7 @@ class _ModelState:
 
     __slots__ = ("name", "model", "config", "cache", "prefix_cache", "pool",
                  "index", "table", "slot_nodes", "dispatch", "window",
-                 "spec_window")
+                 "spec_window", "obs_counts")
 
     def __init__(self, name, model):
         self.name = name
@@ -302,6 +330,11 @@ class _ModelState:
         self.dispatch = {}
         self.window = None
         self.spec_window = None
+        # OBS_DEVICE_COUNTERS, on the model's device; allocated once (the
+        # captured windows hold its address).
+        self.obs_counts = torch.zeros(len(OBS_DEVICE_COUNTERS),
+                                      dtype=torch.float32,
+                                      device=next(model.parameters()).device)
 
 
 class Request:
@@ -315,7 +348,9 @@ class Request:
     ``error`` holds the exception that retired it with ``ERROR``.
     ``tenant`` is its class on a tenant-aware engine (else None) and
     ``preemptions`` counts the times it lost its slot to
-    higher-priority work (each resume is exact)."""
+    higher-priority work (each resume is exact); ``migrations`` the
+    times it moved between engines (``export_ticket`` /
+    ``admit_ticket``)."""
 
     def __init__(self, engine: "Engine", rid: int, prompt: np.ndarray,
                  max_new_tokens: int, temperature: float, top_k: int,
@@ -336,6 +371,7 @@ class Request:
         self.ttft_deadline_s = ttft_deadline_s
         self.tenant = tenant
         self.preemptions = 0
+        self.migrations = 0
         self._ms = None  # the _ModelState this request decodes with
         self.tokens: list[int] = []
         self.token_times: list[float] = []
@@ -450,7 +486,12 @@ class Engine:
     ``models={name: model}`` registers co-resident models (each moved to
     ``device``; they need ``tenants``, and a ``max_seq_len`` of at least
     ``max_len``); :attr:`page_pool`, :attr:`page_index` and
-    :attr:`prefix_cache` are the default model's."""
+    :attr:`prefix_cache` are the default model's.
+
+    ``obs`` (default True) records spans and events in :attr:`obs`;
+    ``flight_dir`` (default: ``TPUDP_FLIGHT_DIR``, else none) is where
+    :attr:`flight` dumps them on a fault.  A ``watchdog`` without a
+    flight recorder of its own takes this engine's."""
 
     def __init__(self, model, *, device="cuda", num_slots: int = 8,
                  max_len: int | None = None, prefill_chunk: int = 16,
@@ -465,16 +506,8 @@ class Engine:
                  token_fault_hook=None,
                  canary_every_s: float | None = None, canary_prompt=None,
                  canary_new_tokens: int = 8, tenants: dict | None = None,
-                 models: dict | None = None, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"Engine() got an unexpected keyword "
-                                f"argument {name!r}")
-            off, item = _UNPORTED[name]
-            if value != off:
-                raise NotImplementedError(
-                    f"Engine({name}=...) is not ported yet: ROADMAP.md "
-                    f"{item}")
+                 models: dict | None = None, obs: bool = True,
+                 flight_dir: str | None = None):
         cfg = model.config
         validate_decode_config(cfg, "Engine")
         self.device = resolve_device(device)
@@ -688,6 +721,13 @@ class Engine:
         self._canary_last = -float("inf")  # the first canary starts at once
         self._quarantined = False
         self.quarantine_reason: str | None = None
+        # Telemetry: the span/event ring and its flight recorder (dumps
+        # only with a directory).
+        self.obs = Recorder(name="serve", enabled=obs)
+        self.flight = FlightRecorder(self.obs, flight_dir, component="serve")
+        if watchdog is not None and getattr(watchdog, "flight",
+                                            None) is None:
+            watchdog.flight = self.flight
 
     # -- model registry ------------------------------------------------
 
@@ -984,27 +1024,187 @@ class Engine:
 
     def cancel(self, request: Request) -> bool:
         """Retire ``request`` now, queued or in flight; False if it had
-        already finished."""
+        already finished or no longer belongs to this engine
+        (:meth:`export_ticket` detached it: it is cancelled through its
+        cluster-level handle)."""
         if request.done:
             return False
         if request._slot is not None:
             self._retire(request._slot, FinishReason.CANCELLED)
             return True
-        if self._sched is not None:
-            self._sched.remove(request)
-        else:
-            self._queue.remove(request)
+        try:
+            if self._sched is not None:
+                self._sched.remove(request)
+            else:
+                self._queue.remove(request)
+        except ValueError:
+            return False  # migrated out: not this engine's to cancel
         self._finish(request, FinishReason.CANCELLED)
         return True
 
     def run_until_complete(self) -> None:
         """Drive the engine until every queue and every slot is empty;
         stops early once a canary quarantined the engine (its live
-        requests stay in place, unfinished)."""
+        requests stay in place, unfinished, for
+        ``DisaggCluster.evacuate``)."""
         while self.queue_depth or any(r is not None for r in self._slots):
             if self._quarantined:
                 return
             self.step()
+
+    # -- cross-engine migration (tpudp_torch/serve/disagg.py) ----------
+
+    def export_ticket(self, request: Request):
+        """Detach a live request into a ``tpudp_torch.serve.disagg.
+        MigrationTicket`` — the sender half of KV migration.
+
+        An in-flight slot's chunk-prefilled prefix pages are read off the
+        pool first (their other holders untouched), the prefix is
+        published locally (the pages stay as evictable cache here), then
+        the slot is vacated through the one exact carry: the tokens and
+        the slot's generator state (``resume_key``, a uint8 array of
+        ``torch.Generator.get_state()``; JAX carries its PRNG key) ride
+        the ticket.  A queued request exports its tokens only.  The
+        handle is left detached, not done: ``FinishReason`` has no
+        MIGRATED value.  Raises ``ValueError`` for a finished
+        request."""
+        from tpudp_torch.serve import disagg as _dg
+
+        r = request
+        if r.done:
+            raise ValueError(f"request {r.id} already finished "
+                             f"({r.finish_reason}); nothing to migrate")
+        s = r._slot
+        pages: list[dict] = []
+        if s is None:
+            if self._sched is not None:
+                self._sched.remove(r)
+            else:
+                self._queue.remove(r)
+            r._fill = np.concatenate([r.prompt,
+                                      np.asarray(r.tokens, np.int32)])
+            r._nfill = 0
+        else:
+            ms = r._ms
+            if self._paged:
+                n_blocks = (min(r._nfill, r._fill.size)
+                            // self.prefill_chunk)
+                for i in range(n_blocks):
+                    page = int(ms.table[s, i])
+                    if page >= 0:
+                        pages.append(ms.pool.read_page(page))
+            if ((self._paged or ms.prefix_cache is not None)
+                    and self._accepting):
+                self._publish_prefix(ms, s, r)
+            self._vacate_slot(s)
+        r.migrations += 1
+        self.stats["migrated_out"] += 1
+        self.obs.event("migrate_out", rid=r.id, slot=s, tenant=r.tenant,
+                       tokens=len(r.tokens), pages=len(pages))
+        if r.tenant is not None:
+            self._sched.stats(r.tenant)["migrated_out"] += 1
+        key = r._resume_key
+        return _dg.MigrationTicket(
+            rid=r.id, model=r._ms.name,
+            prompt=np.asarray(r.prompt, np.int32),
+            tokens=tuple(int(t) for t in r.tokens),
+            max_new_tokens=r.max_new_tokens,
+            temperature=r.temperature, top_k=r.top_k, top_p=r.top_p,
+            seed=r.seed, eos_id=r.eos_id, deadline_s=r.deadline_s,
+            tenant=r.tenant, migrations=r.migrations,
+            preemptions=r.preemptions,
+            draft_proposed=r.draft_proposed,
+            draft_accepted=r.draft_accepted,
+            resume_key=None if key is None else key.numpy().copy(),
+            page_tokens=self.prefill_chunk, pages=tuple(pages))
+
+    def admit_ticket(self, ticket) -> Request:
+        """Admit a migrated request — the receiver half of KV migration.
+        The ticket's pages are written into fresh pages of this engine's
+        pool and adopted by its radix index (``PageIndex.adopt``: where a
+        local request already published a chunk, the index keeps its own
+        page and the copy is freed), so the resume maps them and
+        prefills only the final chunk — through the paged-window kernel
+        on the card.  The request re-enters at the front of its class (a
+        migration is a resume) with its tokens and generator state, so
+        it continues exactly.  The wire checks live in
+        ``tpudp_torch.serve.disagg``; this re-validates model, vocabulary,
+        lengths and chunk size and raises ``ValueError`` on a
+        mismatch."""
+        if not self._accepting:
+            raise EngineClosed(
+                "Engine.drain()/close() was called; the engine no "
+                "longer accepts work")
+        if ticket.model not in self._mstates:
+            raise ValueError(
+                f"ticket for model {ticket.model!r} but this engine "
+                f"serves {sorted(k or 'default' for k in self._mstates)}")
+        tname = None
+        if self._sched is not None:
+            tname = self._sched.resolve(ticket.tenant)
+        elif ticket.tenant is not None:
+            raise ValueError(
+                f"ticket carries tenant {ticket.tenant!r} but this "
+                f"engine has no tenant classes configured")
+        ms = self._mstates[ticket.model]
+        prompt = np.asarray(ticket.prompt, np.int32).reshape(-1)
+        vocab = ms.config.vocab_size
+        if prompt.size == 0 or prompt.min() < 0 or prompt.max() >= vocab:
+            raise ValueError(f"ticket prompt ids must be in [0, {vocab})")
+        total = prompt.size + ticket.max_new_tokens + self.speculate_k
+        if total > self.max_len:
+            raise ValueError(
+                f"ticket prompt ({prompt.size}) + max_new_tokens "
+                f"({ticket.max_new_tokens}) exceeds the arena max_len "
+                f"({self.max_len})")
+        if ticket.pages and ticket.page_tokens != self.prefill_chunk:
+            raise ValueError(
+                f"ticket pages hold {ticket.page_tokens} tokens but this "
+                f"engine's prefill_chunk is {self.prefill_chunk}")
+        r = Request(self, self._next_id, prompt, ticket.max_new_tokens,
+                    float(ticket.temperature), int(ticket.top_k),
+                    float(ticket.top_p), ticket.seed, ticket.eos_id,
+                    deadline_s=ticket.deadline_s, tenant=tname)
+        self._next_id += 1
+        r._ms = ms
+        r.tokens = [int(t) for t in ticket.tokens]
+        r.token_times = [r.submit_time] * len(r.tokens)
+        r.migrations = ticket.migrations
+        r.preemptions = ticket.preemptions
+        r.draft_proposed = ticket.draft_proposed
+        r.draft_accepted = ticket.draft_accepted
+        r._fill = np.concatenate([prompt, np.asarray(r.tokens, np.int32)])
+        r._nfill = 0
+        if ticket.resume_key is not None:
+            r._resume_key = torch.from_numpy(
+                np.array(ticket.resume_key, np.uint8))
+        adopted = []
+        if self._paged and ticket.pages:
+            for payload in ticket.pages:
+                page = self._alloc_page(ms, protect=-1)
+                if page is None:
+                    break
+                try:
+                    ms.pool.write_page(page, payload)
+                except ValueError:
+                    for p in adopted + [page]:
+                        ms.pool.release(p)
+                    raise
+                adopted.append(page)
+            if adopted:
+                ms.index.adopt(r._fill, adopted)
+                for page in adopted:
+                    ms.pool.release(page)
+        self.stats["migrated_in"] += 1
+        self.stats["migrated_in_pages"] += len(adopted)
+        self.obs.event("migrate_in", rid=ticket.rid, new_rid=r.id,
+                       tenant=tname, tokens=len(r.tokens),
+                       pages=len(adopted),
+                       resumed=ticket.resume_key is not None)
+        if tname is not None:
+            self._sched.stats(tname)["migrated_in"] += 1
+        self._requeue_front(r)
+        return r
 
     def drain(self) -> None:
         """Graceful shutdown: stop admission (``submit`` raises
@@ -1076,8 +1276,20 @@ class Engine:
         return bool(self.speculate_k) and not self._drafter_quarantined
 
     def metrics(self) -> dict:
-        """Host counters, occupancy, the attention backend and, per
-        ported kernel, its launch count in this process."""
+        """Host counters, occupancy, the attention backend, per ported
+        kernel its launch count in this process, and JAX's telemetry
+        keys: the device counters summed over the models and per model
+        (their one read: a small fetch a model, off the hot paths), the
+        span rollup of :attr:`obs`, its host counters and the flight
+        dumps written."""
+        device: dict[str, dict] = {}
+        totals = dict.fromkeys(OBS_DEVICE_COUNTERS, 0.0)
+        for name, ms in self._mstates.items():
+            vals = ms.obs_counts.cpu().tolist()
+            row = {k: float(v) for k, v in zip(OBS_DEVICE_COUNTERS, vals)}
+            device[name or "default"] = row
+            for k, v in row.items():
+                totals[k] += v
         out = {
             "stats": dict(self.stats),
             "queue_depth": self.queue_depth,
@@ -1086,6 +1298,11 @@ class Engine:
             "device": str(self.device),
             "kernel_launches": {name: fn.launches
                                 for name, fn in KERNELS.items()},
+            "device_counters": totals,
+            "device_counters_per_model": device,
+            "spans": self.obs.summary(),
+            "obs_counters": dict(self.obs.counters),
+            "flight_dumps": self.flight.dumps,
         }
         if self._sched is not None:
             out["tenants"] = {name: dict(c)
@@ -1163,6 +1380,13 @@ class Engine:
             else:
                 self._gens[s].manual_seed(r.seed)
             self.stats["admitted"] += 1
+            self.obs.event(
+                "admit", rid=r.id, slot=s, tenant=r.tenant,
+                model=r._ms.name,
+                priority=(self._priority_of(r)
+                          if self._sched is not None else None),
+                resumed=r._resume_key is not None,
+                fill=int(r._fill.size))
             if r.tenant is not None:
                 # A resume is not a fresh grant: the class's admitted
                 # share stays the one its weight set.
@@ -1343,6 +1567,8 @@ class Engine:
             self._publish_prefix_paged(r._ms, s, r)
         self._vacate_slot(s)
         self.stats["page_pressure_vacates"] += 1
+        self.obs.event("page_vacate", rid=r.id, slot=s, tenant=r.tenant,
+                       tokens=len(r.tokens))
         if r.tenant is not None:
             self._sched.stats(r.tenant)["page_pressure_vacates"] += 1
         self._requeue_front(r)
@@ -1428,11 +1654,13 @@ class Engine:
 
     def _finish(self, r: Request, reason: FinishReason,
                 error: BaseException | None = None) -> None:
-        # JAX's obs event of a finish is not ported (obs, ROADMAP.md).
         r.done = True
         r.finish_reason = reason
         r.error = error
         self.stats[_FINISH_COUNTER[reason]] += 1
+        self.obs.event("finish", rid=r.id, reason=reason.value,
+                       tenant=r.tenant, tokens=len(r.tokens),
+                       preemptions=r.preemptions)
         if r.tenant is not None:
             self._sched.stats(r.tenant)[_FINISH_COUNTER[reason]] += 1
 
@@ -1475,15 +1703,20 @@ class Engine:
         ``step_timeout_s`` — named ``kind`` (prefill, sample, decode,
         verify, tree_verify, fused_decode, fused_spec).  A call on the
         card is timed to its fetch, which every caller makes inside
-        ``fn``.  JAX wraps each call in an obs span too: not ported
-        (obs, ROADMAP.md slice 8)."""
+        ``fn``.  Every call rides an allocation-free span of :attr:`obs`
+        named ``kind``: the region a hang report or a flight record
+        names."""
         idx = self._device_calls
         self._device_calls += 1
-        with self._guard(guard_timeout_s if guard_timeout_s is not None
-                         else self._step_timeout_s, kind):
-            if self.step_fault_hook is not None:
-                self.step_fault_hook(kind, idx)
-            return fn(*args)
+        tok = self.obs.begin(kind)
+        try:
+            with self._guard(guard_timeout_s if guard_timeout_s is not None
+                             else self._step_timeout_s, kind):
+                if self.step_fault_hook is not None:
+                    self.step_fault_hook(kind, idx)
+                return fn(*args)
+        finally:
+            self.obs.end(tok)
 
     def _reset_stores(self) -> None:
         """Containment's reset of every model's KV store, in place: the
@@ -1514,11 +1747,19 @@ class Engine:
         request once, at the front in admission order, with its tokens
         and generator state: its re-prefill of ``prompt + tokens``
         continues it exactly.  A request failing a second time retires
-        with ``ERROR``.  Queued requests are untouched.  JAX's obs event
-        and flight-recorder dump here are not ported (obs, ROADMAP.md
-        slice 8)."""
+        with ``ERROR``.  Queued requests are untouched.  The flight
+        recorder dumps first, while the ring's tail is the timeline that
+        led here.  The device counters keep their values: the port's
+        buffers are not donated, so nothing was lost."""
         self.stats["step_failures"] += 1
         self.last_step_error = exc
+        self.obs.event("containment", error=type(exc).__name__,
+                       detail=str(exc)[:200])
+        self.flight.dump("step_failure", extra={
+            "error": repr(exc)[:500],
+            "slots_in_use": self.slots_in_use,
+            "queue_depth": self.queue_depth,
+        })
         if self._watchdog is not None:
             self._watchdog.acknowledge()  # handled; the next scope may run
         self._reset_stores()
@@ -1609,11 +1850,15 @@ class Engine:
             def forward(cache, tokens, lens, act):
                 return _forward_cached(ms.model, tokens, cache, lens)
             state = ms.cache
-        toks = self._device("decode", lambda: _decode_math(
-            forward, state, self._to_device(self._last_of(active)),
-            lengths, act,
-            self._temps, self._topk, self._topp,
-            self._gens)[1].cpu().numpy())
+        def decode():
+            toks = _decode_math(forward, state,
+                                self._to_device(self._last_of(active)),
+                                lengths, act, self._temps, self._topk,
+                                self._topp, self._gens)[1]
+            add_counts(ms.obs_counts, act.any(), act, act)
+            return toks.cpu().numpy()
+
+        toks = self._device("decode", decode)
         self.stats["decode_steps"] += 1
         self.stats["active_slot_steps"] += int(active.sum())
         for s in np.nonzero(active)[0]:
@@ -1642,7 +1887,8 @@ class Engine:
                 self._window_forward(ms, "fused_decode_paged"),
                 num_slots=self.num_slots, n_steps=self.decode_fuse,
                 table_pages=self._max_pages if self._paged else None,
-                generators=self._gens, device=self.device)
+                generators=self._gens, device=self.device,
+                counts=ms.obs_counts)
         return ms.window
 
     def _spec_fused_window(self, ms: _ModelState) -> FusedSpecWindow:
@@ -1655,7 +1901,8 @@ class Engine:
                 n_steps=self.decode_fuse, k=self.speculate_k,
                 hist_len=self.max_len,
                 table_pages=self._max_pages if self._paged else None,
-                generators=self._gens, device=self.device)
+                generators=self._gens, device=self.device,
+                counts=ms.obs_counts)
         return ms.spec_window
 
     def _window_values(self, ms: _ModelState, active) -> dict:
@@ -1798,6 +2045,7 @@ class Engine:
         charged as proposed and rejected."""
         self._drafter_quarantined = True
         self.drafter_quarantine_reason = reason
+        self.obs.event("drafter_quarantine", reason=reason[:200])
         self.stats["drafter_quarantined"] = 1
         if r is not None and proposed:
             r.draft_proposed += proposed
@@ -1827,6 +2075,7 @@ class Engine:
                 self.stats["canary_runs"] += 1
                 if self._canary_ref is None:
                     self._canary_ref = got
+                    self.obs.event("canary_pin", tokens=len(got))
                 elif got != self._canary_ref:
                     self._quarantine_canary(self._canary_ref, got)
                     return
@@ -1846,9 +2095,8 @@ class Engine:
     def _quarantine_canary(self, expected: tuple, got: tuple) -> None:
         """A canary mismatch is evidence of silent corruption under this
         engine: it stops admitting and stepping, and its live requests
-        stay in place, unfinished (JAX's cluster migrates them out; the
-        port has no cluster yet).  JAX's obs event and flight dump here
-        are not ported (obs, ROADMAP.md slice 8)."""
+        stay in place, unfinished, for a ``DisaggCluster`` to evacuate
+        from its journal.  The flight recorder dumps the ring."""
         self._quarantined = True
         self._accepting = False
         self.stats["canary_mismatch"] += 1
@@ -1858,6 +2106,11 @@ class Engine:
         self.quarantine_reason = (
             f"canary token stream diverged from pinned reference at token "
             f"{diff}: expected {list(expected)}, got {list(got)}")
+        self.obs.event("canary_quarantine", first_diff=diff,
+                       expected=list(expected), got=list(got))
+        self.flight.dump("canary_quarantine", extra={
+            "expected": list(expected), "got": list(got),
+            "first_diff": diff})
 
     def _context(self, r: Request) -> np.ndarray:
         return np.concatenate([r.prompt, np.asarray(r.tokens, np.int32)])
@@ -2021,19 +2274,21 @@ class Engine:
         def verify():
             window = self._to_device(tokens)
             lengths = self._to_device(self._len, torch.int32)
+            act = self._to_device(active, torch.bool)
+            drafted = self._to_device(n_draft)
             if self._paged:
                 logits, _ = _forward_paged(
                     ms.model, window, ms.pool.pages,
-                    self._to_device(ms.table, torch.int32), lengths,
-                    self._to_device(active, torch.bool),
+                    self._to_device(ms.table, torch.int32), lengths, act,
                     impl=ms.dispatch["verify_paged"])
             else:
                 logits, _ = _forward_cached(ms.model, window, ms.cache,
                                             lengths)
             out, n_emit = verify_tokens(
-                logits, window[:, 1:], self._to_device(n_draft),
+                logits, window[:, 1:], drafted,
                 self._temps, self._topk, self._topp,
                 self._row_generators(active))
+            _count_verify(ms.obs_counts, act, n_emit, drafted)
             return out.cpu().numpy(), n_emit.cpu().numpy()
 
         out, n_emit = self._device("verify", verify)
@@ -2083,6 +2338,8 @@ class Engine:
         out, n_emit, path = verify_tree_tokens(
             logits, tokens[:, 1:], shape.parents, n_cand, self._temps,
             self._topk, self._topp, self._row_generators(active))
+        act = self._to_device(active, torch.bool)
+        _count_verify(ms.obs_counts, act, n_emit, self._to_device(n_cand))
         # Every layer in one write per depth: the KV store viewed with
         # the layer axis behind the position, (pages or slots, position,
         # layers, kv, dh) — int8 scales (pages, position, layers, kv) —
@@ -2092,7 +2349,6 @@ class Engine:
         store = ms.pool.pages if self._paged else ms.cache
         views = tuple(b.permute(1, 2, 0, *range(3, b.dim())) for b in store)
         rows = torch.arange(self.num_slots, device=self.device)
-        act = self._to_device(active, torch.bool)
         for d in range(path.shape[1]):
             node = path[:, d]
             k_d, v_d = (w[:, rows, node].transpose(0, 1)[:, None]
@@ -2167,6 +2423,8 @@ class Engine:
             self._publish_prefix(r._ms, s, r)
         self._vacate_slot(s)
         r.preemptions += 1
+        self.obs.event("preempt", rid=r.id, slot=s, tenant=r.tenant,
+                       tokens=len(r.tokens))
         self.stats["preempted"] += 1
         self._sched.stats(r.tenant)["preempted"] += 1
         self._sched.requeue_front(r)

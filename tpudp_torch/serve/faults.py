@@ -28,8 +28,17 @@ exactly.  Three seams, all engine API:
 A fourth injector drives the scheduler rather than a seam:
 :class:`PreemptionStorm` submits high-priority bursts into a
 tenant-aware engine on a fixed schedule, so lower-priority work is
-preempted over and over.  JAX's cross-host transfer faults
-(disaggregated serving) belong to a later slice (ROADMAP.md).
+preempted over and over.
+
+A fifth seam is the migration wire of disaggregated serving
+(``tpudp_torch.serve.disagg``): :class:`DroppedTransfer`,
+:class:`CorruptPagePayload` and :class:`SlowLink` are
+``DisaggHost(faults=...)`` / ``DisaggCluster(faults=...)`` injectors
+``on_send(rank, seq, blob) -> blob`` over a host's outgoing batch, and
+:class:`SenderKilledMidOffer` has the cluster kill a host between its
+offer and the transfer (``should_kill(rank, seq)``).  The oracle is
+the same each time: no wedge, no page leak (``DisaggCluster.check()``),
+survivors' tokens exact.
 """
 
 from __future__ import annotations
@@ -259,3 +268,88 @@ class BitFlipLogits:
             self.fired.append((call, slot, tok, corrupt))
             return corrupt
         return tok
+
+
+class DroppedTransfer:
+    """Drop host ``rank``'s outgoing transfer on rounds ``at_seqs`` —
+    delivered as an EMPTY payload, the clean packet-loss case: the
+    receiver admits nothing, the sender sees no ack and walks the
+    retry/backoff → local-fallback path."""
+
+    def __init__(self, rank: int, at_seqs):
+        self.rank = int(rank)
+        self.at_seqs = set(int(s) for s in at_seqs)
+        self.fired: list[tuple[int, int]] = []
+
+    def on_send(self, rank: int, seq: int, blob: bytes) -> bytes:
+        if rank == self.rank and seq in self.at_seqs and blob:
+            self.fired.append((rank, seq))
+            return b""
+        return blob
+
+
+class CorruptPagePayload:
+    """Flip one page-payload byte of host ``rank``'s outgoing batch on
+    rounds ``at_seqs``, re-stamping the outer framing crc — the
+    bit-flip-on-the-wire case: framing parses, exactly one per-page
+    crc32 stamp mismatches, and the receiver must QUARANTINE the
+    transfer (flight dump, no admission, no early exit from the
+    round).  A blob with no payload bytes passes through untouched
+    (nothing to corrupt that round)."""
+
+    def __init__(self, rank: int, at_seqs):
+        self.rank = int(rank)
+        self.at_seqs = set(int(s) for s in at_seqs)
+        self.fired: list[tuple[int, int]] = []
+
+    def on_send(self, rank: int, seq: int, blob: bytes) -> bytes:
+        if rank != self.rank or seq not in self.at_seqs or not blob:
+            return blob
+        from tpudp_torch.serve.disagg import corrupt_page_bytes
+
+        try:
+            out = corrupt_page_bytes(blob)
+        except ValueError:
+            return blob
+        self.fired.append((rank, seq))
+        return out
+
+
+class SlowLink:
+    """Delay every outgoing transfer by ``delay_s`` (optionally only
+    host ``rank``'s) — the congested-interconnect case.  Pure latency:
+    payloads arrive intact, so the oracle is that nothing times out
+    into a wedge and accounting/outputs are unchanged."""
+
+    def __init__(self, delay_s: float, rank: int | None = None):
+        if delay_s < 0:
+            raise ValueError(f"delay_s must be >= 0, got {delay_s}")
+        self.delay_s = float(delay_s)
+        self.rank = rank
+        self.fired: list[tuple[int, int]] = []
+
+    def on_send(self, rank: int, seq: int, blob: bytes) -> bytes:
+        if (self.rank is None or rank == self.rank) and blob:
+            self.fired.append((rank, seq))
+            time.sleep(self.delay_s)
+        return blob
+
+
+class SenderKilledMidOffer:
+    """SIGKILL host ``rank`` between its offer and the transfer on
+    round ``at_seq`` (``DisaggCluster`` consults ``should_kill``): the
+    host dies with tickets staged, peers receive a TRUNCATED blob —
+    the torn-transfer case receivers must quarantine — and the
+    cluster's failover vote redistributes every journaled request the
+    dead host still owned.  One-shot by construction."""
+
+    def __init__(self, rank: int, at_seq: int):
+        self.rank = int(rank)
+        self.at_seq = int(at_seq)
+        self.fired: list[tuple[int, int]] = []
+
+    def should_kill(self, rank: int, seq: int) -> bool:
+        if rank == self.rank and seq == self.at_seq and not self.fired:
+            self.fired.append((rank, seq))
+            return True
+        return False

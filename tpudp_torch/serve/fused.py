@@ -49,6 +49,14 @@ belongs to a request that retires at that window's commit (EOS or
 budget), so its generator is reseeded at the next admission
 (``manual_seed``, or ``set_state`` of a vacated request's saved state)
 before it draws for anyone again.
+
+Device counters.  Each iteration adds its row of the engine's
+``OBS_DEVICE_COUNTERS`` (``counts``, the model state's tensor, whose
+address the graph holds) on the device: iterations in which a row ran,
+tokens committed, running rows, drafts accepted and rows stopped at
+their EOS — JAX's loop body's counts.  An iteration in which no row runs
+adds zeros, so the masked tail of a window and the capture's warm-up
+(no row running) count nothing, and every replay counts once.
 """
 
 from __future__ import annotations
@@ -67,6 +75,18 @@ _INPUTS = {"last": torch.int64, "lens": torch.int32, "running": torch.bool,
            "eos": torch.int64, "table": torch.int32, "hist": torch.int64}
 
 
+def add_counts(counts, steps, tokens, slot_steps, accepted=None,
+               eos_exits=None) -> None:
+    """Add one step's row to an engine's ``OBS_DEVICE_COUNTERS`` tensor on
+    the device: ``steps`` a 0-d tensor, the others tensors summed (None:
+    0).  No value is read back and no host value is copied in, so it
+    runs inside a captured graph too."""
+    zero = counts.new_zeros(())
+    counts.add_(torch.stack([
+        x.sum().to(counts.dtype) if x is not None else zero
+        for x in (steps, tokens, slot_steps, accepted, eos_exits)]))
+
+
 class CaptureError(RuntimeError):
     """A window's CUDA graph could not be captured.  It is a fault of the
     program, not of a step, so the engine does not contain it."""
@@ -81,10 +101,11 @@ class _GraphWindow:
     tensor holds them all."""
 
     def __init__(self, *, shapes: dict, outputs: dict, n_steps: int,
-                 generators, device):
+                 generators, device, counts):
         self.n_steps = n_steps
         self.generators = list(generators)
         self.device = torch.device(device)
+        self.counts = counts  # the engine's OBS_DEVICE_COUNTERS tensor
         self.inputs = {name: torch.zeros(shape, dtype=_INPUTS[name],
                                          device=self.device)
                        for name, shape in shapes.items()}
@@ -201,15 +222,17 @@ class FusedWindow(_GraphWindow):
     returns ``(S, 1, vocab)`` float32 logits and writes the K/V of the
     running rows' tokens at ``lens`` in place (``table`` is the window's
     ``(S, table_pages)`` int32 block table, or None for the dense arena).
-    ``generators`` holds one generator per slot, on ``device``."""
+    ``generators`` holds one generator per slot, on ``device``; ``counts``
+    the engine's device counters."""
 
     def __init__(self, forward, *, num_slots: int, n_steps: int,
-                 table_pages: int | None, generators, device):
+                 table_pages: int | None, generators, device, counts):
         super().__init__(
             shapes=_input_shapes(num_slots, table_pages),
             outputs={"out": (num_slots, n_steps), "n_emit": (num_slots,),
                      "iters": ()},
-            n_steps=n_steps, generators=generators, device=device)
+            n_steps=n_steps, generators=generators, device=device,
+            counts=counts)
         self.forward = forward
         self._cols = torch.arange(n_steps, device=self.device)
 
@@ -230,7 +253,10 @@ class FusedWindow(_GraphWindow):
         o["out"].copy_(torch.where(col, toks[:, None], o["out"]))
         n_emit += running
         o["iters"] += running.any()
-        running &= (toks != b["eos"]) & (n_emit < b["budgets"])
+        hit_eos = running & (toks == b["eos"])
+        add_counts(self.counts, running.any(), running, running,
+                   eos_exits=hit_eos)
+        running &= ~hit_eos & (n_emit < b["budgets"])
         last.copy_(toks)
 
     def run(self, values: dict, steps: int):
@@ -255,11 +281,12 @@ class FusedSpecWindow(_GraphWindow):
     the draft model; its KV store, a ``KVCache`` of ``(S, hist_len +
     k)``, is allocated here once and refilled by every iteration from the
     ``(S, hist_len)`` token history ``hist``, which the window extends
-    with each commit (``tpudp_torch.models.generate.draft_greedy``)."""
+    with each commit (``tpudp_torch.models.generate.draft_greedy``).
+    ``counts``: the engine's device counters."""
 
     def __init__(self, forward, draft_model, *, num_slots: int,
                  n_steps: int, k: int, hist_len: int,
-                 table_pages: int | None, generators, device):
+                 table_pages: int | None, generators, device, counts):
         w = k + 1
         super().__init__(
             shapes={**_input_shapes(num_slots, table_pages),
@@ -268,7 +295,8 @@ class FusedSpecWindow(_GraphWindow):
                      "n_emit": (num_slots,), "n_win": (num_slots,),
                      "n_acc": (num_slots,), "takes": (num_slots, n_steps),
                      "iters": ()},
-            n_steps=n_steps, generators=generators, device=device)
+            n_steps=n_steps, generators=generators, device=device,
+            counts=counts)
         self.forward = forward
         self.draft_model = draft_model
         self.k = k
@@ -330,9 +358,11 @@ class FusedSpecWindow(_GraphWindow):
         at = (self._steps[None, :] == o["n_win"][:, None]) & running[:, None]
         o["takes"].copy_(torch.where(at, take[:, None], o["takes"]))
         o["n_win"] += running
-        o["n_acc"] += torch.where(running, n_w - 1, 0)
+        acc = torch.where(running, n_w - 1, 0)
+        o["n_acc"] += acc
         o["iters"] += running.any()
         hit_eos = running & (take == eos_at + 1)
+        add_counts(self.counts, running.any(), take, running, acc, hit_eos)
         running &= ~hit_eos & (n_emit < b["budgets"])
 
     def run(self, values: dict, steps: int) -> dict:

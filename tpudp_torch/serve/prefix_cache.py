@@ -19,6 +19,9 @@ request uses, so a hit's KV is the KV the request would have computed.
 
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from tpudp_torch.models.generate import Int8Pages, KVCache
 
 
@@ -255,6 +258,11 @@ class PrefixCache(_RadixTree):
                 f"{self.num_blocks} total")
 
 
+def _host_bits(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in a dtype numpy holds: bfloat16 as its int16 bits."""
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
 class PagePool:
     """Refcounted KV page pool: ``num_pages`` real pages plus one
     trailing scratch page (index ``num_pages``) that absorbs masked
@@ -326,6 +334,47 @@ class PagePool:
             buf.fill_(1 if name.endswith("_scale") else 0)
         self._rc = {}
         self._free = list(range(self.num_pages - 1, -1, -1))
+
+    def read_page(self, page: int) -> dict:
+        """Host copies of one allocated page's slice of every pool buffer
+        (k, v, and in int8 mode their scales), as numpy arrays keyed by
+        field name: the unit of cross-host KV migration
+        (``tpudp_torch/serve/disagg.py``).  Read-only: the page's other
+        holders are untouched.  numpy has no bfloat16: a bfloat16 pool's
+        payloads travel as their int16 bit patterns (JAX's as
+        ``bfloat16``)."""
+        if page not in self._rc:
+            raise ValueError(f"read_page of unallocated page {page}")
+        return {name: _host_bits(buf[:, page]).cpu().numpy()
+                for name, buf in zip(self.pages._fields, self.pages)}
+
+    def write_page(self, page: int, arrays: dict) -> None:
+        """Write one page's payload (:meth:`read_page`'s, from a pool of
+        the same KV geometry) into an allocated page of this pool, which
+        the caller must hold exclusively (rc 1, fresh from ``alloc()``):
+        writing a shared page would clobber another holder's bytes.
+        Every field must be present — an int8 page without its scales
+        would read as zeros — with the pool's shape and dtype."""
+        if self._rc.get(page) != 1:
+            raise ValueError(
+                f"write_page needs exclusive page, got rc="
+                f"{self._rc.get(page)} for page {page}")
+        checked = []
+        for name, buf in zip(self.pages._fields, self.pages):
+            if name not in arrays:
+                raise ValueError(f"page payload lacks field {name!r}")
+            arr = np.asarray(arrays[name])
+            want = buf.shape[:1] + buf.shape[2:]
+            src = torch.from_numpy(np.array(arr))
+            if buf.dtype == torch.bfloat16 and src.dtype == torch.int16:
+                src = src.view(torch.bfloat16)
+            if tuple(arr.shape) != tuple(want) or src.dtype != buf.dtype:
+                raise ValueError(
+                    f"page payload {name}: got {arr.shape}/{arr.dtype}, "
+                    f"pool expects {tuple(want)}/{buf.dtype}")
+            checked.append((buf, src))
+        for buf, src in checked:
+            buf[:, page].copy_(src)
 
     def check(self, expected_refs: dict[int, int] | None = None) -> None:
         """Pool consistency; with ``expected_refs`` (page -> holders from

@@ -187,7 +187,12 @@ class TrainState:
     taken, the cumulative training loss kept on the device, (with
     ``compress``) this rank's error-feedback compressor, and (with
     ``skip_nonfinite``) optax's ``apply_if_finite`` counters as device
-    tensors: ``notfinite_count``, ``last_finite``, ``total_notfinite``."""
+    tensors: ``notfinite_count``, ``last_finite``, ``total_notfinite``.
+    ``obs_norms`` (with ``track_grad_norm``) is JAX's ``(2,)`` device
+    accumulator of ``[sum |g|, sum |g|^2]`` over the steps, ``|g|`` the
+    global norm of the synchronized gradients: the step adds to it on
+    the device and only ``Trainer.metrics()`` reads it.  It is
+    telemetry, not training state: checkpoints leave it out."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -198,13 +203,16 @@ class TrainState:
     # A sharded rung's map between this rank's tensors and the JAX
     # package's global layout (tpudp_torch.parallel.sharded.Layout).
     layout: object | None = None
+    obs_norms: torch.Tensor | None = None
 
 
 def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
-               mesh: Mesh | None = None) -> TrainState:
+               mesh: Mesh | None = None, *,
+               track_grad_norm: bool = False) -> TrainState:
     """Turn on (and leave on) the model's gradients and bind the
     optimizer to its parameters; a ``compress`` optimizer also gets its
-    residuals here, for ``mesh``'s ranks."""
+    residuals here, for ``mesh``'s ranks.  ``track_grad_norm`` allocates
+    the ``obs_norms`` accumulator."""
     model.requires_grad_(True).train()
     device = next(model.parameters()).device
     compressor = None
@@ -219,7 +227,10 @@ def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
                       loss_sum=torch.zeros((), dtype=torch.float32,
                                            device=device),
                       compressor=compressor,
-                      skip=skip_counters(optimizer, device))
+                      skip=skip_counters(optimizer, device),
+                      obs_norms=(torch.zeros(2, dtype=torch.float32,
+                                             device=device)
+                                 if track_grad_norm else None))
 
 
 def skip_counters(optimizer: OptimizerSpec, device) -> dict | None:
@@ -646,6 +657,12 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             for p, g in zip(params, state.compressor([p.grad
                                                       for p in params])):
                 p.grad.copy_(g)
+        if state.obs_norms is not None:
+            # The synchronized gradients' global norm, before any
+            # clipping, as JAX's apply_gradients takes it.
+            gn = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(p.grad.float()) for p in params]))
+            state.obs_norms += torch.stack([gn, gn * gn])
         guard = None
         if optimizer.skip_nonfinite is not None:
             guard = _FiniteGuard(state, params, optimizer.skip_nonfinite)

@@ -22,8 +22,14 @@ resume (``fit(start_epoch=, epoch_end_fn=,
 skip_batches_first_epoch=)``), the heartbeat ``watchdog``, the
 ``step_fault_hook`` fault seam, the in-process supervisor
 (``fit(resilience=)``, ``tpudp_torch.resilience``), ``remat`` and
-``loss_chunk`` (``tpudp_torch.train.make_train_step``); the options of
-later slices raise ``NotImplementedError`` naming their ROADMAP item.
+``loss_chunk`` (``tpudp_torch.train.make_train_step``), and JAX's
+telemetry: spans and counters in :attr:`Trainer.obs`
+(``train.window``, ``train.data``, ``train.dispatch``,
+``train.fetch_fence``, ``eval``, ``eval.dispatch``, ``eval.fetch``,
+``train.epoch``), the flight recorder (``flight_dir``, dumped by the
+watchdog and the supervisor) and ``track_grad_norm`` on the DP rung; the
+options of later slices raise ``NotImplementedError`` naming their
+ROADMAP item.
 
 Under a sharded rung every rank's loaders yield the *global* batches,
 as JAX's single program reads them, and the rung's ``shard_for`` takes
@@ -41,7 +47,7 @@ import torch
 
 from tpudp_torch.data.prefetch import device_place
 from tpudp_torch.mesh import Mesh
-from tpudp_torch.obs.format import reference_window_lines
+from tpudp_torch.obs import FlightRecorder, Recorder, reference_window_lines
 from tpudp_torch.train import (init_state, make_eval_step, make_forward_step,
                                make_optimizer, make_train_step)
 from tpudp_torch.utils.finite import check_finite
@@ -51,10 +57,8 @@ from tpudp_torch.utils.finite import check_finite
 _UNPORTED = {
     "verify_replicas": (False, "slice 8 (robustness: replica "
                                "verification)"),
-    "track_grad_norm": (False, "slice 8 (obs: device counters)"),
     "track_sdc_fingerprint": (False, "slice 8 (SDC defense)"),
     "sdc_fault_hook": (None, "slice 8 (SDC defense)"),
-    "flight_dir": (None, "slice 8 (obs: flight recorder)"),
 }
 
 
@@ -104,7 +108,12 @@ class Trainer:
     ``metrics_jsonl``); a window record carries ``samples_per_sec``
     (this rank's samples over the window's wall time) and
     ``warmup_window`` (the first window of an epoch, which holds the
-    warm-up)."""
+    warm-up).
+
+    ``flight_dir`` (default: ``TPUDP_FLIGHT_DIR``, else none) is where
+    :attr:`flight` dumps the span ring on a watchdog timeout or a
+    supervised recovery; ``track_grad_norm`` (the DP rung) accumulates
+    the gradient norm on the device for :meth:`metrics`."""
 
     def __init__(self, model: torch.nn.Module, mesh: Mesh | None = None,
                  sync: str = "allreduce", *, strategy: str = "dp",
@@ -118,7 +127,8 @@ class Trainer:
                  metrics_jsonl: str | None = None,
                  compress: str | None = None, watchdog=None,
                  step_fault_hook: Callable[[str, int], None] | None = None,
-                 **unported):
+                 track_grad_norm: bool = False,
+                 flight_dir: str | None = None, **unported):
         if strategy != "dp":
             _refuse_with_strategy(strategy, sync=sync, spmd_mode=spmd_mode,
                                   timing_mode=timing_mode,
@@ -133,6 +143,11 @@ class Trainer:
                 raise NotImplementedError(
                     f"Trainer({name}=...) is not ported yet: ROADMAP.md "
                     f"{item}")
+        if track_grad_norm and strategy != "dp":
+            raise NotImplementedError(
+                f"Trainer(track_grad_norm=True) beside strategy="
+                f"{strategy!r} is not ported yet: ROADMAP.md Queue 1 "
+                f"item 1 (the DP rung has it)")
         if timing_mode not in ("fused", "split"):
             raise ValueError(f"unknown timing_mode {timing_mode!r}")
         if loss_chunk and timing_mode == "split":
@@ -160,6 +175,15 @@ class Trainer:
         # tpudp_torch.utils.watchdog.Watchdog or None: every train and
         # eval iteration beats it.
         self.watchdog = watchdog
+        # Telemetry: window and step spans on a bounded ring, and the
+        # flight recorder the watchdog and the supervisor dump.
+        self.obs = Recorder(name="train")
+        self.flight = FlightRecorder(self.obs, flight_dir,
+                                     component="train")
+        if watchdog is not None and getattr(watchdog, "flight",
+                                            None) is None:
+            watchdog.flight = self.flight
+        self.track_grad_norm = track_grad_norm
         # Fault seam (tpudp_torch.training_faults): hook(kind, index)
         # right before each device step; a retried step gets a new index.
         self.step_fault_hook = step_fault_hook
@@ -177,7 +201,8 @@ class Trainer:
                                         compress=compress)
         self._shard_for = None
         if strategy == "dp":
-            self.state = init_state(model, self.optimizer, mesh)
+            self.state = init_state(model, self.optimizer, mesh,
+                                    track_grad_norm=track_grad_norm)
             self.train_step = make_train_step(model, self.optimizer, mesh,
                                               sync, spmd_mode=spmd_mode,
                                               grad_accum=grad_accum,
@@ -227,14 +252,29 @@ class Trainer:
                 f.write(json.dumps(record) + "\n")
 
     def metrics(self) -> dict:
-        """Optimizer step, cumulative training loss and its mean per
-        step, and the last window's loss (reads the device)."""
-        step = self.state.step
-        loss_sum = float(self.state.loss_sum)
+        """JAX's snapshot: optimizer step, cumulative training loss and
+        its mean per step, the span rollup and host counters of
+        :attr:`obs`, the flight dumps written, the supervisor's numeric
+        counters, the last window's loss and, with ``track_grad_norm``,
+        the gradient norm's mean and root mean square over the steps
+        (this reads the device)."""
+        state = self.state
+        step = state.step
+        loss_sum = float(state.loss_sum)
         out = {"step": step, "loss_sum": loss_sum,
-               "loss_mean": loss_sum / max(step, 1)}
+               "loss_mean": loss_sum / max(step, 1),
+               "spans": self.obs.summary(),
+               "counters": dict(self.obs.counters),
+               "flight_dumps": self.flight.dumps,
+               "resilience": {k: v for k, v in self.stats.items()
+                              if isinstance(v, (int, float))}}
         if self._last_window_loss is not None:
             out["last_window_loss"] = self._last_window_loss
+        if state.obs_norms is not None:
+            s, s2 = state.obs_norms.tolist()
+            out["grad_norm_mean"] = s / max(step, 1)
+            out["grad_norm_rms"] = float(np.sqrt(max(s2 / max(step, 1),
+                                                     0.0)))
         return out
 
     def _beat(self) -> None:
@@ -279,7 +319,12 @@ class Trainer:
             window_start = time.perf_counter()
             window_samples = 0
             it = 0
+            # Allocation-free spans: the data wait an iteration, the
+            # dispatch a step, one span a log window.
+            win_tok = self.obs.begin("train.window")
+            data_tok = self.obs.begin("train.data")
             for it, batch in enumerate(batches, start=1):
+                self.obs.end(data_tok)
                 images, labels, _ = self._device_batch(batch)
                 window_samples += images.shape[0]
                 self._fault_hook("train")
@@ -296,10 +341,14 @@ class Trainer:
                     # the step recomputes the forward; the rest is backward
                     bwd_t += max(t2 - t1 - (t1 - t0), 0.0)
                 else:
+                    step_tok = self.obs.begin("train.dispatch")
                     self.state, _ = self.train_step(self.state, images,
                                                     labels)
+                    self.obs.end(step_tok)
                 if it % self.log_every == 0:
+                    fence_tok = self.obs.begin("train.fetch_fence")
                     fence(self.device)
+                    self.obs.end(fence_tok)
                     window_time = time.perf_counter() - window_start
                     cum = float(self.state.loss_sum)  # one read a window
                     losses.append(check_finite(
@@ -312,6 +361,10 @@ class Trainer:
                             bwd_t=bwd_t if split else None,
                             first_window=it == self.log_every):
                         self.log(line)
+                    self.obs.end(win_tok)
+                    win_tok = self.obs.begin("train.window")
+                    self.obs.count("train.windows")
+                    self.obs.count("train.samples", window_samples)
                     self._emit_metrics({
                         "kind": "train_window", "epoch": epoch, "iter": it,
                         "loss": losses[-1],
@@ -325,6 +378,9 @@ class Trainer:
                     fwd_t = bwd_t = 0.0
                     window_start = time.perf_counter()
                 self._beat()  # an iteration completed
+                data_tok = self.obs.begin("train.data")
+            self.obs.end(data_tok)
+            self.obs.end(win_tok)
         finally:
             if hasattr(batches, "close"):
                 batches.close()  # stops a Prefetcher's worker
@@ -345,14 +401,20 @@ class Trainer:
         self._install_place_hook(loader)
         sums = torch.zeros(3, dtype=torch.float32, device=self.device)
         it = 0
+        eval_tok = self.obs.begin("eval")
         for batch in loader:
             images, labels, weights = self._device_batch(batch)
             self._fault_hook("eval")
+            step_tok = self.obs.begin("eval.dispatch")
             sums += torch.stack(self.eval_step(self.state, images, labels,
                                                weights))
+            self.obs.end(step_tok)
             it += 1
             self._beat()
+        fence_tok = self.obs.begin("eval.fetch")
         loss_sum, correct, count = sums.tolist()
+        self.obs.end(fence_tok)
+        self.obs.end(eval_tok)
         count = max(count, 1.0)
         avg_loss = check_finite(
             loss_sum / count, step=self.state.step, what="eval loss",
@@ -399,9 +461,11 @@ class Trainer:
              epoch_end_fn, skip_first: int = 0) -> None:
         for epoch in range(start_epoch, epochs):
             start = time.perf_counter()
+            epoch_tok = self.obs.begin("train.epoch")
             skip = skip_first if epoch == start_epoch else 0
             self.train_epoch(train_loader, epoch, skip_batches=skip)
             fence(self.device)
+            self.obs.end(epoch_tok)
             epoch_s = time.perf_counter() - start
             self.log("Training time after {} epoch is {}".format(
                 epoch + 1, epoch_s))

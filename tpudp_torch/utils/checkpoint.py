@@ -129,6 +129,66 @@ def all_ranks_ok(ok: bool) -> bool:
     return _all_reduce([1 if ok else 0], dist.ReduceOp.MIN)[0] == 1
 
 
+def _gather_device() -> torch.device:
+    """Where a gather's tensors live: the card for NCCL, else the host
+    (gloo is trusted with CUDA tensors for all-reduce only)."""
+    if dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def _all_gather_rows(row: torch.Tensor) -> list[torch.Tensor]:
+    """All-gather one equal-shaped tensor a rank, in rank order."""
+    rows = [torch.empty_like(row) for _ in range(world_size())]
+    dist.all_gather(rows, row)
+    return rows
+
+
+def all_hosts_ok(ok: bool, value: int = 0) -> bool:
+    """True only if every rank passed ``ok=True`` and the same ``value``
+    (the step being voted on, say): ranks whose views diverged reject
+    together.  One all-gather of ``[ok, value]`` a rank; the identity at
+    one rank, with no collective."""
+    if world_size() == 1:
+        return bool(ok)
+    rows = _all_gather_rows(torch.tensor([1 if ok else 0, int(value)],
+                                         dtype=torch.int64,
+                                         device=_gather_device()))
+    flags = torch.stack(rows).cpu()
+    return bool(flags[:, 0].min() == 1
+                and bool((flags[:, 1] == flags[0, 1]).all()))
+
+
+def gather_host_values(value: int) -> list[int]:
+    """One integer from every rank, in rank order (``[value]`` at one
+    rank, with no collective)."""
+    if world_size() == 1:
+        return [int(value)]
+    rows = _all_gather_rows(torch.tensor([int(value)], dtype=torch.int64,
+                                         device=_gather_device()))
+    return [int(r[0]) for r in rows]
+
+
+def gather_host_blobs(blob: bytes) -> list[bytes]:
+    """One variable-length byte payload from every rank, in rank order
+    (``[blob]`` at one rank, with no collective) — the transfer under KV
+    page migration (``tpudp_torch/serve/disagg.py``).  Exactly two fixed
+    collectives: a length gather, then one all-gather of uint8 rows
+    padded to the longest payload (rounded up to a power of two, as in
+    JAX), so every rank issues the same sequence whoever has bytes to
+    send."""
+    if world_size() == 1:
+        return [bytes(blob)]
+    lengths = gather_host_values(len(blob))
+    width = 1 << (max(max(lengths), 1) - 1).bit_length()
+    buf = torch.zeros(width, dtype=torch.uint8)
+    if blob:
+        buf[:len(blob)] = torch.frombuffer(bytearray(blob),
+                                           dtype=torch.uint8)
+    rows = _all_gather_rows(buf.to(_gather_device()))
+    return [r[:n].cpu().numpy().tobytes() for r, n in zip(rows, lengths)]
+
+
 # -- manifests --------------------------------------------------------------
 
 def manifest_path(path: str | os.PathLike) -> str:

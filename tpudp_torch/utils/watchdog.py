@@ -68,16 +68,24 @@ class Watchdog:
     no Python exception can unwind a wedged collective.  ``kill=False``
     records the hang and raises :class:`StepHangError` at the next
     ``beat()`` or ``step()``; :meth:`arm` or :meth:`acknowledge` clears
-    it.  ``last_hang`` keeps the detection context."""
+    it.  ``last_hang`` keeps the detection context.
+
+    ``flight`` (a :class:`tpudp_torch.obs.FlightRecorder`, usually
+    attached by the engine or trainer that owns the watchdog) is dumped
+    by the monitor thread the moment a hang is detected — before the
+    callbacks and the kill — and the hang context and message carry the
+    last span its recorder saw complete."""
 
     def __init__(self, timeout_s: float = 300.0, *,
                  on_hang: list[Callable[[], None]] | None = None,
-                 kill: bool = True, poll_s: float | None = None):
+                 kill: bool = True, poll_s: float | None = None,
+                 flight=None):
         self.timeout_s = timeout_s
         self.on_hang = list(on_hang or [])
         self.kill = kill
         self.poll_s = poll_s if poll_s is not None else min(timeout_s / 4,
                                                             1.0)
+        self.flight = flight  # tpudp_torch.obs.FlightRecorder or None
         self.last_hang: dict | None = None
         self._armed = False
         self._deadline: float | None = None
@@ -144,6 +152,10 @@ class Watchdog:
         armed_for = hang.get("armed_for_s")
         if armed_for is not None:
             msg += f" (armed {armed_for:.3f}s before detection)"
+        last = hang.get("last_span")
+        if last:
+            msg += (f"; last completed span: {last.get('name')!r}"
+                    f" at +{last.get('t0', 0):.3f}s")
         return msg
 
     def _capture_hang(self) -> dict:
@@ -151,12 +163,18 @@ class Watchdog:
             region = self._region
         name, armed_at = region if region is not None else ("unarmed", None)
         now = time.monotonic()
-        return {"region": name, "timeout_s": self.timeout_s,
+        hang = {"region": name, "timeout_s": self.timeout_s,
                 "detected_at_monotonic": now,
                 "armed_at_monotonic": armed_at,
                 "armed_for_s": (now - armed_at
                                 if armed_at is not None else None),
-                "stacks": _thread_stacks()}
+                "last_span": None, "stacks": _thread_stacks()}
+        if self.flight is not None:
+            try:
+                hang["last_span"] = self.flight.recorder.last_span()
+            except Exception:
+                pass
+        return hang
 
     # -- scoped deadlines --------------------------------------------------
     class _Step:
@@ -207,6 +225,16 @@ class Watchdog:
             if deadline is not None and time.monotonic() > deadline:
                 self.last_hang = self._capture_hang()
                 self._hang_seen.set()
+                if self.flight is not None:
+                    # The black box first: a callback may be the kill
+                    # path, and kill=True never returns.
+                    try:
+                        self.flight.dump(
+                            "watchdog_timeout_"
+                            + str(self.last_hang.get("region")),
+                            extra=self.last_hang)
+                    except Exception:
+                        pass
                 for cb in self.on_hang:
                     try:
                         cb()
