@@ -102,7 +102,7 @@ which fails the run (nonzero exit, no result line) when it fails:
      LLaMA-GQA over an int8 pool (K4-int8), greedy, each with
      ``decode_fuse=8`` and 1, then GPT-2 sampled (temperature 0.8, top-k
      40, top-p 0.95, per-request seeds) both ways, in turns (fused,
-     single, single, fused).  Each fused run must
+     single).  Each fused run must
      replay one captured CUDA graph (``metrics()["fused_window"]``),
      launch the paged-decode kernel 12 times per single decode step,
      warm-up iteration and replayed iteration, make at most 1/8 x 1.25
@@ -131,7 +131,7 @@ which fails the run (nonzero exit, no result line) when it fails:
      tokens) holds K5-int8 inside the graph the same way.  Then, at
      serve_bench's zero-weight geometry (acceptance 1; 8 one-chunk
      prompts, 256 new tokens), fused speculation, host-drafted speculation
-     and plain fused decode in turns (A B C C B A): tokens/s, decoded
+     and plain fused decode in turns (A B C): tokens/s, decoded
      tokens a window, device ms per replayed iteration and the draft's
      share of it (the draft alone captured in a graph of its own);
   4g. the robustness layer on GPT-2 small's kernel engine — a step fault
@@ -180,7 +180,7 @@ which fails the run (nonzero exit, no result line) when it fails:
      after 20 iterations (int8 error feedback within it of a plain loop
      of error feedback on the same batches).
      7b: Parts 1, 2b (all-reduce and ring) and 3 in float32 and bfloat16
-     for 5 log windows: images/s and ms per step over the 4 steady
+     for 3 log windows: images/s and ms per step over the 2 steady
      windows (the warm-up window left out), peak device memory, the
      share of the card's peak from the FLOPs of the model's own shapes,
      and one profiled step of Parts 1 and 3 (device ms by kind of
@@ -211,10 +211,7 @@ which fails the run (nonzero exit, no result line) when it fails:
      CPU's float32 logits, within ``RESNET_RTOL``; ResNet-101 and
      ResNet-152 for 5 bfloat16 steps at batch 64 (finite losses, ms a
      step, peak memory, the step alone, one profiled step's busy share);
-     then ResNet-50 bfloat16 again in child processes, with every core
-     and with the loader's OpenMP threads capped at
-     ``RESNET_OMP_CAP`` (``resnet threads`` lines: ms a step of each
-     run); no port kernel may launch;
+     no port kernel may launch;
   10. (run after phase 9, before the timing phase) checkpoints, resume,
      the supervisor and GPT-2 served from its checkpoint, in a temporary
      directory outside the checkout.  10a: Part 1 (VGG-11, full width,
@@ -250,7 +247,7 @@ which fails the run (nonzero exit, no result line) when it fails:
   11. (run after phase 10, before the timing phase) the parallel
      strategies — ``tpudp_torch.strategy.build_strategy`` at GPT-2
      small's full width (12 x 768, 12 heads, vocab 50,257, t 1024,
-     float32, TF32 off, global batch 4, 3 steps a rung, SGD lr 0.01
+     float32, TF32 off, global batch 4, 2 steps a rung, SGD lr 0.01
      momentum 0.9) on two ranks of the one card over gloo with CUDA
      tensors (NCCL takes one card a rank): tp ``1x2``, fsdp and zero1
      ``2``, pp ``1x2`` under gpipe and 1f1b with 4 microbatches, ep
@@ -380,6 +377,41 @@ which fails the run (nonzero exit, no result line) when it fails:
      ``fused_decode`` and ``containment``.
      15a's, 15b's and 15d's K4/K5 launches join the timing records'
      counts;
+  16. (run after phase 15, before the timing phase) the robustness
+     remainder at GPT-2 small's full width (float32 parameters from
+     ``random_params(--seed)``, bf16 flash attention through K1-K3, SGD).
+     16a, three gloo ranks sharing the card train data-parallel
+     (``allreduce``) under ``ResiliencePolicy(sdc_check_every=2)`` with
+     ``Trainer(track_sdc_fingerprint=True)``: global batch 12 (4 a rank)
+     x 1024 tokens, 2 epochs of 4 steps over 48 synthetic sequences
+     (``ShardedSampler(batch_contiguous=12)``), windows of 2, the
+     supervisor's own checkpoints.  A clean run (checks, no detection,
+     the ranks' parameters bit-equal), a one-shot ``BitFlipParams`` on
+     rank 2 (one detection naming ``p2``, one transient, final parameters
+     bit-equal to the clean run's by fingerprint and by bytes), both with
+     ``Trainer(verify_replicas=True)`` logging ``replica consistency OK``
+     after each epoch; a desync (one epoch, a flip on rank 2 with no SDC
+     check: every rank raises ``ReplicaDivergenceError`` naming rank 2)
+     and a persistent flip on rank 1 (rank 1 exits 44 and writes the
+     marker naming ``p1``, the others raise ``SdcPersistentError``); it
+     prints a fingerprint's device ms over the parameters and momentum
+     against its byte bound, the gather's wall ms, a replica check's wall
+     s, the rollback's restore and replay seconds.  16b, the clean run's
+     ``step_1`` resumed on two ranks at 6 rows each through
+     ``restore_newest``: epoch 2's window losses agree with the 3-rank
+     run's (P16_RELAUNCH_RTOL).  16c, the VGG-11 ladder's CLI
+     (``run_part`` at ``--num-devices 2 --verify-replicas``) on two gloo
+     CPU ranks, beside 16b and 16d: the all-reduce rung logs ``replica
+     consistency OK``, the ``none`` rung raises ``ReplicaDivergenceError``
+     naming a leaf, and each rank reads the port's launch counts before
+     and after each run: none launched.  16d, one rank,
+     ``skip_nonfinite=2`` under a cosine schedule with one non-finite
+     step: it is skipped, every step's learning rate equals optax's
+     formula at the held-back count, and the parameters after each step
+     agree with ``torch.optim.SGD`` stepped at those rates on the applied
+     updates (P16_SKIP_TOL).
+     16a's (rank 0, clean run), 16b's (rank 0) and 16d's K1-K3 launches
+     join the timing records' counts;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -457,7 +489,7 @@ LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
 # 10c's training shape, and 6 heads a rank phase 11's tensor-parallel one
 # (and 12b's LLaMA-GQA tp rank's; its one rank is gpt2-t1024's shape);
 # phase 12a's microbatches are 1 and 2 rows (and 12b's fsdp/zero1 ranks
-# 2), 12c's batch 8; 13a's ViT-B/14 at 224 (256 tokens, non-causal in
+# 2), 12c's batch 8, 16b's relaunched ranks 6 (16a's ranks take 4); 13a's ViT-B/14 at 224 (256 tokens, non-causal in
 # the model: the case runs both ways, as every case does).
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "gpt2-t1024": (4, 1024, 12, 64),
@@ -465,6 +497,7 @@ FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "mpmd-mb1-t1024": (1, 1024, 12, 64),
                "mpmd-mb2-t1024": (2, 1024, 12, 64),
                "gpt2-b8-t1024": (8, 1024, 12, 64),
+               "gpt2-b6-t1024": (6, 1024, 12, 64),
                "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
                "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64),
                "vit-b-t256": (128, 256, 12, 64)}
@@ -487,10 +520,10 @@ SPIN_CYCLES = 2_000_000
 TRAIN_BATCH, TRAIN_T = 4, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 8
 # Phase 7: the reference's global batch; 7a's synthetic sets (20
-# iterations, one log window, then the eval); 7b's train set (5 windows:
-# the warm-up window and 4 steady ones); 7c's steps and its ranks' limit.
+# iterations, one log window, then the eval); 7b's train set (3 windows:
+# the warm-up window and 2 steady ones); 7c's steps and its ranks' limit.
 VGG_BATCH, VGG_TRAIN, VGG_TEST = 256, 5_120, 1_024
-VGG_BENCH_WINDOWS = 5
+VGG_BENCH_WINDOWS = 3
 VGG_BENCH_TRAIN = VGG_BENCH_WINDOWS * 20 * VGG_BATCH
 GLOO_STEPS, GLOO_TIMEOUT = 4, 300
 # Phase 9: ResNet-50's global batch, image size, train set, steps a
@@ -509,9 +542,6 @@ RESNET_DEEP_BATCH, RESNET_DEEP_STEPS = 64, 5
 # with TF32 off as tests/test_torch_cuda_resnet.py holds it.
 RESNET_CHECK_BATCH = 4
 RESNET_RTOL = {"bfloat16": 0.03, "float32": 1e-4}
-# The loader's OpenMP threads capped (OMP_NUM_THREADS) in the child runs
-# that weigh the in-run step against the step alone.
-RESNET_OMP_CAP = 4
 # 7c's BatchNorm cases: name -> (sync rung, spmd_mode, the model's
 # bn_axis): Part 2b --sync-bn and Part 3 --spmd-mode gspmd.
 GLOO_BN_CASES = {"part2b --sync-bn": ("allreduce", "shard_map", "data"),
@@ -547,7 +577,7 @@ EPOCH_IMAGES = 50_000
 # limit, and the rtol of a rung's losses against the one-rank step's
 # (JAX's own, tests/test_tensor_parallel.py:77); the rungs: name ->
 # (strategy, mesh, options, model overrides).
-STRATEGY_BATCH, STRATEGY_T, STRATEGY_STEPS = 4, 1024, 3
+STRATEGY_BATCH, STRATEGY_T, STRATEGY_STEPS = 4, 1024, 2
 STRATEGY_TIMEOUT, STRATEGY_RTOL = 420, 2e-4
 STRATEGY_MOE = dict(mlp_impl="moe", num_experts=4, capacity_factor=4.0,
                     expert_axis="expert")
@@ -655,6 +685,22 @@ P15_CANARY_TOKENS, P15_FLIP = 2, (3, None, 3)
 P15_MAX_TICKS = 2000
 P15_INT8_NEW, P15_INT8_STEPS = 32, 12
 P15_RANK_PROMPTS, P15_RANK_LIMIT = 4, 240
+# Phase 16: 16a's ranks, global batch, tokens, synthetic sequences (4
+# steps an epoch), epochs, log window and check cadence; the one-shot flip
+# (step, rank, bit), the persistent one (from step, rank, bit) and the
+# desync's one-shot flip with no SDC check (step, rank, bit); 16b's
+# ranks and the limit on its losses against the 3-rank run's (the same
+# global batches; the all-reduce sums 2 partial gradients for 3, and
+# cuBLAS sees 6 rows a rank for 4); 16d's steps and the step made
+# non-finite and the limit on its parameters against torch.optim.SGD
+# stepped at the same rates (rtol, atol); the limits of the spawned runs
+# and of 16c's CLI runs.
+P16_RANKS, P16_BATCH, P16_T, P16_SEQS = 3, 12, 1024, 48
+P16_EPOCHS, P16_LOG_EVERY, P16_CHECK_EVERY = 2, 2, 2
+P16_FLIP, P16_PERSIST, P16_DESYNC = (3, 2, 5), (3, 1, 7), (1, 2, 5)
+P16_RELAUNCH_RANKS, P16_RELAUNCH_RTOL = 2, 1e-4
+P16_SKIP_STEPS, P16_NAN_STEP, P16_SKIP_TOL = 4, 1, (1e-5, 1e-6)
+P16_SDC_TIMEOUT, P16_CLI_TIMEOUT = 420, 240
 
 
 class SmokeFailure(RuntimeError):
@@ -674,6 +720,21 @@ def hgmma_counts(build) -> dict:
                               check=True).stdout
         counts[src] = sum("HGMMA" in line for line in sass.splitlines())
     return counts
+
+
+def phase_clock():
+    """``mark(label)`` prints the seconds since the previous mark and
+    since the first, on a ``clock`` line."""
+    start = last = time.perf_counter()
+
+    def mark(label: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        print(f"clock {label}: {now - last:.1f}s (total {now - start:.1f}s)",
+              flush=True)
+        last = now
+
+    return mark
 
 
 def device_line() -> str:
@@ -1552,7 +1613,7 @@ def fused_summary(handles, wall, step_ms, windows) -> str:
 def fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
     """Phase 4e: GPT-2 small over an fp32 pool (K4) and LLaMA-GQA over an
     int8 pool (K4-int8), greedy, then GPT-2 sampled, each run with
-    ``decode_fuse=FUSE`` and 1 in turns (fused, single, single, fused);
+    ``decode_fuse=FUSE`` and 1 in turns (fused, single);
     a profiled window of each model.  Returns the fused runs'
     paged-decode launches."""
     from tpudp_torch.models import llama
@@ -1569,7 +1630,7 @@ def fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
             case_prompts = make_prompts(np, seed, cfg.vocab_size)
         kernel = "paged_decode_int8" if kv_dtype else "paged_decode"
         runs = {FUSE: [], 1: []}
-        for fuse in (FUSE, 1, 1, FUSE):
+        for fuse in (FUSE, 1):
             run = serve_fused(torch, Engine, case_model, case_prompts, pa,
                               fuse, kv_dtype, sampled)
             eng, handles, wall, launches, step_ms, windows = run
@@ -1769,7 +1830,7 @@ def spec_timing(torch, np, pa, gpt2, Engine, DraftModelDrafter, verify_rows,
                 model, seed: int) -> None:
     """Phase 4f's timing at serve_bench's zero-weight geometry (acceptance
     1): fused speculation, host-drafted speculation and plain fused
-    decode, in turns (A B C C B A); tokens/s, tokens a window, device ms
+    decode, in turns (A B C); tokens/s, tokens a window, device ms
     per replayed iteration and the shares of its draft, verify forward
     and acceptance."""
     zmodel = copy.deepcopy(model)
@@ -1781,7 +1842,7 @@ def spec_timing(torch, np, pa, gpt2, Engine, DraftModelDrafter, verify_rows,
                .astype(np.int32) for _ in range(8)]
     results = {mode: [] for mode in ("fused", "host", "decode")}
     fused_eng = None
-    for mode in ("fused", "host", "decode", "decode", "host", "fused"):
+    for mode in ("fused", "host", "decode"):
         eng = spec_engine(Engine, DraftModelDrafter, zmodel, zdraft, mode)
         handles, wall, _ = spec_run(torch, pa, eng, prompts,
                                     SPEC_TIMING_TOKENS)
@@ -1826,8 +1887,8 @@ def spec_timing(torch, np, pa, gpt2, Engine, DraftModelDrafter, verify_rows,
           f"alone {accept_ms:.4f} ({100 * accept_ms / iter_ms:.1f}%), the "
           f"rest {iter_ms - draft_ms - verify_ms - accept_ms:.4f}",
           flush=True)
-    print("spec-timing tokens/s (each engine's two runs): " + ", ".join(
-        f"{mode} {v[0]:.1f} / {v[1]:.1f}" for mode, v in results.items())
+    print("spec-timing tokens/s: " + ", ".join(
+        f"{mode} {v[0]:.1f}" for mode, v in results.items())
           + f"; fused over host-drafted "
           f"{sum(results['fused']) / sum(results['host']):.2f}x, over fused "
           f"decode {sum(results['fused']) / sum(results['decode']):.2f}x "
@@ -2747,14 +2808,14 @@ def vgg_bench_path(torch, np) -> list[dict]:
 
 def vgg_backend_ab(np) -> None:
     """7b: Part 1 on the numpy and the native loader in turns (numpy,
-    native, native, numpy) in float32 and bfloat16: images/s over the
+    native) in float32 and bfloat16: images/s over the
     steady windows of each run, so that the loader's effect end to end is
     read within one run of this script."""
     from tpudp_torch.parts import part1
 
     for dtype in ("float32", "bfloat16"):
         rates = {"numpy": [], "native": []}
-        for backend in ("numpy", "native", "native", "numpy"):
+        for backend in ("numpy", "native"):
             trainer, text = run_quiet(lambda: part1.main(
                 vgg_argv(VGG_BENCH_TRAIN, dtype)
                 + ["--data-backend", backend]))
@@ -2770,7 +2831,7 @@ def vgg_backend_ab(np) -> None:
                 r["sec_per_iter"] for r in steady))
             del trainer
         print(f"vgg-ab part1 {dtype}, loader backends in turns (numpy, "
-              f"native, native, numpy): images/s numpy "
+              f"native): images/s numpy "
               f"{[round(x, 1) for x in rates['numpy']]}, native "
               f"{[round(x, 1) for x in rates['native']]}; native / numpy "
               f"{sum(rates['native']) / sum(rates['numpy']):.3f}",
@@ -3142,43 +3203,9 @@ def resnet_against_cpu(torch, np, seed: int) -> None:
                                f"from the CPU's by {err}")
 
 
-def resnet_thread_runs(seed: int) -> None:
-    """9: ResNet-50 bfloat16 at the phase's flags in child processes,
-    with every core to the loader's OpenMP threads and with
-    ``OMP_NUM_THREADS=RESNET_OMP_CAP`` (which caps torch's CPU threads
-    too): ms a step over each run's steady windows."""
-    import re
-
-    argv = [sys.executable, "-m", "tpudp_torch.train_resnet",
-            *resnet_argv(50, "bfloat16", RESNET_BATCH,
-                         RESNET_STEPS["bfloat16"], RESNET_TRAIN,
-                         RESNET_LOG_EVERY), "--seed", str(seed)]
-    for cap in (None, RESNET_OMP_CAP):
-        env = {k: v for k, v in os.environ.items()
-               if k != "OMP_NUM_THREADS"}
-        if cap is not None:
-            env["OMP_NUM_THREADS"] = str(cap)
-        proc = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True,
-                              text=True, timeout=300)
-        ips = [float(v.replace(",", "")) for v in re.findall(
-            r"^step \d+: loss \S+ \(([\d,.]+) images/s\)", proc.stdout,
-            re.M)]
-        if proc.returncode or "data=native" not in proc.stdout or len(
-                ips) != RESNET_STEPS["bfloat16"] // RESNET_LOG_EVERY:
-            raise SmokeFailure(f"resnet threads: the child run failed "
-                               f"(rc {proc.returncode}):\n{proc.stdout}\n"
-                               f"{proc.stderr[-4000:]}")
-        ms = [1e3 * RESNET_BATCH / v for v in ips[1:]]
-        print(f"resnet threads: OMP_NUM_THREADS="
-              f"{cap if cap is not None else 'unset'} ({os.cpu_count()} "
-              f"cores): ResNet-50 bfloat16 {sum(ms) / len(ms):.3f} ms a step "
-              f"over {len(ms)} steady windows {[round(m, 3) for m in ms]}",
-              flush=True)
-
-
 def resnet_path(torch, np, seed: int) -> None:
     """Phase 9: its runs in this process, then the world-size-1 process
-    group they joined is left, then the child runs."""
+    group they joined is left."""
     import torch.distributed as dist
 
     try:
@@ -3187,7 +3214,6 @@ def resnet_path(torch, np, seed: int) -> None:
         if dist.is_initialized():
             dist.destroy_process_group()
     torch.cuda.empty_cache()
-    resnet_thread_runs(seed)
 
 
 def resnet_runs(torch, np, seed: int) -> None:
@@ -3670,7 +3696,7 @@ def vgg_epoch_costs(torch, tmp: str) -> None:
     """VGG-11 (Part 1's Trainer, float32) over 50,000 images, 2 epochs a
     mode: no save, an epoch-end synchronous save, an epoch-end
     asynchronous save (its last write joined outside the timing and
-    printed apart), in turns (none, sync, async, none).  Per mode: the
+    printed apart), in turns (none, sync, async).  Per mode: the
     fit's wall time, its epochs' own times and the time outside them
     (the saves' blocking time); then each save's blocking ms an epoch,
     and the mean epoch beside the no-save runs' (what a background write
@@ -3687,7 +3713,7 @@ def vgg_epoch_costs(torch, tmp: str) -> None:
                                    synthetic_test_size=16)
     outside: dict[str, list[float]] = {}
     epoch_s: dict[str, list[float]] = {}
-    for mode in ("none", "sync", "async", "none"):
+    for mode in ("none", "sync", "async"):
         ld = Prefetcher(DataLoader(train_set, VGG_BATCH, sampler=
                                    ShardedSampler(EPOCH_IMAGES, 1, 0,
                                                   shuffle=True, seed=0),
@@ -5581,6 +5607,660 @@ def phase15_path(torch, np, pa, model, seed: int) -> dict:
     return launches
 
 
+# -- phase 16: SDC defense, replica verification, skip_nonfinite under a
+#    schedule, the elastic relaunch ---------------------------------------
+
+_P16_WEIGHTS: dict = {}
+
+
+def p16_model(torch, seed: int | None):
+    """GPT-2 small at full width on the card: float32 parameters from
+    ``random_params(seed)`` (drawn once a process; with ``seed=None``
+    torch's own initialization, for a model a restore overwrites), bf16
+    matmuls and flash attention (K1-K3)."""
+    from tpudp_torch.models import gpt2
+
+    cfg = gpt2.GPT2Config(max_seq_len=P16_T, dtype=torch.bfloat16,
+                          attn_impl="flash")
+    with torch.device("cuda"):
+        model = gpt2.GPT2(cfg)
+    if seed is None:
+        return model
+    if seed not in _P16_WEIGHTS:
+        _P16_WEIGHTS[seed] = gpt2.params_from_jax(gpt2.random_params(cfg,
+                                                                     seed))
+    model.load_state_dict(_P16_WEIGHTS[seed])
+    return model
+
+
+class P16Tokens:
+    """This rank's rows of the global batches of P16_BATCH x P16_T tokens
+    over a synthetic set of P16_SEQS sequences, in the contiguous layout
+    (``ShardedSampler(batch_contiguous=P16_BATCH)``): the same global
+    batches at any number of ranks."""
+
+    def __init__(self, np, rank: int, world: int, seed: int):
+        from tpudp_torch.data import ShardedSampler
+
+        rng = np.random.default_rng(seed + 16)
+        self.tokens = rng.integers(0, 50_257, size=(P16_SEQS, P16_T + 1))
+        self.sampler = ShardedSampler(P16_SEQS, world, rank, shuffle=True,
+                                      seed=seed, batch_contiguous=P16_BATCH)
+        self.per = P16_BATCH // world
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        import torch
+
+        idx = self.sampler.indices(self.epoch)
+        for b in range(len(self)):
+            rows = self.tokens[idx[b * self.per:(b + 1) * self.per]]
+            yield (torch.as_tensor(rows[:, :-1]),
+                   torch.as_tensor(rows[:, 1:]),
+                   torch.ones(self.per, dtype=torch.float32))
+
+    def __len__(self):
+        return len(self.sampler) // self.per
+
+
+def p16_setup(torch, rank: int, world: int, init_method: str):
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+
+
+def p16_timers():
+    """Wall seconds of the supervisor's restores and SDC gathers and of
+    the Trainer's replica checks in this process, and the time of each
+    recorded event (patched in the ranks' processes only)."""
+    from tpudp_torch import resilience
+    from tpudp_torch.trainer import Trainer
+
+    got = {"restore": [], "gather": [], "verify": [], "events": []}
+    Sup = resilience.Supervisor
+
+    def timed(name, fn):
+        def wrapper(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(self, *a, **kw)
+            finally:
+                got[name].append(time.perf_counter() - t0)
+        return wrapper
+
+    record = Sup.record
+
+    def stamped(self, kind, **fields):
+        got["events"].append((kind, time.perf_counter()))
+        return record(self, kind, **fields)
+
+    Sup._restore_verified = timed("restore", Sup._restore_verified)
+    Sup._sdc_gather = timed("gather", Sup._sdc_gather)
+    Sup.record = stamped
+    Trainer._verify_replicas = timed("verify", Trainer._verify_replicas)
+    return got
+
+
+def p16_digest(torch, model) -> str:
+    """A hash of the parameters' bytes (on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().contiguous().view(torch.uint8)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def p16_sdc_rank(rank: int, world: int, init_method: str, seed: int,
+                 tmp: str, results) -> None:
+    """16a: one of three gloo ranks on the card.  The clean run, the
+    one-shot flip, the desync and the persistent flip, each a fresh
+    model and Trainer; a report a run (rank 1 leaves the persistent run
+    with SDC_QUARANTINE_EXIT).  The first three check the replicas after
+    each epoch (``verify_replicas``); the desync flips a bit with no SDC
+    check, so that check raises."""
+    import numpy as np
+    import torch
+
+    p16_setup(torch, rank, world, init_method)
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.sdc import BitFlipParams, SdcPersistentError
+    from tpudp_torch.trainer import Trainer
+    from tpudp_torch.utils.consistency import ReplicaDivergenceError
+
+    timers = p16_timers()
+    injectors = {"clean": lambda: None,
+                 "transient": lambda: BitFlipParams([P16_FLIP]),
+                 "desync": lambda: BitFlipParams([P16_DESYNC]),
+                 "persistent": lambda: BitFlipParams(
+                     persist_from=P16_PERSIST[0], replica=P16_PERSIST[1],
+                     bit=P16_PERSIST[2])}
+    for case, make in injectors.items():
+        out = {"rank": rank, "case": case}
+        try:
+            for k in timers:
+                timers[k].clear()
+            lines: list = []
+            t = Trainer(p16_model(torch, seed), make_mesh(), "allreduce",
+                        learning_rate=0.01, log_every=P16_LOG_EVERY,
+                        log_fn=lines.append, track_sdc_fingerprint=True,
+                        sdc_fault_hook=make(),
+                        verify_replicas=case != "persistent")
+            loader = P16Tokens(np, rank, world, seed)
+            for fn in fa.KERNELS.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                if case == "desync":  # no SDC check: one epoch
+                    t.fit(loader, epochs=1)
+                else:
+                    t.fit(loader, epochs=P16_EPOCHS,
+                          resilience=ResiliencePolicy(
+                              checkpoint_dir=os.path.join(tmp, case),
+                              sdc_check_every=P16_CHECK_EVERY))
+            except SdcPersistentError as e:
+                out["error"] = (type(e).__name__, e.replica)
+            except ReplicaDivergenceError as e:
+                out["error"] = (type(e).__name__, str(e))
+            torch.cuda.synchronize()
+            out.update(
+                verify_lines=[x for x in lines
+                              if "replica consistency" in x],
+                verify_s=list(timers["verify"]),
+                seconds=time.perf_counter() - t0,
+                launches={k: fn.launches for k, fn in fa.KERNELS.items()},
+                stats={k: v for k, v in t.stats.items() if k != "events"},
+                events=[{k: v for k, v in e.items()
+                         if k in ("kind", "replicas", "step", "localized")}
+                        for e in t.stats.get("events", [])
+                        if e["kind"] != "vote"],
+                losses=[r["loss"] for r in t.records
+                        if r["kind"] == "train_window"],
+                step_s=[r["sec_per_iter"] for r in t.records
+                        if r["kind"] == "train_window"],
+                fp=train.sdc_fingerprint(t.state).tolist(),
+                digest=p16_digest(torch, t.state.model),
+                restore_s=list(timers["restore"]),
+                gather_ms=[1e3 * s for s in timers["gather"]],
+                event_times=list(timers["events"]))
+            if case == "clean" and rank == 0:
+                out["fp_ms"] = p16_fingerprint_ms(torch, train, t.state)
+                out["fp_bytes"] = sum(
+                    x.numel() * x.element_size() if not isinstance(x, int)
+                    else x * 4 for x in train.fingerprint_tensors(
+                        t.state.optimizer, list(t.state.model.parameters())))
+            del t
+            torch.cuda.empty_cache()
+        except Exception:
+            out["error_trace"] = traceback.format_exc()
+        results.put(out)
+    # Rank 1 has left: no collective teardown; the queue is flushed first.
+    results.close()
+    results.join_thread()
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def p16_fingerprint_ms(torch, train, state) -> float:
+    """Device ms of one in-step fingerprint over the parameters and the
+    momentum (the median of 5, CUDA events)."""
+    ms = []
+    for _ in range(6):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        train.sdc_fingerprint(state)
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return float(sorted(ms[1:])[2])
+
+
+def p16_relaunch_rank(rank: int, world: int, init_method: str, seed: int,
+                      root: str, results) -> None:
+    """16b: one of two gloo ranks resuming the clean run's ``step_1``
+    through ``restore_newest`` and training epoch 2 at 6 rows a rank."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    p16_setup(torch, rank, world, init_method)
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.resilience import restore_newest
+    from tpudp_torch.trainer import Trainer
+
+    out = {"rank": rank}
+    try:
+        t = Trainer(p16_model(torch, None), make_mesh(), "allreduce",
+                    learning_rate=0.01, log_every=P16_LOG_EVERY,
+                    log_fn=lambda line: None)
+        t0 = time.perf_counter()
+        used, _ = restore_newest(t, root, log=lambda line: None)
+        restore_s = time.perf_counter() - t0
+        loader = P16Tokens(np, rank, world, seed)
+        start = t.state.step // len(loader)
+        for fn in fa.KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        t.fit(loader, epochs=P16_EPOCHS, start_epoch=start)
+        torch.cuda.synchronize()
+        out.update(used=os.path.basename(used), start=start,
+                   restore_s=restore_s,
+                   seconds=time.perf_counter() - t0,
+                   launches={k: fn.launches for k, fn in fa.KERNELS.items()},
+                   losses=[r["loss"] for r in t.records
+                           if r["kind"] == "train_window"])
+    except Exception:
+        out["error"] = traceback.format_exc()
+    finally:
+        results.put(out)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def p16_start(target, args: tuple, world: int):
+    """``world`` ranks of ``target`` started; what :func:`p16_collect`
+    takes."""
+    import multiprocessing
+
+    from tpudp_torch.mesh import free_port
+
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [ctx.Process(target=target, args=(r, world, init, *args,
+                                              results))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return procs, results
+
+
+def p16_collect(procs, results, limit: float, label: str):
+    """Every report the ranks put and their exit codes.  Fails when a
+    rank outlives ``limit`` seconds."""
+    got, deadline = [], time.monotonic() + limit
+    try:
+        while any(p.is_alive() for p in procs) or not results.empty():
+            try:
+                got.append(results.get(timeout=1.0))
+            except queue.Empty:
+                if time.monotonic() > deadline:
+                    raise SmokeFailure(f"{label}: ranks still running after "
+                                       f"{limit} s") from None
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return got, [p.exitcode for p in procs]
+
+
+def p16_spawn(target, args: tuple, world: int, limit: float, label: str):
+    """``world`` ranks of ``target``; every report put and the ranks' exit
+    codes.  Fails when a rank outlives ``limit`` seconds."""
+    return p16_collect(*p16_start(target, args, world), limit, label)
+
+
+def sdc_path(torch, np, seed: int, tmp: str) -> tuple[dict, str]:
+    """16a (the module docstring); returns rank 0's K1-K3 launches of the
+    clean run and the clean run's checkpoint root."""
+    import json
+
+    from tpudp_torch.sdc import QUARANTINE_MARKER, SDC_QUARANTINE_EXIT
+
+    got, codes = p16_spawn(p16_sdc_rank, (seed, tmp), P16_RANKS,
+                           P16_SDC_TIMEOUT, "16a")
+    runs: dict = {}
+    for r in got:
+        if "error_trace" in r:
+            raise SmokeFailure(f"16a rank {r['rank']} {r['case']} failed:\n"
+                               f"{r['error_trace']}")
+        runs.setdefault(r["case"], {})[r["rank"]] = r
+    want_codes = [SDC_QUARANTINE_EXIT if r == P16_PERSIST[1] else 0
+                  for r in range(P16_RANKS)]
+    failures = []
+    if codes != want_codes:
+        failures.append(f"exit codes {codes}, want {want_codes}")
+    clean, flip = runs.get("clean", {}), runs.get("transient", {})
+    if len(clean) != P16_RANKS or len(flip) != P16_RANKS:
+        raise SmokeFailure(f"16a: reports {sorted(runs)} / {codes}")
+    c0 = clean[0]
+    for case, by_rank in (("clean", clean), ("transient", flip)):
+        for r, res in sorted(by_rank.items()):
+            det = [e for e in res["events"] if e["kind"] == "sdc_detected"]
+            print(f"16a {case} rank {r}: GPT-2 small bf16 flash, "
+                  f"{P16_RANKS} gloo ranks on one card, global batch "
+                  f"{P16_BATCH} x {P16_T}, {P16_EPOCHS} epochs of "
+                  f"{P16_SEQS // P16_BATCH} steps: window losses "
+                  f"{[round(x, 5) for x in res['losses']]}; stats "
+                  f"{res['stats']}; detections "
+                  f"{[(e['step'], e['replicas']) for e in det]}; "
+                  f"fingerprint {res['fp']}; s a step by window "
+                  f"{[round(x, 2) for x in res['step_s']]}; "
+                  f"{res['seconds']:.1f}s; flash launches "
+                  f"{res['launches']}", flush=True)
+    for case, by_rank in (("clean", clean), ("transient", flip)):
+        for r, res in sorted(by_rank.items()):
+            ok = [x for x in res["verify_lines"]
+                  if "replica consistency OK" in x]
+            if len(ok) != P16_EPOCHS or len(ok) != len(res["verify_lines"]):
+                failures.append(f"{case} rank {r}'s replica checks "
+                                f"{res['verify_lines']}")
+    print(f"16a verify_replicas on the card, 3 gloo ranks: clean "
+          f"{clean[0]['verify_lines']}; wall s a check (rank 0) "
+          f"{[round(x, 3) for x in clean[0]['verify_s']]}", flush=True)
+    desync = runs.get("desync", {})
+    pair = f"rank 0 vs rank {P16_DESYNC[1]}"
+    for r in range(P16_RANKS):
+        err = desync.get(r, {}).get("error")
+        if err is None or err[0] != "ReplicaDivergenceError" or \
+                "replicas diverged at leaf" not in err[1] or \
+                pair not in err[1]:
+            failures.append(f"desync rank {r}: {err}")
+    print(f"16a desync (bit {P16_DESYNC[2]} flipped on rank "
+          f"{P16_DESYNC[1]} at step {P16_DESYNC[0]}, no SDC check): every "
+          f"rank raised {sorted({str(v.get('error')) for v in desync.values()})}"
+          f"; wall s of the check (rank 0) "
+          f"{[round(x, 3) for x in desync.get(0, {}).get('verify_s', [])]}",
+          flush=True)
+    for r, res in clean.items():
+        if res["stats"]["sdc_checks"] < 1 or res["stats"]["sdc_detections"]:
+            failures.append(f"clean rank {r}: {res['stats']}")
+        if res["fp"] != c0["fp"] or res["digest"] != c0["digest"]:
+            failures.append(f"clean rank {r}'s parameters differ from "
+                            "rank 0's")
+        if not all(res["launches"][k] for k in FLASH_KERNELS):
+            failures.append(f"clean rank {r} launched {res['launches']}")
+    victim = f"p{P16_FLIP[1]}"
+    for r, res in flip.items():
+        det = [e["replicas"] for e in res["events"]
+               if e["kind"] == "sdc_detected"]
+        st = res["stats"]
+        if det != [[victim]] or st["sdc_transients"] != 1 or \
+                st["rollbacks"] != 1:
+            failures.append(f"transient rank {r}: detections {det}, {st}")
+        if res["fp"] != c0["fp"] or res["digest"] != c0["digest"]:
+            failures.append(f"transient rank {r}: final parameters not "
+                            "bit-equal to the clean run's")
+    persistent = runs.get("persistent", {})
+    marker_path = os.path.join(tmp, "persistent", QUARANTINE_MARKER)
+    marker = (json.load(open(marker_path)) if os.path.exists(marker_path)
+              else None)
+    bad = f"p{P16_PERSIST[1]}"
+    if marker is None or marker["replicas"] != [bad]:
+        failures.append(f"quarantine marker {marker}")
+    for r in range(P16_RANKS):
+        if r == P16_PERSIST[1]:
+            continue
+        res = persistent.get(r)
+        if res is None or res.get("error") != ("SdcPersistentError",
+                                                [bad]):
+            failures.append(f"persistent rank {r}: "
+                            f"{None if res is None else res.get('error')}")
+    print(f"16a persistent: exit codes {codes}; marker {marker}; the "
+          f"others raised "
+          f"{sorted({str(v.get('error')) for v in persistent.values()})}",
+          flush=True)
+    t = flip[0]["event_times"]
+    rb = next((s for k, s in t if k == "rollback"), None)
+    tr = next((s for k, s in t if k == "sdc_transient"), None)
+    gathers = sorted(g for res in clean.values() for g in res["gather_ms"])
+    print(f"16a costs: one fingerprint {c0['fp_ms']:.4f} device ms over "
+          f"{c0['fp_bytes'] / 1e6:.1f} MB of parameters and momentum (bound "
+          f"{c0['fp_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); the SDC gather's wall ms "
+          f"median {gathers[len(gathers) // 2]:.2f} (min {gathers[0]:.2f}, "
+          f"max {gathers[-1]:.2f}, {len(gathers)} over 3 ranks); the "
+          f"rollback's restore s {[round(x, 3) for x in flip[0]['restore_s']]}"
+          f", replay to the transient verdict "
+          f"{(tr - rb) if rb and tr else float('nan'):.2f} s; clean run "
+          f"{c0['seconds']:.1f} s, transient {flip[0]['seconds']:.1f} s",
+          flush=True)
+    if failures:
+        raise SmokeFailure(f"16a: {failures}")
+    return c0["launches"], c0["losses"]
+
+
+def relaunch_path(torch, np, seed: int, tmp: str, clean_losses) -> dict:
+    """16b: the clean run's ``step_1`` (epoch 1's end) resumed at 2 ranks."""
+    root = os.path.join(tmp, "relaunch")
+    os.makedirs(root)
+    src = os.path.join(tmp, "clean")
+    for name in ("step_1", "step_1.manifest.json"):
+        path = os.path.join(src, name)
+        (shutil.copytree if os.path.isdir(path) else shutil.copy)(
+            path, os.path.join(root, name))
+    got, codes = p16_spawn(p16_relaunch_rank, (seed, root),
+                           P16_RELAUNCH_RANKS, P16_SDC_TIMEOUT, "16b")
+    got.sort(key=lambda r: r["rank"])
+    for r in got:
+        if "error" in r:
+            raise SmokeFailure(f"16b rank {r['rank']} failed:\n{r['error']}")
+    if codes != [0] * P16_RELAUNCH_RANKS or len(got) != P16_RELAUNCH_RANKS:
+        raise SmokeFailure(f"16b: exit codes {codes}")
+    a = got[0]
+    want = clean_losses[len(clean_losses) - len(a["losses"]):]
+    rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], want))
+    print(f"16b relaunch: {P16_RELAUNCH_RANKS} gloo ranks at "
+          f"{P16_BATCH // P16_RELAUNCH_RANKS} rows each resumed "
+          f"{a['used']} (epoch {a['start']}) in {a['restore_s']:.2f}s; "
+          f"epoch 2's window losses {[repr(x) for x in a['losses']]} against "
+          f"the 3-rank run's {[repr(x) for x in want]}: max relative "
+          f"difference {rel:.3e} (rtol {P16_RELAUNCH_RTOL}); "
+          f"{a['seconds']:.1f}s; flash launches {a['launches']}", flush=True)
+    if a["used"] != "step_1" or a["start"] != 1 or rel > P16_RELAUNCH_RTOL \
+            or got[1]["losses"] != a["losses"]:
+        raise SmokeFailure(f"16b: {a['used']} epoch {a['start']}, losses "
+                           f"{rel:.3e} from the 3-rank run's")
+    return a["launches"]
+
+
+P16_CLI_FLAGS = ["--device", "cpu", "--num-devices", "2", "--verify-replicas",
+                 "--synthetic-train-size", "32", "--synthetic-test-size", "8",
+                 "--batch-size", "32", "--prefetch", "0"]
+
+
+def p16_cli_rank(rank: int, world: int, init_method: str, results) -> None:
+    """16c: one of two gloo CPU ranks running the VGG-11 ladder's CLI
+    (``run_part`` at ``--num-devices 2 --verify-replicas``, which trains
+    over the process group this rank joined first, as a launcher's ranks
+    do) on the ``allreduce`` rung and then on ``none``; a report a run:
+    its log, its error and the port kernel launches this process made
+    over it (``kernel_launches`` read before and after)."""
+    import contextlib
+    import io
+
+    os.environ["OMP_NUM_THREADS"] = "2"
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(2)
+    dist.init_process_group("gloo", init_method=init_method,
+                            world_size=world, rank=rank)
+    from tpudp_torch.cli import run_part
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.ops import paged_attention as pa
+
+    for sync in ("allreduce", "none"):
+        out = {"rank": rank, "sync": sync}
+        before = kernel_launches(pa, fa)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                run_part(sync, "16c", argv=P16_CLI_FLAGS)
+        except (Exception, SystemExit) as e:
+            out["error"] = f"{type(e).__name__}: {e}"
+        after = kernel_launches(pa, fa)
+        out.update(seconds=time.perf_counter() - t0, log=buf.getvalue(),
+                   launches={k: after[k] - before[k] for k in after})
+        results.put(out)
+    dist.destroy_process_group()
+
+
+def start_verify_cli():
+    """16c's two ranks, started to run beside 16b and 16d."""
+    return p16_start(p16_cli_rank, (), 2)
+
+
+def finish_verify_cli(started) -> None:
+    """16c's verdicts: the all-reduce rung logs ``replica consistency
+    OK``, the ``none`` rung raises ReplicaDivergenceError naming a leaf on
+    both ranks, and neither run launched a port kernel."""
+    got, codes = p16_collect(*started, 2 * P16_CLI_TIMEOUT, "16c")
+    runs = {(r["rank"], r["sync"]): r for r in got}
+    failures = [] if codes == [0, 0] else [f"exit codes {codes}"]
+    for sync in ("allreduce", "none"):
+        for rank in range(2):
+            r = runs.get((rank, sync))
+            if r is None:
+                failures.append(f"{sync} rank {rank}: no report")
+                continue
+            lines = r["log"].splitlines()
+            ok = next((x for x in lines if "replica consistency OK" in x),
+                      None)
+            err = r.get("error") or ""
+            if rank == 0:
+                print(f"16c {sync} rank 0: {r['seconds']:.1f}s; "
+                      f"{ok or err or r['log'][-2000:]}", flush=True)
+            if sync == "allreduce" and (err or (rank == 0 and ok is None)):
+                failures.append(f"allreduce rank {rank}: {err} "
+                                f"{r['log'][-2000:]}")
+            if sync == "none" and not err.startswith(
+                    "ReplicaDivergenceError: replicas diverged at leaf"):
+                failures.append(f"none rank {rank}: {err or 'no error'}")
+            if any(r["launches"].values()):
+                failures.append(f"{sync} rank {rank} launched "
+                                f"{r['launches']}")
+    launched = {f"{sync} rank {rank}": sum(r["launches"].values())
+                for (rank, sync), r in sorted(runs.items())}
+    print(f"16c: port kernel launches in the CLI's rank processes, read "
+          f"before and after each run: {launched} (VGG-11 on gloo CPU "
+          f"ranks)", flush=True)
+    if failures:
+        raise SmokeFailure(f"16c: {failures}")
+
+
+def skip_schedule_path(torch, np, fa, seed: int) -> dict:
+    """16d: GPT-2 small on one rank, ``skip_nonfinite=2`` under a cosine
+    schedule; the gradients of step P16_NAN_STEP are made non-finite (a
+    one-shot hook on ``wte``'s gradient: a token batch cannot carry a
+    NaN).  The step is skipped (parameters bit-equal, counters on the
+    card), and each step's learning rate, computed on the card from the
+    held-back count, equals optax's formula at that count on the host.
+    After every step the parameters are held to a reference: the same
+    model under ``torch.optim.SGD`` at the float rate of optax's formula,
+    stepped on the applied updates only (P16_SKIP_TOL)."""
+    from tpudp_torch import train
+    from tpudp_torch.sdc import fingerprint
+
+    sched = dict(learning_rate=0.01, schedule="cosine", warmup_steps=0,
+                 total_steps=P16_SKIP_STEPS)
+    model = p16_model(torch, seed)
+    spec = train.make_optimizer(**sched, skip_nonfinite=2)
+    state = train.init_state(model, spec)
+    step = train.make_train_step(model, spec)
+    # the reference: no skip, so optimizer_update sets lr_at(its own
+    # step), the count of applied updates, and calls torch.optim.SGD.step
+    ref = p16_model(torch, seed)
+    ref_spec = train.make_optimizer(**sched)
+    ref_state = train.init_state(ref, ref_spec)
+    ref_step = train.make_train_step(ref, ref_spec)
+    if not isinstance(ref_state.optimizer, torch.optim.SGD):
+        raise SmokeFailure(f"16d: the reference is {ref_state.optimizer}")
+    rtol, atol = P16_SKIP_TOL
+    loader = P16Tokens(np, 0, 1, seed)
+    lrs, want, applied, failures, ref_err = [], [], 0, [], []
+    launches = dict.fromkeys(fa.KERNELS, 0)
+    for i, (x, y, _) in zip(range(P16_SKIP_STEPS), loader):
+        x, y = x.cuda(), y.cuda()
+        if i != P16_NAN_STEP:
+            ref_state, _ = ref_step(ref_state, x, y)
+        lrs.append(float(spec.lr_tensor(state.skip["schedule_count"])))
+        want.append(spec.lr_at(applied))
+        handle = None
+        if i == P16_NAN_STEP:
+            handle = model.wte.weight.register_hook(
+                lambda g: g * float("nan"))
+        before = fingerprint(list(model.parameters()))
+        for fn in fa.KERNELS.values():  # the port's steps alone count
+            fn.launches = 0
+        state, loss = step(state, x, y)
+        for k, fn in fa.KERNELS.items():
+            launches[k] += fn.launches
+        if handle is not None:
+            handle.remove()
+        moved = not torch.equal(before, fingerprint(list(model.parameters())))
+        if moved == (i == P16_NAN_STEP):
+            failures.append(f"step {i}: parameters moved {moved}")
+        applied += i != P16_NAN_STEP
+        worst, close = 0.0, True
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), ref.parameters()):
+                worst = max(worst, float((p - q).abs().max()))
+                close = close and torch.allclose(p, q, rtol=rtol, atol=atol)
+        ref_err.append(worst)
+        if not close:
+            failures.append(f"step {i}: parameters {worst:.3e} from "
+                            "torch.optim.SGD's")
+    counts = {k: int(v) for k, v in state.skip.items()}
+    rel = max(abs(a - b) / max(b, 1e-12) for a, b in zip(lrs, want))
+    print(f"16d skip_nonfinite=2 cosine: learning rates a step "
+          f"{[f'{x:.6g}' for x in lrs]} against optax's at the held-back "
+          f"count {[f'{x:.6g}' for x in want]} (max relative "
+          f"{rel:.2e}, rtol 1e-6); counters {counts}; parameters against "
+          f"torch.optim.SGD at those rates, max |diff| a step "
+          f"{[f'{x:.3e}' for x in ref_err]} (rtol {rtol}, atol {atol}); "
+          f"flash launches {launches}", flush=True)
+    if rel > 1e-6 or counts["schedule_count"] != P16_SKIP_STEPS - 1 or \
+            counts["total_notfinite"] != 1:
+        failures.append(f"learning rates {rel:.2e}, counters {counts}")
+    if not all(launches[k] for k in FLASH_KERNELS):
+        failures.append(f"launches {launches}")
+    if failures:
+        raise SmokeFailure(f"16d: {failures}")
+    return launches
+
+
+def phase16_path(torch, np, pa, fa, seed: int) -> dict:
+    """Phase 16, 16a-16d (16c's CLI runs beside 16b and 16d); returns the
+    K1-K3 launches of 16a's clean run (rank 0), 16b (rank 0) and 16d."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as tmp:
+        clean_launches, clean_losses = sdc_path(torch, np, seed, tmp)
+        cli_runs = start_verify_cli()
+        try:
+            relaunch_launches = relaunch_path(torch, np, seed, tmp,
+                                              clean_losses)
+            skip_launches = skip_schedule_path(torch, np, fa, seed)
+        finally:
+            finish_verify_cli(cli_runs)
+    torch.cuda.empty_cache()
+    launches = {k: clean_launches[k] + relaunch_launches[k]
+                + skip_launches[k] for k in FLASH_KERNELS}
+    print(f"phase 16 flash launches {launches}; phase 16 "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    return launches
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -5929,6 +6609,9 @@ def kernel_launches(pa, fa) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only-phase16", action="store_true",
+                    help="build, check the flash kernels and run phase 16 "
+                         "alone (a probe: it prints no result lines)")
     args = ap.parse_args(argv)
     try:
         import numpy as np
@@ -5951,6 +6634,7 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    mark = phase_clock()
     try:
         card = device_line()
         print(f"device: {card}", flush=True)
@@ -5965,12 +6649,19 @@ def main(argv=None) -> int:
         if not all(hgmma.values()):
             raise SmokeFailure(f"a tensor-core flash library has no HGMMA "
                                f"instruction: {hgmma}")
+        if args.only_phase16:
+            check_flash_kernels(torch, fa)
+            phase16_path(torch, np, pa, fa, args.seed)
+            print("chip_smoke: phase 16 probe done (no result lines)")
+            return 0
+        mark("build")
         check_kernels(torch, pa, "cuda")
         check_window_edges(torch, pa, "cuda", int8=False)
         check_tree_kernels(torch, pa, "cuda")
         check_int8_kernels(torch, pa, "cuda")
         check_window_edges(torch, pa, "cuda", int8=True)
         check_decode_edges(torch, pa, "cuda")
+        mark("phase 3")
         model, prompts, launches = main_path(torch, np, pa, args.seed)
         launches.update(spec_main_path(torch, np, pa, model, prompts,
                                        args.seed))
@@ -5983,47 +6674,60 @@ def main(argv=None) -> int:
                                        args.seed).items():
             launches[name] += n
         robustness_path(torch, np, model, prompts, args.seed)
+        mark("phase 4")
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
+        mark("phases 5-6")
         before = kernel_launches(pa, fa)
         vgg_path(torch, np)
         if kernel_launches(pa, fa) != before:
             raise SmokeFailure("the VGG path launched a port kernel")
         print("vgg: port kernel launches in phase 7: 0 (the path runs "
               "cuDNN convolutions, cuBLAS and NCCL only)", flush=True)
+        mark("phase 7")
         before = kernel_launches(pa, fa)
         resnet_path(torch, np, args.seed)
         if kernel_launches(pa, fa) != before:
             raise SmokeFailure("the ResNet path launched a port kernel")
         print("resnet: port kernel launches in phase 9: 0 (the path runs "
               "cuDNN convolutions and cuBLAS only)", flush=True)
+        mark("phase 9")
         ckpt_launches = checkpoint_path(torch, np, pa, fa, args.seed)
         print(f"ckpt: port kernel launches in phase 10c {ckpt_launches}",
               flush=True)
+        mark("phase 10")
         strategy_launches = strategy_path(torch, np, args.seed)
         print(f"strategy: flash launches in phase 11 (rank 0) "
               f"{strategy_launches}", flush=True)
+        mark("phase 11")
         phase12_launches = phase12_path(torch, np, fa, args.seed)
         print(f"phase 12: flash launches (rank 0) {phase12_launches}",
               flush=True)
+        mark("phase 12")
         vit_launches = vit_path(torch, np, fa, args.seed, card)
         vgg_tp_path(torch, np, args.seed, card)
+        mark("phase 13")
         p14_flash, p14_paged = phase14_path(torch, np, pa, fa, model,
                                             prompts, args.seed)
         for name, n in p14_paged.items():
             launches[name] += n
+        mark("phase 14")
         for name, n in phase15_path(torch, np, pa, model,
                                     args.seed).items():
             launches[name] += n
+        mark("phase 15")
+        p16_flash = phase16_path(torch, np, pa, fa, args.seed)
+        mark("phase 16")
         records = timings(torch, pa, model, prompts, launches)
         # K1-K3's main-path launches: phase 6's GPT-2 steps, 13a's
-        # ViT-B/14 steps and 14a's train_cli steps, each counted from 0
-        # over its run.
+        # ViT-B/14 steps, 14a's train_cli steps and phase 16's runs, each
+        # counted from 0 over its run.
         records += flash_timings(torch, fa, {
             k: train_launches[k] + vit_launches[k] + p14_flash[k]
-            for k in FLASH_KERNELS})
+            + p16_flash[k] for k in FLASH_KERNELS})
         flash_timings(torch, fa, vit_launches, (VIT_BATCH, 256, 12, 64),
                       causal=False, case="vit-b-t256")
+        mark("phase 8")
     except Exception:  # every phase failure ends the run without a result
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

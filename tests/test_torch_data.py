@@ -114,12 +114,34 @@ def test_sampler_matches_jax(case):
 
 
 def test_sampler_batch_contiguous_is_refused_by_name():
-    """JAX's default ``batch_contiguous=None`` constructs; a global batch
-    (elastic restore's layout) is refused, naming why."""
+    """``batch_contiguous`` (once refused) is JAX's layout: every shard's
+    indices and masks equal JAX's per epoch, the shards of one global
+    batch assemble the same rows at any shard count (the elastic
+    relaunch's property), and JAX's two ValueErrors are raised alike."""
     ShardedSampler(64, 2, 1, batch_contiguous=None)
-    JaxSampler(64, 2, 1, batch_contiguous=16)  # JAX takes it
-    with pytest.raises(NotImplementedError, match="elastic restore"):
-        ShardedSampler(64, 2, 1, batch_contiguous=16)
+    for n, shards, batch in ((64, 2, 16), (64, 4, 16), (60, 3, 12),
+                             (48, 3, 12), (48, 2, 12)):
+        for shard in range(shards):
+            got = ShardedSampler(n, shards, shard, seed=5,
+                                 batch_contiguous=batch)
+            want = JaxSampler(n, shards, shard, seed=5,
+                              batch_contiguous=batch)
+            for epoch in (0, 1):
+                for a, b in zip(got.indices_and_mask(epoch),
+                                want.indices_and_mask(epoch)):
+                    np.testing.assert_array_equal(a, b)
+    def global_rows(shards, epoch=1):  # noqa: E306
+        parts = [ShardedSampler(48, shards, k, seed=5, batch_contiguous=12)
+                 .indices(epoch).reshape(-1, 12 // shards)
+                 for k in range(shards)]
+        return np.concatenate(parts, axis=1)
+    np.testing.assert_array_equal(global_rows(3), global_rows(2))
+    for args, kw in (((64, 3, 0), {"batch_contiguous": 16}),
+                     ((60, 2, 0), {"batch_contiguous": 16})):
+        for cls in (ShardedSampler, JaxSampler):
+            with pytest.raises(ValueError, match="batch_contiguous|global "
+                               "batches"):
+                cls(*args, **kw)
     fixed = ShardedSampler(20, 1, 0, reshuffle_each_epoch=False)
     np.testing.assert_array_equal(fixed.indices(0), fixed.indices(5))
 

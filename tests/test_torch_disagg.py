@@ -15,9 +15,9 @@ the JAX package, case for case with tests/test_disagg.py:
     ``check()`` clean after each; the watchdog-armed round phases; and
     ``DisaggHost.round`` over a gloo world of 2.
 
-JAX's protocol-verifier and migration model-checker tests need
-``tpudp/analysis/``, which is not ported (ROADMAP.md).  On the CPU the
-engines run the kernels' plain versions.  Tiny geometries, one intra-op
+JAX's protocol-verifier and migration model-checker tests run against
+``tpudp_torch/serve/disagg.py`` in ``tests/test_torch_protocol.py``.  On
+the CPU the engines run the kernels' plain versions.  Tiny geometries, one intra-op
 thread.
 """
 

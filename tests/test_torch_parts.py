@@ -8,8 +8,8 @@ print the reference's lines, importing nothing of JAX or the JAX
 package, and its banner must name the loader's resolved backend.
 Part 1 runs on the native backend, Part 2b with ``--sync-bn``, Part 3
 with ``--spmd-mode gspmd``.  Without ``--device cpu`` and without a card
-a Part fails naming the card; flags of later slices fail naming their
-ROADMAP item.
+a Part fails naming the card; the flags once refused for later slices
+(``--verify-replicas``, the obs flags) run.
 The Trainer's window and eval numbers are held to the JAX Trainer's on
 the same weights and batches.
 """
@@ -118,7 +118,7 @@ def test_parts_default_to_the_card():
 
 
 LATER_FLAGS = [
-    (["--verify-replicas"], "slice 8"),
+    (["--verify-replicas"], None),
     (["--flight-dir", "fd"], None),
     (["--metrics-port", "0"], None),
     (["--profile-dir", "pd"], None),
@@ -129,10 +129,12 @@ LATER_FLAGS = [
                          ids=[f[0].lstrip("-") for f, _ in LATER_FLAGS])
 def test_later_slice_flags_name_their_roadmap_item(flags, item, tmp_path,
                                                    monkeypatch, capsys):
-    """A flag of a later slice exits naming its ROADMAP item; the obs
-    flags (item None) are ported and run: ``--profile-dir`` leaves a
-    Chrome trace, ``--metrics-port`` serves the trainer's metrics,
-    ``--flight-dir`` is the trainer's flight directory."""
+    """A flag of a later slice exits naming its ROADMAP item; every one
+    here (item None) is ported and runs: ``--verify-replicas`` checks the
+    replicas after the epoch (at one rank, JAX's "nothing to check"
+    line), ``--profile-dir`` leaves a Chrome trace, ``--metrics-port``
+    serves the trainer's metrics, ``--flight-dir`` is the trainer's
+    flight directory."""
     if item is not None:
         with pytest.raises(SystemExit, match=f"ROADMAP.md {item}"):
             part1.main(TINY + flags)
@@ -150,6 +152,10 @@ def test_later_slice_flags_name_their_roadmap_item(flags, item, tmp_path,
     if flags[0] == "--metrics-port":
         assert re.search(r"metrics endpoint: http://127\.0\.0\.1:\d+/metrics",
                          out)
+    if flags[0] == "--verify-replicas":
+        assert trainer.verify_replicas
+        assert ("[tpudp] replica consistency: nothing to check (no leaf "
+                "has >1 replica on this mesh)") in out
     if flags[0] == "--flight-dir":
         assert trainer.flight.directory == "fd"
         assert trainer.flight.dump("probe") is not None
@@ -255,10 +261,18 @@ def test_trainer_matches_the_jax_trainer(tmp_path, timing_mode):
 
 def test_trainer_refuses_unported_options():
     model = vgg.VGG(NARROW)
-    for kwargs in ({"verify_replicas": True},
-                   {"track_sdc_fingerprint": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model, **kwargs)
+    # the robustness options (once refused) construct as JAX's do: the
+    # fingerprint slot is JAX's (2,) of zeros, the hook is kept
+    from tpudp.models.vgg import VGG as JaxVGG
+    from tpudp.train import Trainer as JaxTrainer
+
+    jt = JaxTrainer(JaxVGG(cfg=NARROW), None, verify_replicas=True,
+                    track_sdc_fingerprint=True, sdc_fault_hook=print)
+    tr = Trainer(model, verify_replicas=True, track_sdc_fingerprint=True,
+                 sdc_fault_hook=print)
+    assert tr.verify_replicas and tr.sdc_fault_hook is print
+    np.testing.assert_array_equal(tr.state.sdc_fp.numpy(),
+                                  np.asarray(jt.state.sdc_fp))
     # the obs layer is ported: a flight directory and the grad-norm
     # accumulator construct and are kept
     tr = Trainer(model, flight_dir="x", track_grad_norm=True)
@@ -289,5 +303,4 @@ def test_trainer_refuses_unported_options():
         Trainer(model, flux=1)
     with pytest.raises(ValueError, match="mesh"):
         Trainer(model, sync="none", compress="int8_ef")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(model, sdc_fault_hook=print)
+    assert Trainer(model, sdc_fault_hook=print).state.sdc_fp is None

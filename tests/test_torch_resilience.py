@@ -472,10 +472,91 @@ def test_skip_nonfinite_matches_jax(max_errors):
 
 
 def test_skip_nonfinite_refusals():
+    """JAX's two refusals; a schedule beside ``skip_nonfinite`` (once
+    refused) constructs, with optax's inner count on the device."""
     with pytest.raises(ValueError, match="compress"):
         train.make_optimizer(skip_nonfinite=2, compress="int8_ef")
     with pytest.raises(ValueError, match=">= 1"):
         train.make_optimizer(skip_nonfinite=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.make_optimizer(skip_nonfinite=2, schedule="cosine",
-                             total_steps=4)
+    spec = train.make_optimizer(skip_nonfinite=2, schedule="cosine",
+                                total_steps=4)
+    jax_make_optimizer(skip_nonfinite=2, schedule="cosine", total_steps=4)
+    state = train.init_state(w.bn_model("vgg"), spec)
+    assert int(state.skip["schedule_count"]) == 0
+
+
+def _jax_leaf(tree, name: str):
+    """The first leaf of a pytree whose path names ``name``."""
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        if name in jax.tree_util.keystr(path):
+            return leaf
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+@pytest.mark.parametrize("schedule,warmup", [("cosine", 1), ("linear", 2)])
+def test_skip_nonfinite_schedule_matches_optax(schedule, warmup, optimizer):
+    """``skip_nonfinite=2`` under a learning-rate schedule: optax's
+    ``apply_if_finite`` holds the inner schedule's count back on a skipped
+    step, so every later update's learning rate is the schedule at the
+    count of APPLIED updates.  The port keeps that count on the device
+    (``skip["schedule_count"]``) and computes the rate there: its count
+    equals optax's after every step, and the parameters follow JAX's
+    trajectory at rtol 1e-5 through three skipped steps (a count
+    advanced on a skip would move the cosine rate by 6-40%).  The update
+    is the one a card runs: SGD's by hand (``train._sgd_update``: weight
+    decay, the momentum trace, the step at the tensor rate) and AdamW's
+    with a tensor learning rate.  Each step is also held to plain
+    ``torch.optim`` at a float rate, stepped only on the applied updates
+    with optax's count (``_ref``), at rtol 1e-5.  Against JAX, AdamW's
+    convolution biases are left to that reference: a bias feeding a
+    BatchNorm has a gradient of 0 in exact arithmetic, and AdamW turns
+    each framework's rounding noise there into a step of about ``lr``
+    of either sign."""
+    params, stats = w.vgg_init()
+    opt = (dict(w.SGD) if optimizer == "sgd" else
+           dict(learning_rate=1e-3, weight_decay=1e-4, optimizer="adamw"))
+    sched = dict(schedule=schedule, warmup_steps=warmup, total_steps=8)
+    kw = dict(opt, skip_nonfinite=2, **sched)
+    tx = jax_make_optimizer(**kw)
+    jmodel = JaxVGG(cfg=w.CFG)
+    js = jax_init_state(jmodel, tx, input_shape=(1, 32, 32, 3)).replace(
+        params=jax.tree.map(jnp.asarray, params),
+        batch_stats=jax.tree.map(jnp.asarray, stats))
+    js = js.replace(opt_state=tx.init(js.params))
+    jstep = jax_make_train_step(jmodel, tx, None, donate=False)
+    model = w.bn_model("vgg")
+    spec = train.make_optimizer(**kw)
+    state = train.init_state(model, spec)
+    step = train.make_train_step(model, spec)
+    # the reference: no skip, the float rate lr_at(step) at the count of
+    # applied updates (its own step counter)
+    ref = w.bn_model("vgg")
+    ref_spec = train.make_optimizer(**opt, **sched)
+    ref_state = train.init_state(ref, ref_spec)
+    ref_step = train.make_train_step(ref, ref_spec)
+    for i, (x, y) in enumerate(_skip_batches()):
+        js, _ = jstep(js, jnp.asarray(x), jnp.asarray(y))
+        state, _ = step(state, torch.as_tensor(x), torch.as_tensor(y))
+        count = int(_jax_leaf(js.opt_state.inner_state, "count"))
+        assert int(state.skip["schedule_count"]) == count, i
+        if count > ref_state.step:  # an applied update
+            ref_state, _ = ref_step(ref_state, torch.as_tensor(x),
+                                    torch.as_tensor(y))
+        want = dict(ref.named_parameters())
+        for name, p in model.named_parameters():
+            np.testing.assert_allclose(p.detach().numpy(),
+                                       want[name].detach().numpy(),
+                                       rtol=1e-5, atol=1e-6,
+                                       err_msg=f"{name} step {i}")
+        got = vgg.params_to_jax(dict(model.named_parameters()))[0]
+        for kp, a in jax.tree_util.tree_flatten_with_path(js.params)[0]:
+            if optimizer == "adamw" and kp[0].key.startswith("Conv") \
+                    and kp[-1].key == "bias":
+                continue
+            b = got
+            for key in kp:
+                b = b[key.key]
+            np.testing.assert_allclose(b.detach().numpy(), np.asarray(a),
+                                       rtol=1e-5, atol=1e-6)
+    assert int(state.skip["schedule_count"]) == 3  # 6 steps, 3 skipped

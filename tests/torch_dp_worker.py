@@ -852,25 +852,30 @@ TRAINER_RUNGS = {
     "sp": ({"data": 2, "seq": 2}, TP_CFG,
            {"attn_impl": "ring", "seq_axis": "seq"}, {}),
 }
+# The rungs of tests/test_torch_sdc.py: TRAINER_RUNGS and 1f1b_mpmd.
+SDC_RUNGS = dict(TRAINER_RUNGS, **{
+    "pp-mpmd": ({"data": 2, "pipe": 2}, PP_CFG, {},
+                {"n_microbatches": 2, "schedule": "1f1b_mpmd"})})
 
 
-def trainer_rung(name: str, seed: int = STRATEGY_SEED, **kw):
+def trainer_rung(name: str, seed: int = STRATEGY_SEED, extra=None, **kw):
     """The port's Trainer on rung ``name`` (TRAINER_RUNGS), weights from
-    ``seed``."""
+    ``seed``; ``extra`` adds strategy options."""
     from tpudp_torch.mesh import make_mesh_nd
     from tpudp_torch.models import gpt2
     from tpudp_torch.parallel.tensor import gpt2_tp_rules
     from tpudp_torch.trainer import Trainer
 
-    shape, cfg, model_kw, options = TRAINER_RUNGS[name]
+    shape, cfg, model_kw, options = SDC_RUNGS[name]
     if options == "rules":
         options = {"rules": gpt2_tp_rules()}
     c = gpt2.GPT2Config(**cfg, **model_kw)
     model = gpt2.GPT2(c)
     model.load_state_dict(gpt2.params_from_jax(strategy_tree(cfg, seed)))
     kw.setdefault("log_fn", lambda line: None)
-    return Trainer(model, make_mesh_nd(shape), strategy=name,
-                   strategy_options=dict(options), learning_rate=0.01,
+    return Trainer(model, make_mesh_nd(shape), strategy=name.split("-")[0],
+                   strategy_options=dict(options, **(extra or {})),
+                   learning_rate=0.01,
                    log_every=2, **kw)
 
 
@@ -1260,6 +1265,316 @@ def job_disagg(rank, world):
                           r.ok) for r in admitted])
     return out
 
+# -- silent-data-corruption defense and the elastic relaunch
+#    (tests/test_torch_sdc.py): worlds of 4 and 2 ranks --------------------
+
+SDC_TRAIN, SDC_BATCH, SDC_EPOCHS = 64, 16, 2  # 4 steps an epoch, windows of 2
+# case -> (injector kind, schedule, persist_from options)
+SDC_CASES = {
+    "clean": None,
+    "params": ("params", [(3, 2, 5)], {}),
+    "grads": ("grads", [(3, 1, 9)], {}),
+    "persistent": ("params", (), {"persist_from": 3, "replica": 1,
+                                  "bit": 7}),
+}
+
+
+def save_case(name: str, rank: int, obj) -> None:
+    """One case's result of this rank, saved at once (a later case may
+    end the process)."""
+    import torch
+
+    torch.save(obj, os.path.join(os.environ["TPUDP_TEST_OUT"],
+                                 f"{name}-rank{rank}.pt"))
+
+
+def sdc_loader(rank: int, world: int, root: str):
+    """This rank's rows of the global batches of 16 (the contiguous
+    layout: the same global batches at any world size)."""
+    from tpudp_torch.data import DataLoader, ShardedSampler, load_cifar10
+
+    train_set, _, _ = load_cifar10(os.path.join(root, "no-data"),
+                                   synthetic_train_size=SDC_TRAIN,
+                                   synthetic_test_size=16)
+    return DataLoader(train_set, SDC_BATCH // world,
+                      sampler=ShardedSampler(SDC_TRAIN, world, rank,
+                                             shuffle=True, seed=3,
+                                             batch_contiguous=SDC_BATCH),
+                      train=True, seed=3, backend="numpy")
+
+
+def sdc_injector(case: str):
+    from tpudp_torch.sdc import BitFlipGrads, BitFlipParams
+
+    spec = SDC_CASES[case]
+    if spec is None:
+        return None
+    kind, schedule, kw = spec
+    return (BitFlipParams if kind == "params" else BitFlipGrads)(
+        schedule, **kw)
+
+
+def sdc_fit(case: str, rank: int, world: int, **policy_kw):
+    """The narrow VGG trained 2 epochs under ``sdc_check_every=2`` with
+    ``case``'s injector; returns the result record (the error raised, if
+    any, by type and replica)."""
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.sdc import QUARANTINE_MARKER
+
+    root = os.path.join(os.environ["TPUDP_TEST_OUT"], f"sdc-{case}-{world}")
+    inj = sdc_injector(case if case in SDC_CASES else "persistent")
+    t = ckpt_trainer(make_mesh(), track_sdc_fingerprint=True,
+                     sdc_fault_hook=inj)
+    error = None
+    try:
+        t.fit(sdc_loader(rank, world, root), epochs=SDC_EPOCHS,
+              resilience=ResiliencePolicy(checkpoint_dir=root,
+                                          sdc_check_every=2, **policy_kw))
+    except Exception as e:  # the verdicts under test
+        error = (type(e).__name__, getattr(e, "replica", None))
+    marker = os.path.join(root, QUARANTINE_MARKER)
+    res = state_of(t)
+    res.update(stats={k: v for k, v in t.stats.items() if k != "events"},
+               events=t.stats["events"], error=error,
+               fired=list(inj.fired) if inj is not None else [],
+               marker=(json.load(open(marker)) if os.path.exists(marker)
+                       else None))
+    return res
+
+
+ELASTIC_CFG = dict(vocab_size=64, max_seq_len=32, num_layers=2, num_heads=2,
+                   d_model=32)
+
+
+class ElasticTokens:
+    """This rank's rows of 4 global batches of 8 x 16 tokens an epoch,
+    drawn per epoch from a seeded order of 32 sequences through
+    ``ShardedSampler(batch_contiguous=8)``."""
+
+    def __init__(self, rank: int, world: int, vocab: int = 64):
+        from tpudp_torch.data import ShardedSampler
+
+        rng = np.random.default_rng(31)
+        self.tokens = rng.integers(0, vocab, size=(32, 17)).astype(np.int64)
+        self.sampler = ShardedSampler(32, world, rank, shuffle=True,
+                                      seed=5, batch_contiguous=8)
+        self.per = 8 // world
+        self.epoch = 0
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        import torch
+
+        idx = self.sampler.indices(self.epoch)
+        for b in range(len(self)):
+            rows = self.tokens[idx[b * self.per:(b + 1) * self.per]]
+            yield (torch.as_tensor(rows[:, :-1]),
+                   torch.as_tensor(rows[:, 1:]),
+                   torch.ones(self.per, dtype=torch.float32))
+
+    def __len__(self):
+        return len(self.sampler) // self.per
+
+
+def elastic_loader(strategy: str, rank: int, world: int):
+    """dp's ranks read their rows; zero1's read the global batches (the
+    rung takes its block)."""
+    return (ElasticTokens(rank, world) if strategy == "dp"
+            else ElasticTokens(0, 1))
+
+
+def elastic_trainer(strategy: str):
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.models import gpt2
+    from tpudp_torch.trainer import Trainer
+
+    model = gpt2.GPT2(gpt2.GPT2Config(**ELASTIC_CFG))
+    model.load_state_dict(gpt2.params_from_jax(
+        strategy_tree(ELASTIC_CFG, STRATEGY_SEED)))
+    kw = ({"strategy": "zero1", "strategy_options": {"min_size": MIN_SIZE}}
+          if strategy == "zero1" else {})
+    return Trainer(model, make_mesh(), learning_rate=0.01, log_every=2,
+                   log_fn=lambda line: None, **kw)
+
+
+def job_elastic_save(rank, world):
+    """At ``world`` ranks, DP and zero1: 2 epochs uninterrupted with the
+    losses recorded, the state after epoch 1 saved as ``step_1``."""
+    from tpudp_torch.train import state_to_jax
+    from tpudp_torch.utils.checkpoint import save_checkpoint
+
+    out = {}
+    for strategy in ("dp", "zero1"):
+        root = os.path.join(os.environ["TPUDP_TEST_OUT"],
+                            f"elastic-{strategy}")
+        t = elastic_trainer(strategy)
+        t.fit(elastic_loader(strategy, rank, world), epochs=2,
+              epoch_end_fn=lambda e, t=t, root=root: save_checkpoint(
+                  os.path.join(root, "step_1"), t.state) if e == 0 else None)
+        out[strategy] = {
+            "losses": [r["loss"] for r in t.records
+                       if r["kind"] == "train_window"],
+            "final": cpu_tree(state_to_jax(t.state)["params"])}
+    save_case("elastic_save", rank, out)
+    return {}
+
+
+def job_elastic_resume(rank, world):
+    """At ``world`` ranks: a fresh Trainer restores ``step_1`` written at
+    another world size through ``restore_newest`` and trains epoch 2."""
+    from tpudp_torch.resilience import restore_newest
+    from tpudp_torch.train import state_to_jax
+
+    out = {}
+    for strategy in ("dp", "zero1"):
+        root = os.path.join(os.environ["TPUDP_TEST_OUT"],
+                            f"elastic-{strategy}")
+        t = elastic_trainer(strategy)
+        used, _ = restore_newest(t, root, log=lambda line: None)
+        loader = elastic_loader(strategy, rank, world)
+        start = t.state.step // len(loader)
+        t.fit(loader, epochs=2, start_epoch=start)
+        out[strategy] = {
+            "used": os.path.basename(used), "start": start,
+            "losses": [r["loss"] for r in t.records
+                       if r["kind"] == "train_window"],
+            "final": cpu_tree(state_to_jax(t.state)["params"])}
+    save_case("elastic_resume", rank, out)
+    return {}
+
+
+def job_sdc(rank, world):
+    """The SDC matrix at ``world`` ranks, each case saved as it ends: at
+    4, clean, a one-shot params flip on rank 2, a one-shot momentum flip
+    on rank 1 and, last (rank 1 exits 44), the persistent flip on rank
+    1; at 2, the persistent flip (a two-rank tie) with 1 rollback."""
+    import sys
+
+    if world == 2:
+        save_case("sdc-tie", rank, sdc_fit("tie", rank, world,
+                                           max_rollbacks=1))
+        return {}
+    for case in SDC_CASES:
+        save_case(f"sdc-{case}", rank, sdc_fit(case, rank, world))
+    # rank 1 has exited: the others leave without a collective teardown
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def job_sdc_rungs(rank, world):
+    """Every rung through the Trainer with ``track_grad_norm`` and
+    ``track_sdc_fingerprint`` (and 1f1b_mpmd at data 2 x pipe 2): one
+    epoch, then the slots and the rung's JAX-layout state."""
+    from tpudp_torch.train import state_to_jax
+
+    out = {}
+    for name in SDC_RUNGS:
+        trainer = trainer_rung(name, track_grad_norm=True,
+                               track_sdc_fingerprint=True)
+        cfg = SDC_RUNGS[name][1]
+        trainer.fit(TokenLoader(cfg["vocab_size"]), epochs=1)
+        st = trainer.state
+        out[name] = {"obs_norms": st.obs_norms.tolist(),
+                     "sdc_fp": st.sdc_fp.tolist(),
+                     "tree": cpu_tree(state_to_jax(st))}
+    out["pp-sdc"] = pp_sdc_fit(rank)
+    save_case("sdc_rungs", rank, out)
+    return {}
+
+
+def pp_sdc_fit(rank: int) -> dict:
+    """1f1b_mpmd at data 2 x pipe 2 under ``sdc_check_every=2`` with a
+    one-shot flip on rank 2 (data 1, pipe 0): the pipe-summed
+    fingerprints split 2-2, so the stage groups localize it.  Without
+    ``shard_optimizer``, as each replica then updates its own stage
+    whole (the sharded update re-gathers the parameters every step, so
+    a flip never outlives it there, in JAX alike)."""
+    from tpudp_torch.resilience import ResiliencePolicy
+    from tpudp_torch.sdc import BitFlipParams
+
+    root = os.path.join(os.environ["TPUDP_TEST_OUT"], "sdc-pp")
+    t = trainer_rung("pp-mpmd", extra={"shard_optimizer": False},
+                     track_sdc_fingerprint=True,
+                     sdc_fault_hook=BitFlipParams([(3, 2, 5)]))
+    t.fit(TokenLoader(SDC_RUNGS["pp-mpmd"][1]["vocab_size"]), epochs=2,
+          resilience=ResiliencePolicy(checkpoint_dir=root,
+                                      sdc_check_every=2))
+    return {"stats": {k: v for k, v in t.stats.items() if k != "events"},
+            "events": [{k: e.get(k) for k in ("kind", "replicas",
+                                               "localized", "step")}
+                       for e in t.stats["events"] if e["kind"] != "vote"],
+            "fp": t.state.sdc_fp.tolist()}
+
+
+# -- replica verification (tests/test_torch_consistency.py): a world of 2 --
+
+def consistency_loader(rank: int, world: int, root: str):
+    """16 synthetic images, one global batch of 16 an epoch."""
+    from tpudp_torch.data import DataLoader, ShardedSampler, load_cifar10
+
+    train_set, _, _ = load_cifar10(os.path.join(root, "no-data"),
+                                   synthetic_train_size=16,
+                                   synthetic_test_size=8)
+    return DataLoader(train_set, 16 // world,
+                      sampler=ShardedSampler(16, world, rank, seed=1,
+                                             batch_contiguous=16),
+                      train=True, seed=1, backend="numpy")
+
+
+def job_consistency(rank, world):
+    """``verify_replicas``, ``verify_across_processes`` and
+    ``fingerprint`` on trees every rank holds alike or not, the Trainer's
+    post-epoch check on the ``allreduce`` and ``none`` rungs, and the
+    fingerprint coverage of a zero1 state."""
+    import torch
+
+    from tpudp_torch.mesh import make_mesh
+    from tpudp_torch.trainer import Trainer
+    from tpudp_torch.utils.consistency import (ReplicaDivergenceError,
+                                               fingerprint,
+                                               fingerprint_coverage,
+                                               state_tree,
+                                               verify_across_processes,
+                                               verify_replicas)
+
+    def outcome(fn):
+        try:
+            return ("ok", fn())
+        except ReplicaDivergenceError as e:
+            return ("raised", str(e))
+
+    last = rank == world - 1
+    same = {"w": torch.ones(4, 3), "scalar": 1.5, "b": torch.arange(5.0)}
+    div = {"Conv_0": {"kernel": torch.ones(4, 3) * (1.001 if last else 1)}}
+    rows = torch.arange(12.0).reshape(4, 3)
+    permuted = {"Conv_0": {"kernel": rows.flip(0) if last else rows}}
+    out = {"same": outcome(lambda: verify_replicas(same)),
+           "div": outcome(lambda: verify_replicas(div)),
+           "permuted": outcome(lambda: verify_replicas(permuted)),
+           "div_atol": outcome(lambda: verify_replicas(div, atol=0.01)),
+           "across_same": outcome(lambda: verify_across_processes(same)),
+           "across_div": outcome(lambda: verify_across_processes(div)),
+           "fp_same": fingerprint(same).tolist(),
+           "fp_div": fingerprint(div).tolist()}
+    root = os.environ["TPUDP_TEST_OUT"]
+    for sync in ("allreduce", "none"):
+        lines = []
+        t = Trainer(bn_model("vgg"), make_mesh(), sync, learning_rate=0.1,
+                    log_every=1, log_fn=lines.append, verify_replicas=True)
+        res = outcome(lambda: t.fit(consistency_loader(rank, world, root),
+                                    epochs=1))
+        out[sync] = (res[0], res[1] if res[0] == "raised" else
+                     [x for x in lines if "replica consistency" in x])
+    z = elastic_trainer("zero1")
+    z.fit(elastic_loader("zero1", rank, world), epochs=1)
+    out["zero1_coverage"] = fingerprint_coverage(state_tree(z.state))
+    out["zero1_verify"] = outcome(lambda: verify_replicas(
+        {"params": dict(z.state.model.named_parameters())}))
+    return out
+
 
 JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "gpt2": job_gpt2, "sync_bn": job_sync_bn, "ckpt": job_ckpt,
@@ -1268,7 +1583,10 @@ JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "pp": job_pp, "ep": job_ep, "trainer": job_trainer,
         "schedule": job_schedule, "llama": job_llama,
         "cuda_strategies": job_cuda_strategies, "vit": job_vit,
-        "vgg_tp": job_vgg_tp, "disagg": job_disagg}
+        "vgg_tp": job_vgg_tp, "disagg": job_disagg, "sdc": job_sdc,
+        "sdc_rungs": job_sdc_rungs, "elastic_save": job_elastic_save,
+        "elastic_resume": job_elastic_resume,
+        "consistency": job_consistency}
 
 
 def main(spec_path: str, rank: int) -> None:

@@ -27,9 +27,10 @@ heartbeat watchdog (a hang dumps the state and exits, or under
 the forward in the backward (``Trainer(remat=True)``);
 ``--flight-dir`` turns on the flight recorder, ``--metrics-port`` serves
 ``Trainer.metrics()`` as Prometheus text, and ``--profile-dir`` writes a
-``torch.profiler`` Chrome trace of the run (JAX writes an XLA profile).
-``--verify-replicas``, of a later slice, is refused with its ROADMAP.md
-item.
+``torch.profiler`` Chrome trace of the run (JAX writes an XLA profile);
+``--verify-replicas`` checks after each epoch that every rank holds
+bit-identical parameters and statistics (``Trainer(verify_replicas=
+True)``).
 """
 
 from __future__ import annotations
@@ -61,14 +62,6 @@ from tpudp_torch.utils.checkpoint import (AsyncCheckpointWriter,
 from tpudp_torch.utils.watchdog import Watchdog
 
 GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
-
-#: Flags of later slices: dest -> (the value that means "off", the
-#: ROADMAP.md item that brings it).
-_UNPORTED_FLAGS = {
-    "verify_replicas": (False, "slice 8 (robustness: replica "
-                               "verification)"),
-}
-
 
 def build_parser(description: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=description)
@@ -127,7 +120,12 @@ def build_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--prefetch", type=int, default=2,
                    help="batches prepared ahead on a background thread, "
                         "copied to the device there; 0 disables")
-    p.add_argument("--verify-replicas", action="store_true")
+    p.add_argument("--verify-replicas", action="store_true",
+                   help="after each epoch, assert every replicated "
+                        "param/BN-stat is bit-identical across ranks "
+                        "(torch DDP's parameter-verification analogue; "
+                        "catches silent DP desync — "
+                        "tpudp_torch/utils/consistency.py)")
     p.add_argument("--metrics-jsonl", type=str, default=None,
                    metavar="PATH",
                    help="append one JSON line per train window / eval / "
@@ -150,14 +148,6 @@ def build_parser(description: str) -> argparse.ArgumentParser:
                         "text on 127.0.0.1:N/metrics (rank 0; 0 picks a "
                         "free port)")
     return p
-
-
-def _refuse_unported(args) -> None:
-    for dest, (off, item) in _UNPORTED_FLAGS.items():
-        if getattr(args, dest) != off:
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"error: {flag} is not ported yet: ROADMAP.md "
-                             f"{item}")
 
 
 def _check_checkpoint_flags(args) -> None:
@@ -205,7 +195,6 @@ def run_part(sync: str, description: str, *, single_device: bool = False,
     Trainer, and fit.  Returns this process's Trainer, or None where it
     spawned local ranks (they print; the call returns when all exit)."""
     args = build_parser(description).parse_args(argv)
-    _refuse_unported(args)
     _check_checkpoint_flags(args)
     if args.spmd_mode is not None and sync != "auto":
         raise SystemExit(
@@ -374,7 +363,8 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
                       spmd_mode=args.spmd_mode or "shard_map",
                       grad_accum=args.grad_accum, remat=args.remat,
                       metrics_jsonl=args.metrics_jsonl, log_fn=log,
-                      watchdog=watchdog, flight_dir=args.flight_dir)
+                      watchdog=watchdog, flight_dir=args.flight_dir,
+                      verify_replicas=args.verify_replicas)
     metrics_server = None
     if args.metrics_port is not None and rank == 0:
         from tpudp_torch.obs import MetricsServer
@@ -481,6 +471,11 @@ class _Resume:
             "per_epoch_batches")
         if (dumped is not None and dumped != per_epoch
                 and os.path.isdir(os.path.join(root, "emergency"))):
+            # tpudp: lint-ok(protocol-early-exit): every host reads
+            # the SAME sentinel file and computes the same loader
+            # length from the same dataset/--batch-size, so a
+            # batch-grid mismatch aborts the whole pod together —
+            # no peer proceeds to the voted restore alone.
             raise SystemExit(
                 f"error: emergency dump at {os.path.join(root, 'emergency')}"
                 f" was written with {dumped} batches/epoch but this "

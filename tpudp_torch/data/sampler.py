@@ -6,10 +6,16 @@ pad to a multiple of the shard count by wrapping around, then take the
 strided slice ``indices[shard::num_shards]``: the same indices and
 validity masks as the JAX package's, per (epoch, shard).
 ``reshuffle_each_epoch=False`` keeps the reference's order, the same
-shuffle every epoch (it never calls ``set_epoch``), as JAX's does.  The
-JAX sampler's ``batch_contiguous`` layout serves elastic restore (a run
-resumed at another host count), which the port's one-writer checkpoints
-do not take; any value but None is refused.
+shuffle every epoch (it never calls ``set_epoch``), as JAX's does.
+
+``batch_contiguous`` (a GLOBAL batch size, or None) switches to JAX's
+per-batch contiguous layout: shard ``k`` of ``H`` takes rows ``[k*B/H,
+(k+1)*B/H)`` of every global batch drawn from the canonical order, so the
+assembled global batch is a function of ``(seed, epoch)`` alone, whatever
+the number of shards — what a run resumed at another rank count (the
+relaunch after an SDC quarantine) needs to continue its trajectory.  The
+padded size must be whole global batches, and the batch must split
+evenly across the shards.
 """
 
 from __future__ import annotations
@@ -24,12 +30,6 @@ class ShardedSampler:
                  shard_index: int = 0, *, shuffle: bool = True,
                  seed: int = 0, reshuffle_each_epoch: bool = True,
                  batch_contiguous: int | None = None):
-        if batch_contiguous is not None:
-            raise NotImplementedError(
-                "ShardedSampler(batch_contiguous=...) is not ported: it "
-                "serves elastic restore, which the port's one-writer "
-                "checkpoints do not take (ROADMAP.md, documented "
-                "divergences: checkpoints)")
         if not 0 <= shard_index < num_shards:
             raise ValueError(f"shard_index {shard_index} out of range "
                              f"[0, {num_shards})")
@@ -39,10 +39,20 @@ class ShardedSampler:
         self.shuffle = shuffle
         self.seed = seed
         self.reshuffle_each_epoch = reshuffle_each_epoch
-        self.batch_contiguous = None
         # Every shard sees the same number of samples (wrap-around pad).
         self.num_samples = -(-dataset_size // num_shards)
         self.total_size = self.num_samples * num_shards
+        self.batch_contiguous = batch_contiguous
+        if batch_contiguous is not None:
+            if batch_contiguous % num_shards:
+                raise ValueError(
+                    f"batch_contiguous={batch_contiguous} must split evenly "
+                    f"across {num_shards} shards")
+            if self.total_size % batch_contiguous:
+                raise ValueError(
+                    f"padded dataset size {self.total_size} is not a whole "
+                    f"number of global batches of {batch_contiguous} — the "
+                    "contiguous layout has no canonical final batch")
 
     def indices(self, epoch: int = 0) -> np.ndarray:
         return self.indices_and_mask(epoch)[0]
@@ -62,6 +72,13 @@ class ShardedSampler:
             pad = self.total_size - self.dataset_size
             order = np.concatenate([order, order[:pad]])
             valid[self.dataset_size:] = False
+        if self.batch_contiguous is not None:
+            per = self.batch_contiguous // self.num_shards
+            lo = self.shard_index * per
+            order = order.reshape(-1, self.batch_contiguous)
+            valid = valid.reshape(-1, self.batch_contiguous)
+            return (order[:, lo:lo + per].reshape(-1),
+                    valid[:, lo:lo + per].reshape(-1))
         sel = slice(self.shard_index, None, self.num_shards)
         return order[sel], valid[sel]
 

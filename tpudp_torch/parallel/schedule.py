@@ -73,7 +73,7 @@ from tpudp_torch.parallel.sharded import (Layout, Leaf, _JAX_OPT_NAMES,
                                           _adamw, _opt_buffers, apply_update,
                                           axis_of, mean_over, new_state,
                                           refuse_skip)
-from tpudp_torch.train import _codec, state_to_jax
+from tpudp_torch.train import _codec, fingerprint_tensors, state_to_jax
 from tpudp_torch.utils.checkpoint import _to_cpu
 
 
@@ -637,6 +637,9 @@ def make_pipeline_train_step(model, optimizer, mesh, state, *,
             mean_over([lf.local.grad for lf in leaves] + [loss], dgroup,
                       dp)
             apply_update(st, optimizer, leaves)
+        if st.sdc_fp is not None:
+            st.sdc_fp = stage_fingerprint(st, leaves, pipe,
+                                          shards is None)
         st.step += 1
         loss = loss.reshape(())
         st.loss_sum += loss
@@ -645,6 +648,21 @@ def make_pipeline_train_step(model, optimizer, mesh, state, *,
     step.peak_stash = 0
     step.partition = part
     return built, step
+
+
+def stage_fingerprint(state, leaves: list, pipe, with_opt: bool):
+    """JAX's MPMD fingerprint: this stage's parameters (the shared ones
+    too, which every stage holds) and, without ``shard_optimizer``, its
+    optimizer buffers, summed over ``pipe`` — the whole pipeline's
+    checksum on every stage.  The 1/DP-sharded optimizer state is left
+    out, as JAX leaves it out."""
+    from tpudp_torch.sdc import finish_fingerprint, partial_fingerprint
+
+    params = [lf.local for lf in leaves]
+    part = partial_fingerprint(fingerprint_tensors(state.optimizer, params)
+                               if with_opt else params)
+    C.all_reduce(part, pipe)
+    return finish_fingerprint(part)
 
 
 def make_pipeline_eval_step(model, mesh, state, *, n_microbatches: int,

@@ -74,8 +74,10 @@ from tpudp_torch.parallel.tensor import (MODEL_AXIS, fsdp_dim, gpt2_tp_rules,
                                          llama_tp_rules, tree_shardings,
                                          vgg_tp_rules)
 from tpudp_torch.train import (OptimizerSpec, TrainState, _FiniteGuard,
-                               _adamw, _codec, batch_stats, eval_metrics,
-                               skip_counters, state_to_jax, with_aux)
+                               _adamw, _codec, _opt_buffers, batch_stats,
+                               eval_metrics, fingerprint_tensors,
+                               optimizer_update, skip_counters, state_to_jax,
+                               with_aux)
 from tpudp_torch.utils.checkpoint import _to_cpu
 
 #: The ROADMAP items of the models tensor parallelism does not take yet.
@@ -154,12 +156,6 @@ def heads_leaf(name, local, group, n: int, r: int) -> Leaf:
         return full.reshape((-1,) + tuple(t.shape[1:]))
 
     return Leaf(name, local, group, scatter=scatter, gather=gather)
-
-
-def _opt_buffers(opt) -> tuple:
-    if _adamw(opt):
-        return ("exp_avg", "exp_avg_sq")
-    return ("momentum_buffer",) if opt.param_groups[0]["momentum"] else ()
 
 
 _JAX_OPT_NAMES = {"exp_avg": "mu", "exp_avg_sq": "nu",
@@ -308,42 +304,79 @@ def mean_over(tensors: list, group, n: int) -> None:
 
 
 def _clip(leaves: list, max_norm: float) -> None:
-    """optax ``clip_by_global_norm`` over a rung's leaves: a sharded
-    leaf's squares are summed over its group, a replicated one's counted
-    once."""
-    by_group: dict = {}
-    for lf in leaves:
-        by_group.setdefault(lf.group, []).append(lf.local.grad)
-    total = None
-    for group, grads in by_group.items():
-        sq = torch.stack([g.float().pow(2).sum() for g in grads]).sum()
-        if group is not None:
-            C.all_reduce(sq, group)
-        total = sq if total is None else total + sq
-    norm = total.sqrt()
+    """optax ``clip_by_global_norm`` over a rung's leaves, by their
+    :func:`global_grad_norm`."""
+    norm = global_grad_norm(leaves)
     keep = norm < max_norm
     for lf in leaves:
         g = lf.local.grad
         g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
+def _by_group(leaves: list) -> dict:
+    by_group: dict = {}
+    for lf in leaves:
+        by_group.setdefault(lf.group, []).append(lf)
+    return by_group
+
+
+def global_grad_norm(leaves: list) -> torch.Tensor:
+    """The norm of the global gradient over a rung's leaves (a sharded
+    leaf's squares summed over its group, a replicated one's counted
+    once), as JAX's GSPMD step takes ``optax.global_norm``."""
+    total = None
+    for group, lfs in _by_group(leaves).items():
+        sq = torch.stack([lf.local.grad.float().pow(2).sum()
+                          for lf in lfs]).sum()
+        if group is not None:
+            C.all_reduce(sq, group)
+        total = sq if total is None else total + sq
+    return total.sqrt()
+
+
+def global_fingerprint(opt, leaves: list) -> torch.Tensor:
+    """The SDC fingerprint of the global parameters and optimizer buffers
+    over a rung's leaves: each rank's partial sums over a sharded leaf
+    (and its buffers) added over the leaf's group, a replicated leaf
+    counted once.  The wraparound sum does not depend on order or
+    layout, so it is the checksum JAX's GSPMD step takes of the global
+    arrays."""
+    from tpudp_torch.sdc import finish_fingerprint, partial_fingerprint
+
+    total = None
+    for group, lfs in _by_group(leaves).items():
+        part = partial_fingerprint(fingerprint_tensors(
+            opt, [lf.local for lf in lfs]))
+        if group is not None:
+            C.all_reduce(part, group)
+        total = part if total is None else total + part
+    return finish_fingerprint(total)
+
+
 def apply_update(state: TrainState, spec: OptimizerSpec, leaves: list,
-                 finite_group=None) -> None:
+                 finite_group=None, track: bool = False) -> None:
     """Clip, set the step's learning rate and update the leaves (every
     leaf has its gradient); ``finite_group``: the ranks whose
-    ``skip_nonfinite`` decisions are taken together."""
+    ``skip_nonfinite`` decisions are taken together.  ``track`` (the
+    rungs JAX runs through ``_loss_and_updates``: tp, fsdp, zero1, sp)
+    adds the global gradient norm to ``obs_norms`` and sets ``sdc_fp``
+    to the global fingerprint after the update, where the state has
+    them."""
     params = [lf.local for lf in leaves]
+    if track and state.obs_norms is not None:
+        gn = global_grad_norm(leaves)
+        state.obs_norms += torch.stack([gn, gn * gn])
     guard = None
     if spec.skip_nonfinite is not None:
         guard = _FiniteGuard(state, params, spec.skip_nonfinite,
                              finite_group)
     if spec.clip_norm is not None:
         _clip(leaves, spec.clip_norm)
-    for group in state.optimizer.param_groups:
-        group["lr"] = spec.lr_at(state.step)
-    state.optimizer.step()
+    optimizer_update(state, spec)
     if guard is not None:
         guard.finish()
+    if track and state.sdc_fp is not None:
+        state.sdc_fp = global_fingerprint(state.optimizer, leaves)
 
 
 def refuse_skip(spec: OptimizerSpec, rung: str) -> None:
@@ -503,7 +536,7 @@ def _data_sharded_step(model, spec: OptimizerSpec, mesh, state: TrainState,
         loss = ce.detach().reshape(1)
         mean_over(rep + [loss] + stats, group, n)
         apply_update(st, spec, sharded.leaves,
-                     None if shard_params else group)
+                     None if shard_params else group, track=True)
         sharded.after_update()
         st.step += 1
         loss = loss.reshape(())
@@ -1004,7 +1037,7 @@ def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
                 lf.local.grad.copy_(piece.reshape(lf.local.shape))
         loss = ce.detach().reshape(1)
         mean_over(grads + [loss], dgroup, dn)
-        apply_update(st, optimizer, leaves)
+        apply_update(st, optimizer, leaves, track=True)
         st.step += 1
         loss = loss.reshape(())
         st.loss_sum += loss
@@ -1065,7 +1098,7 @@ def make_seq_parallel_train_step(model: nn.Module, optimizer: OptimizerSpec,
         leaves = [Leaf(name, p) for name, p in model.named_parameters()]
         loss = ce.detach().reshape(1)
         mean_over(grads_of(leaves) + [loss], world, n)
-        apply_update(st, optimizer, leaves)
+        apply_update(st, optimizer, leaves, track=True)
         st.step += 1
         loss = loss.reshape(())
         st.loss_sum += loss

@@ -1,5 +1,5 @@
 """In-process fault supervision for ``Trainer.fit`` — the port of
-``tpudp/resilience.py`` (its SDC defense is a later slice).
+``tpudp/resilience.py``.
 
 Every recovery restores a checkpoint and replays deterministically, so
 the final parameters equal an uninterrupted run's bit for bit:
@@ -23,10 +23,31 @@ the final parameters equal an uninterrupted run's bit for bit:
   * **Loader containment** — an exception out of the loader restarts the
     pipeline and replays to the exact batch offset, bounded by
     ``max_loader_restarts`` an epoch.
+  * **Silent-data-corruption defense** (``sdc_check_every=N`` with
+    ``Trainer(track_sdc_fingerprint=True)``, ``tpudp_torch.sdc``) —
+    every N optimizer steps, at the window edge where the host already
+    read ``loss_sum``, every rank puts its in-step fingerprint
+    ``[checksum, count]`` into one bounded gather (JAX's row adds a
+    host's local device vote; a rank holds one replica, so it has
+    none); every rank derives the same verdict from the same
+    rows (rank keys ``p<rank>``: each rank is one of JAX's hosts) and
+    raises :class:`~tpudp_torch.sdc.SdcDetected` in the same round,
+    which rides the divergence rollback.  Under pipeline parallelism
+    (a ``pipe`` axis) a mismatch also gathers each rank's stage-local
+    checksum and votes within the ranks of one stage, as JAX's
+    ``vote_shard_groups`` does.  The bit-exact replay grades it: a clean
+    re-check past the detection step is a transient flip; the same
+    localized rank again is persistent — that rank writes
+    :data:`~tpudp_torch.sdc.QUARANTINE_MARKER` and exits
+    :data:`~tpudp_torch.sdc.SDC_QUARANTINE_EXIT`, the others raise
+    :class:`~tpudp_torch.sdc.SdcPersistentError`.  An unlocalizable
+    detection (a two-rank tie) never quarantines; the rollback budget
+    bounds it.
 
 Each recovery is a typed event in ``trainer.stats["events"]`` with the
-counters ``rollbacks``, ``step_retries``, ``ckpt_fallbacks`` and
-``loader_restarts``.  ``Trainer.fit(resilience=None)`` runs no
+counters ``rollbacks``, ``step_retries``, ``ckpt_fallbacks``,
+``loader_restarts``, ``sdc_checks``, ``sdc_detections``,
+``sdc_transients`` and ``sdc_quarantines``.  ``Trainer.fit(resilience=None)`` runs no
 supervisor at all.
 
 With several ranks every recovery is voted: each rank gathers every
@@ -41,6 +62,9 @@ out ends the process with :data:`VOTE_TIMEOUT_EXIT` for a relaunch into
 the coordinated resume, as in JAX.  A rank wedged inside a device
 collective never reaches a vote: the CLI's watchdog backstop ends it
 (``--step-timeout``, which ``--resilience`` needs at more than one rank).
+After every coordinated restore the ranks' state fingerprints must agree
+(``tpudp_torch.utils.consistency.verify_across_processes``) before
+training goes on.
 """
 
 from __future__ import annotations
@@ -53,6 +77,8 @@ from collections import deque
 from dataclasses import dataclass
 from typing import Any, Callable
 
+from tpudp_torch.sdc import (QUARANTINE_MARKER, SDC_QUARANTINE_EXIT,
+                             SdcDetected, SdcPersistentError)
 from tpudp_torch.utils.watchdog import StepHangError
 
 OUTCOME_OK = 0
@@ -105,7 +131,9 @@ class ResiliencePolicy:
     ``epoch_end_fn`` already saves into the same root (the CLI).
     ``checkpoint_writer`` is the caller's AsyncCheckpointWriter, drained
     before any dump or restore.  ``vote_timeout_s`` (more than one rank)
-    bounds the wait at each recovery vote."""
+    bounds the wait at each recovery vote and SDC gather.
+    ``sdc_check_every=N`` checks the replicas' fingerprints every N
+    optimizer steps (it needs ``Trainer(track_sdc_fingerprint=True)``)."""
 
     checkpoint_dir: str
     max_rollbacks: int = 3
@@ -118,6 +146,7 @@ class ResiliencePolicy:
     checkpoint_writer: Any = None
     on_event: Callable[[dict], None] | None = None
     vote_timeout_s: float = 120.0
+    sdc_check_every: int | None = None
 
 
 def make_emergency_dump(checkpoint_dir: str, get_state,
@@ -171,9 +200,10 @@ def restore_newest(trainer, checkpoint_dir: str, *, log=print,
         log(f"[tpudp] resumed from {used}"
             + (f" ({len(skipped)} newer checkpoint(s) skipped as corrupt)"
                if skipped else ""))
-    emerg = emergency_dir(checkpoint_dir)
-    if coordinated_any(emerg is not None):
-        emerg = emerg or os.path.join(checkpoint_dir, "emergency")
+    if coordinated_any(emergency_dir(checkpoint_dir) is not None):
+        # The dump's location is fixed: a rank whose listing is stale
+        # takes it from there, and the voted restore decides its fate.
+        emerg = os.path.join(checkpoint_dir, "emergency")
         if restore_emergency_voted(checkpoint_dir, emerg, trainer.state,
                                    log=log) is not None:
             log(f"[tpudp] resumed mid-epoch state from emergency dump "
@@ -215,9 +245,26 @@ class Supervisor:
             raise ValueError(
                 "ResiliencePolicy.checkpoint_dir is required: rollback and "
                 "step recovery restore from the step_N series under it")
+        if policy.sdc_check_every is not None:
+            if policy.sdc_check_every < 1:
+                raise ValueError(
+                    f"sdc_check_every must be >= 1, got "
+                    f"{policy.sdc_check_every}")
+            if getattr(trainer.state, "sdc_fp", None) is None:
+                raise ValueError(
+                    "sdc_check_every requires the in-step fingerprint: "
+                    "construct the Trainer with track_sdc_fingerprint="
+                    "True so the sdc_fp slot is allocated before the "
+                    "step programs are built")
         self.trainer = trainer
         self.policy = policy
         self._multirank = world_size() > 1
+        # This rank's stage under pipeline parallelism (the SDC vote's
+        # replication groups), else None.
+        shape = getattr(getattr(trainer, "mesh", None), "shape", None)
+        self._pipe = (trainer.mesh.coords["pipe"]
+                      if isinstance(shape, dict) and shape.get("pipe", 1) > 1
+                      else None)
         self._vote_seq = 0
         self._vote_group = None
         if self._multirank:
@@ -226,11 +273,17 @@ class Supervisor:
             # Every rank builds its Supervisor in the same fit call.
             self._vote_group = dist.new_group(backend="gloo")
         trainer.stats.update(rollbacks=0, step_retries=0, ckpt_fallbacks=0,
-                             loader_restarts=0, events=[])
+                             loader_restarts=0, events=[], sdc_checks=0,
+                             sdc_detections=0, sdc_transients=0,
+                             sdc_quarantines=0)
         self._window_losses: deque[float] = deque(maxlen=policy.spike_window)
         self._last_failed_step: int | None = None
         self._consecutive_at_step = 0
         self._per_epoch: int | None = None
+        # The last checked optimizer step, and the detection awaiting its
+        # post-replay verdict.
+        self._sdc_last_check = 0
+        self._sdc_pending: dict | None = None
 
     # -- event log ---------------------------------------------------------
     def record(self, kind: str, **fields) -> None:
@@ -261,6 +314,198 @@ class Supervisor:
                             median=med, step=step)
                 raise LossSpikeError(loss, med, step)
         self._window_losses.append(loss)
+
+    # -- silent-data-corruption check (tpudp_torch.sdc) --------------------
+    def observe_window_state(self, state, *, epoch: int, it: int) -> None:
+        """Every completed log window, right after
+        :meth:`observe_window_loss` (the host just read ``loss_sum``, so
+        reading the 16-byte fingerprint waits for nothing more); gated by
+        ``policy.sdc_check_every``.  Each rank holds one replica, so its
+        local vote has nothing to compare (JAX's vote over a host's
+        devices): the verdict is the gathered rows' — see the module
+        docstring.  The post-replay re-check grades a detection: clean
+        means transient, the same localized rank again persistent
+        (:meth:`_sdc_quarantine`); an unlocalizable detection never
+        quarantines."""
+        every = self.policy.sdc_check_every
+        if every is None:
+            return
+        gstep = int(state.step)
+        if gstep - self._sdc_last_check < every:
+            return
+        self._sdc_last_check = gstep
+        self.trainer.stats["sdc_checks"] += 1
+        from tpudp_torch.sdc import localize_minority
+
+        minority, localized, devices = [], True, []
+        if self._multirank:
+            # JAX's row adds each host's local device vote and whether it
+            # localized; a rank holds one replica, so it has none and the
+            # row is the fingerprint alone.
+            rows = self._sdc_gather([int(v) for v in state.sdc_fp.tolist()])
+            h_min, h_maj = localize_minority(
+                {f"p{i}": r for i, r in enumerate(rows)})
+            minority = sorted(h_min)
+            localized = bool(h_min) and bool(h_maj)
+            if minority and self._pipe is not None:
+                d_min, d_maj = self._vote_stage_groups(state)
+                if d_min and d_maj:
+                    minority, localized = d_min, True
+            devices = list(minority)
+        pending = self._sdc_pending
+        if not minority:
+            if pending is not None and gstep >= pending["step"]:
+                # The bit-exact replay re-crossed the detection step clean:
+                # a transient flip, repaired by the rollback.
+                self.trainer.stats["sdc_transients"] += 1
+                self.record("sdc_transient", replicas=pending["minority"],
+                            step=pending["step"], cleared_at=gstep)
+                self.trainer.log(
+                    f"[tpudp] resilience: SDC at step {pending['step']} "
+                    f"(replica(s) {pending['minority']}) did not recur "
+                    f"through step {gstep} — transient flip, repaired by "
+                    "rollback; continuing")
+                self._sdc_pending = None
+            return
+        self.trainer.stats["sdc_detections"] += 1
+        self.record("sdc_detected", replicas=minority, step=gstep,
+                    epoch=epoch, it=it, localized=localized,
+                    devices=devices)
+        if (pending is not None and localized and pending["localized"]
+                and set(minority) & set(pending["minority"])):
+            self._sdc_quarantine(minority, gstep, devices)  # raises/exits
+        self._sdc_pending = {"minority": minority, "step": gstep,
+                             "localized": localized}
+        named = (f"minority replica(s) {minority}" if localized
+                 else f"replicas disagree ({minority}) with no strict "
+                      "majority — corruption proven, culprit unnamed")
+        raise SdcDetected(
+            f"silent data corruption at step {gstep}: {named}",
+            step=gstep, replica=minority if localized else None)
+
+    def _vote_stage_groups(self, state) -> tuple[list, list]:
+        """The raw-byte localization under pipeline parallelism: every
+        rank's stage-local checksum (its stage's parameters and optimizer
+        buffers, not summed over ``pipe``) in one more bounded gather,
+        voted within the ranks of each stage (one replication group);
+        ``(minority, majority)`` over ``p<rank>`` keys, a rank minority in
+        any group outranking its majority elsewhere."""
+        from tpudp_torch.sdc import fingerprint, localize_minority
+        from tpudp_torch.train import fingerprint_tensors
+
+        params = list(state.model.parameters())
+        raw = fingerprint(fingerprint_tensors(state.optimizer, params))
+        rows = self._sdc_gather([int(v) for v in raw.tolist()]
+                                + [self._pipe])
+        groups: dict = {}
+        for i, r in enumerate(rows):
+            groups.setdefault(int(r[2]), {})[f"p{i}"] = r[:2]
+        minority: set = set()
+        majority: set = set()
+        for fps in groups.values():
+            if len(fps) < 2:
+                continue
+            g_min, g_maj = localize_minority(fps)
+            minority.update(g_min)
+            majority.update(g_maj)
+        majority -= minority
+        return sorted(minority), sorted(majority)
+
+    def _sdc_gather(self, row: list) -> list:
+        """This rank's check row gathered from every rank of the vote
+        group (:meth:`_bounded_gather`), as uint64 rows: every rank
+        reaches it at the same checked step (the cadence is a function
+        of the shared step counter)."""
+        import numpy as np
+
+        return [np.asarray(r, np.uint64) for r in self._bounded_gather(
+            row, "SDC fingerprint gather", "fingerprint gather",
+            outcome="sdc_check")]
+
+    def _bounded_gather(self, row: list, what: str, verb: str,
+                        **fields) -> list:
+        """One all-gather of this rank's int64 ``row`` over the vote
+        group, on a thread whose wait is bounded by
+        ``policy.vote_timeout_s``; returns every rank's row (lists of
+        ints, rank order).  No answer, or a collective that fails here,
+        records ``vote_timeout`` (``what`` names the round, ``verb`` the
+        failed collective, ``fields`` go into the record) and ends the
+        process with :data:`VOTE_TIMEOUT_EXIT`: any peer still inside
+        the gather times out the same way."""
+        import torch
+        from torch import distributed as dist
+
+        result: dict = {}
+
+        def gather() -> None:
+            try:
+                rows = [torch.zeros(len(row), dtype=torch.int64)
+                        for _ in range(dist.get_world_size())]
+                # tpudp: lint-ok(protocol-divergent-entry): the except
+                # arm IS the bounded-vote mitigation this verifier
+                # demands elsewhere — a collective that fails locally
+                # (torn TCP, dead peer) is converted to a vote-timeout
+                # verdict and a hard exit (43), and any peer still
+                # inside the gather times out the same way; nobody is
+                # left waiting on this host's rendezvous.
+                dist.all_gather(rows, torch.tensor(row, dtype=torch.int64),
+                                group=self._vote_group)
+                result["rows"] = [r.tolist() for r in rows]
+            except BaseException as e:  # gloo raises several types
+                result["error"] = e
+
+        th = threading.Thread(target=gather, daemon=True,
+                              name="tpudp-bounded-gather")
+        th.start()
+        th.join(self.policy.vote_timeout_s)
+        if "rows" not in result:
+            why = (f"{verb} failed: {result['error']!r}"
+                   if "error" in result else
+                   f"no peer joined within {self.policy.vote_timeout_s}s")
+            self._record_vote_exit(
+                "vote_timeout", f"{what} got no answer ({why}); a peer is "
+                "dead or wedged", **fields, reason=why)
+            os._exit(VOTE_TIMEOUT_EXIT)
+        return result["rows"]
+
+    def _sdc_quarantine(self, minority, gstep: int, devices=None) -> None:
+        """The persistent verdict: the same localized rank diverged again
+        after a bit-exact replay.  Record, flight-dump and write the
+        marker naming the rank(s) (``{"replicas", "step", "devices",
+        "host"}``, written by the named ranks), then the named rank
+        exits :data:`SDC_QUARANTINE_EXIT` and every other rank raises
+        :class:`SdcPersistentError` (which sends it to the relaunch at
+        fewer ranks).  Every rank grades the same gathered rows alike."""
+        import json
+
+        from tpudp_torch.utils.checkpoint import rank
+
+        t = self.trainer
+        t.stats["sdc_quarantines"] += 1
+        self.record("sdc_quarantine", replicas=minority, step=gstep)
+        t.flight.dump("sdc_quarantine",
+                      extra={"replicas": minority, "step": gstep})
+        me = rank()
+        mine = [k for k in minority if k.split("/")[0] == f"p{me}"]
+        if mine or not self._multirank:
+            marker = os.path.join(self.policy.checkpoint_dir,
+                                  QUARANTINE_MARKER)
+            tmp = f"{marker}.{me}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({"replicas": minority, "step": gstep,
+                           "devices": sorted(devices or []),
+                           "host": me}, f)
+            os.replace(tmp, marker)
+        t.log(f"[tpudp] resilience: SDC on replica(s) {minority} recurred "
+              f"after a bit-exact replay (step {gstep}) — persistent bad "
+              "chip; quarantining for reduced-geometry relaunch")
+        if self._multirank and mine:
+            sys.stdout.flush()
+            os._exit(SDC_QUARANTINE_EXIT)
+        raise SdcPersistentError(
+            f"replica(s) {minority} diverged again after a bit-exact "
+            f"replay at step {gstep} — persistent silent corruption; "
+            "host quarantined", replica=minority)
 
     def guard_batches(self, loader, epoch: int, base):
         """One epoch's batch iterator with loader containment: an
@@ -408,6 +653,12 @@ class Supervisor:
             t.log(f"[tpudp] resilience: emergency dump/restore failed "
                   f"({dump_err!r}); falling back to the newest verified "
                   "checkpoint")
+            # tpudp: lint-ok(protocol-order-divergence): single-host
+            # path by construction — Supervisor.run routes every
+            # multihost fault through _vote/_coordinated_recover, so
+            # the dump-vs-fallback arms here never run on a pod and
+            # their "collectives" degenerate to process_count()==1
+            # identities.
             restored_from = self._restore_verified()
         else:
             try:
@@ -434,47 +685,25 @@ class Supervisor:
         process with :data:`VOTE_TIMEOUT_EXIT`."""
         if not self._multirank:
             return code
-        import torch
-        from torch import distributed as dist
-
         self._vote_seq += 1
-        seq, result = self._vote_seq, {}
-
-        def gather() -> None:
-            try:
-                rows = [torch.zeros(2, dtype=torch.int64)
-                        for _ in range(dist.get_world_size())]
-                dist.all_gather(rows, torch.tensor([code, seq]),
-                                group=self._vote_group)
-                result["codes"] = [int(r[0]) for r in rows]
-                result["seqs"] = [int(r[1]) for r in rows]
-            except BaseException as e:  # gloo raises several types
-                result["error"] = e
-
-        th = threading.Thread(target=gather, daemon=True,
-                              name="tpudp-recovery-vote")
-        th.start()
-        th.join(self.policy.vote_timeout_s)
-        if "codes" not in result:
-            why = (f"vote collective failed: {result['error']!r}"
-                   if "error" in result else
-                   f"no peer joined within {self.policy.vote_timeout_s}s")
-            self._vote_exit("vote_timeout", f"recovery vote {seq} got no "
-                            f"answer ({why}); a peer is dead or wedged",
-                            seq=seq, outcome=OUTCOME_NAMES.get(code),
-                            reason=why)
-        if any(s != seq for s in result["seqs"]):
-            self._vote_exit("vote_desync", f"vote number desync (local "
-                            f"{seq}, ranks {result['seqs']})", seq=seq,
-                            seqs=result["seqs"])
-        worst = reduce_outcomes(result["codes"])
+        seq = self._vote_seq
+        rows = self._bounded_gather(
+            [code, seq], f"recovery vote {seq}", "vote collective", seq=seq,
+            outcome=OUTCOME_NAMES.get(code))
+        codes, seqs = [r[0] for r in rows], [r[1] for r in rows]
+        if any(s != seq for s in seqs):
+            self._record_vote_exit("vote_desync", f"vote number desync (local "
+                            f"{seq}, ranks {seqs})", seq=seq, seqs=seqs)
+            os._exit(VOTE_TIMEOUT_EXIT)
+        worst = reduce_outcomes(codes)
         self.record("vote", seq=seq, outcome=OUTCOME_NAMES.get(code),
-                    worst=OUTCOME_NAMES.get(worst), codes=result["codes"])
+                    worst=OUTCOME_NAMES.get(worst), codes=codes)
         return worst
 
-    def _vote_exit(self, kind: str, why: str, **fields) -> None:
-        """Record ``kind``, say why and hard-exit for the relaunch: the
-        ranks no longer agree on one action, so no rank may act alone."""
+    def _record_vote_exit(self, kind: str, why: str, **fields) -> None:
+        """Record ``kind``, say why and flush, before the caller's hard
+        exit for the relaunch: the ranks no longer agree on one action,
+        so no rank may act alone."""
         self.record(kind, **fields)
         self.trainer.log(f"[tpudp] resilience: {why}; hard-exiting for a "
                          f"relaunch (exit {VOTE_TIMEOUT_EXIT})")
@@ -482,7 +711,23 @@ class Supervisor:
         # dump is the only surviving timeline of what it saw.
         self.trainer.flight.dump(kind, extra={"reason": why, **fields})
         sys.stdout.flush()
-        os._exit(VOTE_TIMEOUT_EXIT)
+
+    def _assert_replicas_agree(self) -> None:
+        """After a coordinated restore every rank's state fingerprint
+        must agree before training resumes: ranks that restored
+        different bytes would train a model that belongs to nobody.
+        Raises ``ReplicaDivergenceError``; a no-op at one rank."""
+        if not self._multirank:
+            return
+        from tpudp_torch.utils.consistency import (state_tree,
+                                                   verify_across_processes)
+
+        tree = state_tree(self.trainer.state)
+        # The telemetry slots are not checkpointed: after a restore each
+        # rank's holds its own last value (JAX restores them too).
+        tree.pop("obs_norms", None)
+        tree.pop("sdc_fp", None)
+        verify_across_processes({"state": tree})
 
     def _coordinated_recover(self, worst: int,
                              e: BaseException | None) -> tuple[int, int]:
@@ -507,6 +752,7 @@ class Supervisor:
         path = self._restore_verified()
         self._window_losses.clear()
         self._rearm()
+        self._assert_replicas_agree()
         if t.flight.enabled:
             # Every rank here is live (it just voted and restored): rank
             # 0 folds the per-rank dumps into flightrec-merged.json.
@@ -584,14 +830,32 @@ class Supervisor:
                             continue
                     return
                 except ResilienceExhausted as e:
+                    # tpudp: lint-ok(protocol-early-exit): escalation
+                    # fires on EVERY host in the same protocol round —
+                    # recovery budgets advance in lockstep (each host
+                    # executes each coordinated recovery), so when one
+                    # host escalates instead of re-entering the vote
+                    # loop, all of them do.
                     raise e.original from e
                 except (KeyboardInterrupt, SystemExit):
                     raise
-                except (FloatingPointError, LossSpikeError) as e:
+                except SdcPersistentError:
+                    # Every rank grades the same gathered rows, so all
+                    # leave the loop in the same round (the named rank
+                    # already exited SDC_QUARANTINE_EXIT).
+                    raise
+                except (FloatingPointError, LossSpikeError,
+                        SdcDetected) as e:
                     if self._multirank:
                         cur_start, cur_skip = self._coordinated_recover(
                             self._vote(OUTCOME_DIVERGENCE), e)
                     else:
+                        # tpudp: lint-ok(protocol-order-divergence):
+                        # single-host arm of the uniform
+                        # `self._multihost` fork — no pod, no
+                        # rendezvous; the restore-walk "collectives"
+                        # inside _rollback are process_count()==1
+                        # identities.
                         cur_start, cur_skip = self._rollback(e)
                 except Exception as e:
                     if self._multirank:
@@ -600,6 +864,8 @@ class Supervisor:
                         cur_start, cur_skip = self._coordinated_recover(
                             self._vote(code), e)
                     else:
+                        # tpudp: lint-ok(protocol-order-divergence):
+                        # single-host arm, same as the divergence arm's.
                         cur_start, cur_skip = self._step_recover(e)
         finally:
             t._resilience = None

@@ -89,7 +89,13 @@ def build_strategy(name: str, model, optimizer, mesh, state, *,
     if name not in builders:
         raise ValueError(f"unknown strategy {name!r}; choose from "
                          f"{STRATEGIES}")
-    return builders[name](model, optimizer, mesh, state, options)
+    built = builders[name](model, optimizer, mesh, state, options)
+    # The telemetry slots ride along; the rungs JAX runs through
+    # _loss_and_updates (and 1f1b_mpmd's fingerprint) write them, gpipe,
+    # 1f1b and ep leave them as they are, as JAX's steps do.
+    built.state.obs_norms = state.obs_norms
+    built.state.sdc_fp = state.sdc_fp
+    return built
 
 
 def _build_tp(model, optimizer, mesh, state, options):

@@ -36,7 +36,17 @@
 gradients hold a NaN or Inf leaves the parameters and the optimizer state
 as they were, decided on the device (the step snapshots them and puts
 them back with ``torch.where``), until N consecutive bad steps let the
-update through.  :func:`state_to_jax` and :func:`load_state` carry a
+update through.  With a learning-rate schedule the schedule's count lives
+on the device beside those counters (``skip["schedule_count"]``) and
+advances only on an applied update, as optax's inner state does; the
+learning rate is computed from it on the device
+(:meth:`OptimizerSpec.lr_tensor`), so the step adds no host sync.
+
+``init_state(track_sdc=True)`` allocates ``TrainState.sdc_fp``, the
+in-step silent-data-corruption fingerprint (``tpudp_torch.sdc``): every
+step recomputes it after the update, on the device, as JAX's jitted step
+does, over the parameters and the optimizer's per-parameter buffers (a
+buffer torch has not made yet counts as zeros, as optax's trace starts).  :func:`state_to_jax` and :func:`load_state` carry a
 state to and from the JAX package's checkpoint layout
 (``tpudp_torch.utils.checkpoint``).
 
@@ -109,6 +119,23 @@ class OptimizerSpec:
             return _linear(0.0, lr, max(warm, 1), count)
         return _linear(lr, 0.0, max(total - warm, 1), count - warm)
 
+    def lr_tensor(self, count: torch.Tensor) -> torch.Tensor:
+        """:meth:`lr_at` of a device count, as a float32 device scalar
+        (optax computes its schedules in float32)."""
+        c = count.to(torch.float32)
+        lr = self.learning_rate
+        if self.schedule is None:
+            return torch.full((), lr, dtype=torch.float32, device=c.device)
+        warm, total = self.warmup_steps, self.total_steps
+        if self.schedule == "cosine":
+            decay = total - warm
+            cos = lr * 0.5 * (1 + torch.cos(
+                math.pi * (c - warm).clamp(max=decay) / decay))
+            return torch.where(c < warm, _linear_t(0.0, lr, warm, c), cos)
+        return torch.where(c < warm, _linear_t(0.0, lr, max(warm, 1), c),
+                           _linear_t(lr, 0.0, max(total - warm, 1),
+                                     c - warm))
+
     def build(self, params) -> torch.optim.Optimizer:
         params = list(params)
         if self.optimizer == "adamw":
@@ -131,6 +158,15 @@ def _linear(init: float, end: float, steps: int, count: int) -> float:
     if steps <= 0:
         return init
     frac = 1 - min(max(count, 0), steps) / steps
+    return (init - end) * frac + end
+
+
+def _linear_t(init: float, end: float, steps: int,
+              count: torch.Tensor) -> torch.Tensor:
+    """:func:`_linear` of a float32 device count."""
+    if steps <= 0:
+        return torch.full_like(count, init)
+    frac = 1 - count.clamp(0, steps) / steps
     return (init - end) * frac + end
 
 
@@ -169,13 +205,6 @@ def make_optimizer(learning_rate: float = 0.1, momentum: float = 0.9,
                 "compressed ring collective would run inside a per-rank "
                 "decision whose predicate (local-gradient finiteness) can "
                 "differ across ranks")
-        if schedule is not None:
-            # optax's skipped steps hold the schedule's count back; the
-            # port's learning rate follows the step counter on the host.
-            raise NotImplementedError(
-                "skip_nonfinite with a learning-rate schedule is not "
-                "ported yet: ROADMAP.md slice 8 (robustness: skipping "
-                "non-finite steps)")
     return OptimizerSpec(learning_rate, momentum, weight_decay, schedule,
                          warmup_steps, total_steps, optimizer, clip_norm,
                          compress, skip_nonfinite)
@@ -192,7 +221,10 @@ class TrainState:
     accumulator of ``[sum |g|, sum |g|^2]`` over the steps, ``|g|`` the
     global norm of the synchronized gradients: the step adds to it on
     the device and only ``Trainer.metrics()`` reads it.  It is
-    telemetry, not training state: checkpoints leave it out."""
+    telemetry, not training state: checkpoints leave it out.  ``sdc_fp``
+    (with ``track_sdc``) is the ``(2,)`` int64 ``[checksum, count]`` of
+    ``tpudp_torch.sdc.fingerprint`` after the latest update (see the
+    module docstring); checkpoints leave it out too."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
@@ -204,15 +236,18 @@ class TrainState:
     # package's global layout (tpudp_torch.parallel.sharded.Layout).
     layout: object | None = None
     obs_norms: torch.Tensor | None = None
+    sdc_fp: torch.Tensor | None = None
 
 
 def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
                mesh: Mesh | None = None, *,
-               track_grad_norm: bool = False) -> TrainState:
+               track_grad_norm: bool = False,
+               track_sdc: bool = False) -> TrainState:
     """Turn on (and leave on) the model's gradients and bind the
     optimizer to its parameters; a ``compress`` optimizer also gets its
     residuals here, for ``mesh``'s ranks.  ``track_grad_norm`` allocates
-    the ``obs_norms`` accumulator."""
+    the ``obs_norms`` accumulator, ``track_sdc`` the ``sdc_fp``
+    fingerprint slot."""
     model.requires_grad_(True).train()
     device = next(model.parameters()).device
     compressor = None
@@ -230,7 +265,10 @@ def init_state(model: torch.nn.Module, optimizer: OptimizerSpec,
                       skip=skip_counters(optimizer, device),
                       obs_norms=(torch.zeros(2, dtype=torch.float32,
                                              device=device)
-                                 if track_grad_norm else None))
+                                 if track_grad_norm else None),
+                      sdc_fp=(torch.zeros(2, dtype=torch.int64,
+                                          device=device)
+                              if track_sdc else None))
 
 
 def skip_counters(optimizer: OptimizerSpec, device) -> dict | None:
@@ -239,9 +277,12 @@ def skip_counters(optimizer: OptimizerSpec, device) -> dict | None:
     if optimizer.skip_nonfinite is None:
         return None
     zero = torch.zeros((), dtype=torch.int32, device=device)
-    return {"notfinite_count": zero.clone(),
-            "last_finite": torch.ones((), dtype=torch.bool, device=device),
-            "total_notfinite": zero.clone()}
+    out = {"notfinite_count": zero.clone(),
+           "last_finite": torch.ones((), dtype=torch.bool, device=device),
+           "total_notfinite": zero.clone()}
+    if optimizer.schedule is not None:
+        out["schedule_count"] = zero.clone()
+    return out
 
 
 def _codec(model: torch.nn.Module):
@@ -265,6 +306,37 @@ def _codec(model: torch.nn.Module):
 
 def _adamw(opt: torch.optim.Optimizer) -> bool:
     return isinstance(opt, torch.optim.AdamW)
+
+
+def _opt_buffers(opt) -> tuple:
+    """The names of the optimizer's per-parameter buffers (optax's
+    per-parameter leaves: SGD's trace, AdamW's mu and nu)."""
+    if _adamw(opt):
+        return ("exp_avg", "exp_avg_sq")
+    return ("momentum_buffer",) if opt.param_groups[0]["momentum"] else ()
+
+
+def fingerprint_tensors(opt: torch.optim.Optimizer, params) -> list:
+    """What the SDC fingerprint covers for ``params``: each parameter and
+    its optimizer buffers, a buffer torch has not made yet as its element
+    count (zeros add nothing to the checksum).  optax's scalar leaves
+    (AdamW's and a schedule's count, ``apply_if_finite``'s counters) are
+    left out."""
+    out = list(params)
+    for key in _opt_buffers(opt):
+        for p in params:
+            buf = opt.state.get(p, {}).get(key)
+            out.append(buf if buf is not None else p.numel())
+    return out
+
+
+def sdc_fingerprint(state: "TrainState") -> torch.Tensor:
+    """The single-device (data-parallel) rung's in-step fingerprint of
+    ``state``: its model's parameters and optimizer buffers."""
+    from tpudp_torch.sdc import fingerprint
+
+    params = list(state.model.parameters())
+    return fingerprint(fingerprint_tensors(state.optimizer, params))
 
 
 def _gather_residuals(comp: Int8ErrorFeedback) -> list[list[torch.Tensor]]:
@@ -485,6 +557,48 @@ class _FiniteGuard:
         sk["notfinite_count"].copy_(self.count)
         sk["last_finite"].copy_(self.finite)
         sk["total_notfinite"].add_((~self.finite).to(torch.int32))
+        if "schedule_count" in sk:  # the inner state's count: applied only
+            sk["schedule_count"].add_(self.apply.to(torch.int32))
+
+
+def optimizer_update(state: TrainState, spec: OptimizerSpec) -> None:
+    """Set the update's learning rate and take it: ``spec.lr_at(
+    state.step)``, or — with ``skip_nonfinite`` and a schedule — the
+    schedule at the device count of applied updates
+    (``skip["schedule_count"]``), computed on the count's device, on the
+    host and on a card alike.  SGD then runs its update by hand with
+    that tensor rate (torch's SGD reads a tensor learning rate back to
+    the host); AdamW takes it as it is (capturable on a card)."""
+    opt = state.optimizer
+    count = (state.skip or {}).get("schedule_count")
+    if count is None:
+        lr = spec.lr_at(state.step)
+    else:
+        lr = spec.lr_tensor(count)
+        if not _adamw(opt):
+            _sgd_update(opt, lr)
+            return
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+
+
+def _sgd_update(opt: torch.optim.SGD, lr: torch.Tensor) -> None:
+    """``torch.optim.SGD``'s update (weight decay added to the gradient,
+    then the momentum trace) with a device learning rate."""
+    with torch.no_grad():
+        for group in opt.param_groups:
+            ps = [p for p in group["params"] if p.grad is not None]
+            if not ps:
+                continue
+            d = [p.grad for p in ps]
+            if group["weight_decay"]:
+                d = torch._foreach_add(d, ps, alpha=group["weight_decay"])
+            if group["momentum"]:
+                # the finite guard made every buffer before the update
+                d = [opt.state[p]["momentum_buffer"].mul_(group["momentum"])
+                     .add_(g) for p, g in zip(ps, d)]
+            torch._foreach_add_(ps, [g * -lr for g in d])
 
 
 def batch_stats(model: torch.nn.Module) -> list[torch.Tensor]:
@@ -668,11 +782,11 @@ def make_train_step(model: torch.nn.Module, optimizer: OptimizerSpec,
             guard = _FiniteGuard(state, params, optimizer.skip_nonfinite)
         if optimizer.clip_norm is not None:
             clip_by_global_norm([p.grad for p in params], optimizer.clip_norm)
-        for group in opt.param_groups:
-            group["lr"] = optimizer.lr_at(state.step)
-        opt.step()
+        optimizer_update(state, optimizer)
         if guard is not None:
             guard.finish()
+        if state.sdc_fp is not None:
+            state.sdc_fp = sdc_fingerprint(state)
         state.step += 1
         state.loss_sum += loss
         return state, loss

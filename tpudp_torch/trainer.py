@@ -27,9 +27,13 @@ telemetry: spans and counters in :attr:`Trainer.obs`
 (``train.window``, ``train.data``, ``train.dispatch``,
 ``train.fetch_fence``, ``eval``, ``eval.dispatch``, ``eval.fetch``,
 ``train.epoch``), the flight recorder (``flight_dir``, dumped by the
-watchdog and the supervisor) and ``track_grad_norm`` on the DP rung; the
-options of later slices raise ``NotImplementedError`` naming their
-ROADMAP item.
+watchdog and the supervisor) and ``track_grad_norm`` beside every rung,
+and JAX's robustness options: ``verify_replicas`` (the replicas compared
+across ranks after each epoch, ``tpudp_torch.utils.consistency``),
+``track_sdc_fingerprint`` (the in-step ``sdc_fp`` the supervisor's
+``sdc_check_every`` reads) and ``sdc_fault_hook`` (``state =
+hook(state)`` after each train step: the ``tpudp_torch.sdc`` bit-flip
+injectors).
 
 Under a sharded rung every rank's loaders yield the *global* batches,
 as JAX's single program reads them, and the rung's ``shard_for`` takes
@@ -51,16 +55,6 @@ from tpudp_torch.obs import FlightRecorder, Recorder, reference_window_lines
 from tpudp_torch.train import (init_state, make_eval_step, make_forward_step,
                                make_optimizer, make_train_step)
 from tpudp_torch.utils.finite import check_finite
-
-#: Options of the JAX Trainer this port does not have yet: name -> (the
-#: value that means "off", the ROADMAP.md item that brings it).
-_UNPORTED = {
-    "verify_replicas": (False, "slice 8 (robustness: replica "
-                               "verification)"),
-    "track_sdc_fingerprint": (False, "slice 8 (SDC defense)"),
-    "sdc_fault_hook": (None, "slice 8 (SDC defense)"),
-}
-
 
 def _refuse_with_strategy(strategy: str, **options) -> None:
     """JAX's refusals beside a sharded rung (``tpudp/train.py``'s
@@ -112,7 +106,8 @@ class Trainer:
 
     ``flight_dir`` (default: ``TPUDP_FLIGHT_DIR``, else none) is where
     :attr:`flight` dumps the span ring on a watchdog timeout or a
-    supervised recovery; ``track_grad_norm`` (the DP rung) accumulates
+    supervised recovery; ``track_grad_norm`` (every rung JAX updates it on:
+dp, tp, fsdp, zero1 and sp) accumulates
     the gradient norm on the device for :meth:`metrics`."""
 
     def __init__(self, model: torch.nn.Module, mesh: Mesh | None = None,
@@ -128,26 +123,15 @@ class Trainer:
                  compress: str | None = None, watchdog=None,
                  step_fault_hook: Callable[[str, int], None] | None = None,
                  track_grad_norm: bool = False,
-                 flight_dir: str | None = None, **unported):
+                 verify_replicas: bool = False,
+                 track_sdc_fingerprint: bool = False,
+                 sdc_fault_hook: Callable | None = None,
+                 flight_dir: str | None = None):
         if strategy != "dp":
             _refuse_with_strategy(strategy, sync=sync, spmd_mode=spmd_mode,
                                   timing_mode=timing_mode,
                                   grad_accum=grad_accum, compress=compress,
                                   remat=remat, loss_chunk=loss_chunk)
-        for name, value in unported.items():
-            if name not in _UNPORTED:
-                raise TypeError(f"Trainer() got an unexpected keyword "
-                                f"argument {name!r}")
-            off, item = _UNPORTED[name]
-            if value != off:
-                raise NotImplementedError(
-                    f"Trainer({name}=...) is not ported yet: ROADMAP.md "
-                    f"{item}")
-        if track_grad_norm and strategy != "dp":
-            raise NotImplementedError(
-                f"Trainer(track_grad_norm=True) beside strategy="
-                f"{strategy!r} is not ported yet: ROADMAP.md Queue 1 "
-                f"item 1 (the DP rung has it)")
         if timing_mode not in ("fused", "split"):
             raise ValueError(f"unknown timing_mode {timing_mode!r}")
         if loss_chunk and timing_mode == "split":
@@ -184,6 +168,12 @@ class Trainer:
                                             None) is None:
             watchdog.flight = self.flight
         self.track_grad_norm = track_grad_norm
+        # The SDC injection seam (tpudp_torch.sdc.BitFlipParams and
+        # BitFlipGrads): state = hook(state) after each train step.
+        self.sdc_fault_hook = sdc_fault_hook
+        self.track_sdc_fingerprint = track_sdc_fingerprint
+        # The post-epoch desync check (tpudp_torch.utils.consistency).
+        self.verify_replicas = verify_replicas
         # Fault seam (tpudp_torch.training_faults): hook(kind, index)
         # right before each device step; a retried step gets a new index.
         self.step_fault_hook = step_fault_hook
@@ -202,7 +192,8 @@ class Trainer:
         self._shard_for = None
         if strategy == "dp":
             self.state = init_state(model, self.optimizer, mesh,
-                                    track_grad_norm=track_grad_norm)
+                                    track_grad_norm=track_grad_norm,
+                                    track_sdc=track_sdc_fingerprint)
             self.train_step = make_train_step(model, self.optimizer, mesh,
                                               sync, spmd_mode=spmd_mode,
                                               grad_accum=grad_accum,
@@ -214,9 +205,12 @@ class Trainer:
         else:
             from tpudp_torch.strategy import build_strategy
 
-            built = build_strategy(strategy, model, self.optimizer, mesh,
-                                   init_state(model, self.optimizer),
-                                   **(strategy_options or {}))
+            built = build_strategy(
+                strategy, model, self.optimizer, mesh,
+                init_state(model, self.optimizer,
+                           track_grad_norm=track_grad_norm,
+                           track_sdc=track_sdc_fingerprint),
+                **(strategy_options or {}))
             self.state = built.state
             self.train_step, self.eval_step = (built.train_step,
                                                built.eval_step)
@@ -289,6 +283,10 @@ class Trainer:
     def _window_done(self, loss: float, epoch: int, it: int) -> None:
         if self._resilience is not None:
             self._resilience.observe_window_loss(loss, epoch=epoch, it=it)
+            # The fingerprint check rides the same window edge (a no-op
+            # unless the policy's sdc_check_every is due).
+            self._resilience.observe_window_state(self.state, epoch=epoch,
+                                                  it=it)
 
     def train_epoch(self, loader, epoch: int = 0, *,
                     skip_batches: int = 0) -> float:
@@ -345,6 +343,8 @@ class Trainer:
                     self.state, _ = self.train_step(self.state, images,
                                                     labels)
                     self.obs.end(step_tok)
+                if self.sdc_fault_hook is not None:
+                    self.state = self.sdc_fault_hook(self.state)
                 if it % self.log_every == 0:
                     fence_tok = self.obs.begin("train.fetch_fence")
                     fence(self.device)
@@ -473,7 +473,47 @@ class Trainer:
                                 "seconds": epoch_s,
                                 **({"batches_skipped": skip}
                                    if skip else {})})
+            if self.verify_replicas:
+                self._verify_replicas()
             if test_loader is not None:
                 self.evaluate(test_loader, epoch=epoch)
             if epoch_end_fn is not None:
                 epoch_end_fn(epoch)
+
+    def _verify_replicas(self) -> None:
+        """JAX's post-epoch check: every replicated parameter and
+        statistic bit-identical across the ranks that hold it (every rank
+        under dp, the ``data`` axis's ranks under a sharded rung, whose
+        module holds this rank's shards), then the cheap cross-rank
+        fingerprint; raises ``ReplicaDivergenceError``."""
+        from tpudp_torch.models.norm import DATA_AXIS
+        from tpudp_torch.utils.checkpoint import world_size
+        from tpudp_torch.utils.consistency import (verify_across_processes,
+                                                   verify_replicas)
+
+        beat = self.watchdog.beat if self.watchdog is not None else None
+        model = self.state.model
+        tree = {"params": dict(model.named_parameters()),
+                "batch_stats": {k: b for k, b in model.named_buffers()
+                                if b.is_floating_point()}}
+        group, compare = None, True
+        if self.strategy != "dp":
+            from tpudp_torch.parallel.sharded import axis_of
+
+            axes = getattr(self.mesh, "shape", {DATA_AXIS: 0})
+            compare = DATA_AXIS in axes
+            if compare:
+                group = axis_of(self.mesh, DATA_AXIS)[0]
+        n = verify_replicas(tree, beat=beat, group=group) if compare else 0
+        if compare:
+            verify_across_processes(tree, group)
+        if beat is not None:
+            beat()
+        if n == 0 and world_size() == 1:
+            self.log("[tpudp] replica consistency: nothing to check (no "
+                     "leaf has >1 replica on this mesh)")
+        else:
+            self.log(f"[tpudp] replica consistency OK ({n} replicated "
+                     "leaves bit-identical"
+                     + (", cross-process fingerprints equal)"
+                        if world_size() > 1 else ")"))

@@ -484,6 +484,11 @@ def restore_latest_verified(root: str | os.PathLike, target: Any, *,
     pending = step_dirs_newest_first(root)
     multi = world_size() > 1
     if not pending and not multi:
+        # tpudp: lint-ok(protocol-early-exit): single-host-only raise —
+        # the `not multihost` conjunct (process_count, host-uniform)
+        # makes this arm unreachable on a pod; multihost exhaustion is
+        # voted through the alignment gather below (-1 proposal), which
+        # aborts every host together.
         raise FileNotFoundError(
             f"no step_N checkpoints under {os.fspath(root)!r}")
     skipped: list[tuple[str, str]] = []
@@ -529,16 +534,27 @@ def restore_latest_verified(root: str | os.PathLike, target: Any, *,
         if lo < 0:
             break
         bound, first_round = lo, False
-    if found is None or (multi and lo < 0):
-        if multi and first_round and hi < 0:
-            raise FileNotFoundError(
-                f"no step_N checkpoints under {os.fspath(root)!r} (on any "
-                "rank)")
-        raise RuntimeError(
-            f"no step_N checkpoint under {os.fspath(root)!r} is restorable "
-            f"on every rank ({len(skipped)} tried here); refusing to "
-            "silently restart from scratch — remove the directory to "
-            "train fresh")
+    # Several ranks decide on the reduced proposals alone (a rank with
+    # nothing proposed -1, so lo < 0 on every rank together).
+    if multi and lo < 0 and first_round and hi < 0:
+        raise FileNotFoundError(
+            f"no step_N checkpoints under {os.fspath(root)!r} (on any "
+            "rank)")
+    exhausted = (f"no step_N checkpoint under {os.fspath(root)!r} is "
+                 f"restorable on every rank ({len(skipped)} tried here); "
+                 "refusing to silently restart from scratch — remove the "
+                 "directory to train fresh")
+    if multi and lo < 0:
+        # `lo` is the all-reduced minimum of the proposals: every rank
+        # takes this arm together.
+        raise RuntimeError(exhausted)
+    if not multi and found is None:
+        # tpudp: lint-ok(protocol-early-exit): single-host-only raise —
+        # the `not multihost` conjunct (process_count, host-uniform)
+        # makes this arm unreachable on a pod; multihost exhaustion is
+        # voted through the alignment gather below (-1 proposal), which
+        # aborts every host together.
+        raise RuntimeError(exhausted)
     from tpudp_torch.train import load_state
 
     load_state(target, found[1])
