@@ -179,8 +179,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      and every rung but bf16's within ``VGG_LOSS_RTOL`` of Part 1's loss
      after 20 iterations (int8 error feedback within it of a plain loop
      of error feedback on the same batches).
-     7b: Parts 1, 2b (all-reduce and ring) and 3 in float32 and bfloat16
-     for 3 log windows: images/s and ms per step over the 2 steady
+     7b: Parts 1, 2b (all-reduce and ring) and 3 in float32, and Part 1
+     in bfloat16, for 3 log windows: images/s and ms per step over the 2 steady
      windows (the warm-up window left out), peak device memory, the
      share of the card's peak from the FLOPs of the model's own shapes,
      and one profiled step of Parts 1 and 3 (device ms by kind of
@@ -312,7 +312,22 @@ which fails the run (nonzero exit, no result line) when it fails:
      the later losses within
      VGG_TP_TRAJ_RTOL, no port
      kernel launched; the ``vgg-tp`` line prints ms a step and the
-     staged collectives' share;
+     staged collectives' share.  The same two ranks then run 13c,
+     ResNet-50 at ImageNet geometry (224, 1,000 classes) under
+     ``vgg_tp_rules`` (``TPResNet``: its convolutions' output channels
+     split, ``stem_bn`` and ``proj_bn`` whole on the gathered
+     activations), float32, TF32 off, deterministic cuDNN, global batch
+     RESNET_TP_BATCH, RESNET_TP_STEPS steps: the first loss within
+     RESNET_TP_RTOL of the one-rank step's, the later ones within
+     RESNET_TP_TRAJ_RTOL, the first update within RESNET_TP_UPDATE_REL of
+     its norm, no port kernel launched; 13d, ViT-B/14 at 224 under
+     ``gpt2_tp_rules`` (``TPViT``: 6 heads a rank), bf16, flash, global
+     batch VIT_TP_BATCH, VIT_TP_STEPS steps: K1-K3 launch 12 times a step
+     on each rank and the losses are within VIT_LOSS_RTOL of the
+     one-rank ViT's; 13e, GPT-2 small (phase 11's model and batch) under
+     ``vgg_tp_rules``, which split nothing of it: the replicated step
+     (the whole model on each rank), one step, its loss within
+     STRATEGY_RTOL of the one-rank step's;
   14. (run after phase 13, before the timing phase) 14a, ``train_cli`` at
      GPT-2 small, ``--attn flash --dtype bfloat16``, P14_TRAIN_STEPS
      steps and ``--sample`` P14_SAMPLE: K1-K3 launch 12 a step each
@@ -412,6 +427,20 @@ which fails the run (nonzero exit, no result line) when it fails:
      updates (P16_SKIP_TOL).
      16a's (rank 0, clean run), 16b's (rank 0) and 16d's K1-K3 launches
      join the timing records' counts;
+  17. (run after phase 16, before the timing phase) the audit's card
+     half: each single-process program of
+     ``tpudp_torch/analysis/programs.py`` once at its pinned geometry on
+     the card (a fused window captured before the counted call): its
+     K1-K6 launches, a captured window's replays included, must equal
+     the committed lock's ``kernels`` census; ``audit`` lines print
+     ``torch.cuda.max_memory_allocated`` beside the lock's CPU
+     ``peak_live_bytes`` and the host syncs
+     ``torch.cuda.set_sync_debug_mode("warn")`` reports beside the
+     lock's ``host_reads`` (printed, not held).  Phases 6 and 7b print
+     ``mfu`` lines: the model FLOPs a second of phase 6's GPT-2 step and
+     of Part 1's VGG-11 step over the card's dense bf16 peak
+     (``tpudp_torch/utils/flops.py``), beside the card's name and power
+     limit;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -489,8 +518,9 @@ LLAMA_GQA = dict(vocab_size=32_000, max_seq_len=1024, num_layers=12,
 # 10c's training shape, and 6 heads a rank phase 11's tensor-parallel one
 # (and 12b's LLaMA-GQA tp rank's; its one rank is gpt2-t1024's shape);
 # phase 12a's microbatches are 1 and 2 rows (and 12b's fsdp/zero1 ranks
-# 2), 12c's batch 8, 16b's relaunched ranks 6 (16a's ranks take 4); 13a's ViT-B/14 at 224 (256 tokens, non-causal in
-# the model: the case runs both ways, as every case does).
+# 2), 12c's batch 8, 16b's relaunched ranks 6 (16a's ranks take 4);
+# 13a's ViT-B/14 at 224 (256 tokens, non-causal in the model: the case
+# runs both ways, as every case does), and 13d's tp rank of it.
 FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "gpt2-t1024": (4, 1024, 12, 64),
                "gpt2-tp2-t1024": (4, 1024, 6, 64),
@@ -500,7 +530,8 @@ FLASH_CASES = {"gpt2-t128": (4, 128, 12, 64), "gpt2-t2048": (4, 2048, 12, 64),
                "gpt2-b6-t1024": (6, 1024, 12, 64),
                "dh128-t256": (2, 256, 4, 128), "dh32-t256": (2, 256, 4, 32),
                "t200-partial": (1, 200, 3, 64), "t96-clamped": (2, 96, 4, 64),
-               "vit-b-t256": (128, 256, 12, 64)}
+               "vit-b-t256": (128, 256, 12, 64),
+               "vit-b-tp2-t256": (32, 256, 6, 64)}
 # The largest error a 64-token tile of a bf16 flash output may have
 # relative to the reference's norm there: 3x the largest that sound
 # kernels read.  On an H100 the tensor-core kernels read 0.0012-0.0033
@@ -648,9 +679,20 @@ VIT_CHECK_BATCH, VIT_LOGIT_REL, VIT_LOSS_RTOL = 16, 3e-2, 2e-2
 # rounding about 30-fold a step (the probe: 7.5e-8, 2.5e-6, 7.9e-5 over
 # the three losses; phase 7a documents the same for Part 1), so the
 # later losses are held to VGG_TP_TRAJ_RTOL, ten times that reading.
-VGG_TP_BATCH, VGG_TP_STEPS, VGG_TP_TIMEOUT = 256, 3, 300
+VGG_TP_BATCH, VGG_TP_STEPS, VGG_TP_TIMEOUT = 256, 3, 480
 VGG_TP_RTOL, VGG_TP_UPDATE_REL, VGG_TP_TENSOR_REL = 1e-6, 1e-3, 1e-2
 VGG_TP_TRAJ_RTOL, VGG_TP_BIAS_ATOL = 1e-3, 1e-7
+# 13c-13e in 13b's two ranks: ResNet-50 at 224 under vgg_tp_rules (global
+# batch, steps; float32, TF32 off, deterministic cuDNN), held as 13b's
+# VGG-11: the split convolutions change the summation order only, so the
+# first loss and the first update are held tight, the later loss
+# loosely (a rounding grows a step); ViT-B/14 at 224 under gpt2_tp_rules
+# (bf16; its losses against the one-rank ViT's at VIT_LOSS_RTOL); GPT-2
+# small's replicated step under vgg_tp_rules (phase 11's model, one
+# step, at STRATEGY_RTOL).
+RESNET_TP_BATCH, RESNET_TP_STEPS = 8, 2
+RESNET_TP_RTOL, RESNET_TP_TRAJ_RTOL, RESNET_TP_UPDATE_REL = 1e-5, 1e-3, 1e-3
+VIT_TP_BATCH, VIT_TP_STEPS = 32, 2
 # Phase 14: 14a's train_cli run (GPT-2 small, t 1024, batch 4) and its
 # greedy sample; 14b's new tokens and beam width at GPT-2 medium, and its
 # concurrent copies; 14c's tenant engine (slots, pages over two KV
@@ -743,6 +785,21 @@ def device_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def mfu_line(torch, label: str, flops: int, sec: float) -> None:
+    """An ``mfu`` line: ``flops`` a step of ``sec`` over the card's dense
+    bf16 peak (``tpudp_torch.utils.flops``), beside the card."""
+    from tpudp_torch.utils import flops as F
+
+    name = torch.cuda.get_device_name(0)
+    got = F.mfu(flops, sec, name)
+    print(f"mfu {label}: "
+          + ("not measured (no peak for this card)" if got is None else
+             f"{got:.4f} of {name}'s dense bf16 peak "
+             f"({F.chip_peak_flops(name) / 1e12:.1f} TFLOP/s)")
+          + f", {flops / 1e12:.4f} TFLOP a step in {1e3 * sec:.2f} ms; "
+          f"{device_line()}", flush=True)
 
 
 # -- phase 3: kernels vs their plain versions ---------------------------
@@ -2422,6 +2479,12 @@ def train_main_path(torch, np, fa, seed: int) -> dict:
                                f"{cfg.num_layers} layers")
     report_run("flash", flash)
     print(f"main-path flash launches {launches}", flush=True)
+    from tpudp_torch.utils import flops as F
+
+    mfu_line(torch, "6 GPT-2 small flash bf16 train step, b "
+             f"{TRAIN_BATCH} x {TRAIN_T}", F.train_step_flops(
+                 F.gpt2_fwd_flops(TRAIN_BATCH, TRAIN_T)),
+             flash["wall"] / TRAIN_STEPS)
 
     dense_cfg = gpt2.GPT2Config(max_seq_len=TRAIN_T, dtype=torch.bfloat16,
                                 attn_impl="dense")
@@ -2731,7 +2794,9 @@ def check_native_banner(text: str, label: str) -> None:
 def vgg_bench_path(torch, np) -> list[dict]:
     """7b: images/s over the steady windows (the warm-up window left out),
     ms per step, peak memory and a profiled step of Parts 1, 2b
-    (allreduce, ring) and 3 in float32 and bfloat16."""
+    (allreduce, ring) and 3 in float32, and of Part 1 in bfloat16 (7a
+    runs every rung's path; the other rungs' bf16 runs measured nothing
+    Part 1's does not)."""
     from tpudp_torch.models.vgg import CONFIGS
     from tpudp_torch.parts import part1, part2b, part3
 
@@ -2749,6 +2814,8 @@ def vgg_bench_path(torch, np) -> list[dict]:
     for dtype, peak in (("float32", FP32_FLOP_PER_S),
                         ("bfloat16", BF16_FLOP_PER_S)):
         for label, main in runs.items():
+            if dtype == "bfloat16" and label != "part1":
+                continue
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             trainer, text = run_quiet(lambda: main(vgg_argv(VGG_BENCH_TRAIN,
@@ -2784,6 +2851,13 @@ def vgg_bench_path(torch, np) -> list[dict]:
                     torch, lambda: trainer.train_step(trainer.state, x, y),
                     vgg_category)
             out.append(rec)
+            if label == "part1":
+                from tpudp_torch.utils import flops as F
+
+                mfu_line(torch, f"7b VGG-11 Part 1 {dtype} train step, "
+                         f"batch {VGG_BATCH}", F.train_step_flops(
+                             F.vgg_fwd_flops(VGG_BATCH)),
+                         rec["ms_per_step"] / 1e3)
             prof = rec.get("profile")
             print(f"vgg-bench {label} {dtype}: {images_s:.1f} images/s over "
                   f"{len(steady)} steady windows of 20 steps at batch "
@@ -4536,6 +4610,99 @@ def vgg_tp_model(torch, seed: int, deterministic: bool = True):
     return vgg.build(vgg.CONFIGS["VGG11"], seed, "cuda")
 
 
+def resnet_tp_model(torch, seed: int):
+    from tpudp_torch.models import resnet
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    return resnet.build(50, seed, "cuda")
+
+
+def vit_tp_model(torch, seed: int):
+    from tpudp_torch.models import vit
+
+    return vit.build(vit.ViTConfig(
+        image_size=224, patch_size=14, num_classes=1000, num_layers=12,
+        num_heads=12, d_model=768, dtype=torch.bfloat16,
+        attn_impl="flash"), seed, "cuda")
+
+
+def image_batches(np, batch: int, steps: int, seed: int) -> list:
+    """Numpy-seeded ImageNet-shaped global batches (NHWC float32) and
+    labels of 1,000 classes."""
+    rng = np.random.default_rng(seed)
+    return [(rng.normal(size=(batch, 224, 224, 3)).astype(np.float32),
+             rng.integers(0, 1000, size=batch).astype(np.int64))
+            for _ in range(steps)]
+
+
+#: 13c-13e: name -> (model, rules, global batches), each (torch or np,
+#: seed) -> ...; every run takes 13b's SGD.
+TP_MORE = {
+    "resnet": (resnet_tp_model, "vgg_tp_rules",
+               lambda np: image_batches(np, RESNET_TP_BATCH,
+                                        RESNET_TP_STEPS, 17)),
+    "vit": (vit_tp_model, "gpt2_tp_rules",
+            lambda np: image_batches(np, VIT_TP_BATCH, VIT_TP_STEPS, 19)),
+    "replicated": (lambda torch, seed: strategy_model(torch, {}, seed),
+                   "vgg_tp_rules", lambda np: strategy_batches(np)[:1]),
+}
+TP_SGD = dict(learning_rate=0.01, momentum=0.9, weight_decay=1e-4)
+
+
+def host_tree(tree):
+    """A nested dict of tensors as numpy arrays (they cross the results
+    queue by value)."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def tp_more_rank(torch, np, seed: int, world: int, rank: int) -> dict:
+    """13c-13e on this rank: each TP_MORE model under its rules at data
+    1 x model ``world``, its steps timed as phase 11's rungs; rank 0
+    adds 13c's state after its first step in JAX's global layout."""
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.parallel import tensor
+    from tpudp_torch.strategy import build_strategy
+
+    out = {}
+    for name, (make, rules, batches_of) in TP_MORE.items():
+        t0 = time.perf_counter()
+        model = make(torch, seed)
+        spec = train.make_optimizer(**TP_SGD)
+        built = build_strategy("tp", model, spec,
+                               make_mesh_nd({"data": 1, "model": world}),
+                               train.init_state(model, spec),
+                               rules=getattr(tensor, rules)())
+        del model
+        batches = batches_of(np)
+        runs = [timed_steps(torch, built, batches[:1])]
+        if name == "resnet":  # every rank gathers
+            tree = train.state_to_jax(built.state)
+            if rank == 0:
+                out["resnet_tree"] = {k: host_tree(tree[k])
+                                      for k in ("params", "batch_stats")}
+            del tree
+        if len(batches) > 1:
+            runs.append(timed_steps(torch, built, batches[1:]))
+        out[name] = {
+            "module": type(built.state.model).__name__,
+            "losses": sum((r["losses"] for r in runs), []),
+            "ms": sum((r["ms"] for r in runs), []),
+            "comm_ms": sum((r["comm_ms"] for r in runs), []),
+            "calls": runs[-1]["calls"][-1],
+            "peak_gib": max(r["peak_gib"] for r in runs),
+            "launches": {k: sum(r["launches"][k] for r in runs)
+                         for k in runs[0]["launches"]},
+            "dense_routes": sum(r["dense_routes"] for r in runs),
+            "wall_s": time.perf_counter() - t0}
+        del built
+        torch.cuda.empty_cache()
+    return out
+
+
 def vgg_tp_rank(rank: int, world: int, init_method: str, seed: int,
                 results) -> None:
     """13b: one of two ranks on the card over gloo: VGG-11 under
@@ -4588,6 +4755,9 @@ def vgg_tp_rank(rank: int, world: int, init_method: str, seed: int,
                                    leaf.items()}
                                for n, leaf in tree[k].items()}
                            for k in ("params", "batch_stats")}
+        del built, tree
+        torch.cuda.empty_cache()
+        out["more"] = tp_more_rank(torch, np, seed, world, rank)
     except Exception:
         out["error"] = traceback.format_exc()
     finally:
@@ -4635,14 +4805,139 @@ def vgg_tp_reference(torch, np, seed: int,
     return out
 
 
-def vgg_tp_path(torch, np, seed: int, card: str) -> None:
+def tp_more_references(torch, np, seed: int) -> dict:
+    """The one-rank step of each TP_MORE model on its global batches:
+    losses, ms a step, and for 13c the state before and after the first
+    step."""
+    from tpudp_torch import train
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    out = {}
+    try:
+        for name, (make, _, batches_of) in TP_MORE.items():
+            model = make(torch, seed)
+            spec = train.make_optimizer(**TP_SGD)
+            state = train.init_state(model, spec)
+            step = train.make_train_step(model, spec)
+
+            def snapshot():
+                return {k: v.detach().cpu().clone()
+                        for k, v in model.state_dict().items()}
+
+            ref = {"losses": [], "ms": []}
+            if name == "resnet":
+                ref["init"] = snapshot()
+            for x, y in batches_of(np):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, torch.as_tensor(x, device="cuda"),
+                                   torch.as_tensor(y, device="cuda"))
+                ref["losses"].append(float(loss))
+                ref["ms"].append(1e3 * (time.perf_counter() - t0))
+                if name == "resnet" and "first" not in ref:
+                    ref["first"] = snapshot()
+            out[name] = ref
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    return out
+
+
+def tp_more_checks(torch, got: list, refs: dict, card: str) -> dict:
+    """13c-13e against their one-rank steps; returns rank 0's K1-K3
+    launches of 13d and 13e."""
+    from tpudp_torch.models import resnet
+
+    a, b = (r["more"] for r in got)
+    failures = []
+
+    def rels(name):
+        return [abs(x - y) / abs(y) for x, y in zip(a[name]["losses"],
+                                                    refs[name]["losses"])]
+
+    def line(name, label, extra):
+        run = a[name]
+        print(f"{label}: {card}; module {run['module']}; losses "
+              f"{[repr(x) for x in run['losses']]}, one rank "
+              f"{[repr(x) for x in refs[name]['losses']]}: relative "
+              f"differences {['%.3e' % r for r in rels(name)]}; {extra}; ms "
+              f"a step {[round(x, 1) for x in run['ms']]} (rank 1 "
+              f"{[round(x, 1) for x in b[name]['ms']]}; one rank "
+              f"{[round(x, 1) for x in refs[name]['ms']]}); collectives "
+              f"wall ms a step {[round(x, 1) for x in run['comm_ms']]} "
+              f"(gloo, (calls, staged) a step {run['calls']}); peak GiB "
+              f"{run['peak_gib']:.2f} / {b[name]['peak_gib']:.2f}; flash "
+              f"launches {run['launches']} / {b[name]['launches']}; "
+              f"{run['wall_s']:.1f}s on rank 0", flush=True)
+
+    # 13c: the first update over every parameter and running statistic
+    ref = refs["resnet"]
+    tree = a["resnet_tree"]
+    state = resnet.params_from_jax(tree["params"], tree["batch_stats"])
+    names = [k for k, v in ref["first"].items() if v.is_floating_point()]
+    diff = torch.cat([(state[k] - ref["first"][k]).reshape(-1)
+                      for k in names])
+    upd = torch.cat([(ref["first"][k] - ref["init"][k]).reshape(-1)
+                     for k in names])
+    update_rel = (diff.norm() / upd.norm()).item()
+    r = rels("resnet")
+    line("resnet", "13c resnet-tp: ResNet-50 at 224 under vgg_tp_rules, "
+         f"data 1 x model 2, 2 gloo ranks, float32, TF32 off, global batch "
+         f"{RESNET_TP_BATCH}",
+         f"the first update against one rank's {update_rel:.3e} (limit "
+         f"{RESNET_TP_UPDATE_REL}); rtol {RESNET_TP_RTOL} at the first "
+         f"step, {RESNET_TP_TRAJ_RTOL} after")
+    if a["resnet"]["module"] != "TPResNet":
+        failures.append(f"13c ran {a['resnet']['module']}")
+    if r[0] > RESNET_TP_RTOL or max(r) > RESNET_TP_TRAJ_RTOL:
+        failures.append(f"13c losses {r}")
+    if update_rel > RESNET_TP_UPDATE_REL:
+        failures.append(f"13c first update {update_rel:.3e}")
+    for run in (a, b):
+        if any(run["resnet"]["launches"].values()):
+            failures.append(f"13c launched {run['resnet']['launches']}")
+    # 13d: K1-K3 12 a step on each rank, the losses at VIT_LOSS_RTOL
+    r = rels("vit")
+    line("vit", "13d vit-tp: ViT-B/14 at 224 under gpt2_tp_rules, 6 heads "
+         f"a rank, bf16, flash, global batch {VIT_TP_BATCH}",
+         f"rtol {VIT_LOSS_RTOL}; K1-K3 launches expected {12 * VIT_TP_STEPS} "
+         f"each a rank ({VIT_TP_STEPS} steps of 12 layers)")
+    if a["vit"]["module"] != "TPViT" or max(r) > VIT_LOSS_RTOL:
+        failures.append(f"13d {a['vit']['module']} losses {r}")
+    for run in (a, b):
+        if any(n != 12 * VIT_TP_STEPS
+               for n in run["vit"]["launches"].values()) \
+                or run["vit"]["dense_routes"]:
+            failures.append(f"13d launched {run['vit']['launches']} "
+                            f"({run['vit']['dense_routes']} dense routes)")
+    # 13e: the replicated step
+    r = rels("replicated")
+    line("replicated", "13e replicated-tp: GPT-2 small under vgg_tp_rules "
+         "(nothing split), data 1 x model 2, float32, flash, b "
+         f"{STRATEGY_BATCH} x {STRATEGY_T}", f"rtol {STRATEGY_RTOL}")
+    if a["replicated"]["module"] != "GPT2" or max(r) > STRATEGY_RTOL \
+            or a["replicated"]["losses"] != b["replicated"]["losses"]:
+        failures.append(f"13e {a['replicated']['module']} losses {r}, "
+                        f"rank 1 {b['replicated']['losses']}")
+    if failures:
+        raise SmokeFailure(f"tp: {failures}")
+    return {k: a["vit"]["launches"][k] + a["replicated"]["launches"][k]
+            for k in FLASH_KERNELS}
+
+
+def vgg_tp_path(torch, np, seed: int, card: str) -> dict:
     """13b: VGG-11 under tp on two gloo ranks of the card against the
-    one-rank step on the same global batches."""
+    one-rank step on the same global batches; then 13c-13e in the same
+    ranks.  Returns rank 0's K1-K3 launches of 13d and 13e."""
     from tpudp_torch.models import vgg
 
     t0 = time.perf_counter()
     ref = vgg_tp_reference(torch, np, seed)
     alt = vgg_tp_reference(torch, np, seed, deterministic=False)
+    more_refs = tp_more_references(torch, np, seed)
     got = run_ranks(vgg_tp_rank, (seed,), VGG_TP_TIMEOUT, "vgg-tp")
     a, b = got
     tp = vgg.params_from_jax(a["tree"]["params"], a["tree"]["batch_stats"])
@@ -4720,6 +5015,11 @@ def vgg_tp_path(torch, np, seed: int, card: str) -> None:
         failures.append(f"the first conv is not split: {a['local_shapes']}")
     if failures:
         raise SmokeFailure(f"vgg-tp: {failures}")
+    t1 = time.perf_counter()
+    launches = tp_more_checks(torch, got, more_refs, card)
+    print(f"phase 13b-13e {time.perf_counter() - t0:.1f}s (checks "
+          f"{time.perf_counter() - t1:.1f}s)", flush=True)
+    return launches
 
 
 # -- phase 14: the decode remainder, tenancy and the dense prefix cache ----
@@ -6261,6 +6561,57 @@ def phase16_path(torch, np, pa, fa, seed: int) -> dict:
     return launches
 
 
+# -- phase 17: the audit's card half ---------------------------------------
+
+def audit_card_path(torch) -> None:
+    """17: each single-process program of ``programs.py`` once on the
+    card at its pinned geometry: its K1-K6 launches (a captured window's
+    replays included) against the lock's ``kernels`` census; the peak
+    memory and the synchronizations ``set_sync_debug_mode('warn')``
+    reports, printed beside the lock's CPU ``peak_live_bytes`` and
+    ``host_reads``."""
+    import warnings
+
+    from tpudp_torch.analysis import audit, programs
+
+    t0 = time.perf_counter()
+    lock = audit.load_lock(os.path.join(ROOT, audit.LOCK_PATH))
+    built = programs.build_programs("cuda")
+    failures, census = [], {}
+    for name, (call, axes) in built.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rec = audit.capture_one(call, axes, kernel_attr="launches")
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        peak = torch.cuda.max_memory_allocated() - base
+        want = lock["programs"][name]
+        census[name] = rec["kernels"]
+        print(f"audit {name}: launches {rec['kernels']} (lock "
+              f"{want['kernels']}); host syncs {syncs} (lock host reads "
+              f"{want['host_reads']}); peak {peak} bytes above the "
+              f"program's state on the card (lock peak_live_bytes "
+              f"{want['budget']['peak_live_bytes']} on the CPU)",
+              flush=True)
+        if rec["kernels"] != want["kernels"]:
+            failures.append(f"{name}: launched {rec['kernels']}, the lock "
+                            f"says {want['kernels']}")
+    del built
+    torch.cuda.empty_cache()
+    print(f"audit: {len(census)} single-process programs on the card, "
+          f"kernel census {'equal to' if not failures else 'NOT'} the "
+          f"lock's (lock torch {lock['torch']}, here {torch.__version__}); "
+          f"phase 17 {time.perf_counter() - t0:.1f}s", flush=True)
+    if failures:
+        raise SmokeFailure(f"audit: {failures}")
+
+
 # -- phase 8: timing -------------------------------------------------------
 
 
@@ -6612,6 +6963,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only-phase16", action="store_true",
                     help="build, check the flash kernels and run phase 16 "
                          "alone (a probe: it prints no result lines)")
+    ap.add_argument("--only-phase13", action="store_true",
+                    help="build, check the flash kernels and run phases "
+                         "13b-13e and 17 alone (a probe: it prints no "
+                         "result lines)")
     args = ap.parse_args(argv)
     try:
         import numpy as np
@@ -6653,6 +7008,15 @@ def main(argv=None) -> int:
             check_flash_kernels(torch, fa)
             phase16_path(torch, np, pa, fa, args.seed)
             print("chip_smoke: phase 16 probe done (no result lines)")
+            return 0
+        if args.only_phase13:
+            check_flash_kernels(torch, fa)
+            mark("phase 5")
+            vgg_tp_path(torch, np, args.seed, card)
+            mark("phase 13b-13e")
+            audit_card_path(torch)
+            mark("phase 17")
+            print("chip_smoke: phase 13 probe done (no result lines)")
             return 0
         mark("build")
         check_kernels(torch, pa, "cuda")
@@ -6705,7 +7069,7 @@ def main(argv=None) -> int:
               flush=True)
         mark("phase 12")
         vit_launches = vit_path(torch, np, fa, args.seed, card)
-        vgg_tp_path(torch, np, args.seed, card)
+        tp_launches = vgg_tp_path(torch, np, args.seed, card)
         mark("phase 13")
         p14_flash, p14_paged = phase14_path(torch, np, pa, fa, model,
                                             prompts, args.seed)
@@ -6718,13 +7082,15 @@ def main(argv=None) -> int:
         mark("phase 15")
         p16_flash = phase16_path(torch, np, pa, fa, args.seed)
         mark("phase 16")
+        audit_card_path(torch)
+        mark("phase 17")
         records = timings(torch, pa, model, prompts, launches)
         # K1-K3's main-path launches: phase 6's GPT-2 steps, 13a's
-        # ViT-B/14 steps, 14a's train_cli steps and phase 16's runs, each
-        # counted from 0 over its run.
+        # ViT-B/14 steps, 13d's and 13e's steps (rank 0), 14a's train_cli
+        # steps and phase 16's runs, each counted from 0 over its run.
         records += flash_timings(torch, fa, {
-            k: train_launches[k] + vit_launches[k] + p14_flash[k]
-            + p16_flash[k] for k in FLASH_KERNELS})
+            k: train_launches[k] + vit_launches[k] + tp_launches[k]
+            + p14_flash[k] + p16_flash[k] for k in FLASH_KERNELS})
         flash_timings(torch, fa, vit_launches, (VIT_BATCH, 256, 12, 64),
                       causal=False, case="vit-b-t256")
         mark("phase 8")

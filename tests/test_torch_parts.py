@@ -277,8 +277,8 @@ def test_trainer_refuses_unported_options():
     # accumulator construct and are kept
     tr = Trainer(model, flight_dir="x", track_grad_norm=True)
     assert tr.flight.directory == "x" and tr.state.obs_norms is not None
-    # strategies are ported: tp needs a mesh; the VGG trains under its
-    # TP rules, a ResNet under them is refused naming its ROADMAP item
+    # strategies are ported: tp needs a mesh; the VGG and the ResNet
+    # train under the VGG's TP rules
     with pytest.raises(ValueError, match="needs a device mesh"):
         Trainer(model, strategy="tp")
     from tpudp_torch.mesh import MeshND
@@ -291,9 +291,9 @@ def test_trainer_refuses_unported_options():
     tp = Trainer(model, mesh, strategy="tp",
                  strategy_options={"rules": vgg_tp_rules()})
     assert tuple(tp.state.model.convs[0].weight.shape) == (4, 3, 3, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(resnet.ResNet((1, 1), 10, 16), mesh, strategy="tp",
-                strategy_options={"rules": vgg_tp_rules()})
+    tp = Trainer(resnet.ResNet((1, 1), 10, 16), mesh, strategy="tp",
+                 strategy_options={"rules": vgg_tp_rules()})
+    assert tuple(tp.state.model.stem_conv.weight.shape) == (8, 3, 7, 7)
     with pytest.raises(ValueError, match="spmd_mode"):
         Trainer(model, spmd_mode="auto")
     with pytest.raises(ValueError, match="shard_map DP rung"):

@@ -19,12 +19,19 @@ under ``vgg_tp_rules`` (each convolution's output channels split over
 stays whole — against JAX's ``make_tp_train_step`` with the same rules
 (the single-device step on the global batch), and the tiny ViT under
 fsdp and zero1 against JAX's rungs.
+
+Job ``tp_cells`` runs every family under every rule table as JAX's
+``make_tp_train_step`` resolves it: the tiny ResNet under
+``vgg_tp_rules`` and the tiny ViT under ``gpt2_tp_rules`` at meshes (2,
+2) and (1, 4), each table that splits nothing of a family (replicated
+over ``model``), and the two tables that split an embedding only.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.sharding import PartitionSpec as P
 
 import torch_dp_worker as w
@@ -46,10 +53,19 @@ LOSS = dict(rtol=2e-4)
 PARAM = dict(atol=2e-4, rtol=0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def world4(tmp_path_factory):
     return w.run_world(tmp_path_factory.mktemp("tp4"), 4,
-                       ["tp", "fsdp", "vgg_tp"])
+                       ["tp", "fsdp", "vgg_tp", "tp_cells"])
 
 
 def _jax_state(tx):
@@ -199,28 +215,43 @@ def _fake_mesh(shape):
 
 
 def test_tp_refusals():
+    """What JAX's ``make_tp_train_step`` takes, the port takes: another
+    family's table splits nothing (the replicated step: the model itself
+    on every rank) or the embedding only (``TPGPT2`` / ``TPLlama`` with
+    their other sections whole), as a custom table splitting the
+    embedding does.  A table splitting part of a section the port splits
+    together, or ``skip_nonfinite``, is refused by name."""
     spec = train.make_optimizer()
     mesh = _fake_mesh({"data": 1, "model": 2})
     model = gpt2.GPT2(gpt2.GPT2Config(**w.TP_CFG))
     state = train.init_state(model, spec)
-    # GPT-2 handed another family's table: refused by name, as LLaMA's
-    with pytest.raises(ValueError, match="gpt2_tp_rules"):
-        make_tp_train_step(model, spec, mesh, state, tensor.vgg_tp_rules())
-    with pytest.raises(ValueError, match="gpt2_tp_rules"):
-        make_tp_train_step(model, spec, mesh, state, tensor.llama_tp_rules())
+    built, _ = make_tp_train_step(model, spec, mesh, state,
+                                  tensor.vgg_tp_rules())
+    assert built.model is model  # nothing split: replicated
+    built, _ = make_tp_train_step(model, spec, mesh, state,
+                                  tensor.llama_tp_rules())
+    assert built.model.splits == {"attn": False, "mlp": False,
+                                  "vocab": True}
     lm = llama.Llama(llama.LlamaConfig(vocab_size=64, max_seq_len=32,
                                        num_layers=1, num_heads=4,
                                        d_model=32))
-    with pytest.raises(ValueError, match="llama_tp_rules"):
-        make_tp_train_step(lm, spec, mesh, train.init_state(lm, spec),
-                           tensor.gpt2_tp_rules())
+    built, _ = make_tp_train_step(lm, spec, mesh,
+                                  train.init_state(lm, spec),
+                                  tensor.gpt2_tp_rules())
+    assert built.model.splits == {"attn": False, "kv": False, "mlp": False,
+                                  "vocab": True, "head": False}
+    assert tuple(built.model.lm_head.weight.shape) == (64, 32)
     net = vgg.VGG(w.CFG)
-    with pytest.raises(ValueError, match="vgg_tp_rules"):
-        make_tp_train_step(net, spec, mesh, train.init_state(net, spec),
-                           tensor.gpt2_tp_rules())
-    with pytest.raises(ValueError, match="gpt2_tp_rules"):
+    built, _ = make_tp_train_step(net, spec, mesh,
+                                  train.init_state(net, spec),
+                                  tensor.gpt2_tp_rules())
+    assert built.model is net
+    built, _ = make_tp_train_step(model, spec, mesh, state,
+                                  ((r"wte", ("model", None)),))
+    assert built.model.splits["vocab"] and not built.model.splits["attn"]
+    with pytest.raises(ValueError, match="attn"):
         make_tp_train_step(model, spec, mesh, state,
-                           ((r"wte", ("model", None)),))
+                           ((r"attn/qkv/kernel", (None, "model")),))
     # JAX's fallback: heads the axis does not divide stay whole
     odd = gpt2.GPT2(gpt2.GPT2Config(**dict(w.TP_CFG, num_heads=1)))
     built, _ = make_tp_train_step(odd, spec, mesh,
@@ -380,3 +411,160 @@ def test_vit_data_sharded_matches_jax(world4, mesh4, rung):
         got = r["vgg_tp"][f"vit-{rung}"]
         np.testing.assert_allclose(got["losses"], losses, **LOSS)
         _assert_tree(got["params"], jax.device_get(state.params), **PARAM)
+
+
+# -- every family under every table (job tp_cells) --------------------------
+
+def _jax_cell(family: str, table: str, shape: dict):
+    """JAX's ``make_tp_train_step`` under ``{table}_tp_rules`` on the
+    cell's model and batches: losses and the final state."""
+    from tpudp.models.llama import Llama as JaxLlama
+    from tpudp.models.llama import LlamaConfig as JaxLlamaConfig
+    from tpudp.models.resnet import ResNet as JaxResNet
+    from tpudp.models.vgg import VGG as JaxVGG
+    from tpudp.models.vit import ViT as JaxViT
+    from tpudp.models.vit import ViTConfig as JaxViTConfig
+
+    _, opt, batches = w.tp_cell_inputs(family)
+    tx = jax_make_optimizer(**opt)
+    stats = None
+    if family == "gpt2":
+        model = jax_gpt2_small(**w.TP_CFG)
+        state = jax_init_state(model, tx, input_shape=(1, 8))
+        params = w.strategy_tree(w.TP_CFG)
+    elif family == "llama":
+        model = JaxLlama(JaxLlamaConfig(**w.LLAMA_CFG))
+        state = jax_init_state(model, tx, input_shape=(1, 8))
+        params = w.strategy_tree(w.LLAMA_CFG, family="llama")
+    elif family == "vit":
+        model = JaxViT(JaxViTConfig(**w.VIT_CFG))
+        state = jax_init_state(model, tx, input_shape=(1, 16, 16, 3))
+        params = w.vit_tree()
+    elif family == "vgg":
+        model = JaxVGG(cfg=w.CFG)
+        state = jax_init_state(model, tx)
+        params, stats = w.vgg_init()
+    else:
+        model = JaxResNet(stage_sizes=w.RESNET_STAGES, num_classes=10,
+                          width=w.RESNET_WIDTH)
+        state = jax_init_state(model, tx)
+        params, stats = w.resnet_init()
+    params = jax.tree.map(jnp.asarray, params)
+    state = state.replace(params=params, opt_state=tx.init(params))
+    if stats is not None:
+        state = state.replace(batch_stats=jax.tree.map(jnp.asarray, stats))
+    mesh = jax_make_mesh_nd(shape, devices=jax.devices()[:4])
+    rules = getattr(jax_tensor, f"{table}_tp_rules")()
+    state, step = jax_tp_step(model, tx, mesh, state, rules, donate=False)
+    losses = []
+    for x, y in batches:
+        state, loss = step(state, jnp.asarray(x), jnp.asarray(y))
+        losses.append(float(loss))
+    return losses, jax.device_get(state)
+
+
+def _check_cell(world4, name, loss_tol, state_tol):
+    family, table, shape = w.TP_CELLS[name]
+    losses, state = _jax_cell(family, table, shape)
+    for r in world4:
+        got = r["tp_cells"][name]
+        np.testing.assert_allclose(got["losses"], losses, **loss_tol)
+        _assert_tree(got["tree"]["params"], state.params, **state_tol)
+        if family in ("vgg", "resnet"):
+            _assert_tree(got["tree"]["batch_stats"], state.batch_stats,
+                         **state_tol)
+
+
+SPLIT_CELLS = ["resnet-vgg-dp2-tp2", "resnet-vgg-tp4", "vit-gpt2-dp2-tp2",
+               "vit-gpt2-tp4"]
+
+
+@pytest.mark.parametrize("name", SPLIT_CELLS)
+def test_resnet_vit_tp_match_jax_trajectory(world4, name):
+    """ResNet under ``vgg_tp_rules`` (VGG's tolerances: the channel split
+    changes the summation order only) and ViT under ``gpt2_tp_rules``
+    (GPT-2's) after 3 steps: losses, parameters and (ResNet) BatchNorm
+    running statistics in JAX's global layout, on every rank."""
+    tol = (VGG_TP_LOSS, VGG_TP_STATE) if name.startswith("resnet") \
+        else (LOSS, PARAM)
+    _check_cell(world4, name, *tol)
+
+
+@pytest.mark.parametrize("name", [n for n in w.TP_CELLS
+                                  if n not in SPLIT_CELLS])
+def test_unsplit_and_vocab_cells_match_jax(world4, name):
+    """A table that splits nothing of a family runs the replicated step
+    (the single-device module on every rank), and GPT-2 under
+    ``llama_tp_rules`` / LLaMA under ``gpt2_tp_rules`` split the
+    embedding only: each agrees with JAX's GSPMD step under that table
+    (GPT-2's replicated step at meshes (2, 2) and (1, 4))."""
+    family = w.TP_CELLS[name][0]
+    conv = family in ("vgg", "resnet")
+    _check_cell(world4, name, VGG_TP_LOSS if conv else LOSS,
+                VGG_TP_STATE if conv else PARAM)
+    module = world4[0]["tp_cells"][name]["module"]
+    assert module == {"gpt2-llama": "TPGPT2",
+                      "llama-gpt2": "TPLlama"}.get(
+        name, {"gpt2": "GPT2", "llama": "Llama", "vgg": "VGG",
+               "resnet": "ResNet", "vit": "ViT"}[family])
+
+
+def _jax_split_dims(family: str, table: str, shape: dict) -> dict:
+    """``{jax path: split dim}`` of JAX's resolution of the cell's
+    parameters (replicated leaves left out)."""
+    from tpudp_torch.parallel import sharded
+
+    model, _, _ = w.tp_cell_inputs(family)
+    to_jax, _ = train._codec(model)
+    params = jax.tree.map(jnp.asarray, to_jax(model.state_dict())[0])
+    mesh = jax_make_mesh_nd(shape, devices=jax.devices()[:4])
+    want = jax_tensor.tree_shardings(
+        {"params": params}, mesh, getattr(jax_tensor, f"{table}_tp_rules")())
+    out = {}
+    for path, sh in jax.tree_util.tree_flatten_with_path(want)[0]:
+        dim = next((i for i, a in enumerate(tuple(sh.spec))
+                    if a is not None), None)
+        if dim is not None:
+            out["/".join(str(getattr(p, "key", p)) for p in path)] = dim
+    assert sharded.resolve_tp(model, getattr(
+        tensor, f"{table}_tp_rules")(), shape) is not None
+    return out
+
+
+def test_resnet_vit_layouts_match_jax_resolution(world4):
+    """Each rank holds the slices JAX's resolution gives its leaves:
+    the ResNet's split convolutions (``stem_conv``, ``Conv_0-2``,
+    ``proj_conv``) and ``BatchNorm_0-2`` at ``cout/n`` with ``stem_bn``
+    and ``proj_bn`` whole, ``Dense_0`` split at model 2 and whole at 4;
+    the ViT's ``qkv``, ``proj``, ``mlp_fc`` and ``mlp_proj`` at model 2,
+    its MLP only at 4 (2 heads)."""
+    dims = _jax_split_dims("resnet", "vgg", {"data": 2, "model": 2})
+    assert "params/stem_conv/kernel" in dims
+    assert "params/BottleneckBlock_0/proj_conv/kernel" in dims
+    assert "params/stem_bn/scale" not in dims
+    assert "params/BottleneckBlock_1/proj_bn/scale" not in dims
+    two = world4[0]["tp_cells"]["resnet-vgg-dp2-tp2"]["local_shapes"]
+    four = world4[0]["tp_cells"]["resnet-vgg-tp4"]["local_shapes"]
+    assert two["stem_conv.weight"] == (8, 3, 7, 7)
+    assert four["stem_conv.weight"] == (4, 3, 7, 7)
+    assert two["stem_bn.weight"] == four["stem_bn.weight"] == (16,)
+    assert two["blocks.1.convs.2.weight"] == (64, 32, 1, 1)
+    assert four["blocks.1.bns.1.running_var"] == (8,)
+    assert four["blocks.1.proj_conv.weight"] == (32, 64, 1, 1)
+    assert four["blocks.1.proj_bn.running_mean"] == (128,)
+    assert two["fc.weight"] == (5, 128) and four["fc.weight"] == (10, 128)
+    vdims = _jax_split_dims("vit", "gpt2", {"data": 2, "model": 2})
+    assert vdims == {f"params/h_{i}/{leaf}": d for i in range(2)
+                     for leaf, d in (("attn/qkv/kernel", 1),
+                                     ("attn/qkv/bias", 0),
+                                     ("attn/proj/kernel", 0),
+                                     ("mlp_fc/kernel", 1),
+                                     ("mlp_fc/bias", 0),
+                                     ("mlp_proj/kernel", 0))}
+    v2 = world4[0]["tp_cells"]["vit-gpt2-dp2-tp2"]["local_shapes"]
+    v4 = world4[0]["tp_cells"]["vit-gpt2-tp4"]["local_shapes"]
+    assert v2["h.0.attn.qkv.weight"] == (48, 32)
+    assert v2["h.0.attn.proj.weight"] == (32, 16)
+    assert v4["h.0.attn.qkv.weight"] == (96, 32)  # 2 heads over 4: whole
+    assert v4["h.1.mlp_fc.weight"] == (32, 32)
+    assert v2["head.weight"] == v4["head.weight"] == (10, 32)

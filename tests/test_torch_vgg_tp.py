@@ -7,8 +7,9 @@ The multi-rank trajectories — meshes (2, 2) and (1, 4) against JAX's
 on a one-rank mesh against JAX's on one device and against the port's
 single-device step, each rank's slice of a full VGG-11 at meshes whose
 other ranks are not there (the layout is local: no collective is
-called), the placements against JAX's rule resolution, and the
-refusals of the models that tensor parallelism does not take yet.
+called), the placements against JAX's rule resolution, every model
+under every table accepted as JAX accepts it, and ResNet and ViT on one
+rank against JAX on one device.
 """
 
 import jax
@@ -30,6 +31,15 @@ from tpudp_torch.models import gpt2, llama, resnet, vgg, vit
 from tpudp_torch.parallel import sharded, tensor
 from tpudp_torch.strategy import build_strategy
 from tpudp_torch.trainer import Trainer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread: the suite's workers share the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _fake_mesh(shape, coords=None):
@@ -157,40 +167,49 @@ def test_placements_match_jax_rule_resolution(mesh8):
 
 
 def test_models_tp_does_not_take_are_refused_by_name():
-    """A ResNet under the VGG table (its ``stem_conv`` and ``conv``
-    patterns match) and a ViT under tp refuse naming their ROADMAP
-    items, through the step, ``build_strategy`` and the Trainer; a model
-    handed another family's table gets a ``ValueError`` naming its own.
-    None raises ``TypeError`` where JAX accepts the arguments."""
+    """Nothing JAX's ``make_tp_train_step`` accepts raises: a ResNet and
+    a ViT under each table (the ResNet's convolutions split under
+    ``vgg_tp_rules``, the ViT's Megatron sections under
+    ``gpt2_tp_rules``, replicated under the others) and a model handed
+    another family's table, through the step, ``build_strategy`` and the
+    Trainer.  A table splitting part of a section the port splits
+    together is refused naming the section."""
     spec = train.make_optimizer()
     mesh = _fake_mesh({"data": 1, "model": 2})
     net = resnet.ResNet((1, 1), 10, 16)
     tiny_vit = vit.ViT(vit.ViTConfig(**w.VIT_CFG))
-    for model, item in ((net, sharded.RESNET_TP_ITEM),
-                        (tiny_vit, sharded.VIT_TP_ITEM)):
-        for rules in (tensor.vgg_tp_rules(), tensor.gpt2_tp_rules()):
-            with pytest.raises(NotImplementedError, match=item[:14]):
-                sharded.make_tp_train_step(model, spec, mesh,
-                                           train.init_state(model, spec),
-                                           rules)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_strategy("tp", model, spec, mesh,
-                           train.init_state(model, spec),
-                           rules=tensor.vgg_tp_rules())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Trainer(model, mesh, strategy="tp",
-                    strategy_options={"rules": tensor.vgg_tp_rules()})
+    for model, split_by, module in ((net, "vgg", sharded.TPResNet),
+                                    (tiny_vit, "gpt2", sharded.TPViT)):
+        for table in ("vgg", "gpt2", "llama"):
+            rules = getattr(tensor, f"{table}_tp_rules")()
+            built, _ = sharded.make_tp_train_step(
+                model, spec, mesh, train.init_state(model, spec), rules)
+            assert isinstance(built.model, module if table == split_by
+                              else type(model))
+        built = build_strategy("tp", model, spec, mesh,
+                               train.init_state(model, spec),
+                               rules=getattr(tensor,
+                                             f"{split_by}_tp_rules")())
+        assert isinstance(built.state.model, module)
+        trainer = Trainer(model, mesh, strategy="tp",
+                          strategy_options={"rules": tensor.vgg_tp_rules()},
+                          log_fn=lambda s: None)
+        assert trainer.strategy is not None
+    with pytest.raises(ValueError, match="b0.c1"):
+        sharded.make_tp_train_step(
+            net, spec, mesh, train.init_state(net, spec),
+            ((r"BottleneckBlock_0/Conv_1/kernel",
+              (None, None, None, "model")),))
     lm = llama.Llama(llama.LlamaConfig(vocab_size=64, max_seq_len=32,
                                        num_layers=1, num_heads=4,
                                        d_model=32))
     lm_gpt2 = gpt2.GPT2(gpt2.GPT2Config(**w.TP_CFG))
-    for model, label in ((lm, "llama_tp_rules"), (lm_gpt2, "gpt2_tp_rules"),
-                         (_narrow(), "vgg_tp_rules")):
-        wrong = (tensor.gpt2_tp_rules() if label == "vgg_tp_rules"
-                 else tensor.vgg_tp_rules())
-        with pytest.raises(ValueError, match=label):
-            sharded.make_tp_train_step(model, spec, mesh,
-                                       train.init_state(model, spec), wrong)
+    for model in (lm, lm_gpt2, _narrow()):
+        built, _ = sharded.make_tp_train_step(
+            model, spec, mesh, train.init_state(model, spec),
+            tensor.vgg_tp_rules() if not isinstance(model, vgg.VGG)
+            else tensor.llama_tp_rules())
+        assert built.model is model
     # the VGG table under its model's own axis name
     model = _narrow()
     built = build_strategy("tp", model, spec,
@@ -198,3 +217,57 @@ def test_models_tp_does_not_take_are_refused_by_name():
                            train.init_state(model, spec),
                            rules=tensor.vgg_tp_rules("tensor"))
     assert built.state.model.convs[1].weight.shape[0] == 8
+
+
+@pytest.mark.parametrize("family", ["resnet", "vit"])
+def test_one_rank_resnet_vit_tp_matches_jax(family):
+    """On a (1, 1) mesh ResNet under ``vgg_tp_rules`` and ViT under
+    ``gpt2_tp_rules`` run their hand-written modules with nothing split:
+    3 SGD steps' losses and parameters equal JAX's tp step on one device
+    (1e-5, float32)."""
+    from tpudp.models.resnet import ResNet as JaxResNet
+    from tpudp.models.vit import ViT as JaxViT
+    from tpudp.models.vit import ViTConfig as JaxViTConfig
+
+    spec = train.make_optimizer(**w.SGD)
+    tx = jax_make_optimizer(**w.SGD)
+    if family == "resnet":
+        model = resnet.ResNet(w.RESNET_STAGES, 10, w.RESNET_WIDTH)
+        params, stats = w.resnet_init()
+        model.load_state_dict(resnet.params_from_jax(params, stats))
+        batches, table = w.vgg_batches(1), "vgg"
+        jmodel = JaxResNet(stage_sizes=w.RESNET_STAGES, num_classes=10,
+                           width=w.RESNET_WIDTH)
+        jstate = jax_init_state(jmodel, tx).replace(
+            batch_stats=jax.tree.map(jnp.asarray, stats))
+    else:
+        model, params = w.vit_model(), w.vit_tree()
+        batches, table = w.vit_batches(1), "gpt2"
+        jmodel = JaxViT(JaxViTConfig(**w.VIT_CFG))
+        jstate = jax_init_state(jmodel, tx, input_shape=(1, 16, 16, 3))
+    rules = getattr(tensor, f"{table}_tp_rules")()
+    built = build_strategy("tp", model, spec,
+                           _fake_mesh({"data": 1, "model": 1}),
+                           train.init_state(model, spec), rules=rules)
+    assert type(built.state.model).__name__ == (
+        "TPResNet" if family == "resnet" else "TPViT")
+    st, losses = built.state, []
+    for x, y in batches:
+        st, loss = built.train_step(st, torch.as_tensor(x),
+                                    torch.as_tensor(y))
+        losses.append(float(loss))
+    jparams = jax.tree.map(jnp.asarray, params)
+    jstate = jstate.replace(params=jparams, opt_state=tx.init(jparams))
+    mesh = jax_make_mesh_nd({"data": 1, "model": 1},
+                            devices=jax.devices()[:1])
+    jstate, jstep = jax_tp_step(
+        jmodel, tx, mesh, jstate,
+        getattr(jax_tensor, f"{table}_tp_rules")(), donate=False)
+    jlosses = []
+    for x, y in batches:
+        jstate, loss = jstep(jstate, jnp.asarray(x), jnp.asarray(y))
+        jlosses.append(float(loss))
+    np.testing.assert_allclose(losses, jlosses, rtol=1e-5)
+    jax.tree.map(lambda a, b: np.testing.assert_allclose(
+        b.numpy(), np.asarray(a), atol=1e-5, rtol=1e-5),
+        jax.device_get(jstate.params), train.state_to_jax(st)["params"])

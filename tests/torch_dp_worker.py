@@ -1183,6 +1183,90 @@ def job_vgg_tp(rank, world):
     return out
 
 
+# tp of every family under every rule table, as JAX's make_tp_train_step
+# resolves it: name -> (family, table, mesh shape).  ResNet under
+# vgg_tp_rules and ViT under gpt2_tp_rules split (at model 4 the ResNet's
+# 10-class Dense_0 and the ViT's 2 heads stay whole); a table that splits
+# nothing of a family runs replicated (GPT-2's at model 4 too); GPT-2
+# under llama_tp_rules and LLaMA under gpt2_tp_rules split the embedding
+# only.
+TP_CELLS = {
+    "resnet-vgg-dp2-tp2": ("resnet", "vgg", {"data": 2, "model": 2}),
+    "resnet-vgg-tp4": ("resnet", "vgg", {"data": 1, "model": 4}),
+    "vit-gpt2-dp2-tp2": ("vit", "gpt2", {"data": 2, "model": 2}),
+    "vit-gpt2-tp4": ("vit", "gpt2", {"data": 1, "model": 4}),
+    "gpt2-vgg": ("gpt2", "vgg", {"data": 2, "model": 2}),
+    "gpt2-vgg-tp4": ("gpt2", "vgg", {"data": 1, "model": 4}),
+    "llama-vgg": ("llama", "vgg", {"data": 2, "model": 2}),
+    "vgg-gpt2": ("vgg", "gpt2", {"data": 2, "model": 2}),
+    "vgg-llama": ("vgg", "llama", {"data": 2, "model": 2}),
+    "resnet-gpt2": ("resnet", "gpt2", {"data": 2, "model": 2}),
+    "resnet-llama": ("resnet", "llama", {"data": 2, "model": 2}),
+    "vit-llama": ("vit", "llama", {"data": 2, "model": 2}),
+    "vit-vgg": ("vit", "vgg", {"data": 2, "model": 2}),
+    "gpt2-llama": ("gpt2", "llama", {"data": 2, "model": 2}),
+    "llama-gpt2": ("llama", "gpt2", {"data": 2, "model": 2}),
+}
+
+
+def tp_cell_inputs(family: str):
+    """``(port model, optimizer arguments, global batches)`` of a
+    TP_CELLS family, its weights from the numpy seeds the JAX side
+    reads too."""
+    from tpudp_torch.models import gpt2, llama, resnet, vgg
+
+    if family == "gpt2":
+        model = gpt2.GPT2(gpt2.GPT2Config(**TP_CFG))
+        model.load_state_dict(gpt2.params_from_jax(strategy_tree(TP_CFG)))
+        return model, dict(learning_rate=STRATEGY_LR), lm_batches(64)
+    if family == "llama":
+        model = llama.Llama(llama.LlamaConfig(**LLAMA_CFG))
+        model.load_state_dict(llama.params_from_jax(
+            strategy_tree(LLAMA_CFG, family="llama")))
+        return model, dict(learning_rate=STRATEGY_LR), lm_batches(64)
+    if family == "vit":
+        return vit_model(), SGD, vit_batches(2)
+    if family == "vgg":
+        model = vgg.VGG(CFG)
+        model.load_state_dict(vgg.params_from_jax(*vgg_init()))
+    else:
+        model = resnet.ResNet(RESNET_STAGES, 10, RESNET_WIDTH)
+        model.load_state_dict(resnet.params_from_jax(*resnet_init()))
+    return model, SGD, vgg_batches(VGG_TP_WORLD)
+
+
+def job_tp_cells(rank, world):
+    """Every TP_CELLS cell: 3 steps through ``build_strategy('tp')``,
+    the checkpoint tree (JAX's global layout) and this rank's local
+    shapes."""
+    import torch
+
+    from tpudp_torch import train
+    from tpudp_torch.mesh import make_mesh_nd
+    from tpudp_torch.parallel import tensor
+    from tpudp_torch.strategy import build_strategy
+
+    out = {}
+    for name, (family, table, shape) in TP_CELLS.items():
+        model, opt, batches = tp_cell_inputs(family)
+        spec = train.make_optimizer(**opt)
+        built = build_strategy(
+            "tp", model, spec, make_mesh_nd(shape),
+            train.init_state(model, spec),
+            rules=getattr(tensor, f"{table}_tp_rules")())
+        st, losses = built.state, []
+        for x, y in batches:
+            st, loss = built.train_step(
+                st, *(torch.as_tensor(built.shard_for(a)) for a in (x, y)))
+            losses.append(float(loss))
+        out[name] = {"losses": losses,
+                     "tree": cpu_tree(train.state_to_jax(st)),
+                     "module": type(st.model).__name__,
+                     "local_shapes": {k: tuple(v.shape) for k, v in
+                                      st.model.state_dict().items()}}
+    return out
+
+
 # The two-host disaggregated round: the JAX tests' tiny GPT-2 and prompts.
 DISAGG_CFG = dict(vocab_size=61, max_seq_len=96, num_layers=2, num_heads=2,
                   d_model=32)
@@ -1583,7 +1667,8 @@ JOBS = {"sync": job_sync, "steps": job_steps, "eval": job_eval,
         "pp": job_pp, "ep": job_ep, "trainer": job_trainer,
         "schedule": job_schedule, "llama": job_llama,
         "cuda_strategies": job_cuda_strategies, "vit": job_vit,
-        "vgg_tp": job_vgg_tp, "disagg": job_disagg, "sdc": job_sdc,
+        "vgg_tp": job_vgg_tp, "tp_cells": job_tp_cells,
+        "disagg": job_disagg, "sdc": job_sdc,
         "sdc_rungs": job_sdc_rungs, "elastic_save": job_elastic_save,
         "elastic_resume": job_elastic_resume,
         "consistency": job_consistency}

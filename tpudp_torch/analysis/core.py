@@ -10,9 +10,9 @@ Suppressions are explicit ``# tpudp: lint-ok(rule)`` comments, either
 on the offending line or on a comment-only line directly above it; an
 optional ``: reason`` tail documents why.  Every suppression must
 *match* a finding — one that suppresses nothing is itself reported
-(``useless-suppression``), so stale exceptions cannot accumulate.  The
-JAX package's lint rules and its traced-region index are not ported
-(ROADMAP.md, Queue 1).
+(``useless-suppression``), so stale exceptions cannot accumulate.
+:class:`Rule`, :func:`mentions`, :func:`ordered_walk` and
+:func:`lint_paths` carry the port's lint rules (``rules.py``).
 """
 
 from __future__ import annotations
@@ -249,3 +249,121 @@ def iter_python_files(paths: list[str], root: str):
                 if f.endswith(".py"):
                     full = os.path.join(dirpath, f)
                     yield full, os.path.relpath(full, root)
+
+
+# -- the lint engine ------------------------------------------------------
+
+#: Attribute reads that give host metadata of a tensor, not its values:
+#: they break the taint of the value-tracking rules.
+STATIC_ATTRS = {"shape", "ndim", "dtype", "device", "is_cuda", "layout",
+                "requires_grad", "grad_fn", "names", "config"}
+#: Host builtins whose result is not a device value (``float``, ``int``
+#: and ``bool`` of a device value are the sync itself, which the
+#: host-sync rule flags; their result is a host scalar).
+STATIC_CALLS = {"len", "isinstance", "type", "getattr", "hasattr", "id",
+                "callable", "range", "repr", "str", "format", "float",
+                "int", "bool"}
+#: Tensor methods that read host metadata.
+STATIC_METHODS = {"size", "numel", "dim", "element_size", "stride",
+                  "data_ptr", "is_contiguous", "get_device"}
+
+
+def mentions(mod: Module, node: ast.AST, tainted: set[str]) -> bool:
+    """Does ``node`` evaluate through a tainted value?  ``tainted`` holds
+    raw dotted paths (``x``, ``self.state``); static attribute reads
+    (``x.shape``), identity tests (``x is None``) and host builtins
+    (``len``, ``isinstance``) break the taint."""
+    if isinstance(node, (ast.Name, ast.Attribute)):
+        if isinstance(node, ast.Attribute) and node.attr in STATIC_ATTRS:
+            return False
+        dotted = mod.raw_dotted(node)
+        if dotted is not None:
+            return any(dotted == t or dotted.startswith(t + ".")
+                       for t in tainted)
+        if isinstance(node, ast.Attribute):
+            return mentions(mod, node.value, tainted)
+        return False
+    if isinstance(node, ast.Call):
+        if mod.dotted(node.func) in STATIC_CALLS or (
+                isinstance(node.func, ast.Attribute)
+                and node.func.attr in STATIC_METHODS):
+            return False
+        parts = [*node.args, *[kw.value for kw in node.keywords]]
+        if isinstance(node.func, ast.Attribute):
+            parts.append(node.func.value)
+        return any(mentions(mod, p, tainted) for p in parts)
+    if isinstance(node, ast.Compare):
+        if all(isinstance(op, (ast.Is, ast.IsNot)) for op in node.ops):
+            return False
+        return any(mentions(mod, c, tainted)
+                   for c in [node.left, *node.comparators])
+    if isinstance(node, ast.Constant):
+        return False
+    return any(mentions(mod, c, tainted) for c in ast.iter_child_nodes(node))
+
+
+def ordered_walk(fn: ast.AST, skip_nested_defs: bool = True):
+    """Nodes of ``fn`` in source order (``ast.walk`` is breadth-first,
+    which breaks linear taint propagation through nested blocks); with
+    ``skip_nested_defs``, the bodies of defs nested in ``fn`` are left
+    out (they are analyzed on their own)."""
+    skip: set[int] = set()
+    if skip_nested_defs:
+        for node in ast.walk(fn):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)) and node is not fn:
+                skip.update(id(n) for n in ast.walk(node))
+                skip.discard(id(node))
+    return sorted((n for n in ast.walk(fn)
+                   if hasattr(n, "lineno") and id(n) not in skip),
+                  key=lambda n: (n.lineno, n.col_offset))
+
+
+class Rule:
+    """A lint rule: subclasses set ``name`` and ``summary`` and yield
+    :class:`Finding` objects (before suppression) from :meth:`check`."""
+
+    name: str = ""
+    summary: str = ""
+
+    def check(self, mod: Module):
+        raise NotImplementedError
+
+    def finding(self, mod: Module, node: ast.AST, message: str) -> Finding:
+        return Finding(self.name, mod.rel, getattr(node, "lineno", 1),
+                       getattr(node, "col_offset", 0), message)
+
+
+def lint_paths(paths: list[str], root: str, rules=None,
+               report_useless: bool = True):
+    """Every rule over every file: ``(findings, errors)``.  ``findings``
+    leaves out suppressed hits and adds a ``useless-suppression`` for each
+    suppression that matched nothing; ``errors`` names files that did not
+    parse."""
+    if rules is None:
+        from .rules import RULES
+        rules = RULES
+    findings: list[Finding] = []
+    errors: list[str] = []
+    for path, rel in iter_python_files(paths, root):
+        try:
+            with open(path, encoding="utf-8") as f:
+                mod = Module(path, rel, f.read())
+        except (SyntaxError, UnicodeDecodeError) as exc:
+            errors.append(f"{rel}: parse failed: {exc}")
+            continue
+        for rule in rules:
+            for finding in rule.check(mod):
+                if not mod.suppressions.allows(finding.line, rule.name):
+                    findings.append(finding)
+        if report_useless:
+            in_protocol = in_protocol_scope(mod.rel, mod.markers)
+            for line, rule_name in mod.suppressions.unused():
+                if rule_name in PROTOCOL_RULE_NAMES and in_protocol:
+                    continue  # the protocol pass reports these here
+                findings.append(Finding(
+                    "useless-suppression", mod.rel, line, 0,
+                    f"lint-ok({rule_name}) suppresses nothing — remove it "
+                    f"(or the hazard it excused is gone)"))
+    findings.sort(key=lambda f: (f.path, f.line, f.col, f.rule))
+    return findings, errors

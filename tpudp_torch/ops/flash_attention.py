@@ -15,9 +15,10 @@ Three kernel wrappers, each with a plain PyTorch version beside it:
 
 A wrapper given CUDA tensors launches its kernel or raises; given CPU
 tensors it runs the plain version, which is what the CPU tests see.
-Each counts its launches in ``.launches``.  The kernels read q, k, v and
-do through their strides, so the views of the qkv projection the model
-passes are never transposed or copied; ``lse`` and ``delta`` are
+Each counts its launches in ``.launches`` and every call in
+``.calls``.  The kernels read q, k, v and do through their strides, so
+the views of the qkv projection the model passes are never transposed
+or copied; ``lse`` and ``delta`` are
 float32 ``(b, h, t)``; outputs take the inputs' dtypes.  The kernels
 pick their route by dtype.  bfloat16 inputs (the training path) go to
 the tensor-core kernels, which multiply bf16 operands with float32
@@ -176,6 +177,7 @@ def flash_fwd(q, k, v, *, causal: bool = True):
     dtype, ``lse`` float32 ``(b, h, t)``.  Launches
     ``csrc/flash_fwd.cu`` on CUDA tensors (the count goes up by one),
     runs the plain version on CPU tensors."""
+    flash_fwd.calls += 1
     if not q.is_cuda:
         return _flash_fwd_plain(q, k, v, causal)
     _check_query(q)
@@ -205,6 +207,7 @@ def flash_dq(q, k, v, do, lse, delta, *, causal: bool = True):
     rowsum(do * o)`` (both float32 ``(b, h, t)``).  Launches
     ``csrc/flash_dq.cu`` on CUDA tensors (the count goes up by one),
     runs the plain version on CPU tensors."""
+    flash_dq.calls += 1
     if not q.is_cuda:
         return _dq_plain(q, k, v, do, lse, delta, causal)
     _check_query(q)
@@ -222,6 +225,7 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
     """K3: ``(dk, dv)`` in k's and v's dtype, from the same inputs as
     :func:`flash_dq`.  Launches ``csrc/flash_dkv.cu`` on CUDA tensors
     (the count goes up by one), runs the plain version on CPU tensors."""
+    flash_dkv.calls += 1
     if not q.is_cuda:
         return _dkv_plain(q, k, v, do, lse, delta, causal)
     _check_query(q)
@@ -236,9 +240,9 @@ def flash_dkv(q, k, v, do, lse, delta, *, causal: bool = True):
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_dq.launches = 0
-flash_dkv.launches = 0
+for _fn in (flash_fwd, flash_dq, flash_dkv):
+    _fn.launches = 0
+    _fn.calls = 0  # every call, at entry: the audit's census off the card
 
 #: Every flash kernel wrapper, by kernel name.
 KERNELS = {"flash_fwd": flash_fwd, "flash_dq": flash_dq,

@@ -26,7 +26,8 @@ through :func:`paged_tree` (K6) and its plain version
 
 A kernel wrapper given CUDA tensors launches its kernel or raises; given
 CPU tensors it runs the plain version, which is what the CPU tests see.
-Each wrapper counts its launches in ``.launches`` so a run can show that
+Each wrapper counts its launches in ``.launches`` (and every call, on
+the card or off it, in ``.calls``) so a run can show that
 its main path went through the kernel.
 
 Pages are ``(k, v)``, each ``(P + 1, T, kv, dh)`` per layer, the
@@ -452,6 +453,7 @@ def paged_decode(q, k_pages, v_pages, table, pos, *, layer=None):
     ``(b,)``.  Launches ``csrc/paged_decode.cu`` on CUDA tensors, once,
     on the grid :func:`decode_schedule` picks for the table's capacity
     (the count goes up by one); runs the plain version on CPU tensors."""
+    paged_decode.calls += 1
     if q.shape[1] != 1:
         raise ValueError("the paged-decode kernel is a one-token kernel")
     if not q.is_cuda:
@@ -467,6 +469,7 @@ def paged_window(q, k_pages, v_pages, table, pos, *, layer=None):
     the host holds, such as the engine's prefill chunk start, goes to
     the kernel by value and sizes the key split.  Runs the plain version
     on CPU tensors."""
+    paged_window.calls += 1
     if not q.is_cuda:
         return _plain(q, (k_pages, v_pages), table, pos, layer)
     return _launch("paged_window", q, (k_pages, v_pages), table, pos, layer)
@@ -479,6 +482,7 @@ def paged_decode_int8(q, k_pages, v_pages, k_scale, v_scale, table, pos, *,
     ``launch_paged_decode_int8`` of ``csrc/paged_decode.cu`` on CUDA
     tensors (the count goes up by one), runs the plain version —
     dequantize, then the einsum — on CPU tensors."""
+    paged_decode_int8.calls += 1
     if q.shape[1] != 1:
         raise ValueError("the paged-decode kernel is a one-token kernel")
     pages = (k_pages, v_pages, k_scale, v_scale)
@@ -493,6 +497,7 @@ def paged_window_int8(q, k_pages, v_pages, k_scale, v_scale, table, pos, *,
     float32 per-vector scales.  Launches ``launch_paged_window_int8`` of
     ``csrc/paged_window.cu`` on CUDA tensors (the count goes up by one),
     runs the plain version on CPU tensors."""
+    paged_window_int8.calls += 1
     pages = (k_pages, v_pages, k_scale, v_scale)
     if not q.is_cuda:
         return _plain(q, pages, table, pos, layer)
@@ -566,6 +571,7 @@ def paged_tree(q, k_pages, v_pages, table, pos0, wk, wv, anc, *,
     of the qkv projection are taken as they are); ``pos0`` ``(b,)``.
     Launches ``csrc/paged_tree.cu`` on CUDA tensors (the count goes up
     by one), runs the plain version on CPU tensors."""
+    paged_tree.calls += 1
     if not q.is_cuda:
         return _tree_plain(q, k_pages, v_pages, table, pos0, wk, wv, anc,
                            layer)
@@ -607,6 +613,7 @@ KERNELS = {"paged_decode": paged_decode, "paged_window": paged_window,
            "paged_window_int8": paged_window_int8, "paged_tree": paged_tree}
 for _fn in KERNELS.values():
     _fn.launches = 0
+    _fn.calls = 0  # every call, at entry: the audit's census off the card
 
 
 class GraphLaunches:

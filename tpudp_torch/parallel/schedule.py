@@ -75,21 +75,7 @@ from tpudp_torch.parallel.sharded import (Layout, Leaf, _JAX_OPT_NAMES,
                                           refuse_skip)
 from tpudp_torch.train import _codec, fingerprint_tensors, state_to_jax
 from tpudp_torch.utils.checkpoint import _to_cpu
-
-
-def pipeline_bubble_fraction(stages: int, n_microbatches: int,
-                             interleave: int = 1) -> float:
-    """The idle share of a 1F1B schedule (JAX's
-    ``tpudp.utils.flops.pipeline_bubble_fraction``): ``(S-1) / (V*M +
-    S-1)`` for ``S`` stages, ``M`` microbatches and ``V`` virtual stages
-    a device; 0 at one stage."""
-    if stages < 1 or n_microbatches < 1 or interleave < 1:
-        raise ValueError(
-            f"stages ({stages}), n_microbatches ({n_microbatches}) and "
-            f"interleave ({interleave}) must all be >= 1")
-    if stages == 1:
-        return 0.0
-    return (stages - 1) / (interleave * n_microbatches + stages - 1)
+from tpudp_torch.utils.flops import pipeline_bubble_fraction  # noqa: F401
 
 
 @dataclass(frozen=True)

@@ -5,9 +5,14 @@ ZeRO-1 and sequence parallelism — written out by hand over
 JAX annotates shardings and lets XLA partition the single-device
 program; here each rung states its collectives:
 
-  * **tp** (:func:`make_tp_train_step`, mesh ``data x model``): Megatron,
-    for GPT-2 (``gpt2_tp_rules``) and LLaMA (``llama_tp_rules``), and
-    the channel split of VGG (``vgg_tp_rules``, :class:`TPVGG`).
+  * **tp** (:func:`make_tp_train_step`, mesh ``data x model``): each
+    leaf resolves by JAX's rule (:func:`resolve_tp`).  Where the rules
+    split no leaf of the model, the step is replicated over ``model``
+    (JAX's GSPMD runs the whole model on every model rank); otherwise it
+    is Megatron for GPT-2 (``gpt2_tp_rules``), LLaMA (``llama_tp_rules``)
+    and ViT (``gpt2_tp_rules``, :class:`TPViT`), and the channel split
+    of VGG and ResNet (``vgg_tp_rules``, :class:`TPVGG`,
+    :class:`TPResNet`), on the sections the rules split.
     ``qkv`` / ``wq``, ``mlp_fc`` / ``gate`` and ``up`` are
     column-parallel, ``proj`` / ``wo`` and ``mlp_proj`` / ``down``
     row-parallel with their outputs summed over ``model``
@@ -58,6 +63,7 @@ the loss the global batch's mean cross entropy on every rank.
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 from typing import Callable
 
@@ -70,20 +76,14 @@ from torch import nn
 from tpudp_torch.mesh import Mesh, MeshND, bind_axes
 from tpudp_torch.models.norm import DATA_AXIS, BatchNorm
 from tpudp_torch.parallel import collectives as C
-from tpudp_torch.parallel.tensor import (MODEL_AXIS, fsdp_dim, gpt2_tp_rules,
-                                         llama_tp_rules, tree_shardings,
-                                         vgg_tp_rules)
+from tpudp_torch.parallel.tensor import (MODEL_AXIS, fsdp_dim, tree_paths,
+                                         tree_shardings)
 from tpudp_torch.train import (OptimizerSpec, TrainState, _FiniteGuard,
                                _adamw, _codec, _opt_buffers, batch_stats,
                                eval_metrics, fingerprint_tensors,
                                optimizer_update, skip_counters, state_to_jax,
                                with_aux)
 from tpudp_torch.utils.checkpoint import _to_cpu
-
-#: The ROADMAP items of the models tensor parallelism does not take yet.
-RESNET_TP_ITEM = "Queue 1 item 3 (ResNet under vgg_tp_rules)"
-VIT_TP_ITEM = "Queue 1 item 4 (ViT under tp)"
-
 
 # -- mesh axes --------------------------------------------------------------
 
@@ -663,14 +663,18 @@ class TPGPT2(_VocabSplit):
     is ``(3d/n, d)`` (its heads' q, k and v rows) and ``proj`` ``(d,
     d/n)``; where it divides the MLP width ``f``, ``mlp_fc`` is ``(f/n,
     d)`` and ``mlp_proj`` ``(d, f/n)``; where it divides the vocabulary,
-    ``wte`` is ``(V/n, d)``.  Every other section is whole."""
+    ``wte`` is ``(V/n, d)``.  Every other section is whole, and so is a
+    section the rules leave whole (``sections`` names those they split:
+    ``attn``, ``mlp``, ``vocab``)."""
 
-    def __init__(self, cfg, group, n: int, r: int):
+    def __init__(self, cfg, group, n: int, r: int, sections):
         super().__init__()
         self.config, self.group, self.n, self.r = cfg, group, n, r
         f = cfg.mlp_ratio * cfg.d_model
-        na, nm, nv = (n if _split(size, n) else 1
-                      for size in (cfg.num_heads, f, cfg.vocab_size))
+        na, nm, nv = (n if name in sections and _split(size, n) else 1
+                      for name, size in (("attn", cfg.num_heads),
+                                         ("mlp", f),
+                                         ("vocab", cfg.vocab_size)))
         self.attn_group, self.mlp_group, self.vocab_group = (
             group if k > 1 else None for k in (na, nm, nv))
         self.splits = {"attn": na > 1, "mlp": nm > 1, "vocab": nv > 1}
@@ -770,29 +774,35 @@ class TPLlama(_VocabSplit):
     where the axis divides those too; otherwise they are whole on every
     rank beside split query heads, each rank using the KV heads its query
     heads read (so their gradients are partial: :attr:`partial` names
-    them, to be summed over ``group``)."""
+    them, to be summed over ``group``).  A section the rules leave whole
+    is whole (``sections`` names those they split: ``attn`` — ``wq`` and
+    ``wo`` —, ``kv``, ``mlp``, ``vocab`` — ``wte`` — and ``head``)."""
 
-    def __init__(self, cfg, group, n: int, r: int):
+    def __init__(self, cfg, group, n: int, r: int, sections):
         super().__init__()
         self.config, self.group, self.n, self.r = cfg, group, n, r
-        na, nm, nv = (n if _split(size, n) else 1
-                      for size in (cfg.num_heads, cfg.hidden,
-                                   cfg.vocab_size))
-        nkv = n if na > 1 and _split(cfg.kv_heads, n) else 1
-        self.attn_group, self.mlp_group, self.vocab_group = (
-            group if k > 1 else None for k in (na, nm, nv))
+        na, nm, nv, nh = (n if name in sections and _split(size, n) else 1
+                          for name, size in (("attn", cfg.num_heads),
+                                             ("mlp", cfg.hidden),
+                                             ("vocab", cfg.vocab_size),
+                                             ("head", cfg.vocab_size)))
+        nkv = (n if na > 1 and "kv" in sections and _split(cfg.kv_heads, n)
+               else 1)
+        self.attn_group, self.mlp_group, self.vocab_group, \
+            self.head_group = (group if k > 1 else None
+                               for k in (na, nm, nv, nh))
         self.splits = {"attn": na > 1, "kv": nkv > 1, "mlp": nm > 1,
-                       "vocab": nv > 1}
-        hkv, f, v = cfg.kv_heads // nkv, cfg.hidden // nm, \
-            cfg.vocab_size // nv
-        self.wte = nn.Embedding(v, cfg.d_model)
+                       "vocab": nv > 1, "head": nh > 1}
+        hkv, f = cfg.kv_heads // nkv, cfg.hidden // nm
+        self.wte = nn.Embedding(cfg.vocab_size // nv, cfg.d_model)
         self.h = nn.ModuleList(_TPLlamaBlock(cfg, cfg.num_heads // na, hkv,
                                              f)
                                for _ in range(cfg.num_layers))
         from tpudp_torch.models.llama import RMSNorm
 
         self.rms_f = RMSNorm(cfg.d_model, cfg.rms_eps)
-        self.lm_head = nn.Linear(cfg.d_model, v, bias=False)
+        self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size // nh,
+                                 bias=False)
         self.partial = ((".attn.wk.weight", ".attn.wv.weight")
                         if na > 1 and nkv == 1 else ())
 
@@ -832,7 +842,7 @@ class TPLlama(_VocabSplit):
             x = x + _row(blk.down, gate * dense(blk.up, a, dtype), dtype, gm)
         hidden = rms_norm(self.rms_f, x).to(dtype)
         return self._logits(hidden, self.lm_head.weight.to(dtype),
-                            self.vocab_group)
+                            self.head_group)
 
 
 def _tp_llama_leaves(model: TPLlama, group, n: int, r: int) -> list:
@@ -840,7 +850,7 @@ def _tp_llama_leaves(model: TPLlama, group, n: int, r: int) -> list:
     model's names."""
     sp = model.splits
     rows = [(sp["attn"], ".attn.wq.weight"), (sp["mlp"], ".gate.weight"),
-            (sp["mlp"], ".up.weight"), (sp["vocab"], "lm_head.weight"),
+            (sp["mlp"], ".up.weight"), (sp["head"], "lm_head.weight"),
             (sp["vocab"], "wte.weight"), (sp["kv"], ".attn.wk.weight"),
             (sp["kv"], ".attn.wv.weight")]
     cols = [(sp["attn"], ".attn.wo.weight"), (sp["mlp"], ".down.weight")]
@@ -852,6 +862,17 @@ def _tp_llama_leaves(model: TPLlama, group, n: int, r: int) -> list:
         leaves.append(Leaf(name, p) if dim is None
                       else dim_leaf(name, p, dim, group, n, r))
     return leaves
+
+
+def _feed(x, sharded: bool, to_split: bool, group):
+    """A layer's input over the model axis: a channel-sharded activation
+    gathered (its gradient reduce-scattered where the layer is split,
+    narrowed where it is whole); a whole one passed to a split layer
+    through ``copy_to_group`` (its partial gradients summed)."""
+    if sharded:
+        return (C.gather_to_split(x, 1, group) if to_split
+                else C.gather_from_group(x, 1, group))
+    return C.copy_to_group(x, group) if to_split else x
 
 
 class TPVGG(nn.Module):
@@ -869,7 +890,8 @@ class TPVGG(nn.Module):
     #: layer's gradient is the same on every rank).
     partial: tuple = ()
 
-    def __init__(self, model, group, n: int, r: int, dgroup, dn: int):
+    def __init__(self, model, group, n: int, r: int, dgroup, dn: int,
+                 sections):
         super().__init__()
         self.group, self.n, self.r = group, n, r
         self.cfg, self.dtype = model.cfg, model.dtype
@@ -880,7 +902,8 @@ class TPVGG(nn.Module):
             if v == "M":
                 size //= 2
                 continue
-            split = n > 1 and _split(int(v), n)
+            split = (n > 1 and _split(int(v), n)
+                     and f"Conv_{len(convs)}" in sections)
             local = int(v) // n if split else int(v)
             convs.append(nn.Conv2d(channels, local, 3, padding=1))
             bns.append(BatchNorm(local, bn_axis, dgroup))
@@ -889,19 +912,9 @@ class TPVGG(nn.Module):
         self.convs = nn.ModuleList(convs)
         self.bns = nn.ModuleList(bns)
         classes = model.fc.out_features
-        self.fc_split = n > 1 and _split(classes, n)
+        self.fc_split = n > 1 and _split(classes, n) and "fc" in sections
         self.fc = nn.Linear(channels * size * size,
                             classes // n if self.fc_split else classes)
-
-    def _gather(self, x, sharded: bool, to_split: bool):
-        """The input of a layer: a sharded activation gathered over the
-        channels (its gradient reduce-scattered where the layer is split,
-        narrowed where it is whole); a whole one passed to a split layer
-        through ``copy_to_group`` (its partial gradients summed)."""
-        if sharded:
-            return (C.gather_to_split(x, 1, self.group) if to_split
-                    else C.gather_from_group(x, 1, self.group))
-        return C.copy_to_group(x, self.group) if to_split else x
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = self.dtype
@@ -912,13 +925,13 @@ class TPVGG(nn.Module):
                 x = F.max_pool2d(x, 2, 2)
                 continue
             split, conv = self.split[layer], self.convs[layer]
-            x = self._gather(x, sharded, split)
+            x = _feed(x, sharded, split, self.group)
             x = F.conv2d(x.to(dt), conv.weight.to(dt), conv.bias.to(dt),
                          padding=1)
             x = F.relu(self.bns[layer](x, train))
             sharded = split
             layer += 1
-        x = self._gather(x, sharded, self.fc_split)
+        x = _feed(x, sharded, self.fc_split, self.group)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax's order
         logits = F.linear(x.to(dt), self.fc.weight.to(dt),
                           self.fc.bias.to(dt)).float()
@@ -945,43 +958,325 @@ def _tp_vgg_leaves(model: TPVGG, group, n: int, r: int) -> tuple:
     return leaves, buffers
 
 
-def _check_rules(model, rules) -> str:
-    """The model axis of ``rules``: each ported family's table for its
-    model (``gpt2_tp_rules``, ``llama_tp_rules``, ``vgg_tp_rules``),
-    another table refused by name; a ResNet or a ViT raises naming its
-    ROADMAP item."""
+class _TPBottleneck(nn.Module):
+    """One bottleneck block of :class:`TPResNet`: the single-device
+    block's names, each split convolution ``cout/n`` wide."""
+
+    def __init__(self, blk, split: list, proj_split: bool, n: int, dgroup,
+                 bn_axis):
+        super().__init__()
+        self.split, self.proj_split = split, proj_split
+        convs, bns = [], []
+        for conv, bn, sp in zip(blk.convs, blk.bns, split):
+            cout = conv.out_channels // n if sp else conv.out_channels
+            convs.append(nn.Conv2d(conv.in_channels, cout, conv.kernel_size,
+                                   conv.stride, conv.padding, bias=False))
+            bns.append(BatchNorm(cout, bn_axis, dgroup))
+        self.convs, self.bns = nn.ModuleList(convs), nn.ModuleList(bns)
+        self.proj_conv = self.proj_bn = None
+        if blk.proj_conv is not None:
+            p = blk.proj_conv
+            self.proj_conv = nn.Conv2d(
+                p.in_channels, p.out_channels // n if proj_split
+                else p.out_channels, 1, p.stride, bias=False)
+            self.proj_bn = BatchNorm(p.out_channels, bn_axis, dgroup)
+
+
+class TPResNet(nn.Module):
+    """This rank's ResNet under ``vgg_tp_rules`` over ``group`` (``n``
+    ranks, this one ``r``): the single-device model's parameter and
+    buffer names with local shapes.  Every convolution the rules split
+    (``stem_conv``, each block's ``Conv_0-2`` and ``proj_conv``, where
+    the axis divides its output channels) holds its ``cout/n`` of them,
+    with its ``BatchNorm_i`` on the local slice (SyncBN over ``dgroup``
+    when ``dn > 1``: JAX's global batch); ``Dense_0`` holds its
+    ``classes/n`` logits where the axis divides them.  A block's input
+    and output are whole on every rank: the residual adds run on whole
+    tensors.  ``stem_bn`` and ``proj_bn`` match no rule, so they stay
+    whole: each normalizes its convolution's output gathered whole over
+    ``model``, so every rank computes the same statistics and the same
+    whole gradients of their parameters.  The stem's max-pool follows
+    ``stem_bn`` on the whole tensor; the global mean pool comes before
+    ``Dense_0``."""
+
+    #: Whole leaves whose gradients are partial sums: none.
+    partial: tuple = ()
+
+    def __init__(self, model, group, n: int, r: int, dgroup, dn: int,
+                 sections):
+        super().__init__()
+        self.group, self.n, self.r = group, n, r
+        self.dtype = model.dtype
+        bn_axis = DATA_AXIS if dn > 1 else None
+
+        def split(name: str, cout: int) -> bool:
+            return n > 1 and _split(cout, n) and name in sections
+
+        stem = model.stem_conv
+        self.stem_split = split("stem", stem.out_channels)
+        self.stem_conv = nn.Conv2d(
+            3, stem.out_channels // n if self.stem_split
+            else stem.out_channels, 7, 2, padding=3, bias=False)
+        self.stem_bn = BatchNorm(stem.out_channels, bn_axis, dgroup)
+        blocks = []
+        for i, blk in enumerate(model.blocks):
+            sp = [split(f"b{i}.c{j}", c.out_channels)
+                  for j, c in enumerate(blk.convs)]
+            proj = (blk.proj_conv is not None
+                    and split(f"b{i}.proj", blk.proj_conv.out_channels))
+            blocks.append(_TPBottleneck(blk, sp, proj, n, dgroup, bn_axis))
+        self.blocks = nn.ModuleList(blocks)
+        classes = model.fc.out_features
+        self.fc_split = split("fc", classes)
+        self.fc = nn.Linear(model.fc.in_features,
+                            classes // n if self.fc_split else classes)
+
+    def _conv(self, x, conv, sharded: bool, split: bool):
+        """``conv`` on ``x`` (channel-sharded or whole), its output this
+        rank's slice where ``split``."""
+        x = _feed(x.to(self.dtype), sharded, split, self.group)
+        return F.conv2d(x, conv.weight.to(self.dtype), None, conv.stride,
+                        conv.padding)
+
+    def _whole(self, x, sharded: bool):
+        return C.gather_from_group(x, 1, self.group) if sharded else x
+
+    def _block(self, blk: _TPBottleneck, x, train: bool):
+        y, sharded = x, False
+        for j, (conv, bn) in enumerate(zip(blk.convs, blk.bns)):
+            y = bn(self._conv(y, conv, sharded, blk.split[j]), train)
+            if j < 2:
+                y = F.relu(y)
+            sharded = blk.split[j]
+        y = self._whole(y, sharded)
+        residual = x
+        if blk.proj_conv is not None:
+            p = self._conv(x, blk.proj_conv, False, blk.proj_split)
+            residual = blk.proj_bn(self._whole(p, blk.proj_split), train)
+        return F.relu(residual + y)
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dt = self.dtype
+        x = x.permute(0, 3, 1, 2)  # NHWC memory seen as NCHW
+        y = self._conv(x, self.stem_conv, False, self.stem_split)
+        x = F.relu(self.stem_bn(self._whole(y, self.stem_split), train))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        for blk in self.blocks:
+            x = self._block(blk, x, train)
+        x = x.mean(dim=(2, 3))  # global average pool, float32
+        if self.fc_split:
+            x = C.copy_to_group(x, self.group)
+        logits = F.linear(x.to(dt), self.fc.weight.to(dt),
+                          self.fc.bias.to(dt)).float()
+        if self.fc_split:
+            logits = C.gather_from_group(logits, -1, self.group)
+        return logits
+
+
+def _tp_resnet_leaves(model: TPResNet, group, n: int, r: int) -> tuple:
+    """:class:`TPResNet`'s parameters as leaves of the single-device
+    ResNet's names, and its BatchNorm running statistics by name (leaves
+    where their convolution is split): ``(leaves, buffers)``."""
+    def split_of(name: str) -> bool:
+        parts = name.split(".")
+        if parts[0] == "stem_conv":
+            return model.stem_split
+        if parts[0] == "fc":
+            return model.fc_split
+        if parts[0] != "blocks" or parts[2] == "proj_bn":
+            return False  # stem_bn, proj_bn: whole
+        blk = model.blocks[int(parts[1])]
+        if parts[2] == "proj_conv":
+            return blk.proj_split
+        return blk.split[int(parts[3])]
+
+    def of(name, t):
+        return (dim_leaf(name, t, 0, group, n, r) if split_of(name)
+                else Leaf(name, t))
+
+    leaves = [of(name, p) for name, p in model.named_parameters()]
+    buffers = {name: of(name, b) if split_of(name) else b
+               for name, b in model.named_buffers()}
+    return leaves, buffers
+
+
+class _TPViTBlock(nn.Module):
+    def __init__(self, cfg, na: int, nm: int):
+        super().__init__()
+        from tpudp_torch.models.vit import LN_EPS
+
+        d, f = cfg.d_model, cfg.mlp_ratio * cfg.d_model
+        self.ln_1 = nn.LayerNorm(d, eps=LN_EPS)
+        self.attn = _TPAttention(d, na)
+        self.ln_2 = nn.LayerNorm(d, eps=LN_EPS)
+        self.mlp_fc = nn.Linear(d, f // nm)
+        self.mlp_proj = nn.Linear(f // nm, d)
+
+
+class TPViT(nn.Module):
+    """This rank's ViT under Megatron tensor parallelism over ``group``
+    (``n`` ranks, this one ``r``): :class:`TPGPT2` without the
+    vocabulary.  Where the rules split them (``gpt2_tp_rules``) and the
+    axis divides the heads (the MLP width), ``qkv`` is ``(3d/n, d)`` (its
+    heads' q, k and v rows) and ``proj`` ``(d, d/n)``, ``mlp_fc`` ``(f/n,
+    d)`` and ``mlp_proj`` ``(d, f/n)``; attention runs at the local heads
+    (with ``attn_impl='flash'``, through K1-K3, non-causal).
+    ``patch_embed``, ``pos_embed``, the LayerNorms and ``head`` are
+    whole."""
+
+    partial: tuple = ()
+
+    def __init__(self, cfg, group, n: int, r: int, sections):
+        super().__init__()
+        self.config, self.group, self.n, self.r = cfg, group, n, r
+        from tpudp_torch.models.vit import LN_EPS
+
+        f = cfg.mlp_ratio * cfg.d_model
+        na, nm = (n if name in sections and _split(size, n) else 1
+                  for name, size in (("attn", cfg.num_heads), ("mlp", f)))
+        self.attn_group, self.mlp_group = (group if k > 1 else None
+                                           for k in (na, nm))
+        self.splits = {"attn": na > 1, "mlp": nm > 1, "vocab": False}
+        d, p = cfg.d_model, cfg.patch_size
+        self.patch_embed = nn.Conv2d(3, d, p, stride=p)
+        self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches, d))
+        self.h = nn.ModuleList(_TPViTBlock(cfg, na, nm)
+                               for _ in range(cfg.num_layers))
+        self.ln_f = nn.LayerNorm(d, eps=LN_EPS)
+        self.head = nn.Linear(d, cfg.num_classes)
+
+    def forward(self, images: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        del train
+        from tpudp_torch.models.gpt2 import dense, layer_norm
+        from tpudp_torch.ops.attention import multihead_attention
+
+        cfg, ga, gm = self.config, self.attn_group, self.mlp_group
+        dt, conv = cfg.dtype, self.patch_embed
+        x = images.permute(0, 3, 1, 2).to(dt)  # NHWC memory seen as NCHW
+        x = F.conv2d(x, conv.weight.to(dt), conv.bias.to(dt), conv.stride)
+        b = x.shape[0]
+        x = x.permute(0, 2, 3, 1).reshape(b, -1, cfg.d_model)
+        x = x + self.pos_embed.to(dt)
+        t, dh = x.shape[1], cfg.d_model // cfg.num_heads
+        hl = cfg.num_heads // (self.n if self.splits["attn"] else 1)
+        for blk in self.h:
+            a = C.copy_to_group(layer_norm(blk.ln_1, x), ga)
+            qkv = dense(blk.attn.qkv, a, dt)
+            q, k, v = (z.reshape(b, t, hl, dh) for z in qkv.chunk(3, -1))
+            out = multihead_attention(q, k, v, causal=False,
+                                      impl=cfg.attn_impl, dtype=dt)
+            x = x + _row(blk.attn.proj, out.reshape(b, t, -1), dt, ga)
+            a = C.copy_to_group(layer_norm(blk.ln_2, x), gm)
+            h = F.gelu(dense(blk.mlp_fc, a, dt), approximate="tanh")
+            x = x + _row(blk.mlp_proj, h, dt, gm)
+        x = layer_norm(self.ln_f, x).mean(dim=1)  # global average pool
+        return dense(self.head, x, dt).float()
+
+
+# -- rule resolution --------------------------------------------------------
+#
+# JAX's make_tp_train_step takes any model under any table: each leaf's spec
+# is the first matching rule, and a leaf no rule matches, or whose split dim
+# the axis does not divide, is replicated.  The port resolves each leaf the
+# same way, then runs the hand-written module of the model's family on the
+# sections the rules split, or, where they split nothing, the replicated
+# step.  A section is the leaves the port splits together; a table that
+# splits part of one, or a leaf no module splits, is refused by name.
+
+def _tp_sections(model) -> list:
+    """``[(section, path regex)]`` of ``model``'s family over its JAX
+    parameter paths (``params/...``)."""
     from tpudp_torch.models import gpt2, llama, resnet, vgg, vit
 
+    if isinstance(model, (gpt2.GPT2, vit.ViT)):
+        out = [("attn", r"/h_\d+/attn/(qkv/(kernel|bias)|proj/kernel)$"),
+               ("mlp", r"/h_\d+/(mlp_fc/(kernel|bias)|mlp_proj/kernel)$")]
+        return out + ([("vocab", r"^params/wte/embedding$")]
+                      if isinstance(model, gpt2.GPT2) else [])
+    if isinstance(model, llama.Llama):
+        return [("attn", r"/attn/w[qo]/kernel$"),
+                ("kv", r"/attn/w[kv]/kernel$"),
+                ("mlp", r"/(gate|up|down)/kernel$"),
+                ("vocab", r"^params/wte/embedding$"),
+                ("head", r"^params/lm_head/kernel$")]
+    if isinstance(model, vgg.VGG):
+        return [(f"Conv_{i}", rf"^params/(Conv_{i}/(kernel|bias)|"
+                              rf"BatchNorm_{i}/(scale|bias))$")
+                for i in range(len(model.convs))] + [
+            ("fc", r"^params/Dense_0/(kernel|bias)$")]
+    if isinstance(model, resnet.ResNet):
+        out = [("stem", r"^params/stem_conv/kernel$")]
+        for i in range(len(model.blocks)):
+            blk = rf"^params/BottleneckBlock_{i}/"
+            out += [(f"b{i}.c{j}",
+                     blk + rf"(Conv_{j}/kernel|BatchNorm_{j}/(scale|bias))$")
+                    for j in range(3)]
+            out.append((f"b{i}.proj", blk + r"proj_conv/kernel$"))
+        return out + [("fc", r"^params/Dense_0/(kernel|bias)$")]
+    return []
+
+
+def _rules_axis(rules) -> str:
+    """The model axis ``rules`` split over (``model`` where they name
+    none or several)."""
     if callable(rules):
         raise ValueError("callable rules are the fsdp and zero1 rungs: use "
                          "make_fsdp_train_step / make_zero1_train_step")
+    axes = {a for _, s in rules if s for a in s if a is not None}
+    return next(iter(axes)) if len(axes) == 1 else MODEL_AXIS
+
+
+def resolve_tp(model, rules, axis_sizes: dict):
+    """How the port runs ``model`` under ``rules`` at ``axis_sizes``:
+    None where JAX's resolution splits no leaf (the replicated step),
+    else the set of the family's sections the rules split (the
+    hand-written module's layout).  Raises naming the split leaves no
+    module of the port takes."""
+    from tpudp_torch.parallel.tensor import spec_for_path
+
     rules = tuple((p, tuple(s) if s is not None else None)
                   for p, s in rules)
-    axes = {a for _, s in rules if s for a in s if a is not None}
-    axis = next(iter(axes)) if len(axes) == 1 else MODEL_AXIS
-    if isinstance(model, resnet.ResNet):
-        raise NotImplementedError(
-            "tensor parallelism of a ResNet is not ported yet: ROADMAP.md "
-            f"{RESNET_TP_ITEM}")
-    if isinstance(model, vit.ViT):
-        raise NotImplementedError(
-            "tensor parallelism of a ViT is not ported yet: ROADMAP.md "
-            f"{VIT_TP_ITEM}")
-    table = {gpt2.GPT2: (gpt2_tp_rules, "gpt2_tp_rules"),
-             llama.Llama: (llama_tp_rules, "llama_tp_rules"),
-             vgg.VGG: (vgg_tp_rules, "vgg_tp_rules")}
-    if type(model) not in table:
-        raise TypeError(f"strategy 'tp' drives tpudp_torch.models.gpt2.GPT2, "
-                        f"llama.Llama or vgg.VGG; got "
-                        f"{type(model).__name__}")
-    make, label = table[type(model)]
-    if rules != make(axis):
-        layout = ("the channel split" if label == "vgg_tp_rules"
-                  else "Megatron's layout")
-        raise ValueError(f"the port's TP step is {layout} for "
-                         f"{type(model).__name__}: rules must be "
-                         f"{label}(model_axis)")
-    return axis
+    to_jax, _ = _codec(model)
+    tree = {"params": to_jax(model.state_dict())[0]}
+    leaves = tree_paths(tree)
+    split = {path for path, sh in tree_shardings(tree, rules,
+                                                 axis_sizes).items()
+             if sh is not None}
+    if not split:
+        return None
+    matched = {path for path, leaf in leaves.items()
+               if any(a is not None for a in spec_for_path(
+                   path, rules, leaf.dim()))}
+    sections, covered, bad = set(), set(), []
+    for name, pattern in _tp_sections(model):
+        paths = {p for p in leaves if re.search(pattern, p)}
+        covered |= paths
+        if not paths & split:
+            continue
+        if paths <= matched:
+            sections.add(name)
+        else:
+            bad.append(f"{name} (the rules split "
+                       f"{sorted(paths & split)} but not "
+                       f"{sorted(paths - matched)})")
+    bad += sorted(split - covered)
+    if bad:
+        raise ValueError(
+            f"the port's tp step for {type(model).__name__} splits whole "
+            f"sections of its hand-written layout; these rules split "
+            f"leaves it does not take: {', '.join(bad)}")
+    return sections
+
+
+def _replicated_model(model, dgroup, dn: int) -> nn.Module:
+    """The replicated tp step's module: the single-device model, its
+    BatchNorms SyncBN over ``data`` (JAX's global batch)."""
+    if dn > 1:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.bn_axis, m.group = DATA_AXIS, dgroup
+    return model
 
 
 def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
@@ -990,36 +1285,58 @@ def make_tp_train_step(model: nn.Module, optimizer: OptimizerSpec, mesh,
                        aux_loss_coef: float = 0.01):
     """DP x TP (JAX's ``make_tp_train_step``) over ``mesh``'s
     ``data_axis`` and the rules' model axis: returns ``(tp_state,
-    step)``, ``tp_state.model`` this rank's :class:`TPGPT2` (rules
-    :func:`~tpudp_torch.parallel.tensor.gpt2_tp_rules`),
-    :class:`TPLlama` (:func:`~tpudp_torch.parallel.tensor.
-    llama_tp_rules`) or :class:`TPVGG` (:func:`~tpudp_torch.parallel.
-    tensor.vgg_tp_rules`).  The step is JAX's single-device step on the
-    global batch: the loss and the gradients are the global batch's
-    means (averaged over ``data``)."""
-    from tpudp_torch.models import llama, vgg
+    step)``.  Each leaf resolves as JAX resolves it
+    (:func:`resolve_tp`): where the rules split nothing of ``model``
+    (another family's table, say) the step is replicated — the whole
+    model on every rank, as JAX's GSPMD runs it; otherwise
+    ``tp_state.model`` is this rank's hand-written module on the
+    sections the rules split: :class:`TPGPT2` or :class:`TPLlama`
+    (Megatron), :class:`TPVGG` or :class:`TPResNet` (the channel split),
+    :class:`TPViT`.  The step is JAX's single-device step on the global
+    batch: the loss and the gradients are the global batch's means
+    (averaged over ``data``)."""
+    from tpudp_torch.models import gpt2, llama, resnet, vgg, vit
 
-    axis = _check_rules(model, rules)
+    axis = _rules_axis(rules)
     refuse_skip(optimizer, "tp")
     if optimizer.compress is not None:
         raise ValueError(f"compress={optimizer.compress!r} needs the "
                          "shard_map DP rung")
     group, n, r = axis_of(mesh, axis)
     dgroup, dn, _ = axis_of(mesh, data_axis)
+    sizes = dict(mesh.shape) if isinstance(mesh, MeshND) else {
+        DATA_AXIS: mesh.size}
+    sizes.setdefault(axis, n)
+    sections = resolve_tp(model, rules, sizes)
     device = next(model.parameters()).device
     buffers = None
-    if isinstance(model, vgg.VGG):
-        local = TPVGG(model, group, n, r, dgroup, dn).to(
+    if sections is None:
+        local = _replicated_model(model, dgroup, dn)
+        leaves = [Leaf(name, p) for name, p in local.named_parameters()]
+        buffers = {k: b for k, b in local.named_buffers()
+                   if b.is_floating_point()}
+    elif isinstance(model, vgg.VGG):
+        local = TPVGG(model, group, n, r, dgroup, dn, sections).to(
             device, memory_format=torch.channels_last)
         leaves, buffers = _tp_vgg_leaves(local, group, n, r)
+    elif isinstance(model, resnet.ResNet):
+        local = TPResNet(model, group, n, r, dgroup, dn, sections).to(
+            device, memory_format=torch.channels_last)
+        leaves, buffers = _tp_resnet_leaves(local, group, n, r)
     elif isinstance(model, llama.Llama):
-        local = TPLlama(model.config, group, n, r).to(device)
+        local = TPLlama(model.config, group, n, r, sections).to(device)
         leaves = _tp_llama_leaves(local, group, n, r)
-    else:
-        local = TPGPT2(model.config, group, n, r).to(device)
+    elif isinstance(model, vit.ViT):
+        local = TPViT(model.config, group, n, r, sections).to(device)
         leaves = _tp_leaves(local, group, n, r)
-    partial = [lf for lf in leaves
-               if local.partial and lf.name.endswith(local.partial)]
+    elif isinstance(model, gpt2.GPT2):
+        local = TPGPT2(model.config, group, n, r, sections).to(device)
+        leaves = _tp_leaves(local, group, n, r)
+    else:
+        raise TypeError(f"strategy 'tp' splits tpudp_torch's GPT2, Llama, "
+                        f"VGG, ResNet and ViT; got {type(model).__name__}")
+    suffixes = getattr(local, "partial", ())
+    partial = [lf for lf in leaves if suffixes and lf.name.endswith(suffixes)]
     layout = Layout(leaves, _codec(model), buffers=buffers)
     built = from_standard(state, new_state(local, optimizer, leaves, layout))
     local.requires_grad_(True).train()

@@ -9,10 +9,11 @@ flax layout, each entry an axis name or None (JAX's ``PartitionSpec``;
 or None (replicated): :func:`leaf_sharding` resolves a rule to that,
 with JAX's fallback to replicated where the axis does not divide the
 dim.  The TP step (``tpudp_torch.parallel.sharded.make_tp_train_step``)
-writes Megatron's layout by hand for GPT-2 from :func:`gpt2_tp_rules`
-and for LLaMA from :func:`llama_tp_rules`, and the channel split of a
-VGG from :func:`vgg_tp_rules` (a ResNet under that table raises naming
-its ROADMAP item).
+resolves every leaf by these rules, then writes Megatron's layout by
+hand for GPT-2 and ViT from :func:`gpt2_tp_rules` and for LLaMA from
+:func:`llama_tp_rules`, and the channel split of a VGG or a ResNet from
+:func:`vgg_tp_rules`; a model the rules split nothing of runs
+replicated, as under JAX's GSPMD.
 
 :func:`fsdp_dim` is FSDP's rule (``fsdp_shardings``): a leaf of at least
 ``min_size`` elements shards its first dim the axis size divides, any

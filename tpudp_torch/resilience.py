@@ -847,6 +847,10 @@ class Supervisor:
                 except (FloatingPointError, LossSpikeError,
                         SdcDetected) as e:
                     if self._multirank:
+                        # tpudp: lint-ok(divergent-collective): this vote
+                        # is the mitigation — every rank reaches a vote
+                        # each round (clean finishers park at a completion
+                        # vote) and the gather is bounded
                         cur_start, cur_skip = self._coordinated_recover(
                             self._vote(OUTCOME_DIVERGENCE), e)
                     else:
@@ -861,6 +865,8 @@ class Supervisor:
                     if self._multirank:
                         code = (OUTCOME_HANG if isinstance(e, StepHangError)
                                 else OUTCOME_STEP_FAULT)
+                        # tpudp: lint-ok(divergent-collective): bounded
+                        # vote, the same protocol as the divergence arm
                         cur_start, cur_skip = self._coordinated_recover(
                             self._vote(code), e)
                     else:

@@ -1856,6 +1856,7 @@ class Engine:
                                 lengths, act, self._temps, self._topk,
                                 self._topp, self._gens)[1]
             add_counts(ms.obs_counts, act.any(), act, act)
+            # tpudp: lint-ok(host-sync): the decode step's one fetch
             return toks.cpu().numpy()
 
         toks = self._device("decode", decode)
@@ -2289,6 +2290,7 @@ class Engine:
                 self._temps, self._topk, self._topp,
                 self._row_generators(active))
             _count_verify(ms.obs_counts, act, n_emit, drafted)
+            # tpudp: lint-ok(host-sync): the verify window's one fetch
             return out.cpu().numpy(), n_emit.cpu().numpy()
 
         out, n_emit = self._device("verify", verify)

@@ -300,6 +300,7 @@ dp, tp, fsdp, zero1 and sp) accumulates
         self._install_place_hook(loader)
         fwd_t = bwd_t = 0.0
         losses = []
+        # tpudp: lint-ok(host-sync): the epoch's starting sum, read once
         prev_loss_sum = float(self.state.loss_sum)
         split = self.timing_mode == "split"
         batches = iter(loader)
@@ -350,7 +351,9 @@ dp, tp, fsdp, zero1 and sp) accumulates
                     fence(self.device)
                     self.obs.end(fence_tok)
                     window_time = time.perf_counter() - window_start
-                    cum = float(self.state.loss_sum)  # one read a window
+                    # tpudp: lint-ok(host-sync): one read a log window,
+                    # after its fence
+                    cum = float(self.state.loss_sum)
                     losses.append(check_finite(
                         (cum - prev_loss_sum) / self.log_every, step=it))
                     self._window_done(losses[-1], epoch, it)
@@ -385,6 +388,7 @@ dp, tp, fsdp, zero1 and sp) accumulates
             if hasattr(batches, "close"):
                 batches.close()  # stops a Prefetcher's worker
         if it % self.log_every:  # the ragged final window
+            # tpudp: lint-ok(host-sync): the final window's one read
             cum = float(self.state.loss_sum)
             losses.append(check_finite(
                 (cum - prev_loss_sum) / (it % self.log_every), step=it))
@@ -412,6 +416,7 @@ dp, tp, fsdp, zero1 and sp) accumulates
             it += 1
             self._beat()
         fence_tok = self.obs.begin("eval.fetch")
+        # tpudp: lint-ok(host-sync): the pass's one read, at its end
         loss_sum, correct, count = sums.tolist()
         self.obs.end(fence_tok)
         self.obs.end(eval_tok)
