@@ -4,12 +4,22 @@
     python3 chip_smoke.py [--seed N]
 
 Runs from the root of a checkout, needs one CUDA card and ``nvcc``, and
-imports nothing of JAX or of the JAX package ``tpudp``.  Phases, each of
-which fails the run (nonzero exit, no result line) when it fails:
+imports nothing of JAX or of the JAX package ``tpudp``.  It first takes
+card 0's lock (``tpudp_torch.utils.device_lock``; it waits up to
+LOCK_WAIT_S seconds for another client, then fails) and chooses a fresh
+build cache outside the tree (``TPUDP_COMPILE_CACHE``, removed at the
+end), which every child and rank process of the run inherits with the
+lock.  The multi-rank phases (7c, 11, 12a, 12b, 13b-13e, 15c, 16a, 16b)
+run on RANK_PROCESSES rank processes started once, at phase 7 (they
+warm up behind 7a's untimed runs; ``Ranks``), each task in a process
+group of its own; 16c's CPU ranks are two more.  Phases, each of which fails the run (nonzero exit, no
+result line) when it fails:
 
   1. device — the card's name and power limit, as nvidia-smi reports them;
-  2. build — every CUDA kernel of the port, from ``tpudp_torch/csrc``,
-     one nvcc per source, all started together; then the HGMMA (wgmma)
+  2. build — the cold build: every CUDA kernel of the port, from
+     ``tpudp_torch/csrc``, one nvcc per source, all started together, and
+     the native augment library (g++) beside them, into the fresh cache
+     (compiler runs and hits printed); then the HGMMA (wgmma)
      instructions in the SASS of the flash forward, dq and dk/dv
      libraries, counted with ``cuobjdump -sass`` — none in any of them
      fails the run (the bf16 flash kernels must run on the tensor cores);
@@ -62,8 +72,10 @@ which fails the run (nonzero exit, no result line) when it fails:
      ``speculate_k=4`` and ``NgramDrafter(max_ngram=3, min_ngram=2)``, then
      with ``speculate_k=2, speculate_tree="fork2x2"``, serving 8 greedy
      requests of 32 new tokens: 4 period-4 tiled prompts of 64-256 tokens
-     and 4 of phase 4's prompts, beside the non-speculative kernel and
-     plain engines on the same prompts.  Each run must verify windows
+     and 4 of phase 4's prompts, held to the plain engine's tokens (one
+     plain reference a prompt, ``PlainTokens``: phase 4's for its prompts,
+     the tiled ones served once on a plain engine; 4d's tree, 4f and 18a
+     reuse them).  Each run must verify windows
      and accept drafts; every verify window and prefill chunk must have
      launched the paged-window kernel once per layer (the sequence run),
      every tree window the paged-tree kernel once per layer (the tree
@@ -119,8 +131,8 @@ which fails the run (nonzero exit, no result line) when it fails:
      512, 32 new tokens each) through GPT-2 small over an fp32 pool with
      a draft GPT-2 of its vocabulary (4 layers, d 192, 3 heads, 1028
      positions: ``benchmarks/serve_bench.py``'s sizing), ``speculate_k=4``
-     and ``decode_fuse=8``: greedy against the plain engine (einsum, no
-     speculation) and the host-drafted kernel engine
+     and ``decode_fuse=8``: greedy against the plain engine's tokens (4b's)
+     and the host-drafted kernel engine
      (``DraftModelDrafter(bucket=max_len)``, ``decode_fuse=1``) under
      phase 4's near-tie rule, sampled (temperature 0.9, top-k 12) equal to
      the host-drafted engine's tokens and acceptance.  Each fused run must
@@ -349,7 +361,7 @@ which fails the run (nonzero exit, no result line) when it fails:
      ``prefix_cache_blocks`` on shared-prefix traffic agrees with the
      engine without it, hits, and prints the prefill ms saved; 14e,
      ``paged_attn='gather'`` agrees with ``'einsum'`` on phase 4's
-     traffic and launches no kernel.  14a's K1-K3 and 14c's K4/K5
+     traffic (phase 4's plain tokens) and launches no kernel.  14a's K1-K3 and 14c's K4/K5
      launches join the timing records' counts;
   15. (run after phase 14, before the timing phase) disaggregated
      serving and the obs layer, at GPT-2 small's full width (float32,
@@ -441,6 +453,22 @@ which fails the run (nonzero exit, no result line) when it fails:
      of Part 1's VGG-11 step over the card's dense bf16 peak
      (``tpudp_torch/utils/flops.py``), beside the card's name and power
      limit;
+  18. (run after phase 17, before the timing phase) the build cache and
+     the card lock.  18a: a child process in the cache the cold build
+     filled (inherited ``TPUDP_COMPILE_CACHE`` and lock) runs
+     ``_build.build()`` and the native library's ``load()``: no compiler
+     run, and a hit for each of the six CUDA sources and
+     ``augment.cpp``; then ``serve_cli`` at GPT-2 small's width
+     (P18_ARGS: 12 x 768, 12 heads, vocab 50,257, ``--paged 512``, 8
+     requests of 32 tokens, ``--seed``), which must launch K4 and K5
+     (its counts printed on lines of their own) and whose greedy tokens
+     must agree with the plain engine's on the same prompts and weights
+     under phase 4's rule.  18b, before it (started beside phase 17; the
+     plain engine serves 18a's prompts meanwhile): ``serve_cli`` on card 0
+     in a child whose environment lacks the inherited lock must exit 2
+     within P18_BUSY_LIMIT seconds of its start, its stderr naming the
+     lock file.  Every other child and rank of the run works under the
+     script's lock;
   8. timing — each kernel at its main path's shapes (the paged-window
      kernel at a prefill chunk and at phase 4b's verify window, each
      record tagged with its ``case``; the schedules of both paged
@@ -461,6 +489,14 @@ which fails the run (nonzero exit, no result line) when it fails:
      call (its submission); the flash kernels then again at 13a's
      ViT-B/14 shape, non-causal (``vit-b-t256`` lines, not in the JSON
      line, which carries the GPT-2 shape's records).
+
+Cut to keep the run inside its time limit, each path still driven at
+full width elsewhere: 4b's non-speculative kernel engine (phase 4's
+path and model); the plain engines of 4b (phase 4's prompts), 4d's wide
+tree, 4f and 14e (phase 4's and 4b's plain tokens, kept); the spawn of
+each multi-rank task (nine spawns of 2-4 processes, now tasks of one set
+of rank processes).  Run beside other work instead of after it: 10b and
+10c beside 10a's stalled child, 16d beside the persistent flip.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -743,6 +779,9 @@ P16_FLIP, P16_PERSIST, P16_DESYNC = (3, 2, 5), (3, 1, 7), (1, 2, 5)
 P16_RELAUNCH_RANKS, P16_RELAUNCH_RTOL = 2, 1e-4
 P16_SKIP_STEPS, P16_NAN_STEP, P16_SKIP_TOL = 4, 1, (1e-5, 1e-6)
 P16_SDC_TIMEOUT, P16_CLI_TIMEOUT = 420, 240
+#: Rank processes of the run (12a's world of 4 is the largest), and the
+#: seconds the script waits for another client to free card 0.
+RANK_PROCESSES, LOCK_WAIT_S = 4, 60.0
 
 
 class SmokeFailure(RuntimeError):
@@ -754,28 +793,46 @@ def hgmma_counts(build) -> dict:
     by ``cuobjdump -sass``."""
     cuobjdump = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    procs = {src: subprocess.Popen([cuobjdump, "-sass",
+                                    str(build.library_path(src))],
+                                   stdout=subprocess.PIPE, text=True)
+             for src in WGMMA_SOURCES}  # all at once
     counts = {}
-    for src in WGMMA_SOURCES:
-        sass = subprocess.run([cuobjdump, "-sass",
-                               str(build.library_path(src))],
-                              capture_output=True, text=True, timeout=300,
-                              check=True).stdout
-        counts[src] = sum("HGMMA" in line for line in sass.splitlines())
+    try:
+        for src, proc in procs.items():
+            sass, _ = proc.communicate(timeout=300)
+            if proc.returncode:
+                raise SmokeFailure(f"cuobjdump exited {proc.returncode} on "
+                                   f"{src}")
+            counts[src] = sum("HGMMA" in line for line in sass.splitlines())
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     return counts
 
 
 def phase_clock():
     """``mark(label)`` prints the seconds since the previous mark and
-    since the first, on a ``clock`` line."""
-    start = last = time.perf_counter()
+    since the first, on a ``clock`` line; ``mark.sub(label)`` the seconds
+    of a part of the phase, since the previous mark or sub-mark."""
+    start = last = part = time.perf_counter()
 
     def mark(label: str) -> None:
-        nonlocal last
+        nonlocal last, part
         now = time.perf_counter()
         print(f"clock {label}: {now - last:.1f}s (total {now - start:.1f}s)",
               flush=True)
-        last = now
+        last = part = now
 
+    def sub(label: str) -> None:
+        nonlocal part
+        now = time.perf_counter()
+        print(f"clock  part {label}: {now - part:.1f}s", flush=True)
+        part = now
+
+    mark.sub = sub
     return mark
 
 
@@ -1302,6 +1359,41 @@ def serve_summary(handles, wall) -> str:
             f"{1e3 * ttft[len(ttft) // 2]:.1f} ms")
 
 
+class PlainTokens:
+    """GPT-2 small's greedy tokens on the plain engine (einsum attention,
+    NEW_TOKENS a request) by prompt: each prompt is served on a plain
+    engine once, and every later check of a kernel engine on the same
+    model and prompt (4b, 4d, 4f, 18a) is held to the kept tokens."""
+
+    def __init__(self, model):
+        self.model = model
+        self.tokens: dict = {}
+
+    @staticmethod
+    def key(prompt) -> bytes:
+        import numpy as np
+
+        return np.asarray(prompt, np.int32).tobytes()
+
+    def keep(self, prompts, handles) -> None:
+        for p, h in zip(prompts, handles):
+            self.tokens[self.key(p)] = h.tokens
+
+    def of(self, torch, pa, prompts) -> list:
+        """The plain tokens of ``prompts``, serving those not kept yet at
+        once on a fresh plain engine."""
+        from tpudp_torch.serve import Engine
+
+        missing = [p for p in prompts if self.key(p) not in self.tokens]
+        if missing:
+            _, handles, _, launches = serve_spec(
+                torch, Engine, self.model, missing, pa, paged_attn="einsum")
+            if any(launches.values()):
+                raise SmokeFailure("the plain engine launched a kernel")
+            self.keep(missing, handles)
+        return [tokens_of(self.tokens[self.key(p)]) for p in prompts]
+
+
 def main_path(torch, np, pa, seed: int):
     from tpudp_torch.models import gpt2
     from tpudp_torch.serve import Engine
@@ -1342,7 +1434,9 @@ def main_path(torch, np, pa, seed: int):
           flush=True)
     agree_with_plain(torch, np, model, prompts, handles, ref, "main-path")
     profile_decode_step(torch, Engine, model, prompts, "main-path kernel")
-    return model, prompts, launches
+    plain = PlainTokens(model)
+    plain.keep(prompts, ref)
+    return model, prompts, launches, plain
 
 
 # -- phase 4b: the speculative main path ----------------------------------
@@ -1379,24 +1473,16 @@ def serve_spec(torch, Engine, model, prompts, pa, **kw):
     return eng, handles, wall, launches
 
 
-def spec_main_path(torch, np, pa, model, prompts, seed: int) -> dict:
+def spec_main_path(torch, np, pa, model, prompts, plain,
+                   seed: int) -> dict:
     """Phase 4b: sequence and tree speculation through the kernels,
-    beside the non-speculative kernel and plain engines."""
+    held to the plain engine's tokens (``plain``: phase 4's, and the
+    tiled prompts' served once here)."""
     from tpudp_torch.serve import Engine, NgramDrafter
 
     cfg = model.config
     work = spec_prompts(np, seed, cfg.vocab_size, prompts)
-    base, base_h, base_wall, _ = serve_spec(torch, Engine, model, work, pa)
-    print(f"spec-path non-speculative kernel engine: "
-          f"{serve_summary(base_h, base_wall)}", flush=True)
-    _, ref, ref_wall, plain_launches = serve_spec(
-        torch, Engine, model, work, pa, paged_attn="einsum")
-    if any(plain_launches.values()):
-        raise SmokeFailure("the plain engine launched a kernel")
-    print(f"spec-path plain engine: {serve_summary(ref, ref_wall)}",
-          flush=True)
-    agree_with_plain(torch, np, model, work, base_h, ref,
-                     "spec-path non-speculative")
+    ref = plain.of(torch, pa, work)
     runs = {"sequence": dict(speculate_k=4),
             "tree": dict(speculate_k=2, speculate_tree="fork2x2")}
     tree_launches = None
@@ -1514,7 +1600,8 @@ def llama_main_path(torch, np, pa, seed: int) -> dict:
 # -- phase 4d: shapes the kernels do not take -----------------------------
 
 
-def routes_path(torch, np, pa, fa, model, prompts, seed: int) -> None:
+def routes_path(torch, np, pa, fa, model, prompts, plain,
+                seed: int) -> None:
     """Phase 4d: a head dim and a tree the kernels do not take, served by
     kernel engines whose build-time dispatch sends them to the einsum
     path, and flash attention at head dim 48 routed to the dense math."""
@@ -1562,9 +1649,8 @@ def routes_path(torch, np, pa, fa, model, prompts, seed: int) -> None:
         raise SmokeFailure(f"the wide-tree engine falls back on {fallbacks},"
                            f" launched {launches} (its steps need {want}) "
                            f"and verified {st['tree_verify_steps']} trees")
-    _, ref, _, _ = serve_spec(torch, Engine, model, work, pa,
-                              paged_attn="einsum")
-    agree_with_plain(torch, np, model, work, handles, ref,
+    agree_with_plain(torch, np, model, work, handles,
+                     plain.of(torch, pa, work),
                      f"routes {len(WIDE_TREE)}-node tree")
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1750,15 +1836,12 @@ def zero_weights(torch, model):
 def spec_engine(Engine, DraftModelDrafter, model, draft, mode, **kw):
     """A serving engine of phase 4f: ``fused`` (speculation inside the
     window), ``host`` (host-drafted, the referee: one verify window a
-    step), ``decode`` (plain fused decode windows) or ``plain`` (the
-    plain attention, no speculation).  The drafter's bucket is pinned to
-    max_len, the window's history width, in both speculating engines:
-    the fused engine's own host-drafted steps (while a prompt prefills)
-    then draft on the referee's shapes."""
+    step) or ``decode`` (plain fused decode windows).  The drafter's
+    bucket is pinned to max_len, the window's history width, in both
+    speculating engines: the fused engine's own host-drafted steps
+    (while a prompt prefills) then draft on the referee's shapes."""
     common = dict(device="cuda", num_slots=8, prefill_chunk=16,
                   kv_pages=512, max_len=SPEC_MAX_LEN, **kw)
-    if mode == "plain":
-        return Engine(model, paged_attn="einsum", **common)
     if mode == "decode":
         return Engine(model, decode_fuse=FUSE, **common)
     return Engine(model, speculate_k=SPEC_K,
@@ -1953,9 +2036,11 @@ def spec_timing(torch, np, pa, gpt2, Engine, DraftModelDrafter, verify_rows,
     del zmodel, zdraft, fused_eng, window, logits
 
 
-def spec_fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
+def spec_fused_path(torch, np, pa, model, prompts, plain,
+                    seed: int) -> dict:
     """Phase 4f: fused speculation on GPT-2 small (K5 inside the graph)
-    against the host-drafted and plain engines, greedy and sampled; a
+    against the host-drafted engine, greedy and sampled, and the plain
+    engine's tokens (``plain``, served in 4b), greedy; a
     shorter LLaMA-GQA case over int8 pages (K5-int8); then the zero-weight
     timing.  Returns the fused runs' K5 and K5-int8 launches."""
     from tpudp_torch.models import gpt2, llama
@@ -1969,8 +2054,7 @@ def spec_fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
     launched = {}
     runs = {}
     for mode, sampled in (("fused", False), ("host", False),
-                          ("plain", False), ("fused", True),
-                          ("host", True)):
+                          ("fused", True), ("host", True)):
         eng = spec_engine(Engine, DraftModelDrafter, model, draft, mode)
         syncs = [] if mode == "fused" else None
         handles, wall, launches = spec_run(torch, pa, eng, work, NEW_TOKENS,
@@ -1983,11 +2067,9 @@ def spec_fused_path(torch, np, pa, model, prompts, seed: int) -> dict:
             check_spec_fused_run(eng, launches, syncs, "paged_window", label)
             launched["paged_window"] = (launched.get("paged_window", 0)
                                         + launches["paged_window"])
-        if mode == "plain" and any(launches.values()):
-            raise SmokeFailure("the plain engine launched a kernel")
         runs[mode, sampled] = handles
     agree_with_plain(torch, np, model, work, runs["fused", False],
-                     runs["plain", False], "spec-fused-path greedy")
+                     plain.of(torch, pa, work), "spec-fused-path greedy")
     agree_with_plain(torch, np, model, work, runs["fused", False],
                      runs["host", False], "spec-fused-path greedy",
                      against="the host-drafted engine")
@@ -3054,54 +3136,159 @@ def gloo_rank(rank: int, world: int, init_method: str, results) -> None:
             dist.destroy_process_group()
 
 
-def run_ranks(target, args: tuple, limit: float, label: str,
-              world: int = 2) -> list:
-    """``world`` spawned ranks of ``target(rank, world, init_method,
-    *args, results)``; their reports by rank.  Fails when a rank dies,
-    reports an error or outlives ``limit`` seconds."""
-    import multiprocessing
+def rank_worker(rank: int, tasks, results, card: bool,
+                spawned: float) -> None:
+    """One process of :class:`Ranks`: with ``card``, the CUDA context on
+    card 0 and the port's training modules first; then each task
+    ``(target, world, init_method, args)`` as rank ``rank`` of its own
+    process group, until ``None``.  A task starts with the port's launch
+    counts at 0 and the backend flags the process started with, as a
+    fresh process would; its end is reported after the target's own
+    reports.  ``spawned``: the parent's wall clock at the spawn."""
+    import gc
 
-    from tpudp_torch.mesh import free_port
+    import torch
+    import torch.distributed as dist
 
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=target, args=(r, world, init, *args,
-                                              results))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    got, deadline = [], time.monotonic() + limit
-    try:
-        while len(got) < len(procs):
+    sys.path.insert(0, ROOT)
+    from tpudp_torch.ops import flash_attention as fa
+    from tpudp_torch.ops import paged_attention as pa
+
+    if card:
+        torch.cuda.set_device(0)
+        torch.zeros(1, device="cuda")
+        from tpudp_torch import strategy, train  # noqa: F401 (warm imports)
+    b = torch.backends
+    flags = (b.cudnn.deterministic, b.cudnn.benchmark,
+             b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32)
+    results.put({"rank": rank, "ready": time.time() - spawned})
+    while (task := tasks.get()) is not None:
+        target, world, init_method, args = task
+        for kernels in (pa.KERNELS, fa.KERNELS):
+            for fn in kernels.values():
+                fn.launches = 0
+        try:
+            target(rank, world, init_method, *args, results)
+        except Exception:
+            results.put({"rank": rank, "error": traceback.format_exc()})
+        (b.cudnn.deterministic, b.cudnn.benchmark, b.cuda.matmul.allow_tf32,
+         b.cudnn.allow_tf32) = flags
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        gc.collect()
+        if card:
+            torch.cuda.empty_cache()
+        results.put({"rank": rank, "done": True})
+
+
+class Ranks:
+    """Spawned rank processes that run the multi-rank phases in turn.
+
+    Every multi-rank phase runs through here: ``run(target, args, world,
+    ...)`` runs ``target(rank, world, init_method, *args, results)`` on
+    processes ``0..world-1``, each task in a process group of its own
+    (the target joins it; the worker leaves it).  The processes start once,
+    in the background, so their start-up (Python, torch, the CUDA
+    context, the kernel libraries) is paid once for all phases instead of
+    once a spawn.  ``start`` and ``collect`` split ``run`` for work that
+    runs beside a task; ``last=True`` ends the processes a task leaves
+    idle, for a task after which its own processes exit (16a's persistent
+    flip)."""
+
+    def __init__(self, n: int, card: bool = True):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self.tasks = [ctx.Queue() for _ in range(n)]
+        spawned = time.time()
+        self.procs = [ctx.Process(target=rank_worker,
+                                  args=(r, self.tasks[r], self.results, card,
+                                        spawned),
+                                  name=f"chip-smoke-rank{r}")
+                      for r in range(n)]
+        for p in self.procs:
+            p.start()
+        self.world = 0
+
+    def start(self, target, args: tuple, world: int,
+              last: bool = False) -> None:
+        from tpudp_torch.mesh import free_port
+
+        init = f"tcp://127.0.0.1:{free_port()}"
+        self.world = world
+        for r, q in enumerate(self.tasks):
+            if r < world:
+                q.put((target, world, init, args))
+            elif last:
+                q.put(None)
+
+    def collect(self, limit: float, label: str,
+                exits: bool = False) -> tuple[list, list]:
+        """Every report of the running task, by rank, and the exit codes of
+        its processes (None: alive).  Fails when one is still running
+        after ``limit`` seconds and, unless the task ends its processes
+        (``exits``), as soon as one has exited."""
+        done, got = set(), []
+        deadline = time.monotonic() + limit
+        while True:
+            waiting = [r for r in range(self.world) if r not in done
+                       and self.procs[r].exitcode is None]
+            if len(done) == self.world:
+                break  # each process's reports precede its end marker
+            dead = [self.procs[r].exitcode for r in range(self.world)]
+            if not exits and any(c is not None for c in dead):
+                raise SmokeFailure(f"{label}: rank processes exited {dead}")
             try:
-                got.append(results.get(timeout=1.0))
+                msg = self.results.get(timeout=1.0 if waiting else 0.5)
             except queue.Empty:
-                dead = [p.exitcode for p in procs if p.exitcode]
-                if dead or time.monotonic() > deadline:
-                    raise SmokeFailure(
-                        f"{label}: {len(got)} of {len(procs)} ranks "
-                        f"reported (exit codes {dead}, limit {limit} s)"
-                    ) from None
+                if not waiting:
+                    break
+                if time.monotonic() > deadline:
+                    raise SmokeFailure(f"{label}: ranks {waiting} still "
+                                       f"running after {limit} s") from None
+                continue
+            if "ready" in msg:
+                print(f"ranks: process {msg['rank']} ready "
+                      f"{msg['ready']:.1f}s after its spawn", flush=True)
+            elif msg.get("done"):
+                done.add(msg["rank"])
+            else:
+                got.append(msg)
         got.sort(key=lambda r: r["rank"])
-    finally:
-        for p in procs:
+        return got, [self.procs[r].exitcode for r in range(self.world)]
+
+    def run(self, target, args: tuple, world: int, limit: float,
+            label: str) -> list:
+        """The reports of ``target`` on ``world`` ranks, by rank; fails
+        when a rank exits, reports an error or outlives ``limit``."""
+        t0 = time.perf_counter()
+        self.start(target, args, world)
+        got, _ = self.collect(limit, label)
+        print(f"ranks {label}: {world} ranks, {time.perf_counter() - t0:.1f}"
+              f"s", flush=True)
+        for r in got:
+            if "error" in r:
+                raise SmokeFailure(f"{label} rank {r['rank']} failed:\n"
+                                   f"{r['error']}")
+        return got
+
+    def close(self) -> None:
+        for p, q in zip(self.procs, self.tasks):
+            if p.is_alive():
+                q.put(None)
+        for p in self.procs:
             p.join(timeout=30)
             if p.is_alive():
                 p.kill()
                 p.join()
-    for r in got:
-        if "error" in r:
-            raise SmokeFailure(f"{label} rank {r['rank']} failed:\n"
-                               f"{r['error']}")
-    return got
 
 
-def gloo_two_rank_path(torch, np) -> None:
+def gloo_two_rank_path(torch, np, ranks) -> None:
     """7c: two ranks on the one card over gloo, CUDA tensors: both end
     each rung with bit-equal parameters and buffers, and the BatchNorm
     cases' first loss is one rank's at the global batch."""
-    got = run_ranks(gloo_rank, (), GLOO_TIMEOUT, "vgg-gloo")
+    got = ranks.run(gloo_rank, (), 2, GLOO_TIMEOUT, "vgg-gloo")
     what = {"allreduce": ("the all-reduce rung's sync call in the step, "
                           "one all-reduce a gradient", "sync call"),
             "auto": ("DDP's bucket all-reduces, first hook call to last "
@@ -3144,7 +3331,7 @@ def gloo_two_rank_path(torch, np) -> None:
                                f"rank's at the global batch {want!r}")
 
 
-def vgg_path(torch, np) -> dict:
+def vgg_path(torch, np, ranks) -> dict:
     """Phase 7: the ladder (7a), throughput (7b), two gloo ranks (7c)."""
     import torch.distributed as dist
 
@@ -3155,7 +3342,7 @@ def vgg_path(torch, np) -> dict:
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
-    gloo_two_rank_path(torch, np)
+    gloo_two_rank_path(torch, np, ranks)
     return {"losses": losses, "bench": bench}
 
 
@@ -3404,10 +3591,10 @@ def same_checkpoint(torch, path_a, path_b) -> bool:
         torch.equal(torch.as_tensor(a[k]), torch.as_tensor(b[k])) for k in a)
 
 
-def ckpt_child(argv, timeout: float, stall_call: int = 0):
-    """Part 1 in a fresh process with phase 10's deterministic cuDNN (and
-    TF32 off, as this script runs); ``stall_call`` stalls that device
-    call for the watchdog."""
+def ckpt_child(argv, stall_call: int = 0) -> subprocess.Popen:
+    """Part 1 started in a fresh process with phase 10's deterministic
+    cuDNN (and TF32 off, as this script runs); ``stall_call`` stalls that
+    device call for the watchdog."""
     code = ("import functools, sys\n"
             "import torch\n"
             "torch.backends.cudnn.deterministic = True\n"
@@ -3422,21 +3609,21 @@ def ckpt_child(argv, timeout: float, stall_call: int = 0):
             f"StallingStep({{{stall_call}}}, 600.0))\n"
             "cli.run_part('none', 'Part 1', single_device=True, "
             "argv=sys.argv[1:])\n")
-    return subprocess.run([sys.executable, "-c", code] + list(argv),
-                          cwd=ROOT, capture_output=True, text=True,
-                          timeout=timeout)
+    return subprocess.Popen([sys.executable, "-c", code] + list(argv),
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
 
-def resume_path(torch, tmp: str):
+def resume_path(torch, tmp: str, beside):
     """10a: Part 1 (VGG-11 at full width) through ``cli.run_part`` under
     deterministic cuDNN.  Run A trains 2 epochs with ``--checkpoint-async
     --keep-checkpoints 1``, which must leave one step_N.  Run B trains 1
     epoch with ``--checkpoint-dir``; a fresh process resumes it from
     step_1 under ``--step-timeout`` and stalls a step of epoch 2, so its
-    watchdog dumps the state and it exits 42; the relaunch fast-forwards
-    from the dump and must end with A's step_2 bit for bit and A's
-    ``Test set:`` line, as must ``--eval-only`` on B's directory.
-    Returns run A's Trainer."""
+    watchdog dumps the state and it exits 42 (``beside()`` runs in this
+    process meanwhile); the relaunch fast-forwards from the dump and must
+    end with A's step_2 bit for bit and A's ``Test set:`` line, as must
+    ``--eval-only`` on B's directory.  Returns run A's Trainer."""
     from tpudp_torch.parts import part1
     from tpudp_torch.utils.checkpoint import read_emergency_sentinel
 
@@ -3460,9 +3647,19 @@ def resume_path(torch, tmp: str):
           f"leaves ['step_2']: {want.strip()}", flush=True)
     run_quiet(lambda: part1.main(ckpt_argv(f"{tmp}/b")))
     mark("B epoch 1")
-    hung = ckpt_child(ckpt_argv(f"{tmp}/b", "--epochs", "2",
-                                "--step-timeout", str(CKPT_STEP_TIMEOUT)),
-                      300, stall_call=CKPT_STALL_CALL)
+    child = ckpt_child(ckpt_argv(f"{tmp}/b", "--epochs", "2",
+                                 "--step-timeout", str(CKPT_STEP_TIMEOUT)),
+                       stall_call=CKPT_STALL_CALL)
+    try:
+        beside()
+        mark("10b and 10c beside the child")
+        out, err = child.communicate(timeout=300)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    hung = SimpleNamespace(stdout=out, stderr=err,
+                           returncode=child.returncode)
     mark("B epoch 2 (child, stalled)")
     resumed = (f"resumed from {tmp}/b/step_1" in hung.stdout
                and "resuming at epoch 1" in hung.stdout)
@@ -3842,20 +4039,26 @@ def vgg_epoch_costs(torch, tmp: str) -> None:
 
 
 def checkpoint_path(torch, np, pa, fa, seed: int) -> dict:
-    """Phase 10 (10a-10d) in a temporary directory outside the checkout;
-    returns 10c's kernel launches."""
+    """Phase 10 (10a-10d) in a temporary directory outside the checkout,
+    10b and 10c beside 10a's stalled child; returns 10c's kernel
+    launches."""
     import tempfile
 
     tmp = tempfile.mkdtemp(prefix="tpudp-ckpt-")
+    gpt2 = {}
+
+    def beside():  # 10b and 10c, while 10a's stalled child runs
+        supervisor_path(torch, tmp)
+        gpt2["state"], gpt2["launches"] = gpt2_checkpoint_path(
+            torch, np, pa, fa, tmp, seed)
+
     torch.backends.cudnn.deterministic = True
     try:
-        vgg_trainer = resume_path(torch, tmp)
-        supervisor_path(torch, tmp)
+        vgg_trainer = resume_path(torch, tmp, beside)
     finally:
         torch.backends.cudnn.deterministic = False
+    gpt2_state, launches = gpt2["state"], gpt2["launches"]
     try:
-        gpt2_state, launches = gpt2_checkpoint_path(torch, np, pa, fa, tmp,
-                                                    seed)
         checkpoint_costs(torch, np, tmp, {
             "resnet50": resnet50_state(torch, np, seed),
             "vgg11": vgg_trainer.state, "gpt2": gpt2_state})
@@ -4078,7 +4281,8 @@ def strategy_rank(rank: int, world: int, init_method: str, seed: int,
             dist.destroy_process_group()
 
 
-def strategy_path(torch, np, seed: int, family: str = "gpt2") -> dict:
+def strategy_path(torch, np, ranks, seed: int,
+                  family: str = "gpt2") -> dict:
     """Phase 11 (see the module docstring), or 12b's rungs with
     ``family='llama'``: returns the flash launches of each rung on rank
     0."""
@@ -4094,7 +4298,8 @@ def strategy_path(torch, np, seed: int, family: str = "gpt2") -> dict:
               f"{[round(x, 1) for x in r['ms']]}, state bytes params "
               f"{r['bytes']['params']:,} optimizer "
               f"{r['bytes']['opt_state']:,}", flush=True)
-    got = run_ranks(strategy_rank, (seed, family), STRATEGY_TIMEOUT, label)
+    got = ranks.run(strategy_rank, (seed, family), 2, STRATEGY_TIMEOUT,
+                    label)
     failures, launches = [], {}
     for name, (strategy, shape, _, overrides) in RUNG_TABLES[family].items():
         a, b = got[0][name], got[1][name]
@@ -4246,7 +4451,7 @@ def mpmd_references(torch, np, seed: int, tmp: str) -> dict:
     return out
 
 
-def mpmd_path(torch, np, seed: int, refs: dict) -> dict:
+def mpmd_path(torch, np, ranks, seed: int, refs: dict) -> dict:
     """12a (see the module docstring): returns the flash launches of each
     run's rank 0."""
     ref = refs["plain"]
@@ -4254,8 +4459,8 @@ def mpmd_path(torch, np, seed: int, refs: dict) -> dict:
     failures, launches = [], {}
     for name, (world, shape, interleave) in MPMD_RUNS.items():
         t0 = time.perf_counter()
-        got = run_ranks(mpmd_rank, (seed, name, ref["params_path"]),
-                        MPMD_TIMEOUT, f"mpmd {name}", world=world)
+        got = ranks.run(mpmd_rank, (seed, name, ref["params_path"]), world,
+                        MPMD_TIMEOUT, f"mpmd {name}")
         wall = time.perf_counter() - t0
         pp, dp = shape["pipe"], shape["data"]
         launches[name] = got[0]["launches"]
@@ -4397,7 +4602,7 @@ def chunk_path(refs: dict) -> None:
                            "below the plain step's")
 
 
-def phase12_path(torch, np, fa, seed: int) -> dict:
+def phase12_path(torch, np, fa, ranks, seed: int) -> dict:
     """Phase 12 (see the module docstring): 12a, 12c's measurements
     (taken with 12a's one-rank reference), 12b; returns the flash
     launches of each path."""
@@ -4410,14 +4615,14 @@ def phase12_path(torch, np, fa, seed: int) -> dict:
     tmp = tempfile.mkdtemp(prefix="tpudp-mpmd-")
     try:
         refs = mpmd_references(torch, np, seed, tmp)
-        launches = mpmd_path(torch, np, seed, refs)
+        launches = mpmd_path(torch, np, ranks, seed, refs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     chunk_path(refs)
     t1 = time.perf_counter()
     launches["llama-cli"] = llama_cli_path(torch, np, fa)
     t2 = time.perf_counter()
-    launches.update(strategy_path(torch, np, seed, family="llama"))
+    launches.update(strategy_path(torch, np, ranks, seed, family="llama"))
     if attention.dense_routes != routes:
         raise SmokeFailure(f"phase 12 sent {attention.dense_routes - routes}"
                            " flash calls to the dense math")
@@ -4928,7 +5133,7 @@ def tp_more_checks(torch, got: list, refs: dict, card: str) -> dict:
             for k in FLASH_KERNELS}
 
 
-def vgg_tp_path(torch, np, seed: int, card: str) -> dict:
+def vgg_tp_path(torch, np, ranks, seed: int, card: str) -> dict:
     """13b: VGG-11 under tp on two gloo ranks of the card against the
     one-rank step on the same global batches; then 13c-13e in the same
     ranks.  Returns rank 0's K1-K3 launches of 13d and 13e."""
@@ -4938,7 +5143,7 @@ def vgg_tp_path(torch, np, seed: int, card: str) -> dict:
     ref = vgg_tp_reference(torch, np, seed)
     alt = vgg_tp_reference(torch, np, seed, deterministic=False)
     more_refs = tp_more_references(torch, np, seed)
-    got = run_ranks(vgg_tp_rank, (seed,), VGG_TP_TIMEOUT, "vgg-tp")
+    got = ranks.run(vgg_tp_rank, (seed,), 2, VGG_TP_TIMEOUT, "vgg-tp")
     a, b = got
     tp = vgg.params_from_jax(a["tree"]["params"], a["tree"]["batch_stats"])
     names = [k for k, v in ref["first"].items() if v.is_floating_point()]
@@ -5296,26 +5501,27 @@ def prefix_cache_path(torch, np, small, seed: int) -> None:
           flush=True)
 
 
-def gather_path(torch, np, pa, small, prompts) -> None:
+def gather_path(torch, np, pa, small, prompts, plain) -> None:
     """14e: ``paged_attn='gather'`` at GPT-2 small on phase 4's traffic
-    against ``'einsum'``: tokens agree and no kernel launches."""
+    against ``'einsum'`` (phase 4's plain tokens, ``plain``): tokens agree
+    and no kernel launches."""
     from tpudp_torch.serve import Engine
 
     for fn in pa.KERNELS.values():
         fn.launches = 0
     eng, handles, wall, _ = serve(torch, Engine, small, prompts, "gather")
-    _, ref, ref_wall, _ = serve(torch, Engine, small, prompts, "einsum")
+    ref = plain.of(torch, pa, prompts)
     if any(fn.launches for fn in pa.KERNELS.values()):
         raise SmokeFailure("14e: the gather engine launched a kernel")
     if eng.metrics()["paged_attn"]["dispatch"]["decode_paged"] != "gather":
         raise SmokeFailure(f"14e: {eng.metrics()['paged_attn']}")
     agree_by_model(torch, np, [("GPT-2 small", small, prompts, handles,
                                 ref)], "14e gather")
-    print(f"14e gather engine: {serve_summary(handles, wall)} (einsum "
-          f"{serve_summary(ref, ref_wall)})", flush=True)
+    print(f"14e gather engine: {serve_summary(handles, wall)} (einsum: "
+          f"phase 4's main-path plain engine)", flush=True)
 
 
-def phase14_path(torch, np, pa, fa, small, prompts, seed: int):
+def phase14_path(torch, np, pa, fa, small, prompts, plain, seed: int):
     """Phase 14, 14a-14e; returns (14a's flash counts, 14c's paged
     counts)."""
     t0 = time.perf_counter()
@@ -5326,7 +5532,7 @@ def phase14_path(torch, np, pa, fa, small, prompts, seed: int):
     del medium
     torch.cuda.empty_cache()
     prefix_cache_path(torch, np, small, seed)
-    gather_path(torch, np, pa, small, prompts)
+    gather_path(torch, np, pa, small, prompts, plain)
     torch.cuda.empty_cache()
     print(f"phase 14 {time.perf_counter() - t0:.1f}s", flush=True)
     return flash, paged
@@ -5679,7 +5885,8 @@ def disagg_rank(rank: int, world: int, init_method: str, seed: int,
             dist.destroy_process_group()
 
 
-def two_process_path(torch, np, model, prompts, colocated, seed: int):
+def two_process_path(torch, np, ranks, model, prompts, colocated,
+                     seed: int):
     """15c: ``DisaggHost.round`` over two gloo processes sharing the card;
     the corrupt transfer quarantined on the receiver with a flight
     record; the migrated tokens against 15a's colocated engine."""
@@ -5688,7 +5895,7 @@ def two_process_path(torch, np, model, prompts, colocated, seed: int):
     flight = tempfile.mkdtemp(prefix="tpudp-p15-flight-")
     try:
         t0 = time.perf_counter()
-        r0, r1 = run_ranks(disagg_rank, (seed, flight), P15_RANK_LIMIT,
+        r0, r1 = ranks.run(disagg_rank, (seed, flight), 2, P15_RANK_LIMIT,
                            "15c two-process")
         wall = time.perf_counter() - t0
         dumps = sorted(os.listdir(os.path.join(flight, "rank1"))) \
@@ -5885,7 +6092,7 @@ def obs_path(torch, np, pa, model, prompts) -> dict:
     return launched
 
 
-def phase15_path(torch, np, pa, model, seed: int) -> dict:
+def phase15_path(torch, np, pa, model, ranks, seed: int) -> dict:
     """Phase 15, 15a-15d; returns the paged kernels' launches of the
     phase in this process (15c's ranks count their own)."""
     from tpudp_torch.models import gpt2
@@ -5896,7 +6103,7 @@ def phase15_path(torch, np, pa, model, seed: int) -> dict:
     colocated = cluster_path(torch, np, pa, model, prompts)
     torch.cuda.empty_cache()
     int8_migration_path(torch, np, pa, seed)
-    two_process_path(torch, np, model, prompts, colocated, seed)
+    two_process_path(torch, np, ranks, model, prompts, colocated, seed)
     launches = {n: fn.launches - before[n] for n, fn in pa.KERNELS.items()}
     # 15d's runs zero the counters as phase 4e's do: their own counts.
     for name, n in obs_path(torch, np, pa, model, prompts[:8]).items():
@@ -5911,6 +6118,7 @@ def phase15_path(torch, np, pa, model, seed: int) -> dict:
 #    schedule, the elastic relaunch ---------------------------------------
 
 _P16_WEIGHTS: dict = {}
+_P16_TIMERS: dict = {}
 
 
 def p16_model(torch, seed: int | None):
@@ -5984,7 +6192,10 @@ def p16_timers():
     from tpudp_torch import resilience
     from tpudp_torch.trainer import Trainer
 
-    got = {"restore": [], "gather": [], "verify": [], "events": []}
+    if _P16_TIMERS:  # patched by an earlier task of this process
+        return _P16_TIMERS
+    got = _P16_TIMERS
+    got.update(restore=[], gather=[], verify=[], events=[])
     Sup = resilience.Supervisor
 
     def timed(name, fn):
@@ -6021,13 +6232,14 @@ def p16_digest(torch, model) -> str:
 
 
 def p16_sdc_rank(rank: int, world: int, init_method: str, seed: int,
-                 tmp: str, results) -> None:
-    """16a: one of three gloo ranks on the card.  The clean run, the
-    one-shot flip, the desync and the persistent flip, each a fresh
-    model and Trainer; a report a run (rank 1 leaves the persistent run
-    with SDC_QUARANTINE_EXIT).  The first three check the replicas after
-    each epoch (``verify_replicas``); the desync flips a bit with no SDC
-    check, so that check raises."""
+                 tmp: str, cases: tuple, results) -> None:
+    """16a: one of three gloo ranks on the card.  Each of ``cases`` (the
+    clean run, the one-shot flip, the desync, the persistent flip) with a
+    fresh model and Trainer; a report a run.  The first three check the
+    replicas after each epoch (``verify_replicas``); the desync flips a
+    bit with no SDC check, so that check raises.  Rank 1 leaves the
+    persistent run with SDC_QUARANTINE_EXIT, and the others end their
+    process after it: it comes last."""
     import numpy as np
     import torch
 
@@ -6047,7 +6259,8 @@ def p16_sdc_rank(rank: int, world: int, init_method: str, seed: int,
                  "persistent": lambda: BitFlipParams(
                      persist_from=P16_PERSIST[0], replica=P16_PERSIST[1],
                      bit=P16_PERSIST[2])}
-    for case, make in injectors.items():
+    for case in cases:
+        make = injectors[case]
         out = {"rank": rank, "case": case}
         try:
             for k in timers:
@@ -6072,9 +6285,9 @@ def p16_sdc_rank(rank: int, world: int, init_method: str, seed: int,
                               checkpoint_dir=os.path.join(tmp, case),
                               sdc_check_every=P16_CHECK_EVERY))
             except SdcPersistentError as e:
-                out["error"] = (type(e).__name__, e.replica)
+                out["raised"] = (type(e).__name__, e.replica)
             except ReplicaDivergenceError as e:
-                out["error"] = (type(e).__name__, str(e))
+                out["raised"] = (type(e).__name__, str(e))
             torch.cuda.synchronize()
             out.update(
                 verify_lines=[x for x in lines
@@ -6107,11 +6320,13 @@ def p16_sdc_rank(rank: int, world: int, init_method: str, seed: int,
         except Exception:
             out["error_trace"] = traceback.format_exc()
         results.put(out)
-    # Rank 1 has left: no collective teardown; the queue is flushed first.
-    results.close()
-    results.join_thread()
-    sys.stdout.flush()
-    os._exit(0)
+    if "persistent" in cases:
+        # Rank 1 has left: no collective teardown; the queue is flushed
+        # first.
+        results.close()
+        results.join_thread()
+        sys.stdout.flush()
+        os._exit(0)
 
 
 def p16_fingerprint_ms(torch, train, state) -> float:
@@ -6171,74 +6386,27 @@ def p16_relaunch_rank(rank: int, world: int, init_method: str, seed: int,
             dist.destroy_process_group()
 
 
-def p16_start(target, args: tuple, world: int):
-    """``world`` ranks of ``target`` started; what :func:`p16_collect`
-    takes."""
-    import multiprocessing
-
-    from tpudp_torch.mesh import free_port
-
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    init = f"tcp://127.0.0.1:{free_port()}"
-    procs = [ctx.Process(target=target, args=(r, world, init, *args,
-                                              results))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    return procs, results
-
-
-def p16_collect(procs, results, limit: float, label: str):
-    """Every report the ranks put and their exit codes.  Fails when a
-    rank outlives ``limit`` seconds."""
-    got, deadline = [], time.monotonic() + limit
-    try:
-        while any(p.is_alive() for p in procs) or not results.empty():
-            try:
-                got.append(results.get(timeout=1.0))
-            except queue.Empty:
-                if time.monotonic() > deadline:
-                    raise SmokeFailure(f"{label}: ranks still running after "
-                                       f"{limit} s") from None
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    return got, [p.exitcode for p in procs]
-
-
-def p16_spawn(target, args: tuple, world: int, limit: float, label: str):
-    """``world`` ranks of ``target``; every report put and the ranks' exit
-    codes.  Fails when a rank outlives ``limit`` seconds."""
-    return p16_collect(*p16_start(target, args, world), limit, label)
-
-
-def sdc_path(torch, np, seed: int, tmp: str) -> tuple[dict, str]:
-    """16a (the module docstring); returns rank 0's K1-K3 launches of the
-    clean run and the clean run's checkpoint root."""
-    import json
-
-    from tpudp_torch.sdc import QUARANTINE_MARKER, SDC_QUARANTINE_EXIT
-
-    got, codes = p16_spawn(p16_sdc_rank, (seed, tmp), P16_RANKS,
-                           P16_SDC_TIMEOUT, "16a")
+def sdc_runs(got) -> dict:
+    """16a's reports by case and rank; a rank's failure fails the run."""
     runs: dict = {}
     for r in got:
         if "error_trace" in r:
             raise SmokeFailure(f"16a rank {r['rank']} {r['case']} failed:\n"
                                f"{r['error_trace']}")
         runs.setdefault(r["case"], {})[r["rank"]] = r
-    want_codes = [SDC_QUARANTINE_EXIT if r == P16_PERSIST[1] else 0
-                  for r in range(P16_RANKS)]
+    return runs
+
+
+def sdc_path(torch, np, ranks, seed: int, tmp: str) -> tuple[dict, list]:
+    """16a's clean, one-shot and desync runs (the module docstring);
+    returns rank 0's K1-K3 launches and window losses of the clean run."""
+    runs = sdc_runs(ranks.run(p16_sdc_rank,
+                              (seed, tmp, ("clean", "transient", "desync")),
+                              P16_RANKS, P16_SDC_TIMEOUT, "16a"))
     failures = []
-    if codes != want_codes:
-        failures.append(f"exit codes {codes}, want {want_codes}")
     clean, flip = runs.get("clean", {}), runs.get("transient", {})
     if len(clean) != P16_RANKS or len(flip) != P16_RANKS:
-        raise SmokeFailure(f"16a: reports {sorted(runs)} / {codes}")
+        raise SmokeFailure(f"16a: reports {sorted(runs)}")
     c0 = clean[0]
     for case, by_rank in (("clean", clean), ("transient", flip)):
         for r, res in sorted(by_rank.items()):
@@ -6267,14 +6435,14 @@ def sdc_path(torch, np, seed: int, tmp: str) -> tuple[dict, str]:
     desync = runs.get("desync", {})
     pair = f"rank 0 vs rank {P16_DESYNC[1]}"
     for r in range(P16_RANKS):
-        err = desync.get(r, {}).get("error")
+        err = desync.get(r, {}).get("raised")
         if err is None or err[0] != "ReplicaDivergenceError" or \
                 "replicas diverged at leaf" not in err[1] or \
                 pair not in err[1]:
             failures.append(f"desync rank {r}: {err}")
     print(f"16a desync (bit {P16_DESYNC[2]} flipped on rank "
           f"{P16_DESYNC[1]} at step {P16_DESYNC[0]}, no SDC check): every "
-          f"rank raised {sorted({str(v.get('error')) for v in desync.values()})}"
+          f"rank raised {sorted({str(v.get('raised')) for v in desync.values()})}"
           f"; wall s of the check (rank 0) "
           f"{[round(x, 3) for x in desync.get(0, {}).get('verify_s', [])]}",
           flush=True)
@@ -6297,25 +6465,6 @@ def sdc_path(torch, np, seed: int, tmp: str) -> tuple[dict, str]:
         if res["fp"] != c0["fp"] or res["digest"] != c0["digest"]:
             failures.append(f"transient rank {r}: final parameters not "
                             "bit-equal to the clean run's")
-    persistent = runs.get("persistent", {})
-    marker_path = os.path.join(tmp, "persistent", QUARANTINE_MARKER)
-    marker = (json.load(open(marker_path)) if os.path.exists(marker_path)
-              else None)
-    bad = f"p{P16_PERSIST[1]}"
-    if marker is None or marker["replicas"] != [bad]:
-        failures.append(f"quarantine marker {marker}")
-    for r in range(P16_RANKS):
-        if r == P16_PERSIST[1]:
-            continue
-        res = persistent.get(r)
-        if res is None or res.get("error") != ("SdcPersistentError",
-                                                [bad]):
-            failures.append(f"persistent rank {r}: "
-                            f"{None if res is None else res.get('error')}")
-    print(f"16a persistent: exit codes {codes}; marker {marker}; the "
-          f"others raised "
-          f"{sorted({str(v.get('error')) for v in persistent.values()})}",
-          flush=True)
     t = flip[0]["event_times"]
     rb = next((s for k, s in t if k == "rollback"), None)
     tr = next((s for k, s in t if k == "sdc_transient"), None)
@@ -6336,7 +6485,54 @@ def sdc_path(torch, np, seed: int, tmp: str) -> tuple[dict, str]:
     return c0["launches"], c0["losses"]
 
 
-def relaunch_path(torch, np, seed: int, tmp: str, clean_losses) -> dict:
+
+
+def persistent_path(ranks, seed: int, tmp: str, beside):
+    """16a's persistent flip on rank 1: rank 1 exits 44 and writes the
+    marker naming it, the others raise SdcPersistentError.  The ranks'
+    processes end with it, so it runs last on them; ``beside()`` runs in
+    this process meanwhile, and its result is returned."""
+    import json
+
+    from tpudp_torch.sdc import QUARANTINE_MARKER, SDC_QUARANTINE_EXIT
+
+    ranks.start(p16_sdc_rank, (seed, tmp, ("persistent",)), P16_RANKS,
+                last=True)
+    result = beside()
+    got, codes = ranks.collect(P16_SDC_TIMEOUT, "16a persistent",
+                               exits=True)
+    runs = sdc_runs(got)
+    want_codes = [SDC_QUARANTINE_EXIT if r == P16_PERSIST[1] else 0
+                  for r in range(P16_RANKS)]
+    failures = []
+    if codes != want_codes:
+        failures.append(f"exit codes {codes}, want {want_codes}")
+    persistent = runs.get("persistent", {})
+    marker_path = os.path.join(tmp, "persistent", QUARANTINE_MARKER)
+    marker = (json.load(open(marker_path)) if os.path.exists(marker_path)
+              else None)
+    bad = f"p{P16_PERSIST[1]}"
+    if marker is None or marker["replicas"] != [bad]:
+        failures.append(f"quarantine marker {marker}")
+    for r in range(P16_RANKS):
+        if r == P16_PERSIST[1]:
+            continue
+        res = persistent.get(r)
+        if res is None or res.get("raised") != ("SdcPersistentError",
+                                                [bad]):
+            failures.append(f"persistent rank {r}: "
+                            f"{None if res is None else res.get('raised')}")
+    print(f"16a persistent: exit codes {codes}; marker {marker}; the "
+          f"others raised "
+          f"{sorted({str(v.get('raised')) for v in persistent.values()})}",
+          flush=True)
+    if failures:
+        raise SmokeFailure(f"16a persistent: {failures}")
+    return result
+
+
+def relaunch_path(torch, np, ranks, seed: int, tmp: str,
+                  clean_losses) -> dict:
     """16b: the clean run's ``step_1`` (epoch 1's end) resumed at 2 ranks."""
     root = os.path.join(tmp, "relaunch")
     os.makedirs(root)
@@ -6345,14 +6541,8 @@ def relaunch_path(torch, np, seed: int, tmp: str, clean_losses) -> dict:
         path = os.path.join(src, name)
         (shutil.copytree if os.path.isdir(path) else shutil.copy)(
             path, os.path.join(root, name))
-    got, codes = p16_spawn(p16_relaunch_rank, (seed, root),
-                           P16_RELAUNCH_RANKS, P16_SDC_TIMEOUT, "16b")
-    got.sort(key=lambda r: r["rank"])
-    for r in got:
-        if "error" in r:
-            raise SmokeFailure(f"16b rank {r['rank']} failed:\n{r['error']}")
-    if codes != [0] * P16_RELAUNCH_RANKS or len(got) != P16_RELAUNCH_RANKS:
-        raise SmokeFailure(f"16b: exit codes {codes}")
+    got = ranks.run(p16_relaunch_rank, (seed, root), P16_RELAUNCH_RANKS,
+                    P16_SDC_TIMEOUT, "16b")
     a = got[0]
     want = clean_losses[len(clean_losses) - len(a["losses"]):]
     rel = max(abs(x - y) / abs(y) for x, y in zip(a["losses"], want))
@@ -6415,17 +6605,25 @@ def p16_cli_rank(rank: int, world: int, init_method: str, results) -> None:
 
 
 def start_verify_cli():
-    """16c's two ranks, started to run beside 16b and 16d."""
-    return p16_start(p16_cli_rank, (), 2)
+    """16c's two CPU ranks, started to run beside 16b and 16d."""
+    ranks = Ranks(2, card=False)
+    ranks.start(p16_cli_rank, (), 2)
+    return ranks
 
 
-def finish_verify_cli(started) -> None:
+def finish_verify_cli(ranks) -> None:
     """16c's verdicts: the all-reduce rung logs ``replica consistency
     OK``, the ``none`` rung raises ReplicaDivergenceError naming a leaf on
     both ranks, and neither run launched a port kernel."""
-    got, codes = p16_collect(*started, 2 * P16_CLI_TIMEOUT, "16c")
-    runs = {(r["rank"], r["sync"]): r for r in got}
-    failures = [] if codes == [0, 0] else [f"exit codes {codes}"]
+    try:
+        got, codes = ranks.collect(2 * P16_CLI_TIMEOUT, "16c")
+    finally:
+        ranks.close()
+    runs = {(r["rank"], r["sync"]): r for r in got if "sync" in r}
+    failures = [f"{r['rank']}: {r['error']}" for r in got
+                if "sync" not in r]
+    if codes != [None, None]:
+        failures.append(f"exit codes {codes}")
     for sync in ("allreduce", "none"):
         for rank in range(2):
             r = runs.get((rank, sync))
@@ -6538,19 +6736,23 @@ def skip_schedule_path(torch, np, fa, seed: int) -> dict:
     return launches
 
 
-def phase16_path(torch, np, pa, fa, seed: int) -> dict:
-    """Phase 16, 16a-16d (16c's CLI runs beside 16b and 16d); returns the
-    K1-K3 launches of 16a's clean run (rank 0), 16b (rank 0) and 16d."""
+def phase16_path(torch, np, pa, fa, ranks, seed: int) -> dict:
+    """Phase 16, 16a-16d on ``ranks`` (16c's CLI ranks beside 16b, the
+    persistent flip and 16d; 16d beside the persistent flip); returns the
+    K1-K3 launches of 16a's clean run (rank 0), 16b (rank 0) and 16d.
+    The persistent flip ends the ranks' processes."""
     import tempfile
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p16_") as tmp:
-        clean_launches, clean_losses = sdc_path(torch, np, seed, tmp)
+        clean_launches, clean_losses = sdc_path(torch, np, ranks, seed, tmp)
         cli_runs = start_verify_cli()
         try:
-            relaunch_launches = relaunch_path(torch, np, seed, tmp,
+            relaunch_launches = relaunch_path(torch, np, ranks, seed, tmp,
                                               clean_losses)
-            skip_launches = skip_schedule_path(torch, np, fa, seed)
+            skip_launches = persistent_path(
+                ranks, seed, tmp,
+                lambda: skip_schedule_path(torch, np, fa, seed))
         finally:
             finish_verify_cli(cli_runs)
     torch.cuda.empty_cache()
@@ -6610,6 +6812,138 @@ def audit_card_path(torch) -> None:
           f"phase 17 {time.perf_counter() - t0:.1f}s", flush=True)
     if failures:
         raise SmokeFailure(f"audit: {failures}")
+
+
+# -- phase 18: the warm build cache and the card lock ----------------------
+
+P18_ARGS = ["--layers", "12", "--d-model", "768", "--heads", "12",
+            "--vocab", "50257", "--seq-len", "1024", "--paged", "512",
+            "--requests", "8", "--num-slots", "8", "--max-new-tokens",
+            str(NEW_TOKENS)]
+P18_BUSY_LIMIT, P18_CHILD_LIMIT = 15.0, 300
+
+
+def warm_child(argv) -> None:
+    """18a's child: every kernel's and the native library's build against
+    the cache its parent filled (``TPUDP_COMPILE_CACHE``, inherited), then
+    ``serve_cli`` with ``argv`` on the card under the parent's lock
+    (inherited); one ``P18`` JSON line: the cache, the build's seconds,
+    the libraries built and found, the paged kernels' launches, the
+    prompts and their tokens."""
+    from tpudp_torch import native, serve_cli
+    from tpudp_torch.ops import _build
+    from tpudp_torch.ops import paged_attention as pa
+    from tpudp_torch.utils import compile_cache
+
+    t0 = time.perf_counter()
+    where = compile_cache.enable_persistent_cache()
+    _build.build()
+    if native.load() is None:
+        raise SystemExit(f"the native library did not load: "
+                         f"{native.load_error()}")
+    build_s = time.perf_counter() - t0
+    counts = {k: dict(v) for k, v in compile_cache.counts.items()}
+    for fn in pa.KERNELS.values():
+        fn.launches = 0
+    out = serve_cli.main(argv)
+    print("P18 " + json.dumps({
+        "dir": where, "build_s": build_s, "counts": counts,
+        "launches": {n: fn.launches for n, fn in pa.KERNELS.items()},
+        "prompts": [p.tolist() for p in out["prompts"]],
+        "tokens": out["tokens"]}), flush=True)
+
+
+P18_PIPES = dict(cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                 text=True)
+
+
+def start_lockless_child(seed: int):
+    """18b's child, started (it runs beside phase 17): ``serve_cli`` on
+    card 0 with the inherited lock taken out of its environment; returns
+    it and its start time."""
+    from tpudp_torch.utils import device_lock
+
+    return subprocess.Popen(
+        [sys.executable, "-c", "import sys, time; t0 = time.time(); "
+         "import torch; t1 = time.time(); from tpudp_torch import serve_cli; "
+         "print(f'18b child: torch imported in {t1 - t0:.1f}s, serve_cli in "
+         "{time.time() - t1:.1f}s', file=sys.stderr, flush=True); "
+         "serve_cli.main(sys.argv[1:])", *P18_ARGS, "--seed", str(seed)],
+        **P18_PIPES, env={k: v for k, v in os.environ.items()
+                          if k != device_lock.HELD_ENV}), time.perf_counter()
+
+
+def phase18_path(torch, np, pa, plain, seed: int, cache: str,
+                 busy) -> None:
+    """18b: ``busy`` (:func:`start_lockless_child`), a child without the
+    inherited lock running ``serve_cli`` on the card this process holds,
+    must exit 2 within P18_BUSY_LIMIT seconds of its start, naming the
+    lock file (the plain engine serves 18a's prompts here meanwhile);
+    then 18a: a child in the warm cache finds every library (no compiler
+    run) and serves GPT-2 small through ``serve_cli`` on K4 and K5, its
+    greedy tokens the plain engine's (phase 4's rule).  The children run
+    one after the other: two torch imports at once slow each."""
+    from tpudp_torch import serve_cli
+    from tpudp_torch.ops import _build
+    from tpudp_torch.utils import device_lock
+
+    t0 = time.perf_counter()
+    argv = P18_ARGS + ["--seed", str(seed)]
+    busy, busy_t0 = busy
+    try:
+        prompts = serve_cli.request_prompts(serve_cli.parse_args(argv))
+        ref = plain.of(torch, pa, prompts)
+        _, busy_err = busy.communicate(timeout=P18_CHILD_LIMIT)
+        busy_s = time.perf_counter() - busy_t0
+    finally:
+        if busy.poll() is None:
+            busy.kill()
+            busy.wait()
+    path = device_lock.lock_path(0)
+    print(f"18b lock-less child: serve_cli on card 0 exited "
+          f"{busy.returncode} after {busy_s:.1f}s; stderr "
+          f"{busy_err.strip()[-400:]!r}", flush=True)
+    if busy.returncode != 2 or busy_s > P18_BUSY_LIMIT or \
+            path not in busy_err:
+        raise SmokeFailure(f"18b: the lock-less child exited "
+                           f"{busy.returncode} after {busy_s:.1f}s, its "
+                           f"stderr naming {path}: {path in busy_err}")
+    warm = subprocess.Popen(
+        [sys.executable, "-c", f"import sys; sys.path.insert(0, {ROOT!r}); "
+         "import chip_smoke; chip_smoke.warm_child(sys.argv[1:])", *argv],
+        **P18_PIPES)
+    try:
+        warm_out, warm_err = warm.communicate(timeout=P18_CHILD_LIMIT)
+    finally:
+        if warm.poll() is None:
+            warm.kill()
+            warm.wait()
+    line = next((x for x in warm_out.splitlines() if x.startswith("P18 ")),
+                None)
+    if warm.returncode != 0 or line is None:
+        raise SmokeFailure(f"18a: the warm child exited {warm.returncode}:"
+                           f"\n{warm_out[-3000:]}{warm_err[-3000:]}")
+    got = json.loads(line[4:])
+    sources = {name[3:].split("-")[0] for name in got["counts"]["found"]}
+    want = set(map(_build.source, _build.SIGNATURES)) | {"augment"}
+    print(f"18a warm child: cache {got['dir']}, compiler runs "
+          f"{sum(got['counts']['built'].values())}, libraries found "
+          f"{sorted(sources)} ({len(sources)}), build {got['build_s']:.2f}s",
+          flush=True)
+    print(f"18a warm child: serve_cli launches {got['launches']}",
+          flush=True)
+    if got["dir"] != cache or got["counts"]["built"] or sources != want:
+        raise SmokeFailure(f"18a: the warm child in {got['dir']} ran the "
+                           f"compiler for {got['counts']['built']} and found "
+                           f"{sorted(sources)}, not {sorted(want)}")
+    if not all(got["launches"][name] for name in SERVE_KERNELS):
+        raise SmokeFailure(f"18a: serve_cli launched {got['launches']}")
+    if [p.tolist() for p in prompts] != got["prompts"]:
+        raise SmokeFailure("18a: the child served other prompts")
+    agree_with_plain(torch, np, plain.model, prompts,
+                     [tokens_of(t) for t in got["tokens"]], ref,
+                     "18a serve_cli", against="the in-process plain engine")
+    print(f"phase 18 {time.perf_counter() - t0:.1f}s", flush=True)
 
 
 # -- phase 8: timing -------------------------------------------------------
@@ -6957,6 +7291,29 @@ def kernel_launches(pa, fa) -> dict:
             for name, fn in kernels.items()}
 
 
+def cold_build(_build, native, compile_cache) -> None:
+    """Every CUDA kernel (one nvcc a source, all at once) and the native
+    augment library (g++, beside them) into the cache this run chose."""
+    import threading
+
+    t0 = time.perf_counter()
+    aug = threading.Thread(target=native.load)
+    aug.start()
+    try:
+        _build.build()
+    finally:
+        aug.join()
+    if native.load() is None:
+        raise SmokeFailure(f"the native library did not build: "
+                           f"{native.load_error()}")
+    counts = compile_cache.counts
+    print(f"build: {time.perf_counter() - t0:.2f}s for "
+          f"{sorted(_build.SIGNATURES)} and augment.cpp into "
+          f"{compile_cache.build_dir()}: compiler runs "
+          f"{sum(counts['built'].values())}, found "
+          f"{sum(counts['found'].values())}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6980,39 +7337,58 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     try:
+        from tpudp_torch import native
         from tpudp_torch.ops import _build
         from tpudp_torch.ops import flash_attention as fa
         from tpudp_torch.ops import paged_attention as pa
+        from tpudp_torch.utils import compile_cache, device_lock
     except ImportError as exc:
         print(f"chip_smoke: the tpudp_torch package is not beside this "
               f"script ({exc})", file=sys.stderr)
         return 1
+    import tempfile
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mark = phase_clock()
+    # A fresh cache outside the tree: the build below is cold, and every
+    # child and rank of this run builds into and loads from it.
+    cache = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    os.environ[compile_cache.ENV] = cache
+    ranks = None
     try:
+        t0 = time.perf_counter()
+        try:
+            device_lock.acquire_for_process(0, timeout=LOCK_WAIT_S)
+        except SystemExit as exc:
+            raise SmokeFailure(f"card 0 stayed busy for {LOCK_WAIT_S} s "
+                               f"(exit {exc.code})") from None
+        print(f"lock: card 0's lock {device_lock.lock_path(0)} held after "
+              f"waiting {time.perf_counter() - t0:.1f}s", flush=True)
         card = device_line()
         print(f"device: {card}", flush=True)
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}", flush=True)
-        t0 = time.perf_counter()
-        _build.build()
-        print(f"build: {time.perf_counter() - t0:.2f}s for "
-              f"{sorted(_build.SIGNATURES)}", flush=True)
+        if compile_cache.enable_persistent_cache() != cache:
+            raise SmokeFailure(f"the build cache is "
+                               f"{compile_cache.build_dir()}, not {cache}")
+        cold_build(_build, native, compile_cache)
         hgmma = hgmma_counts(_build)
         print(f"build: HGMMA instructions in the SASS {hgmma}", flush=True)
         if not all(hgmma.values()):
             raise SmokeFailure(f"a tensor-core flash library has no HGMMA "
                                f"instruction: {hgmma}")
+        if args.only_phase16 or args.only_phase13:
+            ranks = Ranks(RANK_PROCESSES)
         if args.only_phase16:
             check_flash_kernels(torch, fa)
-            phase16_path(torch, np, pa, fa, args.seed)
+            phase16_path(torch, np, pa, fa, ranks, args.seed)
             print("chip_smoke: phase 16 probe done (no result lines)")
             return 0
         if args.only_phase13:
             check_flash_kernels(torch, fa)
             mark("phase 5")
-            vgg_tp_path(torch, np, args.seed, card)
+            vgg_tp_path(torch, np, ranks, args.seed, card)
             mark("phase 13b-13e")
             audit_card_path(torch)
             mark("phase 17")
@@ -7026,24 +7402,34 @@ def main(argv=None) -> int:
         check_window_edges(torch, pa, "cuda", int8=True)
         check_decode_edges(torch, pa, "cuda")
         mark("phase 3")
-        model, prompts, launches = main_path(torch, np, pa, args.seed)
-        launches.update(spec_main_path(torch, np, pa, model, prompts,
+        model, prompts, launches, plain = main_path(torch, np, pa,
+                                                    args.seed)
+        mark.sub("4")
+        launches.update(spec_main_path(torch, np, pa, model, prompts, plain,
                                        args.seed))
+        mark.sub("4b")
         launches.update(llama_main_path(torch, np, pa, args.seed))
-        routes_path(torch, np, pa, fa, model, prompts, args.seed)
+        mark.sub("4c")
+        routes_path(torch, np, pa, fa, model, prompts, plain, args.seed)
+        mark.sub("4d")
         for name, n in fused_path(torch, np, pa, model, prompts,
                                   args.seed).items():
             launches[name] += n
+        mark.sub("4e")
         for name, n in spec_fused_path(torch, np, pa, model, prompts,
-                                       args.seed).items():
+                                       plain, args.seed).items():
             launches[name] += n
+        mark.sub("4f")
         robustness_path(torch, np, model, prompts, args.seed)
         mark("phase 4")
         check_flash_kernels(torch, fa)
         train_launches = train_main_path(torch, np, fa, args.seed)
         mark("phases 5-6")
+        # The rank processes start now and warm up behind 7a's runs,
+        # which are not timed.
+        ranks = Ranks(RANK_PROCESSES)
         before = kernel_launches(pa, fa)
-        vgg_path(torch, np)
+        vgg_path(torch, np, ranks)
         if kernel_launches(pa, fa) != before:
             raise SmokeFailure("the VGG path launched a port kernel")
         print("vgg: port kernel launches in phase 7: 0 (the path runs "
@@ -7060,30 +7446,39 @@ def main(argv=None) -> int:
         print(f"ckpt: port kernel launches in phase 10c {ckpt_launches}",
               flush=True)
         mark("phase 10")
-        strategy_launches = strategy_path(torch, np, args.seed)
+        strategy_launches = strategy_path(torch, np, ranks, args.seed)
         print(f"strategy: flash launches in phase 11 (rank 0) "
               f"{strategy_launches}", flush=True)
         mark("phase 11")
-        phase12_launches = phase12_path(torch, np, fa, args.seed)
+        phase12_launches = phase12_path(torch, np, fa, ranks, args.seed)
         print(f"phase 12: flash launches (rank 0) {phase12_launches}",
               flush=True)
         mark("phase 12")
         vit_launches = vit_path(torch, np, fa, args.seed, card)
-        tp_launches = vgg_tp_path(torch, np, args.seed, card)
+        mark.sub("13a")
+        tp_launches = vgg_tp_path(torch, np, ranks, args.seed, card)
         mark("phase 13")
         p14_flash, p14_paged = phase14_path(torch, np, pa, fa, model,
-                                            prompts, args.seed)
+                                            prompts, plain, args.seed)
         for name, n in p14_paged.items():
             launches[name] += n
         mark("phase 14")
-        for name, n in phase15_path(torch, np, pa, model,
+        for name, n in phase15_path(torch, np, pa, model, ranks,
                                     args.seed).items():
             launches[name] += n
         mark("phase 15")
-        p16_flash = phase16_path(torch, np, pa, fa, args.seed)
+        p16_flash = phase16_path(torch, np, pa, fa, ranks, args.seed)
         mark("phase 16")
-        audit_card_path(torch)
-        mark("phase 17")
+        busy = start_lockless_child(args.seed)
+        try:
+            audit_card_path(torch)
+            mark("phase 17")
+            phase18_path(torch, np, pa, plain, args.seed, cache, busy)
+        finally:
+            if busy[0].poll() is None:
+                busy[0].kill()
+                busy[0].wait()
+        mark("phase 18")
         records = timings(torch, pa, model, prompts, launches)
         # K1-K3's main-path launches: phase 6's GPT-2 steps, 13a's
         # ViT-B/14 steps, 13d's and 13e's steps (rank 0), 14a's train_cli
@@ -7098,6 +7493,10 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        if ranks is not None:
+            ranks.close()
+        shutil.rmtree(cache, ignore_errors=True)
     print(f"card: {card}")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

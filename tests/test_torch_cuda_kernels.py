@@ -271,11 +271,12 @@ def test_int8_engine_raises_without_its_kernels(card, monkeypatch, tmp_path):
     from tpudp_torch.models import llama
     from tpudp_torch.ops import _build
     from tpudp_torch.serve import Engine
+    from tpudp_torch.utils import compile_cache
 
     def no_nvcc():
         raise RuntimeError("nvcc not found")
 
-    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(compile_cache, "_chosen", (None, tmp_path))
     monkeypatch.setattr(_build, "_loaded", {})
     monkeypatch.setattr(_build, "_nvcc", no_nvcc)
     cfg = llama.LlamaConfig(vocab_size=64, max_seq_len=64, num_layers=1,

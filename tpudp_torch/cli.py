@@ -59,6 +59,8 @@ from tpudp_torch.utils.checkpoint import (AsyncCheckpointWriter,
                                           prune_step_dirs, rank,
                                           read_emergency_sentinel,
                                           save_checkpoint)
+from tpudp_torch.utils.compile_cache import enable_persistent_cache
+from tpudp_torch.utils.device_lock import acquire_for_process
 from tpudp_torch.utils.watchdog import Watchdog
 
 GLOBAL_BATCH_SIZE = 256  # the reference's constant, src/Part 2a/main.py:173
@@ -332,6 +334,9 @@ def _run_rank(args, sync: str, data_parallel: bool, rank: int, world: int,
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank % torch.cuda.device_count())
+    enable_persistent_cache()
+    acquire_for_process(device)
+    if device.type == "cuda":
         torch.cuda.set_device(device)
     elif world > 1 and not os.environ.get("OMP_NUM_THREADS"):
         # The host's cores split between the local ranks, unless the

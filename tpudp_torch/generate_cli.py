@@ -41,6 +41,8 @@ from tpudp_torch.models.generate import beam_search, generate
 from tpudp_torch.serve import Engine
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.serve_cli import load_model, model_config
+from tpudp_torch.utils.compile_cache import enable_persistent_cache
+from tpudp_torch.utils.device_lock import acquire_for_process
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -138,6 +140,8 @@ def main(argv=None) -> dict:
     log-probability, else None), "ms_per_token", "model"}``."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    enable_persistent_cache()
+    acquire_for_process(device)
     try:
         cfg = model_config(args, args.heads or max(args.d_model // 64, 1))
     except ValueError as exc:

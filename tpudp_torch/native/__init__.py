@@ -4,11 +4,13 @@ the counterpart of ``tpudp/native/__init__.py``.
 ``augment.cpp`` (the port's own copy of the JAX package's source, its
 symbols prefixed ``tpudp_torch_``) is built at first use with the
 system ``g++ -O3 -std=c++17 -shared -fPIC -fopenmp -ffp-contract=off``
-into ``tpudp_torch/_build/`` (git-ignored), beside the CUDA kernels.
-No ``nvcc`` is needed.  The library's name carries a hash of the source
-and the flags, so an edited source builds a new library and a stale one
-is never loaded; the build writes a temporary file and ``os.replace``-s
-it into place, so ranks that build at once each load a whole file.
+into ``compile_cache.build_dir()`` (by default ``tpudp_torch/_build/``,
+git-ignored), beside the CUDA kernels.  No ``nvcc`` is needed.  The
+library's name carries a hash of the source, the flags and ``g++
+--version``, so an edited source or another compiler builds a new
+library and a stale one is never loaded; the build writes a temporary
+file and ``os.replace``-s it into place, so ranks that build at once
+each load a whole file.
 
 A failed build or load is kept, not swallowed: :func:`available` is
 False and :func:`load_error` says why.  The loader's ``backend='auto'``
@@ -28,22 +30,24 @@ from pathlib import Path
 
 import numpy as np
 
+from tpudp_torch.utils import compile_cache
+
 SOURCE = Path(__file__).resolve().parent / "augment.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-fopenmp",
              "-ffp-contract=off")
 ABI_VERSION = 1
 
 
 class Library:
-    """The native library built from ``source`` into ``build_dir`` with
-    the compiler ``cxx``: built and loaded once, on the first
-    :meth:`load`; a failure is recorded in :attr:`error`."""
+    """The native library built from ``source`` into ``build_dir``
+    (default: ``compile_cache.build_dir()`` at the build) with the
+    compiler ``cxx``: built and loaded once, on the first :meth:`load`; a
+    failure is recorded in :attr:`error`."""
 
-    def __init__(self, source: Path = SOURCE, build_dir: Path = BUILD_DIR,
+    def __init__(self, source: Path = SOURCE, build_dir: Path | None = None,
                  cxx: str = "g++"):
         self.source = Path(source)
-        self.build_dir = Path(build_dir)
+        self.build_dir = None if build_dir is None else Path(build_dir)
         self.cxx = cxx
         self.error: str | None = None
         self._lib: ctypes.CDLL | None = None
@@ -51,14 +55,28 @@ class Library:
         self._lock = threading.Lock()
 
     def path(self) -> Path:
-        """Where the library of this source and these flags lives once
-        built."""
+        """Where the library of this source, these flags and this
+        compiler lives once built."""
         digest = hashlib.sha256(self.source.read_bytes())
         digest.update(" ".join(CXX_FLAGS).encode())
-        return self.build_dir / f"libaugment-{digest.hexdigest()[:12]}.so"
+        digest.update(compile_cache.compiler_version(self.cxx).encode())
+        where = self.build_dir or compile_cache.build_dir()
+        return where / f"libaugment-{digest.hexdigest()[:12]}.so"
+
+    def ensure_built(self) -> Path:
+        """The library's path, compiling it first where it is not built
+        yet (counted in ``compile_cache.counts``); raises RuntimeError
+        when the compiler cannot run or fails."""
+        lib = self.path()
+        if lib.exists():
+            compile_cache.record("found", lib)
+        else:
+            self._build(lib)
+            compile_cache.record("built", lib)
+        return lib
 
     def _build(self, lib: Path) -> None:
-        self.build_dir.mkdir(parents=True, exist_ok=True)
+        lib.parent.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(
             f".{os.getpid()}.{threading.get_ident()}.tmp")
         try:
@@ -82,9 +100,7 @@ class Library:
                 return self._lib
             self._attempted = True
             try:
-                lib = self.path()
-                if not lib.exists():
-                    self._build(lib)
+                lib = self.ensure_built()
                 self._lib = _bind(ctypes.CDLL(str(lib)))
                 version = self._lib.tpudp_torch_native_abi_version()
                 if version != ABI_VERSION:

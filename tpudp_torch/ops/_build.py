@@ -2,15 +2,17 @@
 
 Each ``tpudp_torch/csrc/<source>.cu`` has a plain C interface and is
 compiled on first use by ``nvcc`` for ``sm_90a`` into a shared library
-under ``tpudp_torch/_build/`` (listed in ``.gitignore``), then loaded
+under ``compile_cache.build_dir()`` (by default ``tpudp_torch/_build/``,
+listed in ``.gitignore``; ``TPUDP_COMPILE_CACHE`` moves it), then loaded
 with ``ctypes``.  A kernel's source is ``<name>.cu`` unless
 :data:`SOURCE_OF` names another: the int8 variants of the paged kernels
 are further entry points of their fp kernel's source, which instantiates
 the one kernel template for both page types.  No PyTorch header is
 included, so a build takes seconds, not minutes.  The library name
-carries a hash of the source and of every shared header
-(``csrc/*.cuh``), so an edited kernel is rebuilt and a stale one is
-never loaded.
+carries a hash of the source, of every shared header (``csrc/*.cuh``),
+of the flags and of ``nvcc --version``, so an edited kernel or another
+compiler builds a new library and a stale one is never loaded, in a
+build directory that outlives the checkout too.
 
 Nothing here runs at import: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
@@ -25,8 +27,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from tpudp_torch.utils import compile_cache
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -88,20 +91,27 @@ def source(name: str) -> str:
 
 def library_path(src_name: str) -> Path:
     """The shared library built from ``csrc/<src_name>.cu`` (named by the
-    hash of its sources and flags; it exists once built)."""
+    hash of its sources, flags and compiler; it exists once built)."""
     digest = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{src_name}.cu"]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src_name}-{digest.hexdigest()[:12]}.so"
+    try:
+        version = compile_cache.compiler_version(_nvcc())
+    except RuntimeError as exc:
+        raise BuildError(str(exc)) from None
+    digest.update(version.encode())
+    return (compile_cache.build_dir()
+            / f"lib{src_name}-{digest.hexdigest()[:12]}.so")
 
 
 def _start_build(src_name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     lib = library_path(src_name)
     if lib.exists():
+        compile_cache.record("found", lib)
         return None
-    BUILD_DIR.mkdir(exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{src_name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -117,6 +127,7 @@ def _finish_build(src_name: str, job) -> None:
         raise BuildError(f"nvcc failed building {src_name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
     os.replace(tmp, lib)  # atomic: another process loads a whole file
+    compile_cache.record("built", lib)
 
 
 def build(names=tuple(SIGNATURES)) -> None:

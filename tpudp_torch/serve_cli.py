@@ -63,6 +63,8 @@ from tpudp_torch.models import gpt2, llama
 from tpudp_torch.serve import Engine, TenantClass
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.utils.checkpoint import latest_step_dir, restore_params
+from tpudp_torch.utils.compile_cache import enable_persistent_cache
+from tpudp_torch.utils.device_lock import acquire_for_process
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -252,6 +254,8 @@ def main(argv=None) -> dict:
     each request's ``tokens`` and ``prompts`` added."""
     args = parse_args(argv)
     device = resolve_device(args.device)
+    enable_persistent_cache()
+    acquire_for_process(device)
     model, restored = build_model(args, device)
     # A chunk dividing --seq-len, so the engine's round-down of max_len
     # strands no position the flags say exists.

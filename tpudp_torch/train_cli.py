@@ -74,6 +74,8 @@ from tpudp_torch.models.generate import generate
 from tpudp_torch.serve.engine import resolve_device
 from tpudp_torch.train import init_state, make_optimizer, make_train_step
 from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
+from tpudp_torch.utils.compile_cache import enable_persistent_cache
+from tpudp_torch.utils.device_lock import acquire_for_process
 
 STRATEGY_AXIS = {"tp": "model", "pp": "pipe", "ep": "expert"}
 
@@ -342,6 +344,9 @@ def train(args: argparse.Namespace, rank: int = 0, world: int = 1,
     device = resolve_device(args.device)
     if device.type == "cuda" and world > 1:
         device = torch.device("cuda", rank % torch.cuda.device_count())
+    enable_persistent_cache()
+    acquire_for_process(device)
+    if device.type == "cuda" and world > 1:
         torch.cuda.set_device(device)
     if world > 1:
         from tpudp_torch.mesh import initialize_distributed

@@ -39,6 +39,8 @@ from tpudp_torch.models import resnet
 from tpudp_torch.parallel.sync import EXAMPLE_SYNC_CHOICES
 from tpudp_torch.train import init_state, make_optimizer, make_train_step
 from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
+from tpudp_torch.utils.compile_cache import enable_persistent_cache
+from tpudp_torch.utils.device_lock import acquire_for_process
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -124,6 +126,8 @@ def main(argv=None) -> dict:
                          "runs on the card by default — pass --device cpu "
                          "to run on the CPU")
     device = torch.device(args.device)
+    enable_persistent_cache()
+    acquire_for_process(device)
     initialize_distributed(device)  # one rank, as the example's one chip
     mesh = make_mesh()
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32

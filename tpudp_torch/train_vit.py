@@ -46,6 +46,8 @@ from tpudp_torch.train import init_state, make_optimizer, make_train_step
 from tpudp_torch.train_resnet import (IMAGENET_MEAN, IMAGENET_STD,
                                       synthetic_set)
 from tpudp_torch.utils.checkpoint import ensure_writable, save_checkpoint
+from tpudp_torch.utils.compile_cache import enable_persistent_cache
+from tpudp_torch.utils.device_lock import acquire_for_process
 
 #: ``--variant`` -> (layers, heads, d_model), the example's table.
 GEOMETRY = {"tiny": (6, 3, 192), "small": (12, 6, 384),
@@ -108,6 +110,8 @@ def main(argv=None) -> dict:
                          "on the card by default — pass --device cpu to run "
                          "on the CPU")
     device = torch.device(args.device)
+    enable_persistent_cache()
+    acquire_for_process(device)
     initialize_distributed(device)  # one rank, as the example's one chip
     mesh = make_mesh()
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
